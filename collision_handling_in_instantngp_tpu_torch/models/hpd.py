@@ -1,0 +1,80 @@
+"""HPD: the learned index network that maps integer grid vertices to a
+distribution over hash-table slots, followed by the straight-through top-k.
+
+``apply_hpd_unique`` evaluates it once per unique vertex (ops/dedup.py). Small
+tables run dense (the (U, T) probabilities fit easily); scaled tables
+stream: the hidden stack is kernel K3 and the head + softmax + top-k +
+marginal is the fused tail, kernels K1/K2 (ops/fused_hpd.py). On a CUDA
+tensor the stream branch launches the kernels; on a CPU tensor it runs
+their plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ModelConfig, TopkScatterMode
+from ..ops.cuda.hidden import hidden_stack
+from ..ops.cuda.hpd_stream import MAX_K
+from ..ops.fused_hpd import hpd_tail_unique
+from ..ops.precision import pdot
+from ..ops.topk import differentiable_topk
+from .mlp import MLP
+
+# dense (U, T) probability tables past this many elements stream instead
+DEDUP_DENSE_MAX_ELEMENTS = 1 << 25
+
+
+def apply_hpd(hpd: MLP, vertices: torch.Tensor, cfg: ModelConfig):
+    """Dense: probs (..., T) (nan-sanitized softmax), top-k values and
+    indices (..., K)."""
+    probs = hpd(vertices, "relu", "softmax", cfg.matmul_precision)
+    probs = torch.nan_to_num(probs)
+    noop = cfg.topk_scatter is TopkScatterMode.NOOP
+    values, indices = differentiable_topk(probs, cfg.topk_k, noop)
+    return probs, values, indices
+
+
+def use_stream(cfg: ModelConfig, u: int) -> bool:
+    return cfg.hpd_backend == "unique_stream" or (
+        cfg.hpd_backend == "auto" and u * cfg.hash_table_size > DEDUP_DENSE_MAX_ELEMENTS
+    )
+
+
+def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=None):
+    """HPD on (U, d) unique vertices.
+
+    counts: (L, U) per-level occurrence counts, or None (no marginal).
+    Returns (marginal_raw (L, T) UNNORMALIZED or None, values (U, K),
+    indices (U, K))."""
+    u = ucoords.shape[0]
+    noop = cfg.topk_scatter is TopkScatterMode.NOOP
+    if not use_stream(cfg, u):
+        probs, values, indices = apply_hpd(hpd, ucoords, cfg)
+        marginal_raw = None
+        if counts is not None and not cfg.keep_topk_only:
+            marginal_raw = pdot(counts, probs, "highest")
+        return marginal_raw, values, indices
+
+    if cfg.topk_approx_recall is not None:
+        raise NotImplementedError(
+            "approximate top-k on the streamed tail is not ported "
+            "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
+        )
+    if cfg.topk_k > MAX_K:
+        raise NotImplementedError(
+            f"topk_k={cfg.topk_k} > {MAX_K} on the streamed tail is not ported "
+            "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
+        )
+    layers = hpd.layers()
+    h = hidden_stack(ucoords, layers[:-1], cfg.matmul_precision) if len(layers) > 1 else ucoords
+    w, b = layers[-1]
+    counts_in = counts if counts is not None else torch.zeros(
+        1, u, dtype=torch.float32, device=ucoords.device
+    )
+    marginal_raw, values, indices = hpd_tail_unique(
+        h, w, b, counts_in, cfg.topk_k, cfg.matmul_precision, noop
+    )
+    if counts is None or cfg.keep_topk_only:
+        marginal_raw = None
+    return marginal_raw, values, indices

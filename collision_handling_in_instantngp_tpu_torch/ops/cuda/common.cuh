@@ -1,0 +1,46 @@
+// Shared helpers of the port's CUDA kernels (sm_90a, plain C interface,
+// loaded with ctypes; see ops/cuda/build.py).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Matmul precision contract (ops/precision.py), applied per multiply-add:
+//   P = 0 'highest': fp32 fma
+//   P = 1 'high':    hi(a)hi(b) + hi(a)lo(b) + lo(a)hi(b), bf16 hi/lo split,
+//                    each bf16 product exact in fp32
+//   P = 2 'default': one bf16-rounded product
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int P>
+__device__ __forceinline__ float pfma(float a, float b, float acc) {
+  if (P == 0) return fmaf(a, b, acc);
+  if (P == 2) return fmaf(bf16r(a), bf16r(b), acc);
+  const float ah = bf16r(a), al = bf16r(a - ah);
+  const float bh = bf16r(b), bl = bf16r(b - bh);
+  acc = fmaf(ah, bh, acc);
+  acc = fmaf(ah, bl, acc);
+  return fmaf(al, bh, acc);
+}
+
+// Error codes returned to Python: >0 a cudaError_t, <0 a shape refusal.
+#define ERR_SHAPE (-1)
+#define ERR_PRECISION (-2)
+
+#define DISPATCH_PREC(prec, ...)                     \
+  switch (prec) {                                    \
+    case 0: { constexpr int P = 0; __VA_ARGS__; } break; \
+    case 1: { constexpr int P = 1; __VA_ARGS__; } break; \
+    case 2: { constexpr int P = 2; __VA_ARGS__; } break; \
+    default: return ERR_PRECISION;                   \
+  }
+
+static inline const char* port_error_string(int code) {
+  if (code == ERR_SHAPE) return "shape not supported by the kernel";
+  if (code == ERR_PRECISION) return "unknown precision code";
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,50 @@
+"""Streaming fused HPD tail over unique vertices, as an autograd Function.
+
+The head layer, softmax, exact top-k and the count-weighted loss marginal
+in one op: the dense (U, T) probability tensor never exists whole. The loss
+only reads the per-level marginal ``counts @ p`` and the feature blend only
+the top-k values and indices. The backward is the exact gradient of that
+composition (softmax VJP of [marginal gradient + straight-through top-k
+scatter]); under ``noop_topk`` the top-k part is dropped.
+
+Forward and backward are kernels K1 and K2 (``ops/cuda/hpd_stream.py``) on
+the card, and their plain versions on the CPU. The residuals are
+(h, w, b, counts, idx, vals, m, s): the backward recomputes p from the row
+statistics (m, s) instead of keeping it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda.hpd_stream import hpd_stream_fused_bwd, hpd_stream_fused_fwd
+
+
+class HpdTailUnique(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, counts, k: int, precision: str, noop_topk: bool):
+        marg, vals, idx, m, s = hpd_stream_fused_fwd(h, w, b, counts, k, precision)
+        ctx.save_for_backward(h, w, b, counts, idx, vals, m, s)
+        ctx.k, ctx.precision, ctx.noop_topk = k, precision, noop_topk
+        ctx.mark_non_differentiable(idx)
+        return marg, vals, idx
+
+    @staticmethod
+    def backward(ctx, g_marg, g_vals, _g_idx):
+        h, w, b, counts, idx, vals, m, s = ctx.saved_tensors
+        if g_marg is None:
+            g_marg = torch.zeros(counts.shape[0], w.shape[1], dtype=h.dtype, device=h.device)
+        if g_vals is None:
+            g_vals = torch.zeros_like(vals)
+        dh, dw, db = hpd_stream_fused_bwd(
+            h, w, b, counts, idx, vals, m, s, g_marg.contiguous(), g_vals.contiguous(),
+            ctx.k, ctx.precision, ctx.noop_topk,
+        )
+        return dh, dw, db, None, None, None, None
+
+
+def hpd_tail_unique(h, w, b, counts, k: int, precision: str = "highest",
+                    noop_topk: bool = False):
+    """h (U, H), w (H, T), b (T,), counts (L, U) -> (marginal_raw (L, T)
+    UNNORMALIZED, vals (U, K), idx (U, K) int32)."""
+    return HpdTailUnique.apply(h, w, b, counts, k, precision, noop_topk)
