@@ -5,7 +5,7 @@
 
 1. builds the port's CUDA kernels from the sources in this checkout (one
    nvcc per source, all started together);
-2. holds every kernel of the training path against its plain PyTorch
+2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
    U_c = 161,792 rows of the first batch, real h for the tail), checks
@@ -18,7 +18,20 @@
    launched and the loss is finite and falls;
 5. profiles one more epoch of that training (device time by kernel, the
    device's idle share);
-6. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+6. holds the per-row kernels K8-K11 against their plain versions on all
+   918,464 rows (L * P_batch * V) of batch 0 of the per-row route (grid
+   4061, default geometry, ``batchnorm_input=True`` on raw pixel coords:
+   T=256, L=4, K=4, HPD [2->32->64->128->256]), real vertices for K10/K11
+   and real last hidden activations for K8/K9, with the same checks and
+   timings as step 2;
+7. trains a small per-row geometry on the card and on the CPU, through
+   K10/K11 and through K8/K9, and compares the losses;
+8. runs ``fit`` on that per-row configuration for 3 epochs through
+   K10/K11 (hpd_backend "auto"), then through K8/K9 ("pallas"), each with
+   its launch counts set to 0 just before, and fails unless its kernels
+   launched and the loss is finite and falls; then profiles one per-row
+   epoch;
+9. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``.
 
@@ -28,6 +41,7 @@ exits non-zero at once where CUDA is not available.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -126,6 +140,152 @@ def profile_epoch(exp, statics, batches, dev) -> dict:
                 kernels=rows)
 
 
+def kernel_entry(name, source, replaces, err, ms, plain, bound):
+    b_ms, b_by = bound
+    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
+    """K8-K11 against their plain versions on batch 0 of the per-row route:
+    every (level, pixel, corner) row of the batch."""
+    import torch.nn.functional as F
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_full, hpd_tail
+    from collision_handling_in_instantngp_tpu_torch.ops.grid import scale_to_grid
+
+    mcfg = exp.model
+    params = gngf.init_params(mcfg, SEED, dev)
+    with torch.no_grad():
+        x, _ = gngf.batchnorm(params.batchnorm, {"mean": params.batchnorm.mean,
+                                                 "var": params.batchnorm.var}, batches.x[0], True)
+        _, corners = scale_to_grid(x, torch.as_tensor(statics.n_ls, device=dev),
+                                   torch.as_tensor(statics.offsets, device=dev))
+        p_b, L, V, d = corners.shape
+        verts = corners.permute(1, 0, 2, 3).reshape(L, p_b * V, d).contiguous()
+        layers = [(w.detach(), b.detach()) for w, b in params.hpd.layers()]
+        h = verts
+        for w, b in layers[:-1]:
+            h = F.relu(h @ w + b)
+        h = h.contiguous()
+    n = verts.shape[1]
+    rows = L * n
+    k, T = mcfg.topk_k, mcfg.hash_table_size
+    (w_head, b_head), H = layers[-1], layers[-1][0].shape[0]
+    widths = [d] + [w.shape[1] for w, _ in layers]
+    macs = sum(a * c for a, c in zip(widths[:-1], widths[1:]))
+    n_params = sum(w.numel() + b.numel() for w, b in layers)
+    out_bytes = 4.0 * (L * T + 2 * rows * k)
+    log(f"per-row route, batch 0: P={p_b}, L={L}, V={V}, rows={rows}, widths {widths}, K={k}")
+    g_marg = torch.randn(L, T, device=dev, generator=gen)
+    g_vals = torch.randn(L, n, k, device=dev, generator=gen)
+    src = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
+    jax_src = "collision_handling_in_instantngp_tpu/ops/pallas/"
+    entries = {}
+
+    def check_fwd(tag, out_k, out_p, again):
+        same = (out_k[2] == out_p[2]).all(dim=2).double().mean().item()
+        log(f"  idx: rows with identical top-{k}: {same:.6f}")
+        if same != 1.0:
+            raise AssertionError(f"{tag}: top-K indices differ from the plain version")
+        err = max(compare("marg", out_k[0], out_p[0], FWD_TOL), compare("vals", out_k[1], out_p[1], FWD_TOL))
+        bitwise_same("marg/vals/idx", out_k, again)
+        return err
+
+    log("K10 hpd_full_fwd, all rows of real vertices:")
+    out_k = hpd_full.hpd_full_fwd(verts, layers, k)
+    out_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+    err = check_fwd("K10", out_k, out_p, hpd_full.hpd_full_fwd(verts, layers, k))
+    idx_full = out_k[2]
+    entries["hpd_full_fwd"] = kernel_entry(
+        "hpd_full_fwd", src + "hpd_full.cu", jax_src + "hpd_full.py:162", err,
+        cuda_ms(lambda: hpd_full.hpd_full_fwd(verts, layers, k), 10),
+        cuda_ms(lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3),
+        bound_ms(2.0 * rows * macs, 4.0 * (rows * d + n_params) + out_bytes))
+    del out_k, out_p
+
+    log("K11 hpd_full_bwd, all rows of real vertices:")
+    bargs = (verts, layers, idx_full, g_marg, g_vals, k)
+    got = hpd_full.hpd_full_bwd(*bargs)
+    want = hpd_full.hpd_full_bwd_plain(*bargs)
+    err = max(compare(f"{nm}{i}", a, r, GRAD_TOL)
+              for i, (ka, pa) in enumerate(zip(got, want)) for nm, a, r in zip(("dW", "db"), ka, pa))
+    bitwise_same("dW/db", [t for pair in got for t in pair],
+                 [t for pair in hpd_full.hpd_full_bwd(*bargs) for t in pair])
+    dx_macs = sum(a * c for a, c in zip(widths[1:-1], widths[2:]))
+    entries["hpd_full_bwd"] = kernel_entry(
+        "hpd_full_bwd", src + "hpd_full.cu", jax_src + "hpd_full.py:236", err,
+        cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 5),
+        cuda_ms(lambda: hpd_full.hpd_full_bwd_plain(*bargs), 2),
+        bound_ms(2.0 * rows * (2 * macs + dx_macs),
+                 4.0 * (rows * d + 2 * n_params + L * T + 2 * rows * k)))
+    del got, want
+
+    log("K8 hpd_tail_fwd, all rows of real h:")
+    out_k = hpd_tail.hpd_tail_fwd(h, w_head, b_head, k)
+    out_p = hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k)
+    err = check_fwd("K8", out_k, out_p, hpd_tail.hpd_tail_fwd(h, w_head, b_head, k))
+    idx_tail = out_k[2]
+    head_bytes = 4.0 * (H * T + T)
+    entries["hpd_tail_fwd"] = kernel_entry(
+        "hpd_tail_fwd", src + "hpd_tail.cu", jax_src + "hpd_tail.py:87", err,
+        cuda_ms(lambda: hpd_tail.hpd_tail_fwd(h, w_head, b_head, k), 10),
+        cuda_ms(lambda: hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k), 3),
+        bound_ms(2.0 * rows * H * T, 4.0 * rows * H + head_bytes + out_bytes))
+    del out_k, out_p
+
+    log("K9 hpd_tail_bwd, all rows of real h:")
+    bargs = (h, w_head, b_head, idx_tail, g_marg, g_vals, k)
+    got = hpd_tail.hpd_tail_bwd(*bargs)
+    want = hpd_tail.hpd_tail_bwd_plain(*bargs)
+    err = max(compare(nm, a, r, GRAD_TOL) for nm, a, r in zip(("dh", "dw", "db"), got, want))
+    bitwise_same("dh/dw/db", got, hpd_tail.hpd_tail_bwd(*bargs))
+    entries["hpd_tail_bwd"] = kernel_entry(
+        "hpd_tail_bwd", src + "hpd_tail.cu", jax_src + "hpd_tail.py:182", err,
+        cuda_ms(lambda: hpd_tail.hpd_tail_bwd(*bargs), 5),
+        cuda_ms(lambda: hpd_tail.hpd_tail_bwd_plain(*bargs), 2),
+        bound_ms(6.0 * rows * H * T,
+                 4.0 * (2 * rows * H + 2 * H * T + 2 * T + L * T + 2 * rows * k)))
+    del got, want, h
+    torch.cuda.empty_cache()
+    return entries
+
+
+def fit_checked(fit, exp, data, dev, wrappers, what):
+    """fit for 3 epochs with the wrappers' counts set to 0 just before;
+    fails unless each launched and the loss is finite and falls. Returns
+    (launches, history, seconds)."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(exp, data, epochs=3, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    for row in res.history:
+        log(f"  epoch {row['epoch']}: loss {row['train_loss']:.6f} mse {row['mse_loss']:.6f} "
+            f"psnr {row['train_psnr']:.4f} {row['seconds']:.3f} s {row['pixels_per_s']:.0f} px/s")
+    log(f"  fit total {fit_s:.2f} s, launches {launches}")
+    losses = [row["train_loss"] for row in res.history]
+    mses = [row["mse_loss"] for row in res.history]
+    # epoch 0 carries no collision term (no previous epoch); it enters at epoch 1
+    if not all(math.isfinite(v) for v in losses) or not (losses[-1] < losses[1] and mses[-1] < mses[0]):
+        raise AssertionError(f"{what}: loss not finite and falling: {losses}, mse {mses}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched on {what}")
+    return launches, res.history, fit_s
+
+
+def log_profile(profile) -> None:
+    for row in profile["kernels"][:14]:
+        log(f"  {row['ms']:10.3f} ms {row['share']:7.2%} x{row['calls']:<4d} {row['name'][:90]}")
+    log(f"  epoch wall {profile['wall_ms']:.1f} ms, device busy {profile['busy_ms']:.1f} ms, "
+        f"idle share {profile['idle_share']:.2%}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -140,7 +300,9 @@ def main() -> int:
     )
     from collision_handling_in_instantngp_tpu_torch.models import gngf
     from collision_handling_in_instantngp_tpu_torch.ops import dedup
-    from collision_handling_in_instantngp_tpu_torch.ops.cuda import build, hidden, hpd_stream
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
+        build, hidden, hpd_full, hpd_stream, hpd_tail,
+    )
     from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
     from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
 
@@ -302,40 +464,65 @@ def main() -> int:
         "hidden_stack_bwd": hidden.hidden_stack_bwd,
     }
     log("fit: grid 4061, scaled geometry, strawberry, 3 epochs:")
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = fit(exp, data, epochs=3, device=dev, verbose=False)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    for row in res.history:
-        log(f"  epoch {row['epoch']}: loss {row['train_loss']:.6f} mse {row['mse_loss']:.6f} "
-            f"psnr {row['train_psnr']:.4f} {row['seconds']:.3f} s {row['pixels_per_s']:.0f} px/s")
-    log(f"  fit total {fit_s:.2f} s, launches {launches}")
-    losses = [row["train_loss"] for row in res.history]
-    mses = [row["mse_loss"] for row in res.history]
-    # epoch 0 carries no collision term (no previous epoch); it enters at epoch 1
-    if not all(math.isfinite(v) for v in losses) or not (losses[-1] < losses[1] and mses[-1] < mses[0]):
-        raise AssertionError(f"fit: loss not finite and falling: {losses}, mse {mses}")
+    launches, history, fit_s = fit_checked(fit, exp, data, dev, wrappers, "the dedup route")
     for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} never launched on the main path")
         entries[name]["launches"] = n
         entries[name]["route"] = "cuda"
 
     # ------------------ where one epoch's device time goes ------------------ #
     log("profile: one epoch of the same training, device time by kernel:")
     profile = profile_epoch(exp, statics, batches, dev)
-    for row in profile["kernels"][:12]:
-        log(f"  {row['ms']:10.3f} ms {row['share']:7.2%} x{row['calls']:<4d} {row['name'][:90]}")
-    log(f"  epoch wall {profile['wall_ms']:.1f} ms, device busy {profile['busy_ms']:.1f} ms, "
-        f"idle share {profile['idle_share']:.2%}")
+    log_profile(profile)
+    del batches, geom, x, h_k, h_full, counts_full, args, out_k
+    torch.cuda.empty_cache()
+
+    # ------------------- the per-row route: K8-K11 ------------------------- #
+    data_raw = load_image_dataset(os.path.join(HERE, "images", "strawberry.npy"), normalize=False)
+    pr_exp = experiment_from_grid_id(4061, base_model=ModelConfig(batchnorm_input=True))
+    pr_statics = gngf.make_statics(pr_exp.model)
+    shuffled, _ = make_shuffle_permutations(data_raw.num_pixels, pr_exp.train.seed,
+                                            pr_exp.train.shuffle_pixels)
+    pr_batches = build_epoch_batches(data_raw.coords, data_raw.targets, pr_exp.train.batch_fraction,
+                                     shuffled, data_raw.image, pr_exp.model, pr_statics, dev)
+    entries.update(per_row_kernel_phases(pr_exp, pr_batches, pr_statics, dev, gen))
+
+    routes = {
+        "auto": ({"hpd_full_fwd": hpd_full.hpd_full_fwd, "hpd_full_bwd": hpd_full.hpd_full_bwd}, "auto"),
+        "pallas": ({"hpd_tail_fwd": hpd_tail.hpd_tail_fwd, "hpd_tail_bwd": hpd_tail.hpd_tail_bwd}, "pallas"),
+    }
+    log("small per-row geometry, 2 epochs, card (kernels) vs CPU (plain versions):")
+    small_img = image_dataset(img.numpy().astype("uint8"), "synthetic", normalize=False)
+    for route, (_, backend) in routes.items():
+        small = experiment_from_grid_id(4061, base_model=ModelConfig(
+            batchnorm_input=True, hpd_backend=backend))
+        start = gngf.init_params(small.model, SEED, "cpu")
+        r_gpu = fit(small, small_img, epochs=2, device=dev, params=start, verbose=False)
+        r_cpu = fit(small, small_img, epochs=2, device="cpu", params=start, verbose=False)
+        for hg, hc in zip(r_gpu.history, r_cpu.history):
+            log(f"  {route} epoch {hg['epoch']}: loss card {hg['train_loss']:.7f} cpu {hc['train_loss']:.7f}")
+            if not math.isclose(hg["train_loss"], hc["train_loss"], rel_tol=1e-4):
+                raise AssertionError(f"per-row training ({route}) on the card disagrees with the CPU")
+
+    per_row_fits = {}
+    for route, (route_wrappers, backend) in routes.items():
+        run_exp = dataclasses.replace(pr_exp, model=dataclasses.replace(pr_exp.model, hpd_backend=backend))
+        log(f"fit: grid 4061, default geometry, batchnorm_input, hpd_backend {backend!r}, "
+            "strawberry raw coords, 3 epochs:")
+        launches, pr_history, pr_fit_s = fit_checked(fit, run_exp, data_raw, dev, route_wrappers,
+                                                     f"the per-row route ({backend})")
+        per_row_fits[route] = dict(history=pr_history, fit_s=pr_fit_s, launches=launches)
+        for name, n in launches.items():
+            entries[name]["launches"] = n
+            entries[name]["route"] = "cuda"
+
+    log("profile: one per-row epoch (hpd_backend 'auto'), device time by kernel:")
+    pr_profile = profile_epoch(pr_exp, pr_statics, pr_batches, dev)
+    log_profile(pr_profile)
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
-                       fit=res.history, fit_s=fit_s, profile=profile), f, indent=1)
+                       fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
+                       per_row_profile=pr_profile), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     model_cfg = instantngp_scaled_model() if args.scaled else ModelConfig()
     image_path = os.path.join(args.images_dir, args.filename)
-    data = load_image_dataset(image_path)
+    data = load_image_dataset(image_path, normalize=not model_cfg.batchnorm_input)
     print(f"Image: {image_path} ({data.height}x{data.width}, {data.num_pixels} pixels, "
           f"{data.channels} channels) on {device}")
     grid = get_grid_search_configs()

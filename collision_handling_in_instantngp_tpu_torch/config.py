@@ -3,12 +3,11 @@
 Same dataclasses, field names and defaults as the JAX package's ``config.py``
 so that a configuration means the same run in both, and the same grid-search
 enumeration so that ``-s/-e`` ids are interchangeable (48,000 filtered
-configs; id 4061 is the README's best run). Two model fields are left out
-because they pick routes the port does not have: ``fused_hpd`` (fused or
-dense tail on the per-row, non-dedup route) and ``dedup_cell_gather`` (the
-TPU cell-table gather layouts); the port runs the dedup route with a plain
-row gather. Kept as a copy rather than an import: the port imports nothing
-of the JAX package.
+configs; id 4061 is the README's best run). One model field is left out
+because it picks a layout the port does not have: ``dedup_cell_gather``
+(the TPU cell-table gather layouts); the port runs the dedup route with a
+plain row gather. Kept as a copy rather than an import: the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -71,9 +70,17 @@ class ModelConfig:
     matmul_precision: str = "highest"
     # approximate top-k (not ported: raises NotImplementedError)
     topk_approx_recall: Optional[float] = None
+    # per-row route (dedup off): stream the HPD tail over row chunks instead
+    # of materializing the dense (P, L, V, T) probabilities; False = dense
+    fused_hpd: bool = True
+    # False (or batchnorm_input) takes the per-row route
     dedup_vertices: bool = True
-    # "auto" streams the HPD tail past DEDUP_DENSE_MAX_ELEMENTS (U*T),
-    # "unique_stream" always streams; anything else runs dense
+    # dedup route: "auto" streams the HPD tail past DEDUP_DENSE_MAX_ELEMENTS
+    # (U*T), "unique_stream" always streams; anything else runs dense.
+    # per-row route: "auto" takes the whole-network kernels (K10/K11) for
+    # K <= 32 and T <= 2048, "pallas_full" always; "pallas" the tail
+    # kernels (K8/K9) after a plain hidden stack; anything else the chunked
+    # PyTorch tail
     hpd_backend: str = "auto"
 
     @property

@@ -1,7 +1,8 @@
 """Image dataset: full coordinate grid + normalized pixel targets.
 
 The port's own copy of the JAX package's ``data.py``. X is every (row, col)
-pair in ``indexing='ij'`` order, normalized by ``max(w, h) - 1``; Y is
+pair in ``indexing='ij'`` order, normalized by ``max(w, h) - 1`` unless the
+model batch-normalizes its input (``normalize=False``); Y is
 pixels / 255. Decoding uses cv2 (BGR -> RGB), then PIL; a ``.npy`` file
 holding a uint8 (h, w[, 3]) array loads without either, which is how images
 reach a machine that has neither library.
@@ -18,7 +19,7 @@ import numpy as np
 
 @dataclasses.dataclass
 class ImageData:
-    coords: np.ndarray       # (P, 2) float32 normalized [0,1] (row, col) pairs
+    coords: np.ndarray       # (P, 2) float32 (row, col) pairs, [0, 1] if normalized
     targets: np.ndarray      # (P, C) float32 pixels / 255
     height: int
     width: int
@@ -82,10 +83,13 @@ def make_coordinate_grid(height: int, width: int) -> np.ndarray:
     ).reshape(-1, 2)
 
 
-def image_dataset(img: np.ndarray, name: str = "image") -> ImageData:
-    """Coordinate-regression dataset of a decoded uint8 image."""
+def image_dataset(img: np.ndarray, name: str = "image", normalize: bool = True) -> ImageData:
+    """Coordinate-regression dataset of a decoded uint8 image. normalize=False
+    keeps integer pixel coords (for ``batchnorm_input`` models)."""
     h, w = img.shape[0], img.shape[1]
-    coords = make_coordinate_grid(h, w).astype(np.float32) / (max(w, h) - 1)
+    coords = make_coordinate_grid(h, w).astype(np.float32)
+    if normalize:
+        coords = coords / (max(w, h) - 1)
     targets = img.reshape(h * w, -1).astype(np.float32) / 255.0
     return ImageData(
         coords=coords, targets=targets, height=h, width=w,
@@ -93,8 +97,8 @@ def image_dataset(img: np.ndarray, name: str = "image") -> ImageData:
     )
 
 
-def load_image_dataset(path: str, bw: bool = False) -> ImageData:
-    return image_dataset(load_image(path, bw), os.path.basename(path))
+def load_image_dataset(path: str, bw: bool = False, normalize: bool = True) -> ImageData:
+    return image_dataset(load_image(path, bw), os.path.basename(path), normalize)
 
 
 def make_shuffle_permutations(

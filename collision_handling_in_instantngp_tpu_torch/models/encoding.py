@@ -1,13 +1,15 @@
 """Multi-resolution feature tables: init, top-k blend on unique vertices,
-and the per-pixel gather.
+the per-pixel gather, and the per-row top-k blend.
 
 All levels live in one (L, T, F) parameter. ``blend_unique`` gathers the
 K candidate slots of every unique vertex from the (T, L*F) view of the
 tables (one row gather serves all levels) and sums them with the blend
 weights; ``gather_rows`` then fetches each (pixel, level, corner)'s
-blended feature by vertex id.
+blended feature by vertex id. On the per-row route ``lookup_topk_blend``
+gathers every (pixel, level, corner, k) slot from the flat (L*T, F) view
+(the level folded into the slot id) and blends over K.
 
-Determinism: both gathers are ``index_select``, whose gradient autograd
+Determinism: all gathers are ``index_select``, whose gradient autograd
 forms with ``index_add_``. On CUDA that scatter-add uses atomics, so the
 table gradient (and the vertex-feature gradient) is reproducible only
 within fp32 rounding, not bitwise; the tests hold it to a tolerance.
@@ -65,3 +67,26 @@ def gather_rows(per_level_table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
     level = torch.arange(l, device=ids.device).view(1, l, *([1] * (ids.dim() - 2)))
     flat = (ids.long() + level * u).reshape(-1)
     return per_level_table.reshape(l * u, f).index_select(0, flat).reshape(*ids.shape, f)
+
+
+def flat_gather(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """(L, T, F) tables, (P, L, ...) slot ids -> (P, L, ..., F): one gather
+    from the (L*T, F) view serves every level."""
+    l, t, f = tables.shape
+    level = torch.arange(l, device=indices.device).view(1, l, *([1] * (indices.dim() - 2)))
+    flat = (indices.long() + level * t).reshape(-1)
+    return tables.reshape(l * t, f).index_select(0, flat).reshape(*indices.shape, f)
+
+
+def lookup_topk_blend(
+    tables: torch.Tensor,
+    indices_topk: torch.Tensor,
+    probs_topk: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """(P, L, V, K) slot ids and selected probabilities -> (P, L, V, F)
+    blended features. The table gradient is an ``index_add_`` of every
+    (pixel, level, corner, k) row into the (L*T, F) table."""
+    feats = flat_gather(tables, indices_topk)                   # (P, L, V, K, F)
+    w = blend_weights(probs_topk, cfg)
+    return torch.sum(feats * w[..., None], dim=-2)

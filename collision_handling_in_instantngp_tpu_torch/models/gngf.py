@@ -1,15 +1,22 @@
-"""GeneralNeuralGaugeFields: the composite neural-field model, dedup route.
+"""GeneralNeuralGaugeFields: the composite neural-field model.
 
-  coords (P, d) in [0, 1]
+  coords (P, d) in [0, 1] (or raw pixel coords under batchnorm_input)
+    -> [training-mode BatchNorm over the batch, frozen scale/bias]
     -> scale_to_grid: scaled (P, L, d), corners (P, L, V, d)
-    -> HPD on the unique vertices: top-k slots + loss marginal
-    -> blend_unique: (L, U, F) per-vertex features; gather_rows per pixel
+    -> dedup route: HPD on the unique vertices, blend_unique per vertex,
+       gather_rows per pixel
+     | per-row route: HPD on every (pixel, level, corner) row
+       (apply_hpd_fused, or dense apply_hpd), lookup_topk_blend
     -> bilinear interpolation -> (P, L*F) -> MLP decoder + sigmoid
 
-Parameters live in :class:`GNGFParams` (``hpd``, ``tables``, ``mlp``) in the
-JAX package's layout; ``params_from_jax`` / ``params_to_numpy`` carry them
-across. Only the GNGF dedup route is ported: batchnorm inputs, the
-vanilla hash and the per-row routes raise NotImplementedError.
+The dedup route runs when ``dedup_vertices`` is on, the input is not
+batch-normalized, and the batch has more rows than the shared vertex grid
+(or its geometry was precomputed); every other GNGF batch goes per row.
+
+Parameters live in :class:`GNGFParams` (``hpd``, ``tables``, ``mlp``, and
+``batchnorm`` with its running statistics as buffers) in the JAX package's
+layout; ``params_from_jax`` / ``params_to_numpy`` carry them across. The
+vanilla-hash path raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,14 +27,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import ModelConfig, TopkScatterMode
+from ..ops import collisions as coll_ops
 from ..ops import dedup as dedup_ops
 from ..ops.grid import resolution_ladder, scale_to_grid, voxel_corner_offsets
 from ..ops.interpolate import bilinear_coeffs, interpolate
 from ..ops.precision import pdot
 from . import encoding as enc
-from .hpd import apply_hpd_unique
+from .hpd import apply_hpd, apply_hpd_fused, apply_hpd_unique
 from .mlp import MLP
+
+BN_EPS = 1e-5       # torch BatchNorm1d defaults
+BN_MOMENTUM = 0.1
 
 
 class GNGFStatics(NamedTuple):
@@ -39,21 +50,43 @@ class GNGFStatics(NamedTuple):
 
 
 class ForwardOut(NamedTuple):
-    rgb: torch.Tensor                  # (P, out_channels) sigmoid outputs
-    marginal: Optional[torch.Tensor]   # (L, T) loss marginal ((L, K) under keep_topk_only)
-    idx_unique: torch.Tensor           # (U, K) selected slots per unique vertex
-    counts: Optional[torch.Tensor]     # (L, U) per-level vertex counts
+    rgb: torch.Tensor                     # (P, out_channels) sigmoid outputs
+    marginal: Optional[torch.Tensor]      # (L, T) loss marginal ((L, K) under keep_topk_only
+                                          # on the dedup route); None where probs carry it
+    idx_unique: Optional[torch.Tensor] = None  # dedup: (U, K) slots per unique vertex
+    counts: Optional[torch.Tensor] = None      # dedup: (L, U) per-level vertex counts
+    indices: Optional[torch.Tensor] = None     # per-row: (P, L, V, K) selected slots
+    topk_values: Optional[torch.Tensor] = None # per-row: (P, L, V, K)
+    probs: Optional[torch.Tensor] = None       # per-row loss probs: dense (P, L, V, T),
+                                               # or the top-k values under keep_topk_only
+    bn_state: Optional[dict] = None            # updated running stats {mean, var}
+
+
+class BatchNormParams(nn.Module):
+    """Input BatchNorm: ``scale``/``bias`` (d,) are parameters the optimizer
+    never updates (requires_grad off); the running ``mean``/``var`` are
+    buffers, so a state_dict copy carries them."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(d, device=device), requires_grad=False)
+        self.register_buffer("mean", torch.zeros(d, device=device))
+        self.register_buffer("var", torch.ones(d, device=device))
 
 
 class GNGFParams(nn.Module):
     """hpd: the index network [d -> hpd_hidden -> T]; tables: (L, T, F);
-    mlp: the decoder [L*F -> mlp_hidden -> out_channels]."""
+    mlp: the decoder [L*F -> mlp_hidden -> out_channels]; batchnorm: the
+    input BatchNorm, or None."""
 
-    def __init__(self, hpd: MLP, tables: nn.Parameter, mlp: MLP):
+    def __init__(self, hpd: MLP, tables: nn.Parameter, mlp: MLP,
+                 batchnorm: Optional[BatchNormParams] = None):
         super().__init__()
         self.hpd = hpd
         self.tables = tables
         self.mlp = mlp
+        self.batchnorm = batchnorm
 
 
 def dedup_enabled(cfg: ModelConfig) -> bool:
@@ -75,12 +108,15 @@ def init_params(cfg: ModelConfig, seed: int, device="cpu") -> GNGFParams:
     hpd = MLP((cfg.input_dim, *cfg.hpd_hidden, cfg.hash_table_size), generator=gen, device=device)
     tables = enc.init_tables(cfg, generator=gen, device=device)
     mlp = MLP((cfg.encoded_dim, *cfg.mlp_hidden, cfg.out_channels), generator=gen, device=device)
-    return GNGFParams(hpd, tables, mlp)
+    bn = BatchNormParams(cfg.input_dim, device) if cfg.batchnorm_input else None
+    return GNGFParams(hpd, tables, mlp, bn)
 
 
-def params_from_jax(tree, device="cpu") -> GNGFParams:
-    """{"hpd": [{"w", "b"}...], "tables": (L, T, F), "mlp": [...]} of numpy
-    arrays (the JAX package's pytree) -> GNGFParams."""
+def params_from_jax(tree, device="cpu", bn_state=None) -> GNGFParams:
+    """{"hpd": [{"w", "b"}...], "tables": (L, T, F), "mlp": [...][,
+    "batchnorm": {"scale", "bias"}]} of numpy arrays (the JAX package's
+    pytree) -> GNGFParams; ``bn_state`` {"mean", "var"} sets the running
+    statistics (default: fresh ones)."""
 
     def mlp_of(layers):
         widths = [int(np.shape(layers[0]["w"])[0])] + [int(np.shape(l["w"])[1]) for l in layers]
@@ -94,11 +130,25 @@ def params_from_jax(tree, device="cpu") -> GNGFParams:
     tables = nn.Parameter(
         torch.as_tensor(np.array(tree["tables"], dtype=np.float32)).to(device)
     )
-    return GNGFParams(mlp_of(tree["hpd"]), tables, mlp_of(tree["mlp"]))
+    bn = None
+    if "batchnorm" in tree:
+        bn = BatchNormParams(int(np.shape(tree["batchnorm"]["scale"])[0]), device)
+        with torch.no_grad():
+            for name, arr in (*tree["batchnorm"].items(), *(bn_state or {}).items()):
+                getattr(bn, name).copy_(torch.as_tensor(np.array(arr, np.float32)))
+    return GNGFParams(mlp_of(tree["hpd"]), tables, mlp_of(tree["mlp"]), bn)
+
+
+def bn_state_to_numpy(params: GNGFParams) -> Optional[dict]:
+    """The running statistics {"mean", "var"} as numpy, or None."""
+    if params.batchnorm is None:
+        return None
+    return {k: getattr(params.batchnorm, k).detach().cpu().numpy() for k in ("mean", "var")}
 
 
 def params_to_numpy(params: GNGFParams) -> dict:
-    """Inverse of :func:`params_from_jax`."""
+    """Inverse of :func:`params_from_jax` (the running statistics:
+    :func:`bn_state_to_numpy`)."""
 
     def layers_of(mlp: MLP):
         return [
@@ -106,11 +156,46 @@ def params_to_numpy(params: GNGFParams) -> dict:
             for w, b in mlp.layers()
         ]
 
-    return {
+    out = {
         "hpd": layers_of(params.hpd),
         "tables": params.tables.detach().cpu().numpy(),
         "mlp": layers_of(params.mlp),
     }
+    if params.batchnorm is not None:
+        out["batchnorm"] = {k: getattr(params.batchnorm, k).detach().cpu().numpy()
+                            for k in ("scale", "bias")}
+    return out
+
+
+def batchnorm(bn: BatchNormParams, state: dict, x: torch.Tensor, train: bool):
+    """BatchNorm over (P, d): training mode normalizes with the batch's mean
+    and biased variance and moves the running statistics by
+    BN_MOMENTUM toward the batch's mean and unbiased variance; eval mode
+    normalizes with the running statistics. Returns (y, new_state)."""
+    if train:
+        n = x.shape[0]
+        mean = x.sum(dim=0) / n
+        d = x - mean
+        var = (d * d).sum(dim=0) / n
+        unbiased = var * n / max(n - 1, 1)
+        new_state = {
+            "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,
+            "var": (1 - BN_MOMENTUM) * state["var"] + BN_MOMENTUM * unbiased,
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (x - mean) * torch.rsqrt(var + BN_EPS)
+    return y * bn.scale + bn.bias, new_state
+
+
+def use_dedup(cfg: ModelConfig, statics: GNGFStatics, batch_rows: int, has_geometry: bool) -> bool:
+    """Dedup must save work: it runs when precomputed geometry is given, or
+    when the batch's rows outnumber the shared vertex grid."""
+    return dedup_enabled(cfg) and (
+        has_geometry
+        or batch_rows * cfg.num_corners * cfg.num_levels > statics.unique_coords.shape[0]
+    )
 
 
 def forward(
@@ -119,20 +204,33 @@ def forward(
     cfg: ModelConfig,
     statics: GNGFStatics,
     dedup: Optional[dedup_ops.DedupGeometry] = None,
+    bn_state: Optional[dict] = None,
+    train: bool = True,
 ) -> ForwardOut:
-    """Model forward on the dedup route. ``dedup``: the batch's precomputed
-    geometry (the trainer builds it once); None derives ids and counts from
-    ``x`` on its device."""
-    if not dedup_enabled(cfg):
+    """Model forward. ``dedup``: the batch's precomputed geometry (the
+    trainer builds it once); None derives ids and counts from ``x`` on its
+    device where the dedup route runs. ``bn_state``: running statistics
+    {"mean", "var"} (default: the params' buffers); they are not modified,
+    the updated ones come back in ``ForwardOut.bn_state``."""
+    if cfg.use_hash_function:
         raise NotImplementedError(
-            "only the GNGF dedup route is ported (batchnorm input, the vanilla "
-            "hash and the per-row routes: ROADMAP.md, port queue)"
+            "the vanilla-hash path is not ported (ROADMAP.md, port queue: 'Vanilla hash')"
         )
     dev = x.device
     n_ls = torch.as_tensor(statics.n_ls, device=dev)
     offsets = torch.as_tensor(statics.offsets, device=dev)
+    new_bn_state = None
+    if cfg.batchnorm_input:
+        bn = params.batchnorm
+        state = bn_state if bn_state is not None else {"mean": bn.mean, "var": bn.var}
+        x, new_bn_state = batchnorm(bn, state, x, train)
+    # geometry is data, not a differentiation path
     with torch.no_grad():
         scaled, corners = scale_to_grid(x, n_ls, offsets)
+
+    if not use_dedup(cfg, statics, x.shape[0], dedup is not None):
+        return _forward_per_row(params, cfg, scaled, corners, offsets, new_bn_state)
+
     side = dedup_ops.grid_side(cfg.n_max)
     if dedup is not None and dedup.active is not None:
         ucoords = dedup_ops.active_coords(dedup.active, side)
@@ -156,3 +254,34 @@ def forward(
     else:
         marginal = marginal_raw / rows
     return ForwardOut(rgb=rgb, marginal=marginal, idx_unique=idx_u, counts=counts)
+
+
+def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state) -> ForwardOut:
+    """The HPD on every (pixel, level, corner) row. The fused tail emits the
+    marginal; the dense branch (fused_hpd off, or the NOOP top-k, whose
+    dropped gradient only the dense branch implements) emits probs. Under
+    keep_topk_only the loss marginalizes the top-k values instead."""
+    if cfg.fused_hpd and cfg.topk_scatter is not TopkScatterMode.NOOP:
+        marginal, topk_values, topk_indices = apply_hpd_fused(params.hpd, corners, cfg)
+        probs = None
+    else:
+        probs, topk_values, topk_indices = apply_hpd(params.hpd, corners, cfg)
+        marginal = None
+    feats = enc.lookup_topk_blend(params.tables, topk_indices, topk_values, cfg)
+    h = interpolate(feats, bilinear_coeffs(scaled, offsets))
+    rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
+    if cfg.keep_topk_only:
+        loss_probs, loss_marginal = topk_values, None
+    else:
+        loss_probs, loss_marginal = probs, marginal
+    return ForwardOut(rgb=rgb, marginal=loss_marginal, indices=topk_indices,
+                      topk_values=topk_values, probs=loss_probs, bn_state=bn_state)
+
+
+def calc_hash_collisions(indices: torch.Tensor, cfg: ModelConfig, statics: GNGFStatics):
+    """(collisions, min_possible_collisions), both (L,) float32, from the
+    per-row (P, L, V, K) selected slots."""
+    n_ls = torch.as_tensor(statics.n_ls, device=indices.device)
+    coll = coll_ops.hash_collisions_gngf(indices, n_ls, cfg.hash_table_size)
+    min_poss = coll_ops.min_possible_collisions(n_ls, cfg.hash_table_size).to(torch.float32)
+    return coll, min_poss

@@ -7,16 +7,25 @@ stream: the hidden stack is kernel K3 and the head + softmax + top-k +
 marginal is the fused tail, kernels K1/K2 (ops/fused_hpd.py). On a CUDA
 tensor the stream branch launches the kernels; on a CPU tensor it runs
 their plain versions.
+
+``apply_hpd_fused`` evaluates it on every (pixel, level, corner) row (the
+per-row route) without the dense (P, L, V, T) probabilities. The route
+follows the config alone: "auto" with K <= 32 and T <= 2048, or
+"pallas_full", runs the whole network as kernels K10/K11; "pallas" runs a
+plain hidden stack and the tail kernels K8/K9; anything else the chunked
+PyTorch tail. On a CPU tensor a kernel route runs its plain versions.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..config import ModelConfig, TopkScatterMode
 from ..ops.cuda.hidden import hidden_stack
+from ..ops.cuda.hpd_full import hpd_full
 from ..ops.cuda.hpd_stream import MAX_K
-from ..ops.fused_hpd import hpd_tail_unique
+from ..ops.fused_hpd import hpd_tail, hpd_tail_unique
 from ..ops.precision import pdot
 from ..ops.topk import differentiable_topk
 from .mlp import MLP
@@ -78,3 +87,44 @@ def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=N
     if counts is None or cfg.keep_topk_only:
         marginal_raw = None
     return marginal_raw, values, indices
+
+
+# "auto" takes the whole-network kernels up to these sizes, as the JAX
+# package does on an accelerator
+FULL_MAX_K = 32
+FULL_MAX_T = 2048
+
+
+def fused_backend(cfg: ModelConfig) -> str:
+    """"pallas_full" (K10/K11), "pallas" (K8/K9) or "jax" (chunked tail)."""
+    backend = cfg.hpd_backend
+    if backend == "auto":
+        ok = cfg.topk_k <= FULL_MAX_K and cfg.hash_table_size <= FULL_MAX_T
+        return "pallas_full" if ok else "jax"
+    return backend if backend in ("pallas_full", "pallas") else "jax"
+
+
+def apply_hpd_fused(hpd: MLP, vertices: torch.Tensor, cfg: ModelConfig):
+    """vertices (P, L, V, d) -> (marginal (L, T), values (P, L, V, K),
+    indices (P, L, V, K) int32)."""
+    if cfg.topk_approx_recall is not None:
+        raise NotImplementedError(
+            "approximate top-k on the per-row tail is not ported "
+            "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
+        )
+    p, l, v, d = vertices.shape
+    rows = vertices.permute(1, 0, 2, 3).reshape(l, p * v, d)     # level-major
+    layers = hpd.layers()
+    backend = fused_backend(cfg)
+    if backend == "pallas_full":
+        marginal, vals, idx = hpd_full(rows, layers, cfg.topk_k)
+    else:
+        h = rows
+        for w, b in layers[:-1]:
+            h = F.relu(pdot(h, w, cfg.matmul_precision) + b)
+        w, b = layers[-1]
+        marginal, vals, idx = hpd_tail(h, w, b, cfg.topk_k, cfg.matmul_precision, backend)
+    k = cfg.topk_k
+    values = vals.reshape(l, p, v, k).permute(1, 0, 2, 3)
+    indices = idx.reshape(l, p, v, k).permute(1, 0, 2, 3)
+    return marginal, values, indices

@@ -2,7 +2,8 @@
 
 Each ``.cu`` source in this directory compiles on its own, with a plain C
 interface, into ``<package>/_build/<name>-<hash>.so`` (the hash covers the
-sources and flags, so an edited kernel never loads a stale library).
+source, every header of this directory and the flags, so an edited kernel
+never loads a stale library).
 Nothing is built when the package is imported: a library is built at its
 first use on the card, or ahead of time by :func:`build_all`, which starts
 one nvcc per source at once. A failed build raises with nvcc's output.
@@ -20,7 +21,7 @@ from typing import Dict, Iterable
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(HERE)), "_build")
-SOURCES = ("hidden", "hpd_stream")
+SOURCES = ("hidden", "hpd_stream", "hpd_tail", "hpd_full")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +45,8 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> str:
     digest = hashlib.sha256()
-    for fname in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(HERE) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
         with open(os.path.join(HERE, fname), "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())

@@ -1,4 +1,5 @@
-"""Streaming fused HPD tail over unique vertices, as an autograd Function.
+"""Streaming fused HPD tails as autograd Functions: over unique vertices
+(the dedup route) and over every row (the per-row route).
 
 The head layer, softmax, exact top-k and the count-weighted loss marginal
 in one op: the dense (U, T) probability tensor never exists whole. The loss
@@ -11,6 +12,12 @@ Forward and backward are kernels K1 and K2 (``ops/cuda/hpd_stream.py``) on
 the card, and their plain versions on the CPU. The residuals are
 (h, w, b, counts, idx, vals, m, s): the backward recomputes p from the row
 statistics (m, s) instead of keeping it.
+
+``hpd_tail`` is the per-row counterpart, (L, N, H) rows: the per-level
+marginal (already / N), and top-K selected on p. Backend "pallas" runs
+kernels K8/K9 (``ops/cuda/hpd_tail.py``; their plain versions on the CPU);
+any other backend runs the chunked PyTorch tail at the model's matmul
+precision (the JAX package's ``lax.scan`` backend). Residuals: h, w, b, idx.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .cuda.hpd_stream import hpd_stream_fused_bwd, hpd_stream_fused_fwd
+from .cuda.hpd_tail import hpd_tail_bwd, hpd_tail_bwd_plain, hpd_tail_fwd, hpd_tail_fwd_plain
 
 
 class HpdTailUnique(torch.autograd.Function):
@@ -48,3 +56,36 @@ def hpd_tail_unique(h, w, b, counts, k: int, precision: str = "highest",
     """h (U, H), w (H, T), b (T,), counts (L, U) -> (marginal_raw (L, T)
     UNNORMALIZED, vals (U, K), idx (U, K) int32)."""
     return HpdTailUnique.apply(h, w, b, counts, k, precision, noop_topk)
+
+
+class HpdTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, k: int, precision: str, backend: str):
+        if backend == "pallas":
+            marg, vals, idx = hpd_tail_fwd(h, w, b, k)
+        else:
+            marg, vals, idx = hpd_tail_fwd_plain(h, w, b, k, precision)
+        ctx.save_for_backward(h, w, b, idx)
+        ctx.k, ctx.precision, ctx.backend = k, precision, backend
+        ctx.mark_non_differentiable(idx)
+        return marg, vals, idx
+
+    @staticmethod
+    def backward(ctx, g_marg, g_vals, _g_idx):
+        h, w, b, idx = ctx.saved_tensors
+        if g_marg is None:
+            g_marg = torch.zeros(h.shape[0], w.shape[1], dtype=h.dtype, device=h.device)
+        if g_vals is None:
+            g_vals = torch.zeros(idx.shape, dtype=h.dtype, device=h.device)
+        g_marg, g_vals = g_marg.contiguous(), g_vals.contiguous()
+        if ctx.backend == "pallas":
+            dh, dw, db = hpd_tail_bwd(h, w, b, idx, g_marg, g_vals, ctx.k)
+        else:
+            dh, dw, db = hpd_tail_bwd_plain(h, w, b, idx, g_marg, g_vals, ctx.k, ctx.precision)
+        return dh, dw, db, None, None, None
+
+
+def hpd_tail(h, w, b, k: int, precision: str = "highest", backend: str = "jax"):
+    """h (L, N, H), w (H, T), b (T,) -> (marginal (L, T), vals (L, N, K),
+    idx (L, N, K) int32)."""
+    return HpdTail.apply(h, w, b, k, precision, backend)

@@ -3,7 +3,8 @@ weight decay; betas (0.9, 0.99), eps 1e-15.
 
 ``torch.optim.Adam`` adds weight decay to the gradient (L2) before the
 moment updates, which is what optax's ``add_decayed_weights`` followed by
-``scale_by_adam`` does in the JAX package.
+``scale_by_adam`` does in the JAX package. The input BatchNorm's scale and
+bias are in no group: they stay frozen, as in the JAX package.
 """
 
 from __future__ import annotations

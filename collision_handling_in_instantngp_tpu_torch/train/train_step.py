@@ -5,9 +5,12 @@ The pixel set is split into ``ceil(1/batch_fraction)`` slices of ONE fixed
 shuffle permutation. When the pixel count does not divide, the last batch
 is padded with the first pixels of the permutation and the padded rows are
 masked out of the MSE, so each pixel carries one unit of gradient weight per
-epoch. The dedup geometry of every batch (vertex ids, counts, and the
-active-vertex compaction where it shrinks the grid) is built once, on the
-host, and moved to the device with the batches.
+epoch. Where the dedup route runs, the dedup geometry of every batch (vertex
+ids, counts, and the active-vertex compaction where it shrinks the grid) is
+built once, on the host, and moved to the device with the batches. On the
+per-row route (dedup off, batch-normalized input, or batches smaller than
+the vertex grid) the BatchNorm running statistics thread through the
+batches and the collisions count the epoch's per-row selected slots.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class EpochBatches:
     valid: List[int]             # un-padded leading rows per batch
     gather_idx: torch.Tensor     # (P,) row of each pixel in the flat batch order
     og_image: torch.Tensor       # (P, C) int32 original image, pixel order
-    dedup: List[dedup_ops.DedupGeometry]
+    dedup: List[Optional[dedup_ops.DedupGeometry]]   # None per batch on the per-row route
 
 
 @dataclasses.dataclass
@@ -75,6 +78,19 @@ def build_epoch_batches(
     valid = [b] * num_batches
     valid[-1] = b - pad
 
+    def dev(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    common = dict(
+        x=dev(x, torch.float32),
+        y=dev(y, torch.float32),
+        valid=valid,
+        gather_idx=dev(inverse),
+        og_image=dev(og_image.reshape(p, -1).astype(np.int32)),
+    )
+    if not gngf.use_dedup(model_cfg, statics, b, False):
+        return EpochBatches(dedup=[None] * num_batches, **common)
+
     geoms = [
         dedup_ops.build_geometry_np(x[bi], statics.n_ls, statics.offsets, model_cfg.n_max)
         for bi in range(num_batches)
@@ -83,9 +99,6 @@ def build_epoch_batches(
     u_c = max(int(np.unique(ids).size) for ids, _ in geoms)
     u_c_pad = -(-u_c // COMPACT_ALIGN) * COMPACT_ALIGN
     compact = u_c_pad < COMPACT_MAX_SHARE * u and model_cfg.input_dim == 2
-
-    def dev(a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype).to(device)
 
     dedup = []
     for ids, counts in geoms:
@@ -99,14 +112,7 @@ def build_epoch_batches(
         else:
             dedup.append(dedup_ops.DedupGeometry(dev(ids, torch.int64), dev(counts)))
 
-    return EpochBatches(
-        x=dev(x, torch.float32),
-        y=dev(y, torch.float32),
-        valid=valid,
-        gather_idx=dev(inverse),
-        og_image=dev(og_image.reshape(p, -1).astype(np.int32)),
-        dedup=dedup,
-    )
+    return EpochBatches(dedup=dedup, **common)
 
 
 def initial_collision_state(exp: ExperimentConfig, statics: gngf.GNGFStatics, device):
@@ -126,26 +132,34 @@ def run_epoch(
     prev_min_possible: torch.Tensor,
 ) -> EpochMetrics:
     """Forward, loss, backward and Adam step for every batch in order, then
-    collisions (union of the batches' used-slot presence) and the
-    integer-image statistics; the epoch's scalars move to the host at the
-    end."""
+    collisions and the integer-image statistics; the epoch's scalars move to
+    the host at the end. Collisions: on the dedup route the union of the
+    batches' used-slot presence, on the per-row route the epoch's selected
+    slots of every row. The BatchNorm running statistics move batch by batch
+    in ``params.batchnorm``."""
     mcfg = exp.model
     dev = batches.x.device
     n_ls = torch.as_tensor(statics.n_ls, device=dev)
-    rgbs, losses, mses, js_kls, colls = [], [], [], [], []
+    rgbs, losses, mses, js_kls, colls, indices = [], [], [], [], [], []
     presence = None
     for bi in range(batches.x.shape[0]):
         out = gngf.forward(params, batches.x[bi], mcfg, statics, dedup=batches.dedup[bi])
         aux = compute_loss(
             out.rgb, batches.y[bi], out.marginal, prev_collisions, prev_min_possible,
-            exp.loss, valid_rows=batches.valid[bi],
+            exp.loss, valid_rows=batches.valid[bi], probs=out.probs,
         )
         optimizer.zero_grad(set_to_none=True)
         aux.total.backward()
         optimizer.step()
         with torch.no_grad():
-            used = dedup_ops.used_slot_presence(out.idx_unique, out.counts, mcfg.hash_table_size)
-            presence = used if presence is None else presence | used
+            if out.bn_state is not None:
+                params.batchnorm.mean.copy_(out.bn_state["mean"])
+                params.batchnorm.var.copy_(out.bn_state["var"])
+            if out.indices is not None:
+                indices.append(out.indices)
+            else:
+                used = dedup_ops.used_slot_presence(out.idx_unique, out.counts, mcfg.hash_table_size)
+                presence = used if presence is None else presence | used
         rgbs.append(out.rgb.detach())
         losses.append(aux.total.detach())
         mses.append(aux.mse.detach())
@@ -153,7 +167,10 @@ def run_epoch(
         colls.append(aux.coll_per_level)
 
     with torch.no_grad():
-        collisions = dedup_ops.collisions_from_presence(presence, n_ls)
+        if indices:
+            collisions, _ = gngf.calc_hash_collisions(torch.cat(indices), mcfg, statics)
+        else:
+            collisions = dedup_ops.collisions_from_presence(presence, n_ls)
         image = torch.cat(rgbs).reshape(-1, rgbs[0].shape[-1])[batches.gather_idx]
         pred_int = (image * 255).to(torch.int32)
         diff = (pred_int - batches.og_image).to(torch.float32)

@@ -2,8 +2,9 @@
 
 Per epoch: the scalar metrics, PSNR from the integer-image error, the
 zero-collision abort (the last two levels collision-free for the first 10
-checked epochs) and early stopping on the loss. The best-PSNR parameters are
-kept in memory. Checkpoint files, histogram epochs, ensembles, multi-epoch
+checked epochs) and early stopping on the loss. The best-PSNR parameters,
+with the BatchNorm running statistics (buffers of the params), are kept in
+memory. Checkpoint files, histogram epochs, ensembles, multi-epoch
 spans and warm starts are not in this port yet (ROADMAP.md).
 """
 

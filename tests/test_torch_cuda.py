@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions
 on the same inputs, at small shapes that reach the kernels' edges (ragged
-row tiles, T not a multiple of 2048, K up to 16, other hidden stacks).
+row tiles, T not a multiple of 2048, K up to 16, other hidden stacks; for
+the per-row kernels K8-K11, T from 128 to 2048, K up to 32 (K10/K11) or 128
+(K8/K9), ragged N, other stacks), plus training on the card against the
+CPU on the dedup and the per-row routes.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -24,7 +27,7 @@ from collision_handling_in_instantngp_tpu_torch import cli
 from collision_handling_in_instantngp_tpu_torch.config import ModelConfig, experiment_from_grid_id
 from collision_handling_in_instantngp_tpu_torch.data import image_dataset
 from collision_handling_in_instantngp_tpu_torch.models import gngf
-from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_stream
+from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_full, hpd_stream, hpd_tail
 from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +176,127 @@ def test_cli_runs_on_card(dev, tmp_path, capsys):
     assert cli.main(["-f", "tiny.npy", "--images_dir", str(tmp_path), "-s", "4061",
                      "--epochs", "2"]) == 0
     assert "grid 4061: best PSNR" in capsys.readouterr().out
+
+
+def _per_row_tail_inputs(dev, l, n, t, k, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return dict(
+        h=f32(rng.random((l, n, 128)) * 0.5),
+        w=f32(rng.standard_normal((128, t)) * 0.2),
+        b=f32(rng.standard_normal(t) * 0.1),
+        g_marg=f32(rng.standard_normal((l, t))),
+        g_vals=f32(rng.standard_normal((l, n, k))),
+    )
+
+
+@pytest.mark.parametrize("l,n,t,k", [(2, 700, 128, 1), (3, 1100, 256, 4), (2, 333, 2048, 20),
+                                     (4, 1000, 256, 32), (2, 500, 256, 128), (1, 77, 1000, 128)])
+def test_per_row_tail_kernels_match_plain(dev, l, n, t, k):
+    """K8/K9 against their plain versions: identical indices, normwise
+    1e-5 forward and 1e-4 gradients, bitwise equal run to run."""
+    x = _per_row_tail_inputs(dev, l, n, t, k)
+    out = hpd_tail.hpd_tail_fwd(x["h"], x["w"], x["b"], k)
+    ref = hpd_tail.hpd_tail_fwd_plain(x["h"], x["w"], x["b"], k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b) for a, b in zip(out, hpd_tail.hpd_tail_fwd(x["h"], x["w"], x["b"], k)))
+    bargs = (x["h"], x["w"], x["b"], ref[2], x["g_marg"], x["g_vals"], k)
+    got = hpd_tail.hpd_tail_bwd(*bargs)
+    want = hpd_tail.hpd_tail_bwd_plain(*bargs)
+    for name, a, r in zip(("dh", "dw", "db"), got, want):
+        _close(a, r, 1e-4, name)
+    assert all(torch.equal(a, b) for a, b in zip(got, hpd_tail.hpd_tail_bwd(*bargs)))
+
+
+def _full_layers(dev, widths, seed=1):
+    rng = np.random.default_rng(seed)
+    layers = []
+    for i, (din, dout) in enumerate(zip(widths[:-1], widths[1:])):
+        scale = 0.5 / math.sqrt(din) if i < len(widths) - 2 else 0.2
+        layers.append((torch.as_tensor((rng.standard_normal((din, dout)) * scale).astype(np.float32), device=dev),
+                       torch.as_tensor((rng.standard_normal(dout) * 0.1).astype(np.float32), device=dev)))
+    return layers
+
+
+@pytest.mark.parametrize("widths,k,n", [((2, 32, 64, 128, 256), 4, 1000), ((2, 32, 64, 128, 128), 1, 700),
+                                        ((2, 32, 64, 128, 2048), 20, 333), ((2, 32, 64, 128, 256), 32, 555),
+                                        ((3, 16, 24, 40, 96, 512), 4, 400), ((2, 1000), 8, 300)])
+def test_per_row_full_kernels_match_plain(dev, widths, k, n):
+    """K10/K11 against their plain versions (the hidden stack, then the
+    chunked tail): identical indices, normwise 1e-5 forward and 1e-4
+    gradients of every layer, bitwise equal run to run."""
+    l = 2
+    rng = np.random.default_rng(2)
+    verts = torch.as_tensor(rng.integers(0, 33, size=(l, n, widths[0])).astype(np.float32), device=dev)
+    layers = _full_layers(dev, widths)
+    t = widths[-1]
+    out = hpd_full.hpd_full_fwd(verts, layers, k)
+    ref = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b) for a, b in zip(out, hpd_full.hpd_full_fwd(verts, layers, k)))
+    g_marg = torch.as_tensor(rng.standard_normal((l, t)).astype(np.float32), device=dev)
+    g_vals = torch.as_tensor(rng.standard_normal((l, n, k)).astype(np.float32), device=dev)
+    got = hpd_full.hpd_full_bwd(verts, layers, ref[2], g_marg, g_vals, k)
+    again = hpd_full.hpd_full_bwd(verts, layers, ref[2], g_marg, g_vals, k)
+    want = hpd_full.hpd_full_bwd_plain(verts, layers, ref[2], g_marg, g_vals, k)
+    for i, ((dw, db), (dw2, db2), (rw, rb)) in enumerate(zip(got, again, want)):
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), i
+        _close(dw, rw, 1e-4, f"dW{i}")
+        _close(db, rb, 1e-4, f"db{i}")
+
+
+def test_per_row_kernels_select_on_p(dev):
+    """Two logits that differ but give equal p (exp(-2^-26) rounds to 1):
+    K8 and K10 select the lower column first, as the TPU kernels do."""
+    t, k = 256, 4
+    lo, hi = 37, t - 5
+    b = torch.full((t,), -1.0, device=dev)
+    b[lo], b[hi] = -(2.0 ** -26), 0.0
+    w = torch.randn(128, t, device=dev)
+    _, _, idx = hpd_tail.hpd_tail_fwd(torch.zeros(2, 50, 128, device=dev), w, b, k)
+    assert (idx[..., 0] == lo).all() and (idx[..., 1] == hi).all()
+    layers = [(torch.rand(2, 16, device=dev), torch.full((16,), -100.0, device=dev)), (w[:16].contiguous(), b)]
+    verts = torch.randint(0, 9, (2, 50, 2), device=dev).float()
+    _, _, idx = hpd_full.hpd_full_fwd(verts, layers, k)
+    assert (idx[..., 0] == lo).all() and (idx[..., 1] == hi).all()
+
+
+def test_per_row_wrappers_refuse_shapes(dev):
+    x = _per_row_tail_inputs(dev, 1, 10, 256, 4)
+    before = (hpd_tail.hpd_tail_fwd.launches, hpd_full.hpd_full_fwd.launches)
+    with pytest.raises(ValueError):
+        hpd_tail.hpd_tail_fwd(x["h"], torch.zeros(128, 4096, device=dev), torch.zeros(4096, device=dev), 4)
+    layers = _full_layers(dev, (2, 32, 256))
+    with pytest.raises(ValueError):
+        hpd_full.hpd_full_fwd(torch.zeros(1, 10, 2, device=dev), layers, 33)
+    with pytest.raises(ValueError):                                   # a layer on the CPU
+        hpd_full.hpd_full_fwd(torch.zeros(1, 10, 2, device=dev), [layers[0], tuple(t.cpu() for t in layers[1])], 4)
+    assert (hpd_tail.hpd_tail_fwd.launches, hpd_full.hpd_full_fwd.launches) == before
+
+
+PER_ROW = {
+    "full": (dict(batchnorm_input=True), hpd_full.hpd_full_bwd),
+    "tail": (dict(batchnorm_input=True, hpd_backend="pallas"), hpd_tail.hpd_tail_bwd),
+}
+
+
+@pytest.mark.parametrize("route", sorted(PER_ROW))
+def test_per_row_training_on_card_matches_cpu(dev, route):
+    """Two epochs of the per-row route (batch-normalized raw coords, the
+    default geometry) on the card and on the CPU, same start; the route's
+    kernels launched; losses agree to rtol 1e-4."""
+    kw, wrapper = PER_ROW[route]
+    exp = experiment_from_grid_id(4061, base_model=ModelConfig(**kw))
+    img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
+    data = image_dataset(img, "synthetic", normalize=False)
+    start = gngf.init_params(exp.model, 0, "cpu")
+    before = wrapper.launches
+    card = fit(exp, data, epochs=2, device=dev, params=start, verbose=False)
+    assert wrapper.launches > before
+    cpu = fit(exp, data, epochs=2, device="cpu", params=start, verbose=False)
+    for a, b in zip(card.history, cpu.history):
+        assert math.isclose(a["train_loss"], b["train_loss"], rel_tol=1e-4), (a, b)

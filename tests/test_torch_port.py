@@ -190,9 +190,9 @@ def test_grid_configs_match_jax():
 
 def assert_model_fields_match(t: dict, j: dict) -> None:
     """Every field of the port's ModelConfig equals the JAX one; the JAX
-    config has only the two TPU-route fields the port leaves out."""
+    config has only the TPU gather-layout field the port leaves out."""
     norm = lambda d: {k: (v.value if hasattr(v, "value") else v) for k, v in d.items()}
-    assert set(j) - set(t) == {"fused_hpd", "dedup_cell_gather"}
+    assert set(j) - set(t) == {"dedup_cell_gather"}
     assert norm(t) == {k: v for k, v in norm(j).items() if k in t}
 
 
