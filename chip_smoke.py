@@ -31,7 +31,21 @@
    its launch counts set to 0 just before, and fails unless its kernels
    launched and the loss is finite and falls; then profiles one per-row
    epoch;
-9. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+9. holds the split streamed tail K4, K5, K6 (noop both ways) against their
+   plain versions on all U_c = 161,792 rows of batch 0 of grid 4061 at
+   ``instantngp_scaled_model(hash_table_size=2**16)`` (T = 65,536, past the
+   fused gate; real h from K3a), times K1/K2 at the same shapes, and holds
+   the serial scatter K12 (N = U_c * K rows of C = L * F = 32, idx from
+   K4's top-4) bitwise to its plain version, the serial row-order sum, and
+   times ``index_add_`` on the same inputs;
+10. trains a small geometry through the split route and K12 (gate and blend
+   threshold forced) on the card and on the CPU and compares the losses;
+11. runs ``fit`` at T = 2^16 for 3 epochs with the blend scatter backend
+   "vmem_serial" (what ``BLEND_SCATTER_BACKEND=vmem_serial`` sets), the
+   launch counts set to 0 just before, and fails unless K3a, K3b, K4, K5,
+   K6 and K12 launched, K1 and K2 did not, and the loss is finite and
+   falls; then profiles one epoch of it;
+12. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``.
 
@@ -49,6 +63,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -252,11 +267,136 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     return entries
 
 
-def fit_checked(fit, exp, data, dev, wrappers, what):
-    """fit for 3 epochs with the wrappers' counts set to 0 just before;
-    fails unless each launched and the loss is finite and falls. Returns
-    (launches, history, seconds)."""
-    for fn in wrappers.values():
+def tail_bwd_bound(u, H, T, L, k):
+    """Bound of the tail backward, K2's and K6's (the same function): the
+    logits, dh = dl w^T and dW = h^T dl (2 U H T flops each), G = p g_marg^T
+    and g_p = counts^T g_marg (2 L U T each); each input read once (h, the
+    head, counts, idx, vals, m, s, g_marg, g_vals), each output written once
+    (dh, dW, db)."""
+    return bound_ms(6.0 * u * H * T + 4.0 * L * u * T,
+                    4.0 * (2 * u * H + 2 * H * T + 2 * T + L * u + 3 * u * k + 2 * u + L * T))
+
+
+def split_kernel_phases(exp, batches, dev, gen):
+    """K4-K6 against their plain versions on batch 0 of the split route
+    (every active vertex, real h from K3a), K1/K2 timed at the same shapes,
+    and K12 on the blend's table-gradient shape with K4's indices. Returns
+    (entries, fused-vs-split times)."""
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops import dedup
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_stream, scatter
+
+    mcfg = exp.model
+    geom = batches.dedup[0]
+    x = dedup.active_coords(geom.active, dedup.grid_side(mcfg.n_max))
+    params = gngf.init_params(mcfg, SEED, dev)
+    layers = [(w_.detach(), b_.detach()) for w_, b_ in params.hpd.layers()]
+    h = hidden.hidden_stack_fwd(x, layers[:-1]).contiguous()
+    w, b = layers[-1]
+    counts = geom.counts.contiguous()
+    u, H = h.shape
+    k, L, T = mcfg.topk_k, mcfg.num_levels, mcfg.hash_table_size
+    if hpd_stream.fused_supports(T, k, H) or not hpd_stream.supports(T, k):
+        raise AssertionError(f"T={T}, K={k}, H={H} does not take the split route")
+    log(f"split route, batch 0: U_c={u}, H={H}, T={T}, L={L}, K={k}")
+    src = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
+    jax_src = "collision_handling_in_instantngp_tpu/ops/pallas/"
+    head_bytes = 4.0 * (H * T + T)
+    entries = {}
+
+    log("K4 hpd_stream_select, full U_c of real h:")
+    out_k = hpd_stream.hpd_stream_select(h, w, b, k)
+    out_p = hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest")
+    same = (out_k[1] == out_p[1]).all(dim=1).double().mean().item()
+    log(f"  idx: rows with identical top-{k}: {same:.6f}")
+    if same != 1.0:
+        raise AssertionError("K4: top-K indices differ from the plain version")
+    err = max(compare(n, a, r, FWD_TOL)
+              for n, a, r in zip(("vals", "m", "s"), (out_k[0], *out_k[2:]), (out_p[0], *out_p[2:])))
+    bitwise_same("vals/idx/m/s", out_k, hpd_stream.hpd_stream_select(h, w, b, k))
+    del out_p
+    vals, idx, m, s = out_k
+    entries["hpd_stream_select"] = kernel_entry(
+        "hpd_stream_select", src + "hpd_stream.cu", jax_src + "hpd_stream.py:193", err,
+        cuda_ms(lambda: hpd_stream.hpd_stream_select(h, w, b, k), 5),
+        cuda_ms(lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"), 2),
+        bound_ms(2.0 * u * H * T, 4.0 * (u * H + 2 * u * k + 2 * u) + head_bytes))
+
+    log("K5 hpd_stream_marginal, full U_c:")
+    marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)
+    err = compare("marg", marg, hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"),
+                  FWD_TOL)
+    bitwise_same("marg", [marg], [hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)])
+    entries["hpd_stream_marginal"] = kernel_entry(
+        "hpd_stream_marginal", src + "hpd_stream.cu", jax_src + "hpd_stream.py:282", err,
+        cuda_ms(lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s), 5),
+        cuda_ms(lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 2),
+        bound_ms(2.0 * u * H * T + 2.0 * L * u * T,
+                 4.0 * (u * H + L * u + 2 * u + L * T) + head_bytes))
+
+    log("K6 hpd_tail_unique_bwd (B1 + B2), full U_c:")
+    g_marg = torch.randn(L, T, device=dev, generator=gen)
+    g_vals = torch.randn(u, k, device=dev, generator=gen)
+    args = (h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k)
+    errs = []
+    for noop in (False, True):
+        got = hpd_stream.hpd_tail_unique_bwd(*args, noop_topk=noop)
+        want = hpd_stream.hpd_tail_unique_bwd_plain(*args, "highest", noop)
+        errs += [compare(f"{n} noop={noop}", a, r, GRAD_TOL)
+                 for n, a, r in zip(("dh", "dw", "db"), got, want)]
+        bitwise_same(f"dh/dw/db noop={noop}", got, hpd_stream.hpd_tail_unique_bwd(*args, noop_topk=noop))
+        del got, want
+    entries["hpd_tail_unique_bwd"] = kernel_entry(
+        "hpd_tail_unique_bwd", src + "hpd_stream.cu", jax_src + "hpd_stream.py:921", max(errs),
+        cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd(*args), 3),
+        cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd_plain(*args, "highest", False), 2),
+        tail_bwd_bound(u, H, T, L, k))
+
+    log("K1 / K2 at the same shapes (the fused pair, which the gate does not pick here):")
+    fused = dict(
+        K1_ms=cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k), 3),
+        K2_ms=cuda_ms(lambda: hpd_stream.hpd_stream_fused_bwd(*args), 3),
+        K4_K5_ms=entries["hpd_stream_select"]["ms"] + entries["hpd_stream_marginal"]["ms"],
+        K6_ms=entries["hpd_tail_unique_bwd"]["ms"],
+    )
+    log(f"  K1 {fused['K1_ms']:.3f} ms vs K4+K5 {fused['K4_K5_ms']:.3f} ms; "
+        f"K2 {fused['K2_ms']:.3f} ms vs K6 {fused['K6_ms']:.3f} ms")
+    del args, g_marg, g_vals, marg
+
+    c = L * mcfg.feature_dim
+    flat = idx.reshape(-1)
+    n = flat.numel()
+    log(f"K12 scatter_add_serial, N={n} rows of C={c}, idx from K4's top-{k}, T={T}:")
+    rows = torch.randn(n, c, device=dev, generator=gen)
+    got = scatter.scatter_add_serial(rows, flat, T)
+    bitwise_same("dt", [got], [scatter.scatter_add_serial(rows, flat, T)])
+    plain = scatter.scatter_add_serial_plain(rows, flat, T)
+    if not torch.equal(got, plain):
+        raise AssertionError("K12 differs from its plain version, the serial row-order sum")
+    err = (got - plain).abs().max().item()
+    per_slot = torch.bincount(flat.long(), minlength=T)
+    log(f"  dt: bitwise equal to the plain version (serial row-order sum); rows per slot max "
+        f"{int(per_slot.max().item())}, slots used {int((per_slot > 0).sum().item())} of {T}")
+    flat_long = flat.long()
+    acc = torch.zeros(T, c, device=dev)
+    entries["scatter_add_serial"] = kernel_entry(
+        "scatter_add_serial", src + "scatter.cu", jax_src + "scatter_probe.py:42", err,
+        cuda_ms(lambda: scatter.scatter_add_serial(rows, flat, T), 20),
+        cuda_ms(lambda: scatter.scatter_add_serial_plain(rows, flat, T), 2),
+        bound_ms(1.0 * n * c, 4.0 * (n * c + n + T * c)))
+    entries["scatter_add_serial"]["library_ms"] = cuda_ms(lambda: acc.index_add_(0, flat_long, rows), 20)
+    log(f"  index_add_ alone {entries['scatter_add_serial']['library_ms']:.3f} ms")
+    del h, out_k, vals, idx, m, s, rows, got, plain, acc
+    torch.cuda.empty_cache()
+    return entries, fused
+
+
+def fit_checked(fit, exp, data, dev, wrappers, what, absent=()):
+    """fit for 3 epochs with the wrappers' counts (and those of ``absent``)
+    set to 0 just before; fails unless each wrapper launched, no ``absent``
+    one did, and the loss is finite and falls. Returns (launches, history,
+    seconds)."""
+    for fn in (*wrappers.values(), *absent):
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -276,6 +416,9 @@ def fit_checked(fit, exp, data, dev, wrappers, what):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} never launched on {what}")
+    for fn in absent:
+        if fn.launches:
+            raise AssertionError(f"{fn.__name__} launched {fn.launches} times on {what}")
     return launches, res.history, fit_s
 
 
@@ -298,10 +441,10 @@ def main() -> int:
     from collision_handling_in_instantngp_tpu_torch.data import (
         image_dataset, load_image_dataset, make_shuffle_permutations,
     )
-    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
     from collision_handling_in_instantngp_tpu_torch.ops import dedup
     from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
-        build, hidden, hpd_full, hpd_stream, hpd_tail,
+        build, hidden, hpd_full, hpd_stream, hpd_tail, scatter,
     )
     from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
     from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
@@ -431,10 +574,7 @@ def main() -> int:
         del res_k, res_p
     ms = cuda_ms(lambda: hpd_stream.hpd_stream_fused_bwd(*args), 3)
     plain = cuda_ms(lambda: hpd_stream.hpd_stream_fused_bwd_plain(*args, "highest", False), 2)
-    b_ms, b_by = bound_ms(
-        6.0 * u_c * H * T + 4.0 * L * u_c * T,
-        4.0 * (2 * u_c * H + 2 * H * T + 2 * T + L * u_c + 3 * u_c * k + 2 * u_c + L * T),
-    )
+    b_ms, b_by = tail_bwd_bound(u_c, H, T, L, k)
     log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     entries["hpd_stream_fused_bwd"] = dict(
         name="hpd_stream_fused_bwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
@@ -519,10 +659,64 @@ def main() -> int:
     pr_profile = profile_epoch(pr_exp, pr_statics, pr_batches, dev)
     log_profile(pr_profile)
 
+    # ----------- the split route at T = 2^16: K4-K6 and K12 ---------------- #
+    exp16 = experiment_from_grid_id(4061, base_model=instantngp_scaled_model(hash_table_size=2**16))
+    statics16 = gngf.make_statics(exp16.model)
+    shuffled, _ = make_shuffle_permutations(data.num_pixels, exp16.train.seed, exp16.train.shuffle_pixels)
+    batches16 = build_epoch_batches(data.coords, data.targets, exp16.train.batch_fraction,
+                                    shuffled, data.image, exp16.model, statics16, dev)
+    split_entries, fused_vs_split = split_kernel_phases(exp16, batches16, dev, gen)
+    entries.update(split_entries)
+
+    split_wrappers = {
+        "hidden_stack_fwd": hidden.hidden_stack_fwd,
+        "hidden_stack_bwd": hidden.hidden_stack_bwd,
+        "hpd_stream_select": hpd_stream.hpd_stream_select,
+        "hpd_stream_marginal": hpd_stream.hpd_stream_marginal,
+        "hpd_tail_unique_bwd": hpd_stream.hpd_tail_unique_bwd,
+        "scatter_add_serial": scatter.scatter_add_serial,
+    }
+    fused_pair = (hpd_stream.hpd_stream_fused_fwd, hpd_stream.hpd_stream_fused_bwd)
+    log("small split geometry (fused gate and blend threshold forced), 2 epochs, "
+        "card (kernels) vs CPU (plain versions):")
+    saved = (hpd_stream.FUSED_W_MAX_BYTES, encoding._BLEND_SMATRIX_MIN_ELEMENTS,
+             encoding.BLEND_SCATTER_BACKEND)
+    hpd_stream.FUSED_W_MAX_BYTES, encoding._BLEND_SMATRIX_MIN_ELEMENTS = 0, 0
+    encoding.BLEND_SCATTER_BACKEND = "vmem_serial"
+    small = experiment_from_grid_id(4061, base_model=ModelConfig(
+        hash_table_size=4096, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream"))
+    start = gngf.init_params(small.model, SEED, "cpu")
+    for fn in (*split_wrappers.values(), *fused_pair):
+        fn.launches = 0
+    r_gpu = fit(small, small_data, epochs=2, device=dev, params=start, verbose=False)
+    small_launches = {name: fn.launches for name, fn in split_wrappers.items()}
+    if min(small_launches.values()) == 0 or any(fn.launches for fn in fused_pair):
+        raise AssertionError(f"small split geometry did not run the split kernels: {small_launches}")
+    r_cpu = fit(small, small_data, epochs=2, device="cpu", params=start, verbose=False)
+    for hg, hc in zip(r_gpu.history, r_cpu.history):
+        log(f"  epoch {hg['epoch']}: loss card {hg['train_loss']:.7f} cpu {hc['train_loss']:.7f}")
+        if not math.isclose(hg["train_loss"], hc["train_loss"], rel_tol=1e-4):
+            raise AssertionError("split training on the card disagrees with the plain versions on the CPU")
+    hpd_stream.FUSED_W_MAX_BYTES, encoding._BLEND_SMATRIX_MIN_ELEMENTS = saved[:2]
+
+    log("fit: grid 4061, instantngp_scaled_model(hash_table_size=2**16), "
+        "BLEND_SCATTER_BACKEND=vmem_serial, strawberry, 3 epochs:")
+    launches16, history16, fit16_s = fit_checked(fit, exp16, data, dev, split_wrappers,
+                                                 "the split route", absent=fused_pair)
+    for name in ("hpd_stream_select", "hpd_stream_marginal", "hpd_tail_unique_bwd", "scatter_add_serial"):
+        entries[name]["launches"] = launches16[name]
+        entries[name]["route"] = "cuda"
+    log("profile: one epoch of the T = 2^16 training, device time by kernel:")
+    profile16 = profile_epoch(exp16, statics16, batches16, dev)
+    log_profile(profile16)
+    encoding.BLEND_SCATTER_BACKEND = saved[2]
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
-                       per_row_profile=pr_profile), f, indent=1)
+                       per_row_profile=pr_profile, fused_vs_split=fused_vs_split,
+                       split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
+                       split_profile=profile16), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -9,20 +9,49 @@ blended feature by vertex id. On the per-row route ``lookup_topk_blend``
 gathers every (pixel, level, corner, k) slot from the flat (L*T, F) view
 (the level folded into the slot id) and blends over K.
 
-Determinism: all gathers are ``index_select``, whose gradient autograd
+Determinism: the gathers are ``index_select``, whose gradient autograd
 forms with ``index_add_``. On CUDA that scatter-add uses atomics, so the
 table gradient (and the vertex-feature gradient) is reproducible only
 within fp32 rounding, not bitwise; the tests hold it to a tolerance.
+``BLEND_SCATTER_BACKEND=vmem_serial`` (the JAX package's switch, read and
+checked when this module is imported) gives ``blend_unique``'s table gradient to the
+serial scatter kernel K12 instead, bitwise stable, for tables past
+``_BLEND_SMATRIX_MIN_ELEMENTS`` (U * T); ``gather_rows``' gradient stays an
+atomic ``index_add_``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig, TopkBlendMode
+from ..ops.cuda.scatter import scatter_add_serial
+
+BLEND_SCATTER_BACKENDS = ("segment_sum", "vmem_serial")
+
+
+def scatter_backend_from_env() -> str:
+    """``BLEND_SCATTER_BACKEND`` from the environment (default
+    "segment_sum"); raises ValueError on any other value than
+    BLEND_SCATTER_BACKENDS."""
+    value = os.environ.get("BLEND_SCATTER_BACKEND", "segment_sum")
+    if value not in BLEND_SCATTER_BACKENDS:
+        raise ValueError(f"BLEND_SCATTER_BACKEND={value!r}; expected one of {BLEND_SCATTER_BACKENDS}")
+    return value
+
+
+# Table-gradient reduction of blend_unique past the large-regime threshold:
+# "segment_sum" (autograd's index_add_) or "vmem_serial" (kernel K12).
+BLEND_SCATTER_BACKEND = scatter_backend_from_env()
+# U * T past which the JAX package takes its large-regime blend. The port
+# has no large-regime form of its own: the threshold only decides where
+# "vmem_serial" applies, so that it runs K12 where the JAX package runs its
+# serial scatter.
+_BLEND_SMATRIX_MIN_ELEMENTS = 1 << 25
 
 
 def init_tables(
@@ -52,13 +81,46 @@ def blend_unique(
 ) -> torch.Tensor:
     """(L, T, F) tables, (U, K) slot ids shared by every level, (U, K)
     selected probabilities -> (L, U, F) blended per-vertex features."""
+    w = blend_weights(vals_unique, cfg)
+    u, t = idx_unique.shape[0], tables.shape[1]
+    if BLEND_SCATTER_BACKEND == "vmem_serial" and u * t > _BLEND_SMATRIX_MIN_ELEMENTS:
+        return BlendSerial.apply(tables, idx_unique, w)
+    return _blend(tables, idx_unique, w)
+
+
+def _blend(tables, idx_unique, w):
     l, t, f = tables.shape
     u, k = idx_unique.shape
-    w = blend_weights(vals_unique, cfg)
     tables2 = tables.permute(1, 0, 2).reshape(t, l * f)
     rows = tables2.index_select(0, idx_unique.reshape(-1).long()).reshape(u, k, l * f)
     out = (rows * w[:, :, None]).sum(dim=1)
     return out.reshape(u, l, f).permute(1, 0, 2)
+
+
+class BlendSerial(torch.autograd.Function):
+    """``blend_unique``'s gather and K-blend with the JAX package's gather
+    backward: dt[t] = sum over (u, k) with idx[u, k] = t of w[u, k] g2[u],
+    added in (u, k) order by K12; dw[u, k] = <tables2[idx[u, k]], g2[u]>,
+    with tables2 (T, L*F) and g2 (U, L*F)."""
+
+    @staticmethod
+    def forward(ctx, tables, idx_unique, w):
+        ctx.save_for_backward(tables, idx_unique, w)
+        return _blend(tables, idx_unique, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        tables, idx, w = ctx.saved_tensors
+        l, t, f = tables.shape
+        u, k = idx.shape
+        tables2 = tables.permute(1, 0, 2).reshape(t, l * f)
+        g2 = g.permute(1, 0, 2).reshape(u, l * f)
+        flat = idx.reshape(-1)
+        rows = tables2.index_select(0, flat.long()).reshape(u, k, l * f)
+        dw = (rows * g2[:, None, :]).sum(dim=-1)
+        scaled = (w[:, :, None] * g2[:, None, :]).reshape(u * k, l * f)
+        dt2 = scatter_add_serial(scaled, flat, t)
+        return dt2.reshape(t, l, f).permute(1, 0, 2), None, dw
 
 
 def gather_rows(per_level_table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

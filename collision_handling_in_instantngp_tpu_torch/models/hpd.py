@@ -4,9 +4,11 @@ distribution over hash-table slots, followed by the straight-through top-k.
 ``apply_hpd_unique`` evaluates it once per unique vertex (ops/dedup.py). Small
 tables run dense (the (U, T) probabilities fit easily); scaled tables
 stream: the hidden stack is kernel K3 and the head + softmax + top-k +
-marginal is the fused tail, kernels K1/K2 (ops/fused_hpd.py). On a CUDA
-tensor the stream branch launches the kernels; on a CPU tensor it runs
-their plain versions.
+marginal is the streamed tail (ops/fused_hpd.py), routed by the JAX
+package's gate ``fused_supports(T, K, H)``: the fused pair K1/K2 where it
+holds (T = 2^14 at H = 128), the split kernels K4 + K5 / K6 past it
+(T = 2^16). On a CUDA tensor the stream branch launches the kernels; on a
+CPU tensor it runs their plain versions.
 
 ``apply_hpd_fused`` evaluates it on every (pixel, level, corner) row (the
 per-row route) without the dense (P, L, V, T) probabilities. The route
@@ -81,6 +83,7 @@ def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=N
     counts_in = counts if counts is not None else torch.zeros(
         1, u, dtype=torch.float32, device=ucoords.device
     )
+    # K1/K2, or K4 + K5 / K6 past the fused gate (ops/fused_hpd.py)
     marginal_raw, values, indices = hpd_tail_unique(
         h, w, b, counts_in, cfg.topk_k, cfg.matmul_precision, noop
     )

@@ -1,1 +1,1 @@
-"""Kernels (K1-K3) and their plain versions."""
+"""The port's CUDA kernels (K1-K6, K8-K12) and their plain versions."""

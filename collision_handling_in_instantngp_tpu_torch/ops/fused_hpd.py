@@ -8,8 +8,12 @@ the top-k values and indices. The backward is the exact gradient of that
 composition (softmax VJP of [marginal gradient + straight-through top-k
 scatter]); under ``noop_topk`` the top-k part is dropped.
 
-Forward and backward are kernels K1 and K2 (``ops/cuda/hpd_stream.py``) on
-the card, and their plain versions on the CPU. The residuals are
+The kernels follow the JAX package's gate (``ops/cuda/hpd_stream.py:
+fused_supports``): where it holds, the fused pair K1 (forward) and K2
+(backward); where it fails but ``supports`` holds (first at H = 128,
+T = 2^16), the split kernels K4 + K5 (forward) and K6 (backward); where
+``supports`` fails too (T not a multiple of 2048), K1/K2, which take any
+multiple of 128. On the CPU each runs its plain version. The residuals are
 (h, w, b, counts, idx, vals, m, s): the backward recomputes p from the row
 statistics (m, s) instead of keeping it.
 
@@ -24,14 +28,23 @@ from __future__ import annotations
 
 import torch
 
-from .cuda.hpd_stream import hpd_stream_fused_bwd, hpd_stream_fused_fwd
+from .cuda import hpd_stream
 from .cuda.hpd_tail import hpd_tail_bwd, hpd_tail_bwd_plain, hpd_tail_fwd, hpd_tail_fwd_plain
+
+
+def _split(t: int, k: int, hd: int) -> bool:
+    return hpd_stream.supports(t, k) and not hpd_stream.fused_supports(t, k, hd)
 
 
 class HpdTailUnique(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w, b, counts, k: int, precision: str, noop_topk: bool):
-        marg, vals, idx, m, s = hpd_stream_fused_fwd(h, w, b, counts, k, precision)
+        ctx.split = _split(w.shape[1], k, h.shape[1])
+        if ctx.split:
+            vals, idx, m, s = hpd_stream.hpd_stream_select(h, w, b, k, precision)
+            marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s, precision)
+        else:
+            marg, vals, idx, m, s = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k, precision)
         ctx.save_for_backward(h, w, b, counts, idx, vals, m, s)
         ctx.k, ctx.precision, ctx.noop_topk = k, precision, noop_topk
         ctx.mark_non_differentiable(idx)
@@ -44,7 +57,8 @@ class HpdTailUnique(torch.autograd.Function):
             g_marg = torch.zeros(counts.shape[0], w.shape[1], dtype=h.dtype, device=h.device)
         if g_vals is None:
             g_vals = torch.zeros_like(vals)
-        dh, dw, db = hpd_stream_fused_bwd(
+        bwd = hpd_stream.hpd_tail_unique_bwd if ctx.split else hpd_stream.hpd_stream_fused_bwd
+        dh, dw, db = bwd(
             h, w, b, counts, idx, vals, m, s, g_marg.contiguous(), g_vals.contiguous(),
             ctx.k, ctx.precision, ctx.noop_topk,
         )

@@ -2,8 +2,10 @@
 on the same inputs, at small shapes that reach the kernels' edges (ragged
 row tiles, T not a multiple of 2048, K up to 16, other hidden stacks; for
 the per-row kernels K8-K11, T from 128 to 2048, K up to 32 (K10/K11) or 128
-(K8/K9), ragged N, other stacks), plus training on the card against the
-CPU on the dedup and the per-row routes.
+(K8/K9), ragged N, other stacks; for the split kernels K4-K6, T from 2048
+to 65536, L from 1 to 32; for the serial scatter K12, one slot, empty
+slots, C = 2 and 32), plus training on the card against the CPU on the
+dedup route (fused and split) and the per-row routes.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -26,8 +28,10 @@ import torch
 from collision_handling_in_instantngp_tpu_torch import cli
 from collision_handling_in_instantngp_tpu_torch.config import ModelConfig, experiment_from_grid_id
 from collision_handling_in_instantngp_tpu_torch.data import image_dataset
-from collision_handling_in_instantngp_tpu_torch.models import gngf
-from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_full, hpd_stream, hpd_tail
+from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
+from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
+    hidden, hpd_full, hpd_stream, hpd_tail, scatter,
+)
 from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
 
 pytestmark = pytest.mark.cuda
@@ -300,3 +304,100 @@ def test_per_row_training_on_card_matches_cpu(dev, route):
     cpu = fit(exp, data, epochs=2, device="cpu", params=start, verbose=False)
     for a, b in zip(card.history, cpu.history):
         assert math.isclose(a["train_loss"], b["train_loss"], rel_tol=1e-4), (a, b)
+
+
+@pytest.mark.parametrize("u,t,l,k", [(300, 2048, 1, 1), (1000, 4096, 16, 4), (333, 2048, 32, 16),
+                                     (257, 65536, 16, 4), (130, 65536, 32, 16)])
+def test_split_kernels_match_plain(dev, u, t, l, k):
+    """K4, K5 and K6 (noop both ways) against their plain versions:
+    identical indices, normwise 1e-5 forward and 1e-4 gradients, bitwise
+    equal run to run."""
+    x = _tail_inputs(dev, u, t, l, k)
+    h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
+    out = hpd_stream.hpd_stream_select(h, w, b, k)
+    ref = hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest")
+    assert torch.equal(out[1], ref[1])
+    for name, a, r in zip(("vals", "m", "s"), (out[0], *out[2:]), (ref[0], *ref[2:])):
+        _close(a, r, 1e-5, name)
+    assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_stream.hpd_stream_select(h, w, b, k)))
+    vals, idx, m, s = ref
+    marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)
+    _close(marg, hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 1e-5, "marg")
+    assert torch.equal(marg, hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s))
+    for noop in (False, True):
+        bargs = (h, w, b, counts, idx, vals, m, s, x["g_marg"], x["g_vals"], k, "highest", noop)
+        got = hpd_stream.hpd_tail_unique_bwd(*bargs)
+        want = hpd_stream.hpd_tail_unique_bwd_plain(*bargs)
+        for name, a, r in zip(("dh", "dw", "db"), got, want):
+            _close(a, r, 1e-4, f"{name} noop={noop}")
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, hpd_stream.hpd_tail_unique_bwd(*bargs)))
+
+
+@pytest.mark.parametrize("c", [2, 32])
+@pytest.mark.parametrize("layout", ["random", "one_slot", "empty_slots"])
+def test_scatter_serial_matches_plain(dev, c, layout):
+    """K12 is bitwise its plain version, the serial row-order sum, and
+    equal run to run."""
+    rng = np.random.default_rng(3)
+    n, t = 5000, 1024
+    rows_np = rng.standard_normal((n, c)).astype(np.float32)
+    idx_np = {"random": rng.integers(0, t, size=n),
+              "one_slot": np.full(n, 7),
+              "empty_slots": rng.integers(0, t // 4, size=n) * 4}[layout].astype(np.int32)
+    rows, idx = torch.as_tensor(rows_np, device=dev), torch.as_tensor(idx_np, device=dev)
+    before = scatter.scatter_add_serial.launches
+    got = scatter.scatter_add_serial(rows, idx, t)
+    assert scatter.scatter_add_serial.launches == before + 1
+    assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
+    assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
+
+
+def test_split_wrappers_refuse_shapes(dev):
+    x = _tail_inputs(dev, 100, 2048, 2, 4)
+    h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
+    vals, idx, m, s = hpd_stream.hpd_stream_select_plain(h, w, b, 4, "highest")
+    rows = torch.zeros(10, 4, device=dev)
+    wrappers = (hpd_stream.hpd_stream_select, hpd_stream.hpd_stream_marginal,
+                hpd_stream.hpd_tail_unique_bwd, scatter.scatter_add_serial)
+    before = [fn.launches for fn in wrappers]
+    with pytest.raises(ValueError):                                   # T not a multiple of 2048
+        hpd_stream.hpd_stream_select(h, w[:, :1024].contiguous(), b[:1024].contiguous(), 4)
+    with pytest.raises(ValueError):                                   # K > 16
+        hpd_stream.hpd_stream_select(h, w, b, 17)
+    with pytest.raises(ValueError):                                   # m of the wrong rows
+        hpd_stream.hpd_stream_marginal(h, w, b, counts, m[:50], s)
+    with pytest.raises(ValueError):                                   # int64 indices
+        hpd_stream.hpd_tail_unique_bwd(h, w, b, counts, idx.long(), vals, m, s, x["g_marg"],
+                                       x["g_vals"], 4)
+    with pytest.raises(ValueError):
+        scatter.scatter_add_serial(rows, torch.zeros(9, dtype=torch.int32, device=dev), 8)
+    with pytest.raises(ValueError):
+        scatter.scatter_add_serial(rows.double(), torch.zeros(10, dtype=torch.int32, device=dev), 8)
+    for bad in (-1, 8):                                               # idx outside [0, T)
+        with pytest.raises(ValueError):
+            scatter.scatter_add_serial(rows, torch.full((10,), bad, dtype=torch.int32, device=dev), 8)
+    assert [fn.launches for fn in wrappers] == before
+
+
+def test_split_training_on_card_matches_cpu(dev, monkeypatch):
+    """Two epochs through the split route (gate forced off) with the serial
+    blend scatter (threshold 0), on the card and on the CPU, same start;
+    K4, K5, K6 and K12 launched, K1/K2 did not; losses agree to rtol 1e-4."""
+    monkeypatch.setattr(hpd_stream, "FUSED_W_MAX_BYTES", 0)
+    monkeypatch.setattr(encoding, "_BLEND_SMATRIX_MIN_ELEMENTS", 0)
+    monkeypatch.setattr(encoding, "BLEND_SCATTER_BACKEND", "vmem_serial")
+    exp = experiment_from_grid_id(4061, base_model=ModelConfig(
+        hash_table_size=4096, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream"))
+    img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
+    data = image_dataset(img, "synthetic")
+    start = gngf.init_params(exp.model, 0, "cpu")
+    launched = (hpd_stream.hpd_stream_select, hpd_stream.hpd_stream_marginal,
+                hpd_stream.hpd_tail_unique_bwd, scatter.scatter_add_serial)
+    absent = (hpd_stream.hpd_stream_fused_fwd, hpd_stream.hpd_stream_fused_bwd)
+    before = [fn.launches for fn in launched + absent]
+    card = fit(exp, data, epochs=2, device=dev, params=start, verbose=False)
+    after = [fn.launches for fn in launched + absent]
+    assert all(a > b_ for a, b_ in zip(after[:4], before[:4])) and after[4:] == before[4:]
+    cpu = fit(exp, data, epochs=2, device="cpu", params=start, verbose=False)
+    for a, b_ in zip(card.history, cpu.history):
+        assert math.isclose(a["train_loss"], b_["train_loss"], rel_tol=1e-4), (a, b_)
