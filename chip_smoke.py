@@ -45,9 +45,26 @@
    launch counts set to 0 just before, and fails unless K3a, K3b, K4, K5,
    K6 and K12 launched, K1 and K2 did not, and the loss is finite and
    falls; then profiles one epoch of it;
-12. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+12. the measurement path, part 1: holds the probe K7 (both variants)
+   against its plain version on all U_c = 161,792 rows of real h from K3a
+   at T = 2^14 (the head of ``instantngp_scaled_model()``), bitwise run to
+   run and timed; then, with K7's counts set to 0 just before, runs the
+   sweep ladder of ``tools/sweep_probe.py`` (dots, softmax, K4, K1) at
+   'highest', prints its four rungs and three differences, and fails
+   unless both variants launched and the rungs telescope (each within 3 %);
+13. the measurement path, part 2, at ``tools/mxu_probe.py``'s shapes
+   (U = 162,304, H = 128, T = 16,384): holds K13 in its four regimes
+   against their plain versions and K14, K15 exactly, bitwise run to run,
+   each timed beside one PyTorch call that computes the same function;
+   then, with their counts set to 0 just before, runs the tool's ``main``
+   (its TF/s and GB/s lines; the calibration goes to
+   ``chiprun_out/roofline_calibration.json``) and fails unless each
+   launched;
+14. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
-   ``chiprun_out/chip_smoke.json``.
+   ``chiprun_out/chip_smoke.json``, with the allocated and peak device
+   memory at the end of each route's and each measurement step's phase
+   (``utils.memory``).
 
 Any failure raises, so the run exits non-zero without the last line. It
 exits non-zero at once where CUDA is not available.
@@ -59,7 +76,6 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -67,33 +83,35 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+from collision_handling_in_instantngp_tpu_torch.utils import memory  # noqa: E402
+from collision_handling_in_instantngp_tpu_torch.utils.profiling import cuda_ms  # noqa: E402
+
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 SEED = 65535
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, HBM3 bandwidth. 'highest' runs fp32 FMA on the CUDA cores.
+# cores, dense bf16 on the tensor cores, HBM3 bandwidth. 'highest' runs
+# fp32 FMA on the CUDA cores; 'default' (bf16 products, exact in fp32,
+# fp32 sums) is the bf16 tensor cores' function and takes their peak.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # normwise tolerances: max |kernel - plain| <= tol * max |plain| (fp32,
 # different summation order; outputs sum up to 161,792 rows)
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
+# K7 "dots": a sum of 2^14 mixed-sign logits per row (the JAX package's
+# test of the probe uses rtol 1e-4)
+DOTS_TOL = 1e-4
+# K13 bf16x3: three tensor-core products per term into one fp32
+# accumulator, against three fp32 products summed after them
+BF16X3_TOL = 1e-4
+SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
+JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare(name, got, ref, tol):
@@ -112,23 +130,22 @@ def bitwise_same(name, a, b):
     log(f"  {name}: bitwise equal run to run")
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def profile_epoch(exp, statics, batches, dev) -> dict:
     """Device time by kernel over one training epoch (``run_epoch`` on the
     prepared batches, after one unprofiled warm-up epoch), from
-    torch.profiler's device events. Everything runs on one stream, so the
-    busy time is the sum of the device events."""
-    from torch.autograd import DeviceType
+    torch.profiler's device events (``utils.profiling.device_time_by_kernel``)."""
     from torch.profiler import ProfilerActivity, profile
     from collision_handling_in_instantngp_tpu_torch.models import gngf
     from collision_handling_in_instantngp_tpu_torch.train.optimizer import make_optimizer
     from collision_handling_in_instantngp_tpu_torch.train.train_step import (
         initial_collision_state, run_epoch,
     )
+    from collision_handling_in_instantngp_tpu_torch.utils.profiling import device_time_by_kernel
 
     params = gngf.init_params(exp.model, exp.train.seed, dev)
     optimizer = make_optimizer(exp.optimizer, params)
@@ -140,26 +157,23 @@ def profile_epoch(exp, statics, batches, dev) -> dict:
         run_epoch(params, optimizer, batches, exp, statics, prev, min_poss)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.events():
-        # user annotations (e.g. Optimizer.step) span kernels already counted
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            row = by_name.setdefault(e.name, dict(name=e.name, ms=0.0, calls=0))
-            row["ms"] += e.device_time_total / 1e3
-            row["calls"] += 1
-    busy = sum(r["ms"] for r in by_name.values())
-    rows = sorted(by_name.values(), key=lambda r: -r["ms"])
-    for r in rows:
-        r["share"] = r["ms"] / busy if busy else 0.0
-    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall_ms),
-                kernels=rows)
+    return device_time_by_kernel(prof, wall_ms)
 
 
-def kernel_entry(name, source, replaces, err, ms, plain, bound):
+def watermark(marks: dict, tag: str, dev) -> None:
+    """Allocated and peak device memory of the phase that ends here (the
+    measurement phases hold the 10.6 GB (U, T) products of the library
+    calls); the peak restarts for the next phase."""
+    marks[tag] = memory.print_allocated_memory(tag, log=True, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def kernel_entry(name, source, replaces, err, ms, plain, bound, library=None):
     b_ms, b_by = bound
-    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    lib = "" if library is None else f", library {library:.3f} ms"
+    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}){lib}")
     return dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library)
 
 
 def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
@@ -195,8 +209,6 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     log(f"per-row route, batch 0: P={p_b}, L={L}, V={V}, rows={rows}, widths {widths}, K={k}")
     g_marg = torch.randn(L, T, device=dev, generator=gen)
     g_vals = torch.randn(L, n, k, device=dev, generator=gen)
-    src = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
-    jax_src = "collision_handling_in_instantngp_tpu/ops/pallas/"
     entries = {}
 
     def check_fwd(tag, out_k, out_p, again):
@@ -214,7 +226,7 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     err = check_fwd("K10", out_k, out_p, hpd_full.hpd_full_fwd(verts, layers, k))
     idx_full = out_k[2]
     entries["hpd_full_fwd"] = kernel_entry(
-        "hpd_full_fwd", src + "hpd_full.cu", jax_src + "hpd_full.py:162", err,
+        "hpd_full_fwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:162", err,
         cuda_ms(lambda: hpd_full.hpd_full_fwd(verts, layers, k), 10),
         cuda_ms(lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3),
         bound_ms(2.0 * rows * macs, 4.0 * (rows * d + n_params) + out_bytes))
@@ -230,7 +242,7 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
                  [t for pair in hpd_full.hpd_full_bwd(*bargs) for t in pair])
     dx_macs = sum(a * c for a, c in zip(widths[1:-1], widths[2:]))
     entries["hpd_full_bwd"] = kernel_entry(
-        "hpd_full_bwd", src + "hpd_full.cu", jax_src + "hpd_full.py:236", err,
+        "hpd_full_bwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:236", err,
         cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_full.hpd_full_bwd_plain(*bargs), 2),
         bound_ms(2.0 * rows * (2 * macs + dx_macs),
@@ -244,7 +256,7 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     idx_tail = out_k[2]
     head_bytes = 4.0 * (H * T + T)
     entries["hpd_tail_fwd"] = kernel_entry(
-        "hpd_tail_fwd", src + "hpd_tail.cu", jax_src + "hpd_tail.py:87", err,
+        "hpd_tail_fwd", SRC + "hpd_tail.cu", JAX_SRC + "hpd_tail.py:87", err,
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd(h, w_head, b_head, k), 10),
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k), 3),
         bound_ms(2.0 * rows * H * T, 4.0 * rows * H + head_bytes + out_bytes))
@@ -257,7 +269,7 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     err = max(compare(nm, a, r, GRAD_TOL) for nm, a, r in zip(("dh", "dw", "db"), got, want))
     bitwise_same("dh/dw/db", got, hpd_tail.hpd_tail_bwd(*bargs))
     entries["hpd_tail_bwd"] = kernel_entry(
-        "hpd_tail_bwd", src + "hpd_tail.cu", jax_src + "hpd_tail.py:182", err,
+        "hpd_tail_bwd", SRC + "hpd_tail.cu", JAX_SRC + "hpd_tail.py:182", err,
         cuda_ms(lambda: hpd_tail.hpd_tail_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_tail.hpd_tail_bwd_plain(*bargs), 2),
         bound_ms(6.0 * rows * H * T,
@@ -299,8 +311,6 @@ def split_kernel_phases(exp, batches, dev, gen):
     if hpd_stream.fused_supports(T, k, H) or not hpd_stream.supports(T, k):
         raise AssertionError(f"T={T}, K={k}, H={H} does not take the split route")
     log(f"split route, batch 0: U_c={u}, H={H}, T={T}, L={L}, K={k}")
-    src = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
-    jax_src = "collision_handling_in_instantngp_tpu/ops/pallas/"
     head_bytes = 4.0 * (H * T + T)
     entries = {}
 
@@ -317,7 +327,7 @@ def split_kernel_phases(exp, batches, dev, gen):
     del out_p
     vals, idx, m, s = out_k
     entries["hpd_stream_select"] = kernel_entry(
-        "hpd_stream_select", src + "hpd_stream.cu", jax_src + "hpd_stream.py:193", err,
+        "hpd_stream_select", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:193", err,
         cuda_ms(lambda: hpd_stream.hpd_stream_select(h, w, b, k), 5),
         cuda_ms(lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"), 2),
         bound_ms(2.0 * u * H * T, 4.0 * (u * H + 2 * u * k + 2 * u) + head_bytes))
@@ -328,7 +338,7 @@ def split_kernel_phases(exp, batches, dev, gen):
                   FWD_TOL)
     bitwise_same("marg", [marg], [hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)])
     entries["hpd_stream_marginal"] = kernel_entry(
-        "hpd_stream_marginal", src + "hpd_stream.cu", jax_src + "hpd_stream.py:282", err,
+        "hpd_stream_marginal", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:282", err,
         cuda_ms(lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s), 5),
         cuda_ms(lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 2),
         bound_ms(2.0 * u * H * T + 2.0 * L * u * T,
@@ -347,7 +357,7 @@ def split_kernel_phases(exp, batches, dev, gen):
         bitwise_same(f"dh/dw/db noop={noop}", got, hpd_stream.hpd_tail_unique_bwd(*args, noop_topk=noop))
         del got, want
     entries["hpd_tail_unique_bwd"] = kernel_entry(
-        "hpd_tail_unique_bwd", src + "hpd_stream.cu", jax_src + "hpd_stream.py:921", max(errs),
+        "hpd_tail_unique_bwd", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:921", max(errs),
         cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd(*args), 3),
         cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd_plain(*args, "highest", False), 2),
         tail_bwd_bound(u, H, T, L, k))
@@ -380,7 +390,7 @@ def split_kernel_phases(exp, batches, dev, gen):
     flat_long = flat.long()
     acc = torch.zeros(T, c, device=dev)
     entries["scatter_add_serial"] = kernel_entry(
-        "scatter_add_serial", src + "scatter.cu", jax_src + "scatter_probe.py:42", err,
+        "scatter_add_serial", SRC + "scatter.cu", JAX_SRC + "scatter_probe.py:42", err,
         cuda_ms(lambda: scatter.scatter_add_serial(rows, flat, T), 20),
         cuda_ms(lambda: scatter.scatter_add_serial_plain(rows, flat, T), 2),
         bound_ms(1.0 * n * c, 4.0 * (n * c + n + T * c)))
@@ -389,6 +399,139 @@ def split_kernel_phases(exp, batches, dev, gen):
     del h, out_k, vals, idx, m, s, rows, got, plain, acc
     torch.cuda.empty_cache()
     return entries, fused
+
+
+def probe_ladder_phase(h, w, b, counts, k):
+    """K7 (both variants) against its plain version on all rows of h, then
+    the sweep ladder at 'highest' through ``tools.sweep_probe.ladder`` with
+    K7's counts set to 0 just before. Returns (entries, rungs)."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_stream
+    from collision_handling_in_instantngp_tpu_torch.tools import sweep_probe
+
+    u, H = h.shape
+    T = w.shape[1]
+    probe = hpd_stream.hpd_stream_fused_probe
+    entries = {}
+    for variant, tol in (("dots", DOTS_TOL), ("softmax", FWD_TOL)):
+        log(f"K7 hpd_stream_fused_probe [{variant}], U_c = {u} rows of real h, H = {H}, T = {T}:")
+        got = probe(h, w, b, "highest", variant)
+        ref = hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant)
+        err = max(compare(n, a, r, tol) for n, a, r in zip(("m", "s"), got, ref))
+        bitwise_same("m/s", got, probe(h, w, b, "highest", variant))
+        name = f"hpd_stream_fused_probe[{variant}]"
+        # dots: the row sum of h w + b is one addmm (TF32 off; it writes the
+        # (U, T) logits, 10.6 GB) and a sum; no one call returns softmax's m and s
+        library = cuda_ms(lambda: torch.addmm(b, h, w).sum(-1), 3) if variant == "dots" else None
+        torch.cuda.empty_cache()
+        entries[name] = kernel_entry(
+            name, SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:1081", err,
+            cuda_ms(lambda: probe(h, w, b, "highest", variant), 10),
+            cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant), 3),
+            bound_ms(2.0 * u * H * T, 4.0 * (u * H + H * T + T + 2 * u)), library)
+        del got, ref
+
+    log("sweep ladder (tools/sweep_probe.py: ladder) at 'highest', same inputs:")
+    probe.launches = 0
+    probe.variant_launches = dict.fromkeys(probe.variant_launches, 0)
+    rung = sweep_probe.ladder(h, w, b[None], counts, k, "highest", reps=5)
+    launches = dict(probe.variant_launches)
+    for key, v in rung.items():
+        log(f"  {key:20s} {v:10.3f} ms")
+    for variant, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"K7 [{variant}] never launched in the sweep ladder")
+        entries[f"hpd_stream_fused_probe[{variant}]"].update(launches=n, route="cuda")
+    order = ("dots_ms", "softmax_ms", "select_ms", "full_ms")
+    for lo, hi in zip(order[:-1], order[1:]):
+        if rung[lo] > 1.03 * rung[hi]:
+            raise AssertionError(f"the ladder does not telescope: {lo} {rung[lo]} > {hi} {rung[hi]}")
+    return entries, rung
+
+
+def mxu_probe_phase(dev):
+    """K13 (four regimes), K14 and K15 against their plain versions at
+    ``tools/mxu_probe.py``'s shapes, each timed beside one PyTorch call of
+    the same function; then the tool's ``main`` with their counts set to 0
+    just before. Returns (entries, the tool's rates)."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import probe
+    from collision_handling_in_instantngp_tpu_torch.ops.precision import bf16_round
+    from collision_handling_in_instantngp_tpu_torch.tools import mxu_probe
+
+    U, H, T = mxu_probe.U, mxu_probe.H, mxu_probe.T
+    h, w, _, _ = mxu_probe.make_inputs(U, H, T, mxu_probe.L, dev)
+    flops = 2.0 * U * H * T
+    entries = {}
+    for regime in probe.REGIMES:
+        log(f"K13 rowsum_dot [{regime}], ({U}, {H}) x ({H}, {T}):")
+        got = probe.rowsum_dot(h, w, regime)
+        err = compare("rowsum", got, probe.rowsum_dot_plain(h, w, regime),
+                      BF16X3_TOL if regime == "bf16x3" else FWD_TOL)
+        bitwise_same("rowsum", [got], [probe.rowsum_dot(h, w, regime)])
+        if regime == "highest":
+            bound = bound_ms(flops, 4.0 * (U * H + H * T + U))
+        else:   # bf16 products (on the CUDA cores for 'default', the same
+            # function as 'bf16'); bf16x3 runs three products per term
+            bound = bound_ms((3 if regime == "bf16x3" else 1) * flops, 4.0 * (U * H + H * T + U),
+                             PEAK_BF16_TENSOR_FLOPS)
+        library = None
+        if regime != "bf16x3":
+            # fp32 operands (rounded to bf16 first for default/bf16), TF32
+            # off; writes the (U, T) product, 10.6 GB
+            a, c = (h, w) if regime == "highest" else (bf16_round(h), bf16_round(w))
+            library = cuda_ms(lambda: torch.matmul(a, c).sum(-1), 3)
+            del a, c
+            torch.cuda.empty_cache()
+        entries[f"rowsum_dot[{regime}]"] = kernel_entry(
+            f"rowsum_dot[{regime}]", SRC + "probe.cu", "tools/mxu_probe.py:119", err,
+            cuda_ms(lambda: probe.rowsum_dot(h, w, regime), 5),
+            cuda_ms(lambda: probe.rowsum_dot_plain(h, w, regime), 2), bound, library)
+
+    shape = (U, T // 4)
+    nbytes = 4.0 * U * (T // 4)
+    log(f"K14 hbm_write {shape} fp32 ({nbytes / 1e9:.2f} GB):")
+    got = probe.hbm_write(shape, dev)
+    if not torch.equal(got, probe.hbm_write_plain(shape, dev)):
+        raise AssertionError("K14 differs from its plain version")
+    log("  ones: exactly equal to the plain version")
+    buf = torch.empty(shape, device=dev)
+    entries["hbm_write"] = kernel_entry(
+        "hbm_write", SRC + "probe.cu", "tools/mxu_probe.py:157", 0.0,
+        cuda_ms(lambda: probe.hbm_write(shape, dev), 10),
+        cuda_ms(lambda: probe.hbm_write_plain(shape, dev), 10), bound_ms(0.0, nbytes),
+        cuda_ms(lambda: buf.fill_(1.0), 10))
+    del got, buf
+    torch.cuda.empty_cache()
+
+    log(f"K15 hbm_scale_copy {shape} fp32 (2 x {nbytes / 1e9:.2f} GB):")
+    x = torch.randn(shape, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    got = probe.hbm_scale_copy(x)
+    if not (torch.equal(got, probe.hbm_scale_copy_plain(x)) and torch.equal(got, probe.hbm_scale_copy(x))):
+        raise AssertionError("K15 differs from its plain version or between two runs")
+    log("  2x: exactly equal to the plain version, bitwise run to run")
+    del got
+    y = torch.empty_like(x)
+    entries["hbm_scale_copy"] = kernel_entry(
+        "hbm_scale_copy", SRC + "probe.cu", "tools/mxu_probe.py:183", 0.0,
+        cuda_ms(lambda: probe.hbm_scale_copy(x), 10),
+        cuda_ms(lambda: probe.hbm_scale_copy_plain(x), 10), bound_ms(0.0, 2 * nbytes),
+        cuda_ms(lambda: torch.mul(x, 2.0, out=y), 10))
+    del x, y, h, w
+    torch.cuda.empty_cache()
+
+    log("tools/mxu_probe.py main at its shapes:")
+    for fn in (probe.rowsum_dot, probe.hbm_write, probe.hbm_scale_copy):
+        fn.launches = 0
+    probe.rowsum_dot.regime_launches = dict.fromkeys(probe.REGIMES, 0)
+    rates = mxu_probe.main(["--reps", "3"])
+    launches = {"hbm_write": probe.hbm_write.launches,
+                "hbm_scale_copy": probe.hbm_scale_copy.launches,
+                **{f"rowsum_dot[{r}]": n for r, n in probe.rowsum_dot.regime_launches.items()}}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched in tools/mxu_probe.py")
+        entries[name].update(launches=n, route="cuda")
+    torch.cuda.empty_cache()
+    return entries, rates
 
 
 def fit_checked(fit, exp, data, dev, wrappers, what, absent=()):
@@ -434,7 +577,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
     from collision_handling_in_instantngp_tpu_torch.config import (
         ModelConfig, experiment_from_grid_id, instantngp_scaled_model,
     )
@@ -448,15 +590,13 @@ def main() -> int:
     )
     from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
     from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
+    from collision_handling_in_instantngp_tpu_torch.utils import profiling
 
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = profiling.gpu_name_and_power_limit()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # ------------------------------ build --------------------------------- #
@@ -613,8 +753,10 @@ def main() -> int:
     log("profile: one epoch of the same training, device time by kernel:")
     profile = profile_epoch(exp, statics, batches, dev)
     log_profile(profile)
-    del batches, geom, x, h_k, h_full, counts_full, args, out_k
+    del batches, geom, h_k, h_full, args, out_k       # x, counts_full: step 12
     torch.cuda.empty_cache()
+    marks = {}
+    watermark(marks, "dedup route (steps 2-5)", dev)
 
     # ------------------- the per-row route: K8-K11 ------------------------- #
     data_raw = load_image_dataset(os.path.join(HERE, "images", "strawberry.npy"), normalize=False)
@@ -658,6 +800,7 @@ def main() -> int:
     log("profile: one per-row epoch (hpd_backend 'auto'), device time by kernel:")
     pr_profile = profile_epoch(pr_exp, pr_statics, pr_batches, dev)
     log_profile(pr_profile)
+    watermark(marks, "per-row route (steps 6-8)", dev)
 
     # ----------- the split route at T = 2^16: K4-K6 and K12 ---------------- #
     exp16 = experiment_from_grid_id(4061, base_model=instantngp_scaled_model(hash_table_size=2**16))
@@ -710,13 +853,28 @@ def main() -> int:
     profile16 = profile_epoch(exp16, statics16, batches16, dev)
     log_profile(profile16)
     encoding.BLEND_SCATTER_BACKEND = saved[2]
+    del batches16
+    torch.cuda.empty_cache()
+    watermark(marks, "split route (steps 9-11)", dev)
+
+    # ------ the measurement path: the K7 ladder, then the mxu probe --------- #
+    h_c = hidden.hidden_stack_fwd(x, hidden_layers).contiguous()
+    ladder_entries, ladder = probe_ladder_phase(h_c, w_head, b_head, counts_full, k)
+    entries.update(ladder_entries)
+    del h_c, x, counts_full
+    torch.cuda.empty_cache()
+    watermark(marks, "K7 ladder (step 12)", dev)
+    mxu_entries, mxu_rates = mxu_probe_phase(dev)
+    entries.update(mxu_entries)
+    watermark(marks, "mxu probe (step 13)", dev)
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
                        per_row_profile=pr_profile, fused_vs_split=fused_vs_split,
                        split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
-                       split_profile=profile16), f, indent=1)
+                       split_profile=profile16, sweep_ladder_highest=ladder,
+                       mxu_probe_rates=mxu_rates, memory_gb=marks), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -198,6 +198,15 @@ def use_dedup(cfg: ModelConfig, statics: GNGFStatics, batch_rows: int, has_geome
     )
 
 
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a model whose path the port does not
+    have yet: the vanilla hash."""
+    if cfg.use_hash_function:
+        raise NotImplementedError(
+            "the vanilla-hash path is not ported (ROADMAP.md §3 item 6, 'Vanilla hash')"
+        )
+
+
 def forward(
     params: GNGFParams,
     x: torch.Tensor,
@@ -212,10 +221,7 @@ def forward(
     device where the dedup route runs. ``bn_state``: running statistics
     {"mean", "var"} (default: the params' buffers); they are not modified,
     the updated ones come back in ``ForwardOut.bn_state``."""
-    if cfg.use_hash_function:
-        raise NotImplementedError(
-            "the vanilla-hash path is not ported (ROADMAP.md, port queue: 'Vanilla hash')"
-        )
+    check_ported(cfg)
     dev = x.device
     n_ls = torch.as_tensor(statics.n_ls, device=dev)
     offsets = torch.as_tensor(statics.offsets, device=dev)

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(HERE)), "_build")
-SOURCES = ("hidden", "hpd_stream", "hpd_tail", "hpd_full", "scatter")
+SOURCES = ("hidden", "hpd_stream", "hpd_tail", "hpd_full", "scatter", "probe")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,6 @@
 // Unique-vertex HPD tail at scaled table widths: the fused pair (K1, K2)
-// and the split kernels (K4, K5, K6) that the TPU runs past its fused gate.
+// and the split kernels (K4, K5, K6) that the TPU runs past its fused gate,
+// plus the measurement probe K7.
 //
 // Replaces collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:
 //   hpd_stream_select (K4): logits = h w + b tile by tile; m, s = row max and
@@ -15,6 +16,9 @@
 //     dW = h^T dl, db = sum_rows dl. K2 closes dot inside its row kernel;
 //     K6 runs two launches, B1 (G) and B2 (dl, dh, dW, db), with dot closed
 //     by the caller between them, as the TPU's split kernel does.
+//   hpd_stream_fused_probe (K7): the rows pass with its later phases
+//     removed, so that rung differences time each phase in place: "dots"
+//     m = s = sum of the logits; "softmax" m, s = row max and sum exp.
 //
 // The TPU's two forms differ in what they keep in VMEM: the fused pair
 // caches a (512, T) fp32 row block (32 MB) and the head, so its product runs
@@ -47,21 +51,14 @@
 #include <float.h>
 #include <limits.h>
 
-#include "common.cuh"
+#include "stream_tile.cuh"
 
 namespace {
 
-constexpr int R = 64;       // rows per tile
-constexpr int TT = 128;     // columns per tile
-constexpr int BK = 32;      // contraction chunk of the logits product
 constexpr int BC = 32;      // column chunk of the dh product
-constexpr int HMAX = 128;   // widest head input
-constexpr int HP = HMAX + 4;
 constexpr int TP = TT + 1;  // padded tile row stride
-constexpr int THREADS = 256;
 constexpr int KMAX = 16;
 constexpr int LMAX = 32;
-constexpr int NSUB = 16;    // column sub-streams per row in fwd_rows
 // Row segments of the column-parallel kernels. Each holds a (L, T), (H, T)
 // and (T,) partial: at H = 128, T = 2^16 the dW partials take 8 x 32 MB.
 constexpr int SEGS = 8;
@@ -70,15 +67,6 @@ constexpr int NG = R * LMAX / THREADS;  // (row, level) pairs per thread in g_sw
 int rows_per_seg(int u) {
   const int tiles = (u + R - 1) / R;
   return ((tiles + SEGS - 1) / SEGS) * R;
-}
-
-// h rows [r0, r0 + R) into h_s (R x HP), zero past `limit` and past H.
-__device__ __forceinline__ void load_rows(const float* __restrict__ h, int limit, int H,
-                                          int r0, float* __restrict__ h_s) {
-  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
-    const int r = i / HMAX, k = i - r * HMAX;
-    h_s[r * HP + k] = (r0 + r < limit && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f;
-  }
 }
 
 // Row statistics of rows [r0, r0 + R): p = 0 on rows past `limit` (m = inf);
@@ -92,47 +80,6 @@ __device__ __forceinline__ void load_ms(const float* __restrict__ m_in,
     const float s = ok ? s_in[r0 + r] : 1.f;
     m_s[r] = ok ? m_in[r0 + r] : INFINITY;
     s_s[r] = s > 0.f ? s : 1.f;
-  }
-}
-
-// Logits of the tile rows x columns [t0, t0 + TT). Thread (ty, tx) holds
-// rows ty*4 + i and columns tx + 16*j. Starts with a barrier.
-template <int P>
-__device__ __forceinline__ void tile_logits(const float* __restrict__ h_s,
-                                            const float* __restrict__ w,
-                                            const float* __restrict__ b, int H, int T,
-                                            int t0, float* __restrict__ w_s,
-                                            float (&acc)[4][8]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * TT; i += THREADS) {
-      const int kk = i / TT, c = i - kk * TT;
-      w_s[i] = (k0 + kk < H) ? w[(size_t)(k0 + kk) * T + t0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = h_s[(ty * 4 + i) * HP + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bb[j] = w_s[kk * TT + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = pfma<P>(a[i], bb[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float bj = b[t0 + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][j] += bj;
   }
 }
 
@@ -250,6 +197,77 @@ hpd_fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
     }
     m_out[row] = m;
     s_out[row] = s;
+  }
+}
+
+size_t probe_smem() { return sizeof(float) * (R * HP + BK * TT + 2 * R * NSUB); }
+
+// K7: the rows pass with its later phases removed. Softmax keeps the online
+// max / sum-exp per (row, sub-stream) and the NSUB merge; DOTS keeps only a
+// sum of the logits, per tile first, then across the NSUB sub-streams in
+// order (m = s = that sum).
+template <int P, bool DOTS>
+__global__ void __launch_bounds__(THREADS)
+hpd_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                 const float* __restrict__ b, int u, int H, int T,
+                 float* __restrict__ m_out, float* __restrict__ s_out) {
+  extern __shared__ float smem[];
+  float* h_s = smem;
+  float* w_s = h_s + R * HP;
+  float* pm = w_s + BK * TT;
+  float* ps = pm + R * NSUB;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int r0 = blockIdx.x * R;
+  load_rows(h, u, H, r0, h_s);
+
+  float mrun[4], srun[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mrun[i] = -INFINITY;
+    srun[i] = 0.f;
+  }
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    float acc[4][8];
+    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (DOTS) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += acc[i][j];
+        srun[i] += sum;
+      } else {
+        float tmax = acc[i][0];
+#pragma unroll
+        for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, acc[i][j]);
+        const float mnew = fmaxf(mrun[i], tmax);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += expf(acc[i][j] - mnew);
+        srun[i] = srun[i] * expf(mrun[i] - mnew) + sum;
+        mrun[i] = mnew;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int sub = (ty * 4 + i) * NSUB + tx;
+    pm[sub] = mrun[i];
+    ps[sub] = srun[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < R && r0 + threadIdx.x < u) {
+    const int r = threadIdx.x;
+    float m = -INFINITY, s = 0.f;
+    if (DOTS) {
+      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub];
+      m = s;
+    } else {
+      for (int sub = 0; sub < NSUB; ++sub) m = fmaxf(m, pm[r * NSUB + sub]);
+      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
+    }
+    m_out[r0 + r] = m;
+    s_out[r0 + r] = s;
   }
 }
 
@@ -620,11 +638,6 @@ int check_shape(int u, int H, int T, int L, int K) {
   return 0;
 }
 
-template <typename F>
-void set_smem(F* kernel, size_t bytes) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // ------------------------- launches shared by K1-K6 ------------------------ //
 
 // Rows pass: vals, idx (u, K), m, s (u).
@@ -793,6 +806,27 @@ int hpd_select(const float* h, const float* w, const float* b, int u, int H, int
   const int err = check_shape(u, H, T, 1, K);
   if (err) return err;
   return launch_select(h, w, b, u, H, T, K, prec, vals, idx, m, s, (cudaStream_t)stream);
+}
+
+// K7: h (u, H), w (H, T), b (T) -> m, s (u). dots = 1: m = s = the row sum
+// of the logits; dots = 0: row max and sum of exp(logit - m).
+int hpd_probe(const float* h, const float* w, const float* b, int u, int H, int T, int prec,
+              int dots, float* m, float* s, void* stream) {
+  const int err = check_shape(u, H, T, 1, 1);
+  if (err || u == 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int row_blocks = (u + R - 1) / R;
+  DISPATCH_PREC(prec, {
+    if (dots) {
+      set_smem(hpd_probe_kernel<P, true>, probe_smem());
+      hpd_probe_kernel<P, true><<<row_blocks, THREADS, probe_smem(), st>>>(h, w, b, u, H, T, m, s);
+    } else {
+      set_smem(hpd_probe_kernel<P, false>, probe_smem());
+      hpd_probe_kernel<P, false><<<row_blocks, THREADS, probe_smem(), st>>>(h, w, b, u, H, T, m,
+                                                                           s);
+    }
+  });
+  return (int)cudaGetLastError();
 }
 
 // Columns pass (K5, K1's second): + counts (L, u), m/s (u) -> marg (L, T).

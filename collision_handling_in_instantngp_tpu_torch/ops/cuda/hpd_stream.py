@@ -1,10 +1,11 @@
 """Unique-vertex HPD tail at scaled table widths: the fused pair (kernels
-K1, K2) and the split kernels (K4, K5, K6).
+K1, K2), the split kernels (K4, K5, K6) and the measurement probe (K7).
 
 Replaces ``ops/pallas/hpd_stream.py`` of the JAX package: K1
 ``hpd_stream_fused_fwd``, K2 ``hpd_stream_fused_bwd``, K4
 ``hpd_stream_select``, K5 ``hpd_stream_marginal``, K6
-``hpd_tail_unique_pallas_bwd``; the contracts are the same.
+``hpd_tail_unique_pallas_bwd``, K7 ``hpd_stream_fused_probe``; the
+contracts are the same.
 
 Forward (K1, or K4 then K5): h (U, H), w (H, T), b (T,), counts (L, U) ->
   marg (L, T) = counts @ p with p = softmax(h w + b) per row,
@@ -13,6 +14,10 @@ Forward (K1, or K4 then K5): h (U, H), w (H, T), b (T,), counts (L, U) ->
   m, s (U, 1): row max and sum of exp(logit - m).
 Backward (K2, or K6): the residuals plus g_marg (L, T), g_vals (U, K) ->
   dh, dw, db.
+Probe (K7): h, w, b -> (m, s), each (U, 1): "softmax" the row max and sum
+  of exp(logit - m); "dots" m = s = the row sum of the logits. K4's rows
+  pass with its later phases removed, so that the ladder of
+  ``tools/sweep_probe.py`` (dots, softmax, K4, K1) times each phase.
 
 ``fused_supports`` is the JAX package's gate between the two forms, copied
 with its values: it only picks which kernel contract runs, as on the TPU.
@@ -181,6 +186,33 @@ def hpd_stream_fused_bwd_plain(
 
 hpd_tail_unique_bwd_plain = hpd_stream_fused_bwd_plain
 
+PROBE_VARIANTS = ("softmax", "dots")
+
+
+def _probe_variant(variant: str) -> str:
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"unknown probe variant {variant!r}; expected one of {PROBE_VARIANTS}")
+    return variant
+
+
+def hpd_stream_fused_probe_plain(h, w, b, precision: str, variant: str):
+    """(m (U, 1), s (U, 1)) of K7, row chunk by row chunk."""
+    variant = _probe_variant(variant)
+    u, t = h.shape[0], w.shape[1]
+    b = b.reshape(1, t)
+    m = torch.empty(u, 1, dtype=torch.float32, device=h.device)
+    s = torch.empty(u, 1, dtype=torch.float32, device=h.device)
+    step = _chunk(t)
+    for r0 in range(0, u, step):
+        logits = pdot(h[r0:r0 + step], w, precision) + b
+        if variant == "dots":
+            m[r0:r0 + step] = s[r0:r0 + step] = logits.sum(dim=1, keepdim=True)
+        else:
+            mc = logits.amax(dim=1, keepdim=True)
+            m[r0:r0 + step] = mc
+            s[r0:r0 + step] = torch.exp(logits - mc).sum(dim=1, keepdim=True)
+    return m, s
+
 
 # --------------------------------- kernels ---------------------------------- #
 
@@ -192,8 +224,9 @@ def _lib() -> ctypes.CDLL:
     lib.hpd_fused_bwd.argtypes = [vp] * 10 + [ci] * 7 + [vp] * 7
     lib.hpd_unique_bwd_g.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 2
     lib.hpd_unique_bwd_main.argtypes = [vp] * 10 + [ci] * 7 + [vp] * 6
+    lib.hpd_probe.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 3
     for fn in (lib.hpd_select, lib.hpd_marginal, lib.hpd_fused_bwd, lib.hpd_unique_bwd_g,
-               lib.hpd_unique_bwd_main):
+               lib.hpd_unique_bwd_main, lib.hpd_probe):
         fn.restype = ci
     lib.hpd_stream_segments.argtypes = []
     lib.hpd_stream_segments.restype = ci
@@ -361,6 +394,25 @@ def _launch_unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, prec
     return dh, dw, db
 
 
+def _launch_probe(h, w, b, precision, variant):
+    dev = h.device
+    h, w, b = _check_inputs(h, w, b.reshape(-1), None, 1)
+    u, hd = h.shape
+    t = w.shape[1]
+    lib = _lib()
+    m = torch.empty(u, 1, **_f32(dev))
+    s = torch.empty(u, 1, **_f32(dev))
+    with torch.cuda.device(dev):
+        code = lib.hpd_probe(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), u, hd, t, PRECISION_CODE[precision],
+            int(variant == "dots"), m.data_ptr(), s.data_ptr(), _stream(dev),
+        )
+    build.check(code, lib, "hpd_stream_error_string", f"hpd_stream_fused_probe[{variant}]")
+    hpd_stream_fused_probe.launches += 1
+    hpd_stream_fused_probe.variant_launches[variant] += 1
+    return m, s
+
+
 def hpd_stream_fused_fwd(h, w, b, counts, k: int, precision: str = "highest"):
     """(marg (L, T), vals (U, K), idx (U, K) int32, m (U, 1), s (U, 1)) (K1)."""
     precision = kernel_precision(precision)
@@ -415,8 +467,21 @@ def hpd_tail_unique_bwd(
     )
 
 
+def hpd_stream_fused_probe(h, w, b, precision: str = "highest", variant: str = "softmax"):
+    """(m (U, 1), s (U, 1)) of the reduced rows pass (K7); b is (T,) or
+    (1, T), T a multiple of 128. Launches are counted in ``launches`` and,
+    by variant, in ``variant_launches``."""
+    precision = kernel_precision(precision)
+    variant = _probe_variant(variant)
+    if _on_card(h):
+        return _launch_probe(h, w, b, precision, variant)
+    return hpd_stream_fused_probe_plain(h, w, b, precision, variant)
+
+
 hpd_stream_fused_fwd.launches = 0
 hpd_stream_fused_bwd.launches = 0
 hpd_stream_select.launches = 0
 hpd_stream_marginal.launches = 0
 hpd_tail_unique_bwd.launches = 0
+hpd_stream_fused_probe.launches = 0
+hpd_stream_fused_probe.variant_launches = dict.fromkeys(PROBE_VARIANTS, 0)

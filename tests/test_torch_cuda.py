@@ -4,8 +4,10 @@ row tiles, T not a multiple of 2048, K up to 16, other hidden stacks; for
 the per-row kernels K8-K11, T from 128 to 2048, K up to 32 (K10/K11) or 128
 (K8/K9), ragged N, other stacks; for the split kernels K4-K6, T from 2048
 to 65536, L from 1 to 32; for the serial scatter K12, one slot, empty
-slots, C = 2 and 32), plus training on the card against the CPU on the
-dedup route (fused and split) and the per-row routes.
+slots, C = 2 and 32; for the probes K7 and K13, ragged U and T from 128;
+K14/K15 at sizes not a multiple of 4 and from an unaligned address), plus
+training on the card against the CPU on the dedup route (fused and split)
+and the per-row routes.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -16,7 +18,10 @@ Tolerances at 'highest' (normwise: max |kernel - plain| <= tol * max |plain|;
 fp32 both sides, only the summation order differs): forward 1e-5,
 gradients 1e-4, top-K indices exactly equal. At 'high' and 'default' a
 1-ulp input difference can move a bf16 hi/lo split, so those modes are
-held to 1e-3 and 1e-2.
+held to 1e-3 and 1e-2. The K7 "dots" row sum (T mixed-sign logits) is
+held to 1e-4 at 'highest'. K13: 1e-5 in every regime but bf16x3, 1e-4
+there (three tensor-core products per term into one accumulator, against
+three fp32 products summed after); K14/K15 exactly.
 """
 
 import math
@@ -30,7 +35,7 @@ from collision_handling_in_instantngp_tpu_torch.config import ModelConfig, exper
 from collision_handling_in_instantngp_tpu_torch.data import image_dataset
 from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
-    hidden, hpd_full, hpd_stream, hpd_tail, scatter,
+    hidden, hpd_full, hpd_stream, hpd_tail, probe, scatter,
 )
 from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
 
@@ -401,3 +406,63 @@ def test_split_training_on_card_matches_cpu(dev, monkeypatch):
     cpu = fit(exp, data, epochs=2, device="cpu", params=start, verbose=False)
     for a, b_ in zip(card.history, cpu.history):
         assert math.isclose(a["train_loss"], b_["train_loss"], rel_tol=1e-4), (a, b_)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("variant", ["softmax", "dots"])
+@pytest.mark.parametrize("u,t", [(333, 256), (1000, 2048), (61, 128)])
+def test_fused_probe_matches_plain(dev, u, t, variant, precision):
+    """K7 against its plain version (U not a multiple of 64), bitwise equal
+    run to run; b taken as (T,) and as (1, T)."""
+    x = _tail_inputs(dev, u, t, 1, 1)
+    before = hpd_stream.hpd_stream_fused_probe.launches
+    m, s = hpd_stream.hpd_stream_fused_probe(x["h"], x["w"], x["b"], precision, variant)
+    again = hpd_stream.hpd_stream_fused_probe(x["h"], x["w"], x["b"][None], precision, variant)
+    assert hpd_stream.hpd_stream_fused_probe.launches == before + 2
+    rm, rs = hpd_stream.hpd_stream_fused_probe_plain(x["h"], x["w"], x["b"], precision, variant)
+    tol = max(TOL[precision][0], 1e-4 if variant == "dots" else 0.0)
+    _close(m, rm, tol, "m")
+    _close(s, rs, tol, "s")
+    assert torch.equal(m, again[0]) and torch.equal(s, again[1])
+
+
+@pytest.mark.parametrize("regime", probe.REGIMES)
+@pytest.mark.parametrize("u,hd,t", [(333, 128, 2048), (1001, 64, 384), (77, 16, 128)])
+def test_rowsum_matches_plain(dev, u, hd, t, regime):
+    """K13 against its plain version (U not a multiple of 16 or 64; one
+    column tile up to 16), bitwise equal run to run."""
+    rng = np.random.default_rng(4)
+    h = torch.as_tensor((rng.standard_normal((u, hd)) * 0.3).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.standard_normal((hd, t)) * 0.1).astype(np.float32), device=dev)
+    before = probe.rowsum_dot.launches
+    got = probe.rowsum_dot(h, w, regime)
+    assert probe.rowsum_dot.launches == before + 1 and got.shape == (u, 1)
+    _close(got, probe.rowsum_dot_plain(h, w, regime), 1e-4 if regime == "bf16x3" else 1e-5, regime)
+    assert torch.equal(got, probe.rowsum_dot(h, w, regime))
+
+
+def test_rowsum_refuses_shapes(dev):
+    """H not a multiple of 16 or over 128, T not a multiple of 128: the
+    kernel's ERR_SHAPE, raised, nothing counted."""
+    before = probe.rowsum_dot.launches
+    for hd, t in ((120, 256), (144, 256), (64, 200)):
+        with pytest.raises(RuntimeError, match="shape not supported"):
+            probe.rowsum_dot(torch.zeros(50, hd, device=dev), torch.zeros(hd, t, device=dev), "bf16")
+    with pytest.raises(ValueError):
+        probe.rowsum_dot(torch.zeros(50, 64, device=dev), torch.zeros(32, 256, device=dev))
+    assert probe.rowsum_dot.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 7, 1_000_003])
+def test_hbm_probes_exact(dev, n):
+    """K14 writes exact ones, K15 exactly 2 x, also from an address that is
+    not 16-byte aligned (the scalar path)."""
+    before = (probe.hbm_write.launches, probe.hbm_scale_copy.launches)
+    ones = probe.hbm_write((n,), dev)
+    assert torch.equal(ones, torch.ones(n, device=dev))
+    assert torch.equal(probe.hbm_write((n, 3), dev), torch.ones(n, 3, device=dev))
+    base = torch.randn(n + 1, device=dev)
+    for x in (base[:n], base[1:]):
+        y = probe.hbm_scale_copy(x)
+        assert torch.equal(y, x * 2) and y.data_ptr() != x.data_ptr()
+    assert (probe.hbm_write.launches, probe.hbm_scale_copy.launches) == (before[0] + 2, before[1] + 2)
