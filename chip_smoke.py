@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels from the sources in this checkout (one
-   nvcc per source, all started together);
+   nvcc per source, all started together), and fails unless the SASS of
+   ``hpd_stream.cu`` shows warpgroup MMAs (HGMMA) in every backward kernel
+   of K2 and K6 and no tensor-core instruction in the forward passes;
 2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
    U_c = 161,792 rows of the first batch, real h for the tail), checks
    that the deterministic outputs are bitwise equal run to run, and times
-   kernel and plain version on the same inputs;
+   kernel and plain version on the same inputs (K2 beside its time before
+   the tensor-core redesign; step 5 prints its device time by launch);
 3. trains a small streamed geometry on the card and on the CPU and
    compares the losses (kernels vs plain versions end to end);
 4. runs ``fit`` on grid 4061 at scaled geometry for 3 epochs with the
@@ -36,15 +39,17 @@
    ``instantngp_scaled_model(hash_table_size=2**16)`` (T = 65,536, past the
    fused gate; real h from K3a), times K1/K2 at the same shapes, and holds
    the serial scatter K12 (N = U_c * K rows of C = L * F = 32, idx from
-   K4's top-4) bitwise to its plain version, the serial row-order sum, and
-   times ``index_add_`` on the same inputs;
+   K4's top-4) bitwise to its plain version, the serial row-order sum,
+   times its wrapper's index preparation apart from its kernel and the
+   hottest slot alone, and times ``index_add_`` on the same inputs;
 10. trains a small geometry through the split route and K12 (gate and blend
    threshold forced) on the card and on the CPU and compares the losses;
 11. runs ``fit`` at T = 2^16 for 3 epochs with the blend scatter backend
    "vmem_serial" (what ``BLEND_SCATTER_BACKEND=vmem_serial`` sets), the
    launch counts set to 0 just before, and fails unless K3a, K3b, K4, K5,
    K6 and K12 launched, K1 and K2 did not, and the loss is finite and
-   falls; then profiles one epoch of it;
+   falls; then profiles one epoch of it (and prints K6's device time by
+   launch from that profile);
 12. the measurement path, part 1: holds the probe K7 (both variants)
    against its plain version on all U_c = 161,792 rows of real h from K3a
    at T = 2^14 (the head of ``instantngp_scaled_model()``), bitwise run to
@@ -64,7 +69,8 @@
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
-   (``utils.memory``).
+   (``utils.memory``), and for the redesigned kernels (K2, K6, K12) their
+   time before the redesign (``before_redesign_ms``) beside this run's.
 
 Any failure raises, so the run exits non-zero without the last line. It
 exits non-zero at once where CUDA is not available.
@@ -95,6 +101,9 @@ SEED = 65535
 # fp32 sums) is the bf16 tensor cores' function and takes their peak.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
+# dense TF32 on the tensor cores: the tail backward (K2, K6) runs its
+# products there as 3xTF32, three tf32 products per fp32 term
+PEAK_TF32_TENSOR_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # normwise tolerances: max |kernel - plain| <= tol * max |plain| (fp32,
 # different summation order; outputs sum up to 161,792 rows)
@@ -106,6 +115,10 @@ DOTS_TOL = 1e-4
 # K13 bf16x3: three tensor-core products per term into one fp32
 # accumulator, against three fp32 products summed after them
 BF16X3_TOL = 1e-4
+# the redesigned kernels' times before their redesign (PERF.md §6 kernel
+# table; NVIDIA H100 80GB HBM3, 700.00 W), written beside this run's
+BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 1352.97,
+          "scatter_add_serial": 13.11}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
 
@@ -114,11 +127,15 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+COMPARES = []   # (what, max abs error, normwise error) of every comparison, in order
+
+
 def compare(name, got, ref, tol):
     """max abs error; raises if it exceeds tol * max |ref|."""
     err = (got.double() - ref.double()).abs().max().item()
     scale = ref.double().abs().max().item()
     log(f"  {name}: max_abs_err {err:.3e} max_rel_err {err / max(scale, 1e-30):.3e} (scale {scale:.3e})")
+    COMPARES.append((name, err, err / max(scale, 1e-30)))
     if not torch.isfinite(got).all() or err > tol * scale:
         raise AssertionError(f"{name}: kernel disagrees with plain version ({err} > {tol} * {scale})")
     return err
@@ -279,14 +296,40 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     return entries
 
 
-def tail_bwd_bound(u, H, T, L, k):
+def tail_bwd_bound(u, H, T, L, k, tensor=True):
     """Bound of the tail backward, K2's and K6's (the same function): the
     logits, dh = dl w^T and dW = h^T dl (2 U H T flops each), G = p g_marg^T
     and g_p = counts^T g_marg (2 L U T each); each input read once (h, the
     head, counts, idx, vals, m, s, g_marg, g_vals), each output written once
-    (dh, dW, db)."""
-    return bound_ms(6.0 * u * H * T + 4.0 * L * u * T,
-                    4.0 * (2 * u * H + 2 * H * T + 2 * T + L * u + 3 * u * k + 2 * u + L * T))
+    (dh, dW, db). The kernels run those products as 3xTF32 on the tensor
+    cores (three tf32 products per term, at the TF32 peak); ``tensor=False``
+    gives the bound of fp32 on the CUDA cores, the kernels' route before."""
+    flops = 6.0 * u * H * T + 4.0 * L * u * T
+    nbytes = 4.0 * (2 * u * H + 2 * H * T + 2 * T + L * u + 3 * u * k + 2 * u + L * T)
+    if tensor:
+        return bound_ms(3 * flops, nbytes, PEAK_TF32_TENSOR_FLOPS)
+    return bound_ms(flops, nbytes)
+
+
+def per_launch(name, profile, kernels) -> dict:
+    """Device ms per call of each of a wrapper's launches (kernel names
+    containing one of ``kernels``), from a training epoch's profile; printed.
+    Raises unless every named launch is in the profile with a call."""
+    rows = [r for r in profile["kernels"] if any(k in r["name"] for k in kernels)]
+    missing = [k for k in kernels if not any(k in r["name"] and r["calls"] > 0 for r in rows)]
+    if missing:
+        raise RuntimeError(f"{name}: the profile holds no call of {missing}")
+    log(f"  {name} per launch in training (device ms per call):")
+    for r in rows:
+        log(f"    {r['ms'] / r['calls']:10.3f} ms ({r['calls']} calls) {r['name'][:90]}")
+    return {r["name"]: r["ms"] / r["calls"] for r in rows}
+
+
+def redesigned(entry) -> None:
+    """Add a redesigned kernel's time before its redesign to its entry and
+    print both."""
+    before = entry["before_redesign_ms"] = BEFORE_REDESIGN_MS[entry["name"]]
+    log(f"  redesigned: {entry['ms']:.3f} ms, before {before:.2f} ms ({before / entry['ms']:.2f}x)")
 
 
 def split_kernel_phases(exp, batches, dev, gen):
@@ -361,6 +404,8 @@ def split_kernel_phases(exp, batches, dev, gen):
         cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd(*args), 3),
         cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd_plain(*args, "highest", False), 2),
         tail_bwd_bound(u, H, T, L, k))
+    entries["hpd_tail_unique_bwd"]["bound_fp32_ms"] = tail_bwd_bound(u, H, T, L, k, False)[0]
+    redesigned(entries["hpd_tail_unique_bwd"])
 
     log("K1 / K2 at the same shapes (the fused pair, which the gate does not pick here):")
     fused = dict(
@@ -396,6 +441,23 @@ def split_kernel_phases(exp, batches, dev, gen):
         bound_ms(1.0 * n * c, 4.0 * (n * c + n + T * c)))
     entries["scatter_add_serial"]["library_ms"] = cuda_ms(lambda: acc.index_add_(0, flat_long, rows), 20)
     log(f"  index_add_ alone {entries['scatter_add_serial']['library_ms']:.3f} ms")
+    # the wrapper's share: sort, searchsorted and the range check (one host
+    # sync), then the kernel alone on their output
+    prep = scatter.prepare(flat, T)
+    entries["scatter_add_serial"]["prepare_ms"] = cuda_ms(lambda: scatter.prepare(flat, T), 20)
+    entries["scatter_add_serial"]["kernel_only_ms"] = cuda_ms(lambda: scatter.scatter_sorted(rows, *prep), 20)
+    log(f"  wrapper share: prepare {entries['scatter_add_serial']['prepare_ms']:.3f} ms, kernel alone "
+        f"{entries['scatter_add_serial']['kernel_only_ms']:.3f} ms")
+    # the hottest slot's rows alone (one block's chain: the kernel's floor)
+    hot = per_slot.argmax().item()
+    hot_rows = rows[flat == hot].contiguous()
+    hot_prep = scatter.prepare(torch.zeros(hot_rows.shape[0], dtype=torch.int32, device=dev), 8)
+    entries["scatter_add_serial"]["hot_slot_ms"] = cuda_ms(
+        lambda: scatter.scatter_sorted(hot_rows, *hot_prep), 20)
+    log(f"  the hottest slot's {hot_rows.shape[0]} rows alone: kernel "
+        f"{entries['scatter_add_serial']['hot_slot_ms']:.3f} ms")
+    redesigned(entries["scatter_add_serial"])
+    del prep, hot_rows, hot_prep
     del h, out_k, vals, idx, m, s, rows, got, plain, acc
     torch.cuda.empty_cache()
     return entries, fused
@@ -572,6 +634,39 @@ def log_profile(profile) -> None:
         f"idle share {profile['idle_share']:.2%}")
 
 
+def tensor_core_sass(build) -> dict:
+    """Tensor-core instructions (HGMMA, HMMA) per kernel of the built
+    hpd_stream library, from ``cuobjdump -sass``; printed. Raises unless
+    every instance of the four backward kernels holds HGMMA (warpgroup MMA)
+    and the forward passes hold none."""
+    import re
+    import subprocess
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build._library_path("hpd_stream")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"\d+(hpd_\w+?_kernel)ILi(\d)", line)
+            name = f"{found.group(1)}<{found.group(2)}>" if found else None
+            if name:
+                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+        elif name and ("HGMMA" in line or "HMMA" in line):
+            counts[name]["HGMMA" if "HGMMA" in line else "HMMA"] += 1
+    log("  SASS tensor-core instructions (hpd_stream.cu):")
+    for k_, c in sorted(counts.items()):
+        log(f"    {k_:34s} HGMMA {c['HGMMA']:4d}  HMMA {c['HMMA']:4d}")
+    bwd = ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel", "hpd_b2_rows_kernel")
+    for p in range(3):
+        for k_ in bwd:
+            if counts.get(f"{k_}<{p}>", {}).get("HGMMA", 0) == 0:
+                raise RuntimeError(f"{k_}<{p}>: no HGMMA in the SASS")
+    for k_, c in counts.items():
+        if "fwd" in k_ and c["HGMMA"] + c["HMMA"]:
+            raise RuntimeError(f"{k_}: tensor-core instructions in a forward pass")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -607,6 +702,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         for name, text in reports.items():
             f.write(f"== {name}\n{text}\n")
+    sass = tensor_core_sass(build)
 
     # ---------------------- inputs of the training path -------------------- #
     data = load_image_dataset(os.path.join(HERE, "images", "strawberry.npy"))
@@ -720,7 +816,9 @@ def main() -> int:
         name="hpd_stream_fused_bwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
         replaces="collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:722",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_fp32_ms=tail_bwd_bound(u_c, H, T, L, k, False)[0],
     )
+    redesigned(entries["hpd_stream_fused_bwd"])
 
     # --------------- kernels vs plain versions end to end ------------------ #
     log("small streamed geometry, 2 epochs, card (kernels) vs CPU (plain versions):")
@@ -753,6 +851,8 @@ def main() -> int:
     log("profile: one epoch of the same training, device time by kernel:")
     profile = profile_epoch(exp, statics, batches, dev)
     log_profile(profile)
+    entries["hpd_stream_fused_bwd"]["per_launch_ms"] = per_launch(
+        "K2", profile, ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel"))
     del batches, geom, h_k, h_full, args, out_k       # x, counts_full: step 12
     torch.cuda.empty_cache()
     marks = {}
@@ -852,6 +952,8 @@ def main() -> int:
     log("profile: one epoch of the T = 2^16 training, device time by kernel:")
     profile16 = profile_epoch(exp16, statics16, batches16, dev)
     log_profile(profile16)
+    entries["hpd_tail_unique_bwd"]["per_launch_ms"] = per_launch(
+        "K6", profile16, ("hpd_b1_kernel", "hpd_b2_rows_kernel", "hpd_bwd_cols_kernel"))
     encoding.BLEND_SCATTER_BACKEND = saved[2]
     del batches16
     torch.cuda.empty_cache()
@@ -874,7 +976,8 @@ def main() -> int:
                        per_row_profile=pr_profile, fused_vs_split=fused_vs_split,
                        split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
                        split_profile=profile16, sweep_ladder_highest=ladder,
-                       mxu_probe_rates=mxu_rates, memory_gb=marks), f, indent=1)
+                       mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
+                       sass_tensor_ops=sass), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -34,6 +34,9 @@
 //   dh_sweep      dl = p (g_p - dot), dh = dl w^T. K2's row pass, K6's B2.
 //   bwd columns   (hpd_bwd_cols_kernel): dl, dW = h^T dl, db per row
 //                 segment. K2's and K6-B2's column pass.
+// The three backward passes run their products on the tensor cores (see
+// "backward, on the tensor cores" below); the forward passes keep fp32 FMA
+// on the CUDA cores (stream_tile.cuh), whose exact logits decide top-K.
 // Sums across row blocks (marg, dW, db) go to per-segment partials over a
 // fixed number of row segments, summed in segment order by
 // hpd_reduce_segments_kernel: no atomics, bitwise stable run to run. Every
@@ -41,9 +44,10 @@
 // columns) added to the running total, so no fp32 chain runs over a whole
 // segment (20,224 rows at U_c = 161,792) or over T.
 //
-// Bound on this card: operations (fp32 FMA on the CUDA cores in
-// shared-memory tiles; wgmma/TMA are later work). At H = 128, T = 2^16,
-// U_c = 161,792 one logits product is 2.7 TFLOP against 32 MB of weight.
+// Bound on this card: operations. At H = 128, T = 2^16, U_c = 161,792 one
+// logits product is 2.7 TFLOP against 32 MB of weight: 40 ms at the fp32
+// CUDA-core peak (the forward), 16 ms as 3xTF32 at the TF32 tensor peak
+// (the backward, five such products).
 // K4, K5 and B1 each compute the logits once, as the TPU's split kernels do;
 // B2 computes them twice (its row and its column part) where the TPU's runs
 // once.
@@ -55,14 +59,11 @@
 
 namespace {
 
-constexpr int BC = 32;      // column chunk of the dh product
-constexpr int TP = TT + 1;  // padded tile row stride
 constexpr int KMAX = 16;
 constexpr int LMAX = 32;
 // Row segments of the column-parallel kernels. Each holds a (L, T), (H, T)
 // and (T,) partial: at H = 128, T = 2^16 the dW partials take 8 x 32 MB.
 constexpr int SEGS = 8;
-constexpr int NG = R * LMAX / THREADS;  // (row, level) pairs per thread in g_sweep
 
 int rows_per_seg(int u) {
   const int tiles = (u + R - 1) / R;
@@ -351,208 +352,806 @@ int reduce_segments(const float* part, float* out, size_t n, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------- backward --------------------------------- //
+// ------------------------ backward, on the tensor cores --------------------- //
+//
+// K2 and K6 compute one function; their launches share three passes:
+//   G sweep   G[r, l] = <p[r], g_marg[l]> over every column tile
+//             (K6's B1; K2's row kernel, which then closes dot in the block)
+//   dh sweep  dl = p (g_p - dot) + top-K scatter, dh = dl w^T over every
+//             column tile (K6's B2 row kernel; K2's row kernel)
+//   columns   dl again per row tile of a segment, dW = h^T dl, db
+//             (hpd_bwd_cols_kernel, both)
+// Every product (the logits, G = p g_marg^T, g_p = counts^T g_marg, dh, dW)
+// runs on the tensor cores as warpgroup MMAs: wgmma m64nNk8 tf32 with fp32
+// accumulation. Each block is two warpgroups (8 warps). A tf32 wgmma takes
+// its B operand from shared memory, K-major only (for each n, k runs
+// contiguous), in the 128-byte swizzle; A comes from registers, which each
+// thread loads by hand from shared memory in whichever orientation the
+// product needs. So every product puts the operand that is fixed for the
+// block, or stored by the block itself, on B, and the streamed one on A:
+//   row kernels (a block owns R rows; column tiles of BT stream):
+//     logits^T (cols x rows)   = w^T      (A, the streamed fp32 w tile)
+//                                x h^T    (B: h hi/lo, made once)
+//     g_p^T    (cols x rows)   = g_marg^T (A) x counts (B: counts^T hi/lo)
+//     G        (rows x levels) = p (A, the p tile) x g_marg^T (B: the
+//                                g_marg tile hi/lo, made per column tile)
+//     dh^T     (H x rows)      = w (A) x dl^T (B: dl hi/lo, stored per tile)
+//   columns kernel (a block owns BT columns; row tiles of a segment stream):
+//     logits (rows x cols)     = h (A, the streamed h tile) x w (B: w^T hi/lo,
+//                                made once)
+//     g_p      (rows x cols)   = counts^T (A) x g_marg (B: g_marg^T hi/lo)
+//     dW       (H x cols)      = h^T (A) x dl (B: dl^T hi/lo, stored per tile)
+// 'highest' takes 3xTF32: x = hi + lo with hi = tf32(x), lo = tf32(x - hi),
+// both rounded to nearest; a term is lo_a hi_b + hi_a lo_b + hi_a hi_b,
+// within about 2^-22 of it (against GRAD_TOL = 1e-4 normwise). 'high' takes
+// the same three products over a bf16 hi/lo split (its contract; bf16 values
+// are exact in tf32), 'default' one product of bf16-rounded operands. The
+// tensor cores round their fp32 sums toward zero once per k8 step, a bias that
+// grows with the MMAs on one accumulator: every chain starts from a zeroed
+// accumulator and holds at most 24 MMAs (the logits' chains KCH k8 steps,
+// 12 MMAs), and its result is added to the running sum in fp32 (round to
+// nearest); g_p
+// starts from zero and dot is subtracted after. The tile sums are two-level,
+// as in the forward, and the cross-block sums of dW and db go to the fixed
+// segment partials: bitwise stable run to run.
+// The logits of a 64 x 64 tile split their contraction (h) between the two
+// warpgroups, each summing half with m64n64 MMAs; the halves meet through
+// shared memory (split_k). So no A fragment is loaded twice, and each MMA
+// does twice the work of an m64n32 one: with A in registers, the fragment
+// loads and splits bound these kernels more than the MMAs do (PERF.md).
+// The top-K scatter is an add per (row, tile), and only on column tiles that
+// hold one of the rows' indices (a bit mask per row block, a block-wide vote
+// per row tile in the columns kernel).
+// Loads: the row kernels double-buffer the w tile with cp.async and stage the
+// next g_marg tile in registers while the current one is used; the columns
+// kernel double-buffers the row tiles with cp.async. One 8-warp block per SM
+// (225 KB / 217 KB of shared memory).
 
-// dl of the tile into d_s (R x TP): p (g_p - dot) with
-// g_p = counts^T g_marg (+ top-K scatter of g_vals unless noop).
+constexpr int BT = 64;   // columns per backward tile
+constexpr int LP = 32;   // level slots of the g_marg and counts tiles (= LMAX)
+constexpr int KCH = 4;   // k8 steps of the logits per zeroed accumulator
+constexpr int HITW = 512;  // words of the row kernels' top-K tile mask: T / BT <= 16384
+
+constexpr int BWD_SMEM_ROWS = 2 * R * HMAX + 2 * R * BT + 2 * R * LP + 4 * LP * BT +
+                              2 * HMAX * BT + 2 * BT + 2 * R * KMAX + 3 * R + HITW;
+constexpr int COLS_STAGE = R * HMAX + R * LMAX + 2 * R * KMAX + 3 * R;
+constexpr int BWD_SMEM_COLS =
+    2 * BT * HMAX + 2 * BT * LP + 2 * BT * R + BT + 4 * BT + 2 * COLS_STAGE;
+
+// + 1 KB: the swizzled tiles start on a 1024-byte boundary
+size_t bwd_rows_smem() { return sizeof(float) * BWD_SMEM_ROWS + 1024; }
+size_t bwd_cols_smem() { return sizeof(float) * BWD_SMEM_COLS + 1024; }
+
+__device__ __forceinline__ float* align1024(float* smem) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  return smem + (((1024 - (a & 1023)) & 1023) >> 2);
+}
+
+// Column of (row, col) in an fp32 tile read by hand as an A operand with
+// m = row (swz_a) or m = col (swz_b): the fragment loads hit 32 banks.
+__device__ __forceinline__ int swz_a(int row, int col) { return col ^ ((row & 7) << 2); }
+__device__ __forceinline__ int swz_b(int row, int col) { return col ^ ((row & 3) << 3); }
+
+// Offset of element (n, k) of a K-major operand tile of `rows` rows in the
+// 128-byte swizzle: each 32 k form a region of rows x 128 B, in which row n's
+// 16-byte chunk c sits at chunk c ^ (n % 8). Regions start 1024-byte aligned.
+__device__ __forceinline__ int sw128(int rows, int n, int k) {
+  return (k >> 5) * rows * 32 + n * 32 + ((((k >> 2) & 7) ^ (n & 7)) << 2) + (k & 3);
+}
+
+// wgmma descriptor of k8 step s of such a tile, rows n0 + [0, N): start
+// address, leading offset 1 (unused by the swizzle), stride 1024 B between
+// 8-row groups, 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_k8(const float* tile, int rows, int n0, int s) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(tile + (s >> 2) * rows * 32 + n0 * 32 +
+                                                        (s & 3) * 8);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// tf32(x), rounded to nearest with ties away from zero: cvt.rna.tf32.f32's
+// result for every finite x, in two integer operations (the cvt takes about
+// eight here).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x -> (hi, lo) under the precision contract P (lo = 0 for P = 2)
 template <int P>
-__device__ __forceinline__ void tile_dl(const float (&acc)[4][8], int t0, int L, int K,
-                                        int noop, const float* __restrict__ m_s,
-                                        const float* __restrict__ s_s,
-                                        const float* __restrict__ dot_s,
-                                        const float* __restrict__ cT_s,
-                                        const float* __restrict__ gm_s,
-                                        const int* __restrict__ kidx_s,
-                                        const float* __restrict__ kgv_s,
-                                        float* __restrict__ d_s) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (P == 0) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  } else {
+    const float h = bf16r(x);
+    hi = __float_as_uint(h);
+    lo = P == 1 ? __float_as_uint(bf16r(x - h)) : 0u;
+  }
+}
+
+// x split into a K-major swizzled hi/lo pair at offset o (lo not kept for P = 2)
+template <int P>
+__device__ __forceinline__ void put(float* __restrict__ hi_t, float* __restrict__ lo_t, int o,
+                                    float x) {
+  uint32_t hi, lo;
+  split<P>(x, hi, lo);
+  hi_t[o] = __uint_as_float(hi);
+  if (P != 2) lo_t[o] = __uint_as_float(lo);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Shared-memory writes by the threads become visible to the MMAs' reads.
+__device__ __forceinline__ void async_view() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// m64nNk8 tf32 warpgroup MMA, A (4 registers a thread) from registers, B
+// from the descriptor; d = a b + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "{%8,%9,%10,%11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                                      int scale_d) {
+  if constexpr (N == 16) wgmma_n16(d, a, desc, scale_d);
+  if constexpr (N == 32) wgmma_n32(d, a, desc, scale_d);
+  if constexpr (N == 64) wgmma_n64(d, a, desc, scale_d);
+}
+
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+// The A fragment of k8 step k0 / 8 for the warp's 16 rows of the 64-row M
+// tile at m0: lane (g, t) holds (m, k) = (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4), offset by 16 (warp % 4) rows; element (m, k) = at(m, k).
+template <int P, typename F>
+__device__ __forceinline__ Frag frag_a(F at, int m0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m = m0 + 16 * ((threadIdx.x >> 5) & 3) + g;
+  const float v[4] = {at(m, k0 + t), at(m + 8, k0 + t), at(m, k0 + t + 4), at(m + 8, k0 + t + 4)};
+  Frag f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split<P>(v[i], f.hi[i], f.lo[i]);
+  return f;
+}
+
+// The same from an operand already split into hi / lo tiles.
+template <int P, typename FH, typename FL>
+__device__ __forceinline__ Frag frag_a2(FH hi_at, FL lo_at, int m0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m = m0 + 16 * ((threadIdx.x >> 5) & 3) + g;
+  const int mm[4] = {m, m + 8, m, m + 8}, kk[4] = {k0 + t, k0 + t, k0 + t + 4, k0 + t + 4};
+  Frag f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = ty * 4 + i;
-    const float mr = m_s[row], sr = s_s[row], dr = dot_s[row];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tx + 16 * j;
-      const float p = expf(acc[i][j] - mr) / sr;
-      float gp = 0.f;
-      for (int l = 0; l < L; ++l) gp = pfma<P>(cT_s[row * LMAX + l], gm_s[l * TP + col], gp);
-      if (!noop)
-        for (int q = 0; q < K; ++q)
-          if (kidx_s[row * KMAX + q] == t0 + col) gp += kgv_s[row * KMAX + q];
-      d_s[row * TP + col] = p * (gp - dr);
-    }
+    f.hi[i] = __float_as_uint(hi_at(mm[i], kk[i]));
+    f.lo[i] = P == 2 ? 0u : __float_as_uint(lo_at(mm[i], kk[i]));
+  }
+  return f;
+}
+
+// d (+)= a b over one k8 step under P, the small products first:
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, or hi_a hi_b for P = 2. scale_d = 0
+// starts d from zero.
+template <int P, int N>
+__device__ __forceinline__ void mma_step(float (&d)[N / 2], const Frag& a, uint64_t b_hi,
+                                         uint64_t b_lo, int scale_d) {
+  if (P != 2) {
+    wgmma<N>(d, a.lo, b_hi, scale_d);
+    wgmma<N>(d, a.hi, b_lo, 1);
+    wgmma<N>(d, a.hi, b_hi, 1);
+  } else {
+    wgmma<N>(d, a.hi, b_hi, scale_d);
   }
 }
 
-// Per-row residuals of the tile rows [r0, r0 + R) below `limit`.
-__device__ __forceinline__ void load_row_state(
-    const float* __restrict__ counts, const int* __restrict__ idx,
-    const float* __restrict__ m_in, const float* __restrict__ s_in,
-    const float* __restrict__ g_vals, int u, int limit, int L, int K, int r0,
-    float* __restrict__ cT_s, float* __restrict__ m_s, float* __restrict__ s_s,
-    int* __restrict__ kidx_s, float* __restrict__ kgv_s) {
-  for (int i = threadIdx.x; i < R * LMAX; i += THREADS) {
-    const int l = i / R, r = i - l * R;
-    cT_s[r * LMAX + l] = (l < L && r0 + r < limit) ? counts[(size_t)l * u + r0 + r] : 0.f;
+// d = sum over k8 steps [s0, s1) (s1 - s0 <= S) of A(s) B(s), from zero
+// (the first MMA ignores d), as one commit group, waited for. a_of(s): the
+// A fragment; b_hi(s), b_lo(s): descriptors.
+template <int P, int N, int S, typename FA, typename FH, typename FL>
+__device__ __forceinline__ void chain(float (&d)[N / 2], int s0, int s1, FA a_of, FH b_hi,
+                                      FL b_lo) {
+  keep(d);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (s0 + j < s1) mma_step<P, N>(d, a_of(s0 + j), b_hi(s0 + j), b_lo(s0 + j), j > 0);
   }
-  for (int i = threadIdx.x; i < R * KMAX; i += THREADS) {
-    const int r = i / KMAX, q = i - r * KMAX;
-    const bool ok = q < K && r0 + r < limit;
-    kidx_s[i] = ok ? idx[(size_t)(r0 + r) * K + q] : -1;
-    kgv_s[i] = ok ? g_vals[(size_t)(r0 + r) * K + q] : 0.f;
-  }
-  load_ms(m_in, s_in, limit, r0, m_s, s_s);
+  wg_commit();
+  wg_wait();
+  keep(d);
 }
 
-// g_marg columns [t0, t0 + TT) into gm_s (L x TP).
-__device__ __forceinline__ void load_gm(const float* __restrict__ g_marg, int T, int L, int t0,
-                                        float* __restrict__ gm_s) {
-  for (int i = threadIdx.x; i < L * TT; i += THREADS) {
-    const int l = i / TT, c = i - l * TT;
-    gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
-  }
-}
-
-// G[r, l] = <p[r], g_marg[l]> of the block's rows over every column tile.
-// Thread pairs e = threadIdx.x + THREADS * q -> (r = e / L, l = e % L).
-template <int P>
-__device__ __forceinline__ void g_sweep(const float* __restrict__ h_s,
-                                        const float* __restrict__ w,
-                                        const float* __restrict__ b,
-                                        const float* __restrict__ g_marg, int H, int T, int L,
-                                        const float* __restrict__ m_s,
-                                        const float* __restrict__ s_s, float* __restrict__ w_s,
-                                        float* __restrict__ d_s, float* __restrict__ gm_s,
-                                        float (&gacc)[NG]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// run = sum over k8 steps [s0, s1) of A(s) B(s) in chains of KCH steps, each
+// from zero and added to run in fp32 in order (run = 0 for an empty range).
+template <int P, int N, typename FA, typename FH, typename FL>
+__device__ __forceinline__ void chains(float (&run)[N / 2], int s0, int s1, FA a_of, FH b_hi,
+                                       FL b_lo) {
 #pragma unroll
-  for (int q = 0; q < NG; ++q) gacc[q] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    __syncthreads();
-    load_gm(g_marg, T, L, t0, gm_s);
-    float acc[4][8];
-    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
+  for (int i = 0; i < N / 2; ++i) run[i] = 0.f;
+  for (int c0 = s0; c0 < s1; c0 += KCH) {
+    float d[N / 2];
+    chain<P, N, KCH>(d, c0, min(s1, c0 + KCH), a_of, b_hi, b_lo);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d_s[row * TP + tx + 16 * j] = expf(acc[i][j] - m_s[row]) / s_s[row];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < NG; ++q) {
-      const int e = threadIdx.x + THREADS * q;
-      if (e < R * L) {
-        const int r = e / L, l = e - r * L;
-        float a = 0.f;
-        for (int c = 0; c < TT; ++c) a = pfma<P>(d_s[r * TP + c], gm_s[l * TP + c], a);
-        gacc[q] += a;
-      }
-    }
+    for (int i = 0; i < N / 2; ++i) run[i] += d[i];
   }
 }
 
-// dh[r, :] = sum over column tiles of dl[r, tile] w[:, tile]^T, dl from
-// tile_dl with the block's dot_s; written to dh for rows below u.
-template <int P>
-__device__ __forceinline__ void dh_sweep(
-    const float* __restrict__ h_s, const float* __restrict__ w, const float* __restrict__ b,
-    const float* __restrict__ g_marg, int u, int r0, int H, int T, int L, int K, int noop,
-    const float* __restrict__ m_s, const float* __restrict__ s_s,
-    const float* __restrict__ dot_s, const float* __restrict__ cT_s,
-    const int* __restrict__ kidx_s, const float* __restrict__ kgv_s, float* __restrict__ w_s,
-    float* __restrict__ wc_s, float* __restrict__ d_s, float* __restrict__ gm_s,
-    float* __restrict__ dh) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float dacc[4][8];
+// The logits of a 64 x 64 tile (M = 64 x N = 64, K = nk8 k8 steps <= 16)
+// with K split between the warpgroups: warpgroup wg sums steps [8 wg,
+// 8 wg + 8) with m64n64 MMAs, so each loads half of A and no A fragment twice;
+// the two partial sums meet through xbuf (4096 floats, free on entry and on
+// return): warpgroup wg keeps elements [16 wg, 16 wg + 16) of the m64n64
+// accumulator, N = 32 wg + [0, 32), as l (the m64n32 layout at n0 = 32 wg).
+template <int P, typename FA, typename FH, typename FL>
+__device__ __forceinline__ void split_k(float (&l)[16], int nk8, FA a_of, FH b_hi, FL b_lo,
+                                        float* __restrict__ xbuf) {
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  float part[32];
+  chains<P, 64>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, b_hi, b_lo);
+  // constant indices in each branch: the partial stays in registers
+  if (wg == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 16; ++e) xbuf[e * 128 + tw] = part[16 + e];
+  } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dacc[i][j] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    __syncthreads();
-    load_gm(g_marg, T, L, t0, gm_s);
-    float acc[4][8];
-    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
-    tile_dl<P>(acc, t0, L, K, noop, m_s, s_s, dot_s, cT_s, gm_s, kidx_s, kgv_s, d_s);
-    float tacc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tacc[i][j] = 0.f;
-    for (int c0 = 0; c0 < TT; c0 += BC) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < HMAX * BC; i += THREADS) {
-        const int hh = i / BC, cc = i - hh * BC;
-        wc_s[cc * (HMAX + 1) + hh] = hh < H ? w[(size_t)hh * T + t0 + c0 + cc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < BC; ++cc) {
-        float a[4], bw[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = d_s[(ty * 4 + i) * TP + c0 + cc];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bw[j] = wc_s[cc * (HMAX + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) tacc[i][j] = pfma<P>(a[i], bw[j], tacc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dacc[i][j] += tacc[i][j];
+    for (int e = 0; e < 16; ++e) xbuf[(16 + e) * 128 + tw] = part[e];
   }
+  __syncthreads();
+  if (wg == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
-    if (row >= u) continue;
+    for (int e = 0; e < 16; ++e) l[e] = part[e] + xbuf[(16 + e) * 128 + tw];
+  } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int hh = tx + 16 * j;
-      if (hh < H) dh[(size_t)row * H + hh] = dacc[i][j];
-    }
+    for (int e = 0; e < 16; ++e) l[e] = part[16 + e] + xbuf[e * 128 + tw];
   }
+  __syncthreads();
 }
 
-// Shared memory of a row-parallel backward kernel (g_sweep and dh_sweep).
-size_t bwd_rows_smem() {
-  return sizeof(float) * (R * HP + BK * TT + BC * (HMAX + 1) + R * TP + LMAX * TP +
-                          2 * R * LMAX + 3 * R + 2 * R * KMAX);
+// Accumulator element i of an m64nN tile: row m0 + 16 (warp % 4) + g +
+// 8 ((i / 2) % 2), column n0 + 8 (i / 4) + 2 t + i % 2.
+__device__ __forceinline__ int c_m(int m0, int i) {
+  return m0 + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int c_n(int n0, int i) {
+  return n0 + 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
-// The carve-up of bwd_rows_smem().
-struct BwdRowsSmem {
-  float *h_s, *w_s, *wc_s, *d_s, *gm_s, *cT_s, *gc_s, *m_s, *s_s, *dot_s, *kgv_s;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// p = exp(l - m) / s as exp(l - m) times 1 / s (within an ulp of the
+// quotient); m = inf on rows past the limit, s <= 0 reads as 1.
+__device__ __forceinline__ float recip_s(float s) { return 1.f / (s > 0.f ? s : 1.f); }
+__device__ __forceinline__ float to_p(float l, float m, float inv) { return expf(l - m) * inv; }
+
+// ------------------------------ row kernels -------------------------------- //
+
+// The row kernels' shared memory; the swizzled tiles first, 1024-byte aligned.
+struct RowsSmem {
+  float *h_hi, *h_lo, *dl_hi, *dl_lo, *c_hi, *c_lo, *gm_hi, *gm_lo, *w_s, *b_s, *kgv_s, *m_s,
+      *inv_s, *dot_s;
+  float *p_s, *g_s;  // the G sweep's p tile and G partial (they alias dl_hi, dl_lo)
   int* kidx_s;
-  __device__ explicit BwdRowsSmem(float* smem) {
-    h_s = smem;
-    w_s = h_s + R * HP;
-    wc_s = w_s + BK * TT;
-    d_s = wc_s + BC * (HMAX + 1);
-    gm_s = d_s + R * TP;
-    cT_s = gm_s + LMAX * TP;
-    gc_s = cT_s + R * LMAX;
-    m_s = gc_s + R * LMAX;
-    s_s = m_s + R;
-    dot_s = s_s + R;
-    kgv_s = dot_s + R;
+  unsigned* hit_s;   // bit i: a top-K index of the block's rows lies in column tile i
+  __device__ explicit RowsSmem(float* smem) {
+    h_hi = align1024(smem);
+    h_lo = h_hi + R * HMAX;
+    dl_hi = h_lo + R * HMAX;
+    dl_lo = dl_hi + R * BT;
+    c_hi = dl_lo + R * BT;
+    c_lo = c_hi + R * LP;
+    gm_hi = c_lo + R * LP;       // 2 stages of LP x BT
+    gm_lo = gm_hi + 2 * LP * BT;
+    w_s = gm_lo + 2 * LP * BT;   // 2 stages of HMAX x BT, fp32
+    b_s = w_s + 2 * HMAX * BT;
+    kgv_s = b_s + 2 * BT;
     kidx_s = (int*)(kgv_s + R * KMAX);
+    m_s = (float*)(kidx_s + R * KMAX);
+    inv_s = m_s + R;
+    dot_s = inv_s + R;
+    hit_s = (unsigned*)(dot_s + R);
+    p_s = dl_hi;
+    g_s = dl_lo;
   }
 };
 
-size_t bwd_cols_smem() {
-  return sizeof(float) * (R * HP + BK * TT + R * TP + LMAX * TP + R * LMAX + 3 * R +
-                          2 * R * KMAX);
+// w tile of columns [t0, t0 + BT) and its bias into w_s / b_s by cp.async
+// (rows past H are zero from the kernel's start).
+__device__ __forceinline__ void load_w_async(const float* __restrict__ w,
+                                             const float* __restrict__ b, int H, int T, int t0,
+                                             float* __restrict__ w_s, float* __restrict__ b_s) {
+  for (int i = threadIdx.x; i < H * (BT / 4); i += THREADS) {
+    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
+    cp_async16(w_s + k * BT + swz_b(k, c), w + (size_t)k * T + t0 + c);
+  }
+  if (threadIdx.x < BT / 4) cp_async16(b_s + 4 * threadIdx.x, b + t0 + 4 * threadIdx.x);
 }
 
-// Grid (T / TT, SEGS): one block per column tile and row segment sums
-// dW = h^T dl and db over the segment's rows into dw_part / db_part[seg].
+// The g_marg tile of columns [t0, t0 + BT) into registers (zero past L) ...
+__device__ __forceinline__ void load_gm(const float* __restrict__ g_marg, int T, int L, int t0,
+                                        float (&v)[LP * BT / THREADS]) {
+#pragma unroll
+  for (int j = 0; j < LP * BT / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS, l = i / BT, c = i % BT;
+    v[j] = l < L ? g_marg[(size_t)l * T + t0 + c] : 0.f;
+  }
+}
+
+// ... and from them into a stage of the hi / lo tile (n = level, k = column).
 template <int P>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void store_gm(const float (&v)[LP * BT / THREADS],
+                                         float* __restrict__ hi_t, float* __restrict__ lo_t) {
+#pragma unroll
+  for (int j = 0; j < LP * BT / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS, l = i / BT, c = i % BT;
+    put<P>(hi_t, lo_t, sw128(LP, l, c), v[j]);
+  }
+}
+
+// Row kernels' start: h rows [r0, r0 + R) (zero past u and H) and counts^T
+// as hi / lo tiles, per-row state (1 / s for s), the mask of column tiles
+// that hold a top-K index, zero rows of the w buffers past H.
+template <int P>
+__device__ __forceinline__ void rows_prologue(const RowsSmem& sm, const float* __restrict__ h,
+                                              const float* __restrict__ counts,
+                                              const int* __restrict__ idx,
+                                              const float* __restrict__ m_in,
+                                              const float* __restrict__ s_in,
+                                              const float* __restrict__ g_vals, int u, int H,
+                                              int L, int K, int r0) {
+  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+    const int r = i / HMAX, k = i % HMAX;
+    put<P>(sm.h_hi, sm.h_lo, sw128(R, r, k),
+           (r0 + r < u && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f);
+  }
+  for (int i = threadIdx.x; i < R * LP; i += THREADS) {
+    const int l = i / R, r = i % R;
+    put<P>(sm.c_hi, sm.c_lo, sw128(R, r, l),
+           (l < L && r0 + r < u && counts) ? counts[(size_t)l * u + r0 + r] : 0.f);
+  }
+  for (int i = threadIdx.x; i < HITW; i += THREADS) sm.hit_s[i] = 0u;
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * KMAX; i += THREADS) {
+    const int r = i / KMAX, q = i % KMAX;
+    const bool ok = idx && q < K && r0 + r < u;
+    const int c = ok ? idx[(size_t)(r0 + r) * K + q] : -1;
+    sm.kidx_s[i] = c;
+    sm.kgv_s[i] = ok ? g_vals[(size_t)(r0 + r) * K + q] : 0.f;
+    if (c >= 0 && c / BT < 32 * HITW) atomicOr(&sm.hit_s[c / BT / 32], 1u << (c / BT % 32));
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    const bool ok = r0 + r < u;
+    sm.m_s[r] = ok ? m_in[r0 + r] : INFINITY;
+    sm.inv_s[r] = recip_s(ok ? s_in[r0 + r] : 1.f);
+  }
+  for (int i = H * BT + threadIdx.x; i < HMAX * BT; i += THREADS) {
+    sm.w_s[i] = 0.f;
+    sm.w_s[HMAX * BT + i] = 0.f;
+  }
+}
+
+// A sweep's start: g_marg tile 0 into stage 0; w tiles 0 and 1 by cp.async,
+// one commit group each (at tile i's start W(i) is the second most recent).
+template <int P>
+__device__ __forceinline__ void sweep_start(const RowsSmem& sm, const float* __restrict__ w,
+                                            const float* __restrict__ b,
+                                            const float* __restrict__ g_marg, int H, int T,
+                                            int L) {
+  float v[LP * BT / THREADS];
+  load_gm(g_marg, T, L, 0, v);
+  store_gm<P>(v, sm.gm_hi, sm.gm_lo);
+  load_w_async(w, b, H, T, 0, sm.w_s, sm.b_s);
+  cp_commit();
+  if (BT < T) load_w_async(w, b, H, T, BT, sm.w_s + HMAX * BT, sm.b_s + BT);
+  cp_commit();
+}
+
+// p^T of the tile: element i of the m64n32 layout is column t0 + c_m(0, i)
+// and row c_n(32 wg, i) of the block (split_k; its exchange uses dl_hi).
+template <int P>
+__device__ __forceinline__ void rows_p(const RowsSmem& sm, const float* __restrict__ w_s,
+                                       const float* __restrict__ b_s, int nk8, float (&l)[16]) {
+  const int n0 = 32 * (threadIdx.x >> 7);
+  auto wA = [&](int m, int k) { return w_s[k * BT + swz_b(k, m)]; };
+  auto a_of = [&](int s) { return frag_a<P>(wA, 0, 8 * s); };
+  auto bh = [&](int s) { return desc_k8(sm.h_hi, R, 0, s); };
+  auto bl = [&](int s) { return desc_k8(sm.h_lo, R, 0, s); };
+  split_k<P>(l, nk8, a_of, bh, bl, sm.dl_hi);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = c_n(n0, i);
+    l[i] = to_p(l[i] + b_s[c_m(0, i)], sm.m_s[r], sm.inv_s[r]);
+  }
+}
+
+// G[r, l] = <p[r], g_marg[l]>: warpgroup wg sums columns 32 wg + [0, 32) of
+// every tile; element i of the m64n32 accumulator is row c_m(0, i), level
+// c_n(0, i) (the first 8 elements for L <= 16, an m64n16 product).
+template <int P>
+__device__ __forceinline__ void g_sweep(const RowsSmem& sm, const float* __restrict__ w,
+                                        const float* __restrict__ b,
+                                        const float* __restrict__ g_marg, int H, int T, int L,
+                                        float (&gacc)[16]) {
+  const int wg = threadIdx.x >> 7;
+  const int nk8 = (H + 7) / 8;
+  auto pA = [&](int m, int k) { return sm.p_s[m * BT + swz_a(m, k)]; };
+  auto a_of = [&](int s) { return frag_a<P>(pA, 0, 8 * s); };
+#pragma unroll
+  for (int i = 0; i < 16; ++i) gacc[i] = 0.f;
+  sweep_start<P>(sm, w, b, g_marg, H, T, L);
+  for (int t0 = 0, it = 0; t0 < T; t0 += BT, ++it) {
+    const int st = it & 1;
+    const float* gm_hi = sm.gm_hi + st * LP * BT;
+    const float* gm_lo = sm.gm_lo + st * LP * BT;
+    float v[LP * BT / THREADS];
+    if (t0 + BT < T) load_gm(g_marg, T, L, t0 + BT, v);
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    float p[16];
+    rows_p<P>(sm, sm.w_s + st * HMAX * BT, sm.b_s + st * BT, nk8, p);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = c_n(32 * wg, i), c = c_m(0, i);
+      sm.p_s[r * BT + swz_a(r, c)] = p[i];
+    }
+    __syncthreads();
+    auto bh = [&](int s) { return desc_k8(gm_hi, LP, 0, s); };
+    auto bl = [&](int s) { return desc_k8(gm_lo, LP, 0, s); };
+    float gt[16];
+    if (L <= 16) {
+      float g8[8];
+      chain<P, 16, 4>(g8, 4 * wg, 4 * wg + 4, a_of, bh, bl);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) gt[i] = g8[i];
+#pragma unroll
+      for (int i = 8; i < 16; ++i) gt[i] = 0.f;
+    } else {
+      chain<P, 32, 4>(gt, 4 * wg, 4 * wg + 4, a_of, bh, bl);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) gacc[i] += gt[i];
+    __syncthreads();
+    if (t0 + BT < T) store_gm<P>(v, sm.gm_hi + (st ^ 1) * LP * BT, sm.gm_lo + (st ^ 1) * LP * BT);
+    if (t0 + 2 * BT < T)
+      load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
+    cp_commit();
+  }
+  cp_wait<0>();
+  // G = warpgroup 0's sum + warpgroup 1's, in that order, in warpgroup 0.
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sm.g_s[c_m(0, i) * LP + c_n(0, i)] = gacc[i];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) gacc[i] += sm.g_s[c_m(0, i) * LP + c_n(0, i)];
+  }
+  __syncthreads();
+}
+
+// dh[r, :] = sum over column tiles of dl[r, tile] w[:, tile]^T with the
+// block's dot_s, written for rows below u. Warpgroup wg holds dh^T rows
+// (= dh columns) 64 wg + [0, 64) for the block's 64 rows.
+template <int P>
+__device__ __forceinline__ void dh_sweep(const RowsSmem& sm, const float* __restrict__ w,
+                                         const float* __restrict__ b,
+                                         const float* __restrict__ g_marg, int u, int r0, int H,
+                                         int T, int L, int K, int noop,
+                                         float* __restrict__ dh) {
+  const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+  const int nk8 = (H + 7) / 8, nl8 = (L + 7) / 8;
+  float dacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dacc[i] = 0.f;
+  sweep_start<P>(sm, w, b, g_marg, H, T, L);
+  for (int t0 = 0, it = 0; t0 < T; t0 += BT, ++it) {
+    const int st = it & 1;
+    const float* w_s = sm.w_s + st * HMAX * BT;
+    const float* gm_hi = sm.gm_hi + st * LP * BT;
+    const float* gm_lo = sm.gm_lo + st * LP * BT;
+    float v[LP * BT / THREADS];
+    if (t0 + BT < T) load_gm(g_marg, T, L, t0 + BT, v);
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    float q[16];
+    rows_p<P>(sm, w_s, sm.b_s + st * BT, nk8, q);
+    // g_p^T = g_marg^T counts: A (m = column, k = level) from the g_marg tile
+    float gp[16];
+    {
+      auto hiA = [&](int m, int k) { return gm_hi[sw128(LP, k, m)]; };
+      auto loA = [&](int m, int k) { return gm_lo[sw128(LP, k, m)]; };
+      auto a_of = [&](int s) { return frag_a2<P>(hiA, loA, 0, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(sm.c_hi, R, 32 * wg, s); };
+      auto bl = [&](int s) { return desc_k8(sm.c_lo, R, 32 * wg, s); };
+      chain<P, 32, 4>(gp, 0, nl8, a_of, bh, bl);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) gp[i] -= sm.dot_s[c_n(32 * wg, i)];
+    if (!noop && (it >= 32 * HITW || (sm.hit_s[it / 32] >> (it % 32)) & 1u)) {
+      // the thread's columns t0 + 16 wq + g (+ 8); rows c_n(32 wg, 4 j + e)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = c_n(32 * wg, 4 * j + e);
+          for (int k = 0; k < K; ++k) {
+            const int c = sm.kidx_s[r * KMAX + k] - t0 - 16 * wq - g;
+            const float gv = sm.kgv_s[r * KMAX + k];
+            gp[4 * j + e] += c == 0 ? gv : 0.f;
+            gp[4 * j + 2 + e] += c == 8 ? gv : 0.f;
+          }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float dl = q[i] * gp[i];
+      put<P>(sm.dl_hi, sm.dl_lo, sw128(R, c_n(32 * wg, i), c_m(0, i)), dl);
+    }
+    async_view();
+    __syncthreads();
+    // dh^T += w dl^T: A (m = h, k = column) from the w tile
+    {
+      auto wA = [&](int m, int k) { return w_s[m * BT + swz_b(m, k)]; };
+      auto a_of = [&](int s) { return frag_a<P>(wA, 64 * wg, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(sm.dl_hi, R, 0, s); };
+      auto bl = [&](int s) { return desc_k8(sm.dl_lo, R, 0, s); };
+      float dt[32];
+      chain<P, 64, BT / 8>(dt, 0, BT / 8, a_of, bh, bl);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dacc[i] += dt[i];
+    }
+    __syncthreads();
+    if (t0 + BT < T) store_gm<P>(v, sm.gm_hi + (st ^ 1) * LP * BT, sm.gm_lo + (st ^ 1) * LP * BT);
+    if (t0 + 2 * BT < T)
+      load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
+    cp_commit();
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = c_m(64 * wg, i), r = r0 + c_n(0, i);
+    if (r < u && c < H) dh[(size_t)r * H + c] = dacc[i];
+  }
+}
+
+// K2's row kernel: G by g_sweep, dot closed in the block, then dh.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+hpd_bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const float* __restrict__ b, const float* __restrict__ counts,
+                    const int* __restrict__ idx, const float* __restrict__ vals,
+                    const float* __restrict__ m_in, const float* __restrict__ s_in,
+                    const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
+                    int H, int T, int L, int K, int noop, float* __restrict__ dh,
+                    float* __restrict__ dot_out) {
+  extern __shared__ float smem[];
+  const RowsSmem sm(smem);
+  const int r0 = blockIdx.x * R;
+  rows_prologue<P>(sm, h, counts, idx, m_in, s_in, g_vals, u, H, L, K, r0);
+  float gacc[16];
+  g_sweep<P>(sm, w, b, g_marg, H, T, L, gacc);
+  // counts G into g_s, then dot per row in level order
+  if (threadIdx.x < 128) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = c_m(0, i), l = c_n(0, i);
+      if (l < L)
+        sm.g_s[r * LP + l] = r0 + r < u ? counts[(size_t)l * u + r0 + r] * gacc[i] : 0.f;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    float d = 0.f;
+    for (int l = 0; l < L; ++l) d += sm.g_s[r * LP + l];
+    if (!noop && r0 + r < u) {
+      float e = 0.f;
+      for (int q = 0; q < K; ++q) e += sm.kgv_s[r * KMAX + q] * vals[(size_t)(r0 + r) * K + q];
+      d += e;
+    }
+    sm.dot_s[r] = d;
+    if (r0 + r < u) dot_out[r0 + r] = d;
+  }
+  __syncthreads();
+  dh_sweep<P>(sm, w, b, g_marg, u, r0, H, T, L, K, noop, dh);
+}
+
+// K6's B1: G[r, l] = <p[r], g_marg[l]> for the block's R rows.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+hpd_b1_kernel(const float* __restrict__ h, const float* __restrict__ w,
+              const float* __restrict__ b, const float* __restrict__ m_in,
+              const float* __restrict__ s_in, const float* __restrict__ g_marg, int u, int H,
+              int T, int L, float* __restrict__ g_rows) {
+  extern __shared__ float smem[];
+  const RowsSmem sm(smem);
+  const int r0 = blockIdx.x * R;
+  rows_prologue<P>(sm, h, nullptr, nullptr, m_in, s_in, nullptr, u, H, L, 1, r0);
+  float gacc[16];
+  g_sweep<P>(sm, w, b, g_marg, H, T, L, gacc);
+  if (threadIdx.x < 128) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = c_m(0, i), l = c_n(0, i);
+      if (l < L && r0 + r < u) g_rows[(size_t)(r0 + r) * L + l] = gacc[i];
+    }
+  }
+}
+
+// K6's B2, row-parallel part: dh from the given per-row dot.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+hpd_b2_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                   const float* __restrict__ b, const float* __restrict__ counts,
+                   const int* __restrict__ idx, const float* __restrict__ m_in,
+                   const float* __restrict__ s_in, const float* __restrict__ dot_in,
+                   const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
+                   int H, int T, int L, int K, int noop, float* __restrict__ dh) {
+  extern __shared__ float smem[];
+  const RowsSmem sm(smem);
+  const int r0 = blockIdx.x * R;
+  rows_prologue<P>(sm, h, counts, idx, m_in, s_in, g_vals, u, H, L, K, r0);
+  for (int r = threadIdx.x; r < R; r += THREADS) sm.dot_s[r] = r0 + r < u ? dot_in[r0 + r] : 0.f;
+  __syncthreads();
+  dh_sweep<P>(sm, w, b, g_marg, u, r0, H, T, L, K, noop, dh);
+}
+
+// ---------------------------- columns kernel ------------------------------- //
+
+// The columns kernel's per-row-tile stage (fp32, read by hand): h tile,
+// counts^T, top-K indices and g_vals, m, s, dot.
+struct ColsStage {
+  float *h_s, *cT_s, *kgv_s, *m_s, *s_s, *dot_s;
+  int* kidx_s;
+  __device__ ColsStage(float* base) {
+    h_s = base;
+    cT_s = h_s + R * HMAX;
+    kgv_s = cT_s + R * LMAX;
+    kidx_s = (int*)(kgv_s + R * KMAX);
+    m_s = (float*)(kidx_s + R * KMAX);
+    s_s = m_s + R;
+    dot_s = s_s + R;
+  }
+};
+
+// Row tile [r0, r0 + R) of the segment (ending at rend) into a stage:
+// cp.async for rows below rend, neutral values (h = 0, m = inf, counts 0,
+// no top-K) past it.
+__device__ __forceinline__ void load_stage_async(ColsStage st, const float* __restrict__ h,
+                                                 const float* __restrict__ counts,
+                                                 const int* __restrict__ idx,
+                                                 const float* __restrict__ m_in,
+                                                 const float* __restrict__ s_in,
+                                                 const float* __restrict__ dot_in,
+                                                 const float* __restrict__ g_vals, int u,
+                                                 int rend, int H, int L, int K, int r0) {
+  if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
+    // 16 bytes a copy: swz_a moves whole 4-float chunks
+    for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
+      const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
+      float* dst = st.h_s + r * HMAX + swz_a(r, k);
+      if (r0 + r < rend && k < H) {
+        cp_async16(dst, h + (size_t)(r0 + r) * H + k);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = 0.f;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i % HMAX;
+      float* dst = st.h_s + r * HMAX + swz_a(r, k);
+      if (r0 + r < rend && k < H)
+        cp_async4(dst, h + (size_t)(r0 + r) * H + k);
+      else
+        *dst = 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < R * LMAX; i += THREADS) {
+    const int l = i / R, r = i % R;
+    float* dst = st.cT_s + r * LMAX + swz_a(r, l);
+    if (l < L && r0 + r < rend)
+      cp_async4(dst, counts + (size_t)l * u + r0 + r);
+    else
+      *dst = 0.f;
+  }
+  for (int i = threadIdx.x; i < R * KMAX; i += THREADS) {
+    const int r = i / KMAX, q = i % KMAX;
+    if (q < K && r0 + r < rend) {
+      cp_async4(st.kidx_s + i, idx + (size_t)(r0 + r) * K + q);
+      cp_async4(st.kgv_s + i, g_vals + (size_t)(r0 + r) * K + q);
+    } else {
+      st.kidx_s[i] = -1;
+      st.kgv_s[i] = 0.f;
+    }
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    if (r0 + r < rend) {
+      cp_async4(st.m_s + r, m_in + r0 + r);
+      cp_async4(st.s_s + r, s_in + r0 + r);
+      cp_async4(st.dot_s + r, dot_in + r0 + r);
+    } else {
+      st.m_s[r] = INFINITY;
+      st.s_s[r] = 1.f;
+      st.dot_s[r] = 0.f;
+    }
+  }
+}
+
+// Grid (T / BT, SEGS): one block per column tile and row segment sums
+// dW = h^T dl and db over the segment's rows into dw_part / db_part[seg].
+// Logits, p and dl: warpgroup wg holds the tile's 64 rows x columns
+// 32 wg + [0, 32); dW: warpgroup wg holds dW rows 64 wg + [0, 64).
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
 hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ counts,
                     const int* __restrict__ idx, const float* __restrict__ m_in,
@@ -561,74 +1160,143 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     int H, int T, int L, int K, int noop, int seg_rows,
                     float* __restrict__ dw_part, float* __restrict__ db_part) {
   extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* d_s = w_s + BK * TT;
-  float* gm_s = d_s + R * TP;
-  float* cT_s = gm_s + LMAX * TP;
-  float* m_s = cT_s + R * LMAX;
-  float* s_s = m_s + R;
-  float* dot_s = s_s + R;
-  float* kgv_s = dot_s + R;
-  int* kidx_s = (int*)(kgv_s + R * KMAX);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int t0 = blockIdx.x * TT;
+  float* wt_hi = align1024(smem);  // w^T (n = column, k = h)
+  float* wt_lo = wt_hi + BT * HMAX;
+  float* gt_hi = wt_lo + BT * HMAX;  // g_marg^T (n = column, k = level)
+  float* gt_lo = gt_hi + BT * LP;
+  float* dlt_hi = gt_lo + BT * LP;  // dl^T (n = column, k = row)
+  float* dlt_lo = dlt_hi + BT * R;
+  float* b_s = dlt_lo + BT * R;
+  float* dbp = b_s + BT;  // per warp of a warpgroup: column sums of its 16 rows
+  float* stage0 = dbp + 4 * BT;
+  const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * BT;
   const int seg = blockIdx.y;
   const int rbeg = seg * seg_rows;
   const int rend = min(u, rbeg + seg_rows);
-  load_gm(g_marg, T, L, t0, gm_s);
-  // thread owns dW rows ty*8 + i and columns tx + 16*j; db column threadIdx.x
-  float wacc[8][8];
+  const int nk8 = (H + 7) / 8, nl8 = (L + 7) / 8;
+  for (int s = 0; s < 2; ++s) {
+    if (rbeg + s * R < rend)
+      load_stage_async(ColsStage(stage0 + s * COLS_STAGE), h, counts, idx, m_in, s_in, dot_in,
+                       g_vals, u, rend, H, L, K, rbeg + s * R);
+    cp_commit();
+  }
+  for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
+    const int k = i / BT, c = i % BT;
+    put<P>(wt_hi, wt_lo, sw128(BT, c, k), k < H ? w[(size_t)k * T + t0 + c] : 0.f);
+  }
+  for (int i = threadIdx.x; i < LP * BT; i += THREADS) {
+    const int l = i / BT, c = i % BT;
+    put<P>(gt_hi, gt_lo, sw128(BT, c, l), l < L ? g_marg[(size_t)l * T + t0 + c] : 0.f);
+  }
+  if (threadIdx.x < BT) b_s[threadIdx.x] = b[t0 + threadIdx.x];
+  float wacc[32];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wacc[i][j] = 0.f;
+  for (int i = 0; i < 32; ++i) wacc[i] = 0.f;
   float bacc = 0.f;
-  for (int r0 = rbeg; r0 < rend; r0 += R) {
+  for (int r0 = rbeg, it = 0; r0 < rend; r0 += R, ++it) {
+    const ColsStage st(stage0 + (it & 1) * COLS_STAGE);
+    cp_wait<1>();
+    async_view();
     __syncthreads();
-    load_rows(h, rend, H, r0, h_s);
-    load_row_state(counts, idx, m_in, s_in, g_vals, u, rend, L, K, r0, cT_s, m_s, s_s,
-                   kidx_s, kgv_s);
-    for (int r = threadIdx.x; r < R; r += THREADS) dot_s[r] = r0 + r < rend ? dot_in[r0 + r] : 0.f;
-    float acc[4][8];
-    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
-    tile_dl<P>(acc, t0, L, K, noop, m_s, s_s, dot_s, cT_s, gm_s, kidx_s, kgv_s, d_s);
-    __syncthreads();
-    float tacc[8][8];
+    // does a top-K index of the row tile fall in this column tile?
+    bool mine = false;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < R * KMAX / THREADS; ++j) {
+      const int c = st.kidx_s[threadIdx.x + j * THREADS] - t0;
+      mine |= c >= 0 && c < BT;
+    }
+    const bool hits = __syncthreads_or(mine) && !noop;
+    // logits: element i is row c_m(0, i), column c_n(32 wg, i)
+    float q[16];
+    {
+      auto hA = [&](int m, int k) { return st.h_s[m * HMAX + swz_a(m, k)]; };
+      auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
+      auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
+      split_k<P>(q, nk8, a_of, bh, bl, dlt_hi);
+      const float inv0 = recip_s(st.s_s[c_m(0, 0)]), inv1 = recip_s(st.s_s[c_m(0, 2)]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tacc[i][j] = 0.f;
-    for (int r = 0; r < R; ++r) {
-      float a[8], dl[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = h_s[r * HP + ty * 8 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dl[j] = d_s[r * TP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) tacc[i][j] = pfma<P>(a[i], dl[j], tacc[i][j]);
+      for (int i = 0; i < 16; ++i) {
+        const int r = c_m(0, i);
+        q[i] = to_p(q[i] + b_s[c_n(32 * wg, i)], st.m_s[r], (i >> 1) & 1 ? inv1 : inv0);
+      }
+    }
+    // g_p = counts^T g_marg: A (m = row, k = level) from the stage
+    float gp[16];
+    {
+      auto cA = [&](int m, int k) { return st.cT_s[m * LMAX + swz_a(m, k)]; };
+      auto a_of = [&](int s) { return frag_a<P>(cA, 0, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(gt_hi, BT, 32 * wg, s); };
+      auto bl = [&](int s) { return desc_k8(gt_lo, BT, 32 * wg, s); };
+      chain<P, 32, 4>(gp, 0, nl8, a_of, bh, bl);
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 16; ++i) gp[i] -= st.dot_s[c_m(0, i)];
+    if (hits) {
+      // the thread's rows c_m(0, 2 hs); columns t0 + 32 wg + 8 j + 2 t + e
 #pragma unroll
-      for (int j = 0; j < 8; ++j) wacc[i][j] += tacc[i][j];
-    if (threadIdx.x < TT) {
-      float tb = 0.f;
-      for (int r = 0; r < R; ++r) tb += d_s[r * TP + threadIdx.x];
-      bacc += tb;
+      for (int hs = 0; hs < 2; ++hs) {
+        const int r = c_m(0, 2 * hs);
+        for (int k = 0; k < K; ++k) {
+          const int c = st.kidx_s[r * KMAX + k] - t0 - 32 * wg;
+          const float gv = st.kgv_s[r * KMAX + k];
+          const bool mine = c >= 0 && c < 32 && ((c >> 1) & 3) == (lane & 3);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool hit = mine && (c >> 3) == j;
+            gp[4 * j + 2 * hs] += hit && !(c & 1) ? gv : 0.f;
+            gp[4 * j + 2 * hs + 1] += hit && (c & 1) ? gv : 0.f;
+          }
+        }
+      }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int hh = ty * 8 + i;
-    if (hh >= H) continue;
+    for (int i = 0; i < 16; ++i) {
+      q[i] *= gp[i];
+      put<P>(dlt_hi, dlt_lo, sw128(BT, c_n(32 * wg, i), c_m(0, i)), q[i]);
+    }
+    // db: column sums of the warp's 16 rows (rows g, g + 8, then over g)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      dw_part[((size_t)seg * H + hh) * T + t0 + tx + 16 * j] = wacc[i][j];
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = q[4 * j + e] + q[4 * j + 2 + e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 4) dbp[wq * BT + c_n(32 * wg, 4 * j + e)] = v;
+      }
+    async_view();
+    __syncthreads();
+    if (threadIdx.x < BT) {
+      const int c = threadIdx.x;
+      bacc += ((dbp[c] + dbp[BT + c]) + dbp[2 * BT + c]) + dbp[3 * BT + c];
+    }
+    // dW += h^T dl: A (m = h, k = row) from the stage's h tile
+    {
+      auto hT = [&](int m, int k) { return st.h_s[k * HMAX + swz_a(k, m)]; };
+      auto a_of = [&](int s) { return frag_a<P>(hT, 64 * wg, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(dlt_hi, BT, 0, s); };
+      auto bl = [&](int s) { return desc_k8(dlt_lo, BT, 0, s); };
+      float dt[32];
+      chain<P, 64, R / 8>(dt, 0, R / 8, a_of, bh, bl);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) wacc[i] += dt[i];
+    }
+    __syncthreads();
+    if (r0 + 2 * R < rend)
+      load_stage_async(ColsStage(stage0 + (it & 1) * COLS_STAGE), h, counts, idx, m_in, s_in,
+                       dot_in, g_vals, u, rend, H, L, K, r0 + 2 * R);
+    cp_commit();
   }
-  if (threadIdx.x < TT) db_part[(size_t)seg * T + t0 + threadIdx.x] = bacc;
+  cp_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = c_m(64 * wg, i), c = c_n(0, i);
+    if (hh < H) dw_part[((size_t)seg * H + hh) * T + t0 + c] = wacc[i];
+  }
+  if (threadIdx.x < BT) db_part[(size_t)seg * T + t0 + threadIdx.x] = bacc;
 }
 
 int check_shape(int u, int H, int T, int L, int K) {
@@ -669,6 +1337,7 @@ int launch_marginal(const float* h, const float* w, const float* b, const float*
   return reduce_segments(marg_part, marg, (size_t)L * T, st);
 }
 
+
 // Backward columns pass and its ordered reduces: dw (H, T), db (T) from the
 // per-row dot. Scratch dw_part (SEGS, H, T), db_part (SEGS, T).
 int launch_bwd_cols(const float* h, const float* w, const float* b, const float* counts,
@@ -681,7 +1350,7 @@ int launch_bwd_cols(const float* h, const float* w, const float* b, const float*
     if (err) return err;
     return (int)cudaMemsetAsync(db, 0, sizeof(float) * T, st);
   }
-  const dim3 cols_grid(T / TT, SEGS);
+  const dim3 cols_grid(T / BT, SEGS);
   DISPATCH_PREC(prec, {
     set_smem(hpd_bwd_cols_kernel<P>, bwd_cols_smem());
     hpd_bwd_cols_kernel<P><<<cols_grid, THREADS, bwd_cols_smem(), st>>>(
@@ -695,101 +1364,6 @@ int launch_bwd_cols(const float* h, const float* w, const float* b, const float*
   return reduce_segments(db_part, db, (size_t)T, st);
 }
 
-// Row-parallel backward: G by g_sweep, dot closed in the block, then dh.
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const float* __restrict__ b, const float* __restrict__ counts,
-                    const int* __restrict__ idx, const float* __restrict__ vals,
-                    const float* __restrict__ m_in, const float* __restrict__ s_in,
-                    const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
-                    int H, int T, int L, int K, int noop, float* __restrict__ dh,
-                    float* __restrict__ dot_out) {
-  extern __shared__ float smem[];
-  const BwdRowsSmem sm(smem);
-  const int r0 = blockIdx.x * R;
-  load_rows(h, u, H, r0, sm.h_s);
-  load_row_state(counts, idx, m_in, s_in, g_vals, u, u, L, K, r0, sm.cT_s, sm.m_s, sm.s_s,
-                 sm.kidx_s, sm.kgv_s);
-
-  float gacc[NG];
-  g_sweep<P>(sm.h_s, w, b, g_marg, H, T, L, sm.m_s, sm.s_s, sm.w_s, sm.d_s, sm.gm_s, gacc);
-#pragma unroll
-  for (int q = 0; q < NG; ++q) {
-    const int e = threadIdx.x + THREADS * q;
-    if (e < R * L) {
-      const int r = e / L, l = e - r * L;
-      sm.gc_s[r * LMAX + l] = sm.cT_s[r * LMAX + l] * gacc[q];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x;
-    float d = 0.f;
-    for (int l = 0; l < L; ++l) d += sm.gc_s[r * LMAX + l];
-    if (!noop && r0 + r < u) {
-      float e = 0.f;
-      for (int q = 0; q < K; ++q) e += sm.kgv_s[r * KMAX + q] * vals[(size_t)(r0 + r) * K + q];
-      d += e;
-    }
-    sm.dot_s[r] = d;
-    if (r0 + r < u) dot_out[r0 + r] = d;
-  }
-
-  dh_sweep<P>(sm.h_s, w, b, g_marg, u, r0, H, T, L, K, noop, sm.m_s, sm.s_s, sm.dot_s, sm.cT_s,
-              sm.kidx_s, sm.kgv_s, sm.w_s, sm.wc_s, sm.d_s, sm.gm_s, dh);
-}
-
-size_t b1_smem() { return sizeof(float) * (R * HP + BK * TT + R * TP + LMAX * TP + 2 * R); }
-
-// B1: G[r, l] = <p[r], g_marg[l]> for the block's R rows.
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_b1_kernel(const float* __restrict__ h, const float* __restrict__ w,
-              const float* __restrict__ b, const float* __restrict__ m_in,
-              const float* __restrict__ s_in, const float* __restrict__ g_marg, int u, int H,
-              int T, int L, float* __restrict__ g_rows) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* d_s = w_s + BK * TT;
-  float* gm_s = d_s + R * TP;
-  float* m_s = gm_s + LMAX * TP;
-  float* s_s = m_s + R;
-  const int r0 = blockIdx.x * R;
-  load_rows(h, u, H, r0, h_s);
-  load_ms(m_in, s_in, u, r0, m_s, s_s);
-  float gacc[NG];
-  g_sweep<P>(h_s, w, b, g_marg, H, T, L, m_s, s_s, w_s, d_s, gm_s, gacc);
-#pragma unroll
-  for (int q = 0; q < NG; ++q) {
-    const int e = threadIdx.x + THREADS * q;
-    if (e < R * L) {
-      const int r = e / L, l = e - r * L;
-      if (r0 + r < u) g_rows[(size_t)(r0 + r) * L + l] = gacc[q];
-    }
-  }
-}
-
-// B2, row-parallel part: dh from the given per-row dot.
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_b2_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                   const float* __restrict__ b, const float* __restrict__ counts,
-                   const int* __restrict__ idx, const float* __restrict__ m_in,
-                   const float* __restrict__ s_in, const float* __restrict__ dot_in,
-                   const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
-                   int H, int T, int L, int K, int noop, float* __restrict__ dh) {
-  extern __shared__ float smem[];
-  const BwdRowsSmem sm(smem);
-  const int r0 = blockIdx.x * R;
-  load_rows(h, u, H, r0, sm.h_s);
-  load_row_state(counts, idx, m_in, s_in, g_vals, u, u, L, K, r0, sm.cT_s, sm.m_s, sm.s_s,
-                 sm.kidx_s, sm.kgv_s);
-  for (int r = threadIdx.x; r < R; r += THREADS) sm.dot_s[r] = r0 + r < u ? dot_in[r0 + r] : 0.f;
-  dh_sweep<P>(sm.h_s, w, b, g_marg, u, r0, H, T, L, K, noop, sm.m_s, sm.s_s, sm.dot_s, sm.cT_s,
-              sm.kidx_s, sm.kgv_s, sm.w_s, sm.wc_s, sm.d_s, sm.gm_s, dh);
-}
 
 }  // namespace
 
@@ -872,8 +1446,8 @@ int hpd_unique_bwd_g(const float* h, const float* w, const float* b, const float
   if (err || u == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   DISPATCH_PREC(prec, {
-    set_smem(hpd_b1_kernel<P>, b1_smem());
-    hpd_b1_kernel<P><<<(u + R - 1) / R, THREADS, b1_smem(), st>>>(h, w, b, m, s, g_marg, u, H, T,
+    set_smem(hpd_b1_kernel<P>, bwd_rows_smem());
+    hpd_b1_kernel<P><<<(u + R - 1) / R, THREADS, bwd_rows_smem(), st>>>(h, w, b, m, s, g_marg, u, H, T,
                                                                   L, g_rows);
   });
   return (int)cudaGetLastError();

@@ -234,9 +234,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_inputs(h, w, b, counts, k, tile=COL_TILE, **more):
-    """Contiguous float32 (int32 for idx) tensors on h's device, in order
-    h, w, b, [counts], *more; raises ValueError on a shape the kernels do
-    not take. counts may be None (the select kernel has none)."""
+    """Contiguous, 16-byte aligned float32 (int32 for idx) tensors on h's
+    device, in order h, w, b, [counts], *more; raises ValueError on a shape
+    the kernels do not take. counts may be None (the select kernel has
+    none)."""
     u, hd = h.shape
     t = w.shape[1]
     l = counts.shape[0] if counts is not None else 1
@@ -255,7 +256,9 @@ def _check_inputs(h, w, b, counts, k, tile=COL_TILE, **more):
             raise ValueError(f"{name}: expected shape {want[name]}, got {tuple(x.shape)}")
         if x.device != h.device or x.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype} on {h.device}, got {x.dtype} on {x.device}")
-        out.append(x.contiguous())
+        x = x.contiguous()
+        # the kernels copy w, b and g_marg 16 bytes at a time (cp.async)
+        out.append(x.clone() if x.data_ptr() % 16 else x)
     return out
 
 

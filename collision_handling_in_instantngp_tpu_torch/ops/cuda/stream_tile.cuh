@@ -1,4 +1,5 @@
-// The streamed logits tiling shared by hpd_stream.cu (K1-K7) and the
+// The streamed logits tiling shared by the forward passes of hpd_stream.cu
+// (K1, K4, K5, K7; the backward K2/K6 runs on the tensor cores) and the
 // CUDA-core regimes of probe.cu (K13): a block of THREADS threads holds R
 // rows of h in shared memory and computes the (R, TT) product tile by tile,
 // fp32 FMA on the CUDA cores under the precision contract of common.cuh.

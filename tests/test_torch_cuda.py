@@ -3,8 +3,11 @@ on the same inputs, at small shapes that reach the kernels' edges (ragged
 row tiles, T not a multiple of 2048, K up to 16, other hidden stacks; for
 the per-row kernels K8-K11, T from 128 to 2048, K up to 32 (K10/K11) or 128
 (K8/K9), ragged N, other stacks; for the split kernels K4-K6, T from 2048
-to 65536, L from 1 to 32; for the serial scatter K12, one slot, empty
-slots, C = 2 and 32; for the probes K7 and K13, ragged U and T from 128;
+to 65536, L from 1 to 32; for the tail backward on the tensor cores (K2,
+K6), T from 2048 to 65536, L 1 to 32, K 1 to 16, all three precisions,
+heads of 37 and 100; for
+the serial scatter K12, one slot, a 100,000-row slot, empty slots, C = 2
+and 32; for the probes K7 and K13, ragged U and T from 128;
 K14/K15 at sizes not a multiple of 4 and from an unaligned address), plus
 training on the card against the CPU on the dedup route (fused and split)
 and the per-row routes.
@@ -58,12 +61,12 @@ def _close(got, ref, tol, name=""):
     assert err <= tol * max(scale, 1e-30), f"{name}: {err} > {tol} * {scale}"
 
 
-def _tail_inputs(dev, u, t, l, k, seed=0):
+def _tail_inputs(dev, u, t, l, k, seed=0, hd=128):
     rng = np.random.default_rng(seed)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     return dict(
-        h=f32(rng.random((u, 128)) * 0.2),
-        w=f32(rng.standard_normal((128, t)) * 0.3),
+        h=f32(rng.random((u, hd)) * 0.2),
+        w=f32(rng.standard_normal((hd, t)) * 0.3),
         b=f32(rng.standard_normal(t) * 0.1),
         counts=f32(rng.integers(0, 5, size=(l, u))),
         g_marg=f32(rng.standard_normal((l, t))),
@@ -355,6 +358,52 @@ def test_scatter_serial_matches_plain(dev, c, layout):
     assert scatter.scatter_add_serial.launches == before + 1
     assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
     assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
+
+
+@pytest.mark.parametrize("c", [2, 32])
+def test_scatter_serial_hot_slot_matches_plain(dev, c):
+    """K12 with one slot of 100,000 rows (longer than the path's 84,069)
+    among a ragged tail of short and empty slots: bitwise its plain version
+    and equal run to run."""
+    rng = np.random.default_rng(11)
+    t = 4099
+    idx_np = np.concatenate([np.full(100_000, 17), rng.integers(0, t, size=30_001)])
+    rng.shuffle(idx_np)
+    rows = torch.as_tensor(rng.standard_normal((idx_np.size, c)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(idx_np.astype(np.int32), device=dev)
+    got = scatter.scatter_add_serial(rows, idx, t)
+    assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
+    assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
+
+
+# ragged U; T from 2048 to 2^16; L 1, 16, 32; K 1, 4, 16; heads of 128, and of
+# 37 and 100 (the logits' contraction, split between two warpgroups, leaves
+# one half partly or wholly empty)
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("u,t,l,k,hd", [(1000, 2048, 1, 1, 128), (777, 16384, 16, 4, 128),
+                                        (333, 65536, 32, 16, 128), (130, 2048, 16, 16, 128),
+                                        (300, 4096, 16, 4, 37), (300, 4096, 16, 4, 100)])
+def test_tail_bwd_on_tensor_cores_matches_plain(dev, u, t, l, k, hd, precision):
+    """K2 and K6 (their products on the tensor cores) against the plain
+    version at each precision's gradient tolerance, both noop ways, bitwise
+    equal run to run; the forward kernels' top-K (K1, K4, on the CUDA cores)
+    identical to the plain version's at 'highest'."""
+    x = _tail_inputs(dev, u, t, l, k, hd=hd)
+    h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
+    ref = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, precision)
+    if precision == "highest":
+        assert torch.equal(hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k)[2], ref[2])
+        assert torch.equal(hpd_stream.hpd_stream_select(h, w, b, k)[1], ref[2])
+    _, vals, idx, m, s = ref
+    grad_tol = TOL[precision][1]
+    for noop in (False, True):
+        bargs = (h, w, b, counts, idx, vals, m, s, x["g_marg"], x["g_vals"], k, precision, noop)
+        want = hpd_stream.hpd_stream_fused_bwd_plain(*bargs)
+        for fn in (hpd_stream.hpd_stream_fused_bwd, hpd_stream.hpd_tail_unique_bwd):
+            got = fn(*bargs)
+            for name, a, r in zip(("dh", "dw", "db"), got, want):
+                _close(a, r, grad_tol, f"{fn.__name__} {name} noop={noop}")
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, fn(*bargs)))
 
 
 def test_split_wrappers_refuse_shapes(dev):

@@ -206,6 +206,22 @@ def test_scatter_plain_matches_pallas(rng, c):
         scatter.scatter_add_serial(_t(rows), _t(bad), t)
 
 
+def test_scatter_prepare_ranges(rng):
+    """K12's index preparation: a stable permutation of the row ids by slot
+    and each slot's range in it (empty slots included); ValueError on an
+    idx outside [0, T), as in the plain version."""
+    t, n = 50, 600
+    idx = rng.integers(0, t // 2, size=n).astype(np.int32) * 2
+    order, offsets = scatter.prepare(_t(idx), t)
+    assert order.dtype == offsets.dtype == torch.int32 and offsets.shape == (t + 1,)
+    np.testing.assert_array_equal(order.numpy(), np.argsort(idx, kind="stable"))
+    np.testing.assert_array_equal(offsets.numpy(), np.searchsorted(np.sort(idx), np.arange(t + 1)))
+    for bad in (-1, t):
+        idx[7] = bad
+        with pytest.raises(ValueError):
+            scatter.prepare(_t(idx), t)
+
+
 def _serial_sum(rows, idx, t):
     """Each slot's rows added one after another in row order (np.cumsum
     accumulates sequentially)."""
