@@ -5,20 +5,28 @@
 
 1. builds the port's CUDA kernels from the sources in this checkout (one
    nvcc per source, all started together), and fails unless the SASS of
-   ``hpd_stream.cu`` shows warpgroup MMAs (HGMMA) in every backward kernel
-   of K2 and K6 and no tensor-core instruction in the forward passes;
+   ``hpd_stream.cu`` shows warpgroup MMAs (HGMMA) in every instance of
+   every pass of the dedup route's tail (the forward's rows and columns
+   passes, K7, the backward's four kernels) and no tensor-core instruction
+   in the forward's exact fp32 fix-up;
 2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
    U_c = 161,792 rows of the first batch, real h for the tail), checks
    that the deterministic outputs are bitwise equal run to run, and times
-   kernel and plain version on the same inputs (K2 beside its time before
-   the tensor-core redesign; step 5 prints its device time by launch);
+   kernel and plain version on the same inputs (K1 and K2 beside their
+   times before the tensor-core redesigns; step 5 prints K2's device time
+   by launch); K1's top-K must be identical on every row, and it prints
+   how many rows its guard handed to the fp32 fix-up; holds K12's narrow
+   variant bitwise to its plain version on ``gather_rows``' table gradient
+   of batch 0 (rows of F = 2 columns on L * U_c slots), timed beside
+   ``index_add_``;
 3. trains a small streamed geometry on the card and on the CPU and
    compares the losses (kernels vs plain versions end to end);
 4. runs ``fit`` on grid 4061 at scaled geometry for 3 epochs with the
    launch counts set to 0 just before, and fails unless every kernel
-   launched and the loss is finite and falls;
+   launched (K12 in both variants: the blend's and ``gather_rows``' table
+   gradients) and the loss is finite and falls;
 5. profiles one more epoch of that training (device time by kernel, the
    device's idle share);
 6. holds the per-row kernels K8-K11 against their plain versions on all
@@ -32,22 +40,27 @@
 8. runs ``fit`` on that per-row configuration for 3 epochs through
    K10/K11 (hpd_backend "auto"), then through K8/K9 ("pallas"), each with
    its launch counts set to 0 just before, and fails unless its kernels
-   launched and the loss is finite and falls; then profiles one per-row
+   launched (K12's ring too: ``lookup_topk_blend``'s table gradient) and
+   the loss is finite and falls; then fits twice from one
+   start, at the scaled geometry of step 4 and on the per-row route, 3
+   epochs each, and fails unless the two fits' parameters are bitwise
+   equal (the table gradients' fixed order); then profiles one per-row
    epoch;
 9. holds the split streamed tail K4, K5, K6 (noop both ways) against their
-   plain versions on all U_c = 161,792 rows of batch 0 of grid 4061 at
+   plain versions (K4's top-K identical on every row, its fix-up rows
+   printed) on all U_c = 161,792 rows of batch 0 of grid 4061 at
    ``instantngp_scaled_model(hash_table_size=2**16)`` (T = 65,536, past the
    fused gate; real h from K3a), times K1/K2 at the same shapes, and holds
-   the serial scatter K12 (N = U_c * K rows of C = L * F = 32, idx from
-   K4's top-4) bitwise to its plain version, the serial row-order sum,
-   times its wrapper's index preparation apart from its kernel and the
-   hottest slot alone, and times ``index_add_`` on the same inputs;
-10. trains a small geometry through the split route and K12 (gate and blend
-   threshold forced) on the card and on the CPU and compares the losses;
-11. runs ``fit`` at T = 2^16 for 3 epochs with the blend scatter backend
-   "vmem_serial" (what ``BLEND_SCATTER_BACKEND=vmem_serial`` sets), the
-   launch counts set to 0 just before, and fails unless K3a, K3b, K4, K5,
-   K6 and K12 launched, K1 and K2 did not, and the loss is finite and
+   the serial scatter K12's ring variant (the blend's table gradient:
+   N = U_c * K rows of C = L * F = 32, idx from K4's top-4) bitwise to its
+   plain version, the serial row-order sum, times its wrapper's index
+   preparation apart from its kernel and the hottest slot alone, and times
+   ``index_add_`` on the same inputs;
+10. trains a small geometry through the split route and K12 (gate
+   forced) on the card and on the CPU and compares the losses;
+11. runs ``fit`` at T = 2^16 for 3 epochs, the launch counts set to 0
+   just before, and fails unless K3a, K3b, K4, K5, K6 and K12 (both
+   variants) launched, K1 and K2 did not, and the loss is finite and
    falls; then profiles one epoch of it (and prints K6's device time by
    launch from that profile);
 12. the measurement path, part 1: holds the probe K7 (both variants)
@@ -69,8 +82,10 @@
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
-   (``utils.memory``), and for the redesigned kernels (K2, K6, K12) their
-   time before the redesign (``before_redesign_ms``) beside this run's.
+   (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7, K12's
+   ring) their time before the redesign (``before_redesign_ms``, the
+   records' figures in BEFORE_REDESIGN_MS) beside this run's; the tensor-core kernels' ``bound_ms`` is that of 3xTF32 at the
+   TF32 peak, with the fp32 CUDA-core bound as ``bound_fp32_ms``.
 
 Any failure raises, so the run exits non-zero without the last line. It
 exits non-zero at once where CUDA is not available.
@@ -101,8 +116,9 @@ SEED = 65535
 # fp32 sums) is the bf16 tensor cores' function and takes their peak.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
-# dense TF32 on the tensor cores: the tail backward (K2, K6) runs its
-# products there as 3xTF32, three tf32 products per fp32 term
+# dense TF32 on the tensor cores: the dedup route's tail (K1, K2, K4-K6)
+# and K7 run their products there as 3xTF32, three tf32 products per fp32
+# term
 PEAK_TF32_TENSOR_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # normwise tolerances: max |kernel - plain| <= tol * max |plain| (fp32,
@@ -115,11 +131,17 @@ DOTS_TOL = 1e-4
 # K13 bf16x3: three tensor-core products per term into one fp32
 # accumulator, against three fp32 products summed after them
 BF16X3_TOL = 1e-4
-# the redesigned kernels' times before their redesign (PERF.md §6 kernel
-# table; NVIDIA H100 80GB HBM3, 700.00 W), written beside this run's
+# the redesigned kernels' times before their redesign, as PERF.md's
+# records give them (NVIDIA H100 80GB HBM3, 700.00 W), written
+# beside this run's. A parent's times from the same chip call come from
+# tools/ab_smoke.py, not from here.
 BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 1352.97,
-          "scatter_add_serial": 13.11}
+                      "scatter_add_serial[ring]": 13.11, "hpd_stream_fused_fwd": 74.95,
+                      "hpd_stream_select": 117.44, "hpd_stream_marginal": 171.63,
+                      "hpd_stream_fused_probe[dots]": 25.63,
+                      "hpd_stream_fused_probe[softmax]": 26.50}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
+VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
 
 
@@ -311,6 +333,25 @@ def tail_bwd_bound(u, H, T, L, k, tensor=True):
     return bound_ms(flops, nbytes)
 
 
+def tf32x3_bound(flops, nbytes, count_flops=0.0, counts=None):
+    """Bound of a forward pass on the tensor cores: its products as 3xTF32
+    (three tf32 products per fp32 term) at the TF32 peak, the
+    ``count_flops`` of the counts @ p marginal as two where every count of
+    ``counts`` is an integer up to 2^11 (exact in tf32: the kernel skips
+    the product with their zero lo part). The entries keep the fp32
+    CUDA-core bound, the route before, beside it as ``bound_fp32_ms``."""
+    exact = counts is not None and bool(((counts == counts.round()) & (counts.abs() <= 2048)).all())
+    return bound_ms(3 * flops + (2 if exact else 3) * count_flops, nbytes, PEAK_TF32_TENSOR_FLOPS)
+
+
+def fixup_rows(wrapper, what) -> int:
+    """Rows the last launch of a rows-pass wrapper handed to its fp32
+    fix-up; printed."""
+    n = int(wrapper.fixup_rows.item())
+    log(f"  {what}: rows settled by the fp32 fix-up: {n}")
+    return n
+
+
 def per_launch(name, profile, kernels) -> dict:
     """Device ms per call of each of a wrapper's launches (kernel names
     containing one of ``kernels``), from a training epoch's profile; printed.
@@ -327,9 +368,69 @@ def per_launch(name, profile, kernels) -> dict:
 
 def redesigned(entry) -> None:
     """Add a redesigned kernel's time before its redesign to its entry and
-    print both."""
+    print both, with its fp32 bound beside the tensor-core one."""
     before = entry["before_redesign_ms"] = BEFORE_REDESIGN_MS[entry["name"]]
-    log(f"  redesigned: {entry['ms']:.3f} ms, before {before:.2f} ms ({before / entry['ms']:.2f}x)")
+    bounds = ("" if "bound_fp32_ms" not in entry else
+              f"; bound {entry['bound_ms']:.3f} ms on the tensor cores, "
+              f"{entry['bound_fp32_ms']:.3f} as fp32")
+    log(f"  redesigned: {entry['ms']:.3f} ms, before {before:.2f} ms "
+        f"({before / entry['ms']:.2f}x){bounds}")
+
+
+def scatter_phase(variant, rows, flat, t) -> dict:
+    """K12 on (rows, flat ids, T), which must take ``variant``: bitwise
+    equal run to run and to its plain version, the serial row-order sum;
+    timed beside the plain version and ``index_add_`` (atomic, so only
+    timed), with its wrapper's index preparation (sort, searchsorted and
+    the range check, one host sync) and the kernel alone on its output.
+    Returns the kernel entry."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import scatter
+
+    n, c = rows.shape
+    log(f"  N={n} rows of C={c} on T={t} slots")
+    if VARIANT_OF[scatter.narrow_path(n, c, t)] != variant:
+        raise AssertionError(f"K12: these shapes do not take its {variant} variant")
+    before = scatter.scatter_add_serial.variant_launches[variant]
+    got = scatter.scatter_add_serial(rows, flat, t)
+    if scatter.scatter_add_serial.variant_launches[variant] != before + 1:
+        raise AssertionError(f"K12 [{variant}] did not launch")
+    bitwise_same("dt", [got], [scatter.scatter_add_serial(rows, flat, t)])
+    plain = scatter.scatter_add_serial_plain(rows, flat, t)
+    if not torch.equal(got, plain):
+        raise AssertionError(f"K12 [{variant}] differs from its plain version, the serial row-order sum")
+    err = (got - plain).abs().max().item()
+    per_slot = torch.bincount(flat.long(), minlength=t)
+    log(f"  dt: bitwise equal to the plain version (serial row-order sum); rows per slot max "
+        f"{int(per_slot.max().item())}, slots used {int((per_slot > 0).sum().item())} of {t}")
+    flat_long = flat.long()
+    acc = torch.zeros(t, c, device=rows.device)
+    name = f"scatter_add_serial[{variant}]"
+    entry = kernel_entry(
+        name, SRC + "scatter.cu", JAX_SRC + "scatter_probe.py:42", err,
+        cuda_ms(lambda: scatter.scatter_add_serial(rows, flat, t), 20),
+        cuda_ms(lambda: scatter.scatter_add_serial_plain(rows, flat, t), 2),
+        bound_ms(1.0 * n * c, 4.0 * (n * c + t * c) + flat.element_size() * n),
+        cuda_ms(lambda: acc.index_add_(0, flat_long, rows), 20))
+    prep = scatter.prepare(flat, t)
+    entry["prepare_ms"] = cuda_ms(lambda: scatter.prepare(flat, t), 20)
+    entry["kernel_only_ms"] = cuda_ms(lambda: scatter.scatter_sorted(rows, *prep), 20)
+    log(f"  wrapper share: prepare {entry['prepare_ms']:.3f} ms, kernel alone "
+        f"{entry['kernel_only_ms']:.3f} ms")
+    return entry
+
+
+def gather_scatter_phase(geom, feature_dim, dev, gen) -> dict:
+    """K12's narrow variant on ``gather_rows``' table gradient of one batch
+    (flat ids = vertex id + level * U_c, rows of F columns on L * U_c
+    slots), as ``models/encoding.py`` forms them. Returns the kernel entry."""
+    ids = geom.ids
+    l, u = geom.counts.shape
+    level = torch.arange(l, device=ids.device).view(1, l, *([1] * (ids.dim() - 2)))
+    flat = (ids.long() + level * u).reshape(-1)
+    log(f"K12 scatter_add_serial [narrow], gather_rows' table gradient of batch 0, "
+        f"ids {tuple(ids.shape)}:")
+    rows = torch.randn(flat.numel(), feature_dim, device=dev, generator=gen)
+    return scatter_phase("narrow", rows, flat, l * u)
 
 
 def split_kernel_phases(exp, batches, dev, gen):
@@ -364,28 +465,34 @@ def split_kernel_phases(exp, batches, dev, gen):
     log(f"  idx: rows with identical top-{k}: {same:.6f}")
     if same != 1.0:
         raise AssertionError("K4: top-K indices differ from the plain version")
+    fix = fixup_rows(hpd_stream.hpd_stream_select, "K4")
     err = max(compare(n, a, r, FWD_TOL)
               for n, a, r in zip(("vals", "m", "s"), (out_k[0], *out_k[2:]), (out_p[0], *out_p[2:])))
     bitwise_same("vals/idx/m/s", out_k, hpd_stream.hpd_stream_select(h, w, b, k))
     del out_p
     vals, idx, m, s = out_k
+    flops, nbytes = 2.0 * u * H * T, 4.0 * (u * H + 2 * u * k + 2 * u) + head_bytes
     entries["hpd_stream_select"] = kernel_entry(
         "hpd_stream_select", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:193", err,
         cuda_ms(lambda: hpd_stream.hpd_stream_select(h, w, b, k), 5),
         cuda_ms(lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"), 2),
-        bound_ms(2.0 * u * H * T, 4.0 * (u * H + 2 * u * k + 2 * u) + head_bytes))
+        tf32x3_bound(flops, nbytes))
+    entries["hpd_stream_select"].update(bound_fp32_ms=bound_ms(flops, nbytes)[0], fixup_rows=fix)
+    redesigned(entries["hpd_stream_select"])
 
     log("K5 hpd_stream_marginal, full U_c:")
     marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)
     err = compare("marg", marg, hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"),
                   FWD_TOL)
     bitwise_same("marg", [marg], [hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)])
+    flops, nbytes = 2.0 * u * H * T, 4.0 * (u * H + L * u + 2 * u + L * T) + head_bytes
     entries["hpd_stream_marginal"] = kernel_entry(
         "hpd_stream_marginal", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:282", err,
         cuda_ms(lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s), 5),
         cuda_ms(lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 2),
-        bound_ms(2.0 * u * H * T + 2.0 * L * u * T,
-                 4.0 * (u * H + L * u + 2 * u + L * T) + head_bytes))
+        tf32x3_bound(flops, nbytes, 2.0 * L * u * T, counts))
+    entries["hpd_stream_marginal"]["bound_fp32_ms"] = bound_ms(flops + 2.0 * L * u * T, nbytes)[0]
+    redesigned(entries["hpd_stream_marginal"])
 
     log("K6 hpd_tail_unique_bwd (B1 + B2), full U_c:")
     g_marg = torch.randn(L, T, device=dev, generator=gen)
@@ -420,45 +527,19 @@ def split_kernel_phases(exp, batches, dev, gen):
 
     c = L * mcfg.feature_dim
     flat = idx.reshape(-1)
-    n = flat.numel()
-    log(f"K12 scatter_add_serial, N={n} rows of C={c}, idx from K4's top-{k}, T={T}:")
-    rows = torch.randn(n, c, device=dev, generator=gen)
-    got = scatter.scatter_add_serial(rows, flat, T)
-    bitwise_same("dt", [got], [scatter.scatter_add_serial(rows, flat, T)])
-    plain = scatter.scatter_add_serial_plain(rows, flat, T)
-    if not torch.equal(got, plain):
-        raise AssertionError("K12 differs from its plain version, the serial row-order sum")
-    err = (got - plain).abs().max().item()
-    per_slot = torch.bincount(flat.long(), minlength=T)
-    log(f"  dt: bitwise equal to the plain version (serial row-order sum); rows per slot max "
-        f"{int(per_slot.max().item())}, slots used {int((per_slot > 0).sum().item())} of {T}")
-    flat_long = flat.long()
-    acc = torch.zeros(T, c, device=dev)
-    entries["scatter_add_serial"] = kernel_entry(
-        "scatter_add_serial", SRC + "scatter.cu", JAX_SRC + "scatter_probe.py:42", err,
-        cuda_ms(lambda: scatter.scatter_add_serial(rows, flat, T), 20),
-        cuda_ms(lambda: scatter.scatter_add_serial_plain(rows, flat, T), 2),
-        bound_ms(1.0 * n * c, 4.0 * (n * c + n + T * c)))
-    entries["scatter_add_serial"]["library_ms"] = cuda_ms(lambda: acc.index_add_(0, flat_long, rows), 20)
-    log(f"  index_add_ alone {entries['scatter_add_serial']['library_ms']:.3f} ms")
-    # the wrapper's share: sort, searchsorted and the range check (one host
-    # sync), then the kernel alone on their output
-    prep = scatter.prepare(flat, T)
-    entries["scatter_add_serial"]["prepare_ms"] = cuda_ms(lambda: scatter.prepare(flat, T), 20)
-    entries["scatter_add_serial"]["kernel_only_ms"] = cuda_ms(lambda: scatter.scatter_sorted(rows, *prep), 20)
-    log(f"  wrapper share: prepare {entries['scatter_add_serial']['prepare_ms']:.3f} ms, kernel alone "
-        f"{entries['scatter_add_serial']['kernel_only_ms']:.3f} ms")
+    log(f"K12 scatter_add_serial [ring], the blend's table gradient: idx from K4's top-{k}, "
+        f"T={T}:")
+    rows = torch.randn(flat.numel(), c, device=dev, generator=gen)
+    ring = entries["scatter_add_serial[ring]"] = scatter_phase("ring", rows, flat, T)
     # the hottest slot's rows alone (one block's chain: the kernel's floor)
-    hot = per_slot.argmax().item()
+    hot = torch.bincount(flat.long(), minlength=T).argmax().item()
     hot_rows = rows[flat == hot].contiguous()
     hot_prep = scatter.prepare(torch.zeros(hot_rows.shape[0], dtype=torch.int32, device=dev), 8)
-    entries["scatter_add_serial"]["hot_slot_ms"] = cuda_ms(
-        lambda: scatter.scatter_sorted(hot_rows, *hot_prep), 20)
-    log(f"  the hottest slot's {hot_rows.shape[0]} rows alone: kernel "
-        f"{entries['scatter_add_serial']['hot_slot_ms']:.3f} ms")
-    redesigned(entries["scatter_add_serial"])
-    del prep, hot_rows, hot_prep
-    del h, out_k, vals, idx, m, s, rows, got, plain, acc
+    ring["hot_slot_ms"] = cuda_ms(lambda: scatter.scatter_sorted(hot_rows, *hot_prep), 20)
+    log(f"  the hottest slot's {hot_rows.shape[0]} rows alone: kernel {ring['hot_slot_ms']:.3f} ms")
+    redesigned(ring)
+    del hot_rows, hot_prep
+    del h, out_k, vals, idx, m, s, rows
     torch.cuda.empty_cache()
     return entries, fused
 
@@ -485,11 +566,14 @@ def probe_ladder_phase(h, w, b, counts, k):
         # (U, T) logits, 10.6 GB) and a sum; no one call returns softmax's m and s
         library = cuda_ms(lambda: torch.addmm(b, h, w).sum(-1), 3) if variant == "dots" else None
         torch.cuda.empty_cache()
+        flops, nbytes = 2.0 * u * H * T, 4.0 * (u * H + H * T + T + 2 * u)
         entries[name] = kernel_entry(
             name, SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:1081", err,
             cuda_ms(lambda: probe(h, w, b, "highest", variant), 10),
             cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant), 3),
-            bound_ms(2.0 * u * H * T, 4.0 * (u * H + H * T + T + 2 * u)), library)
+            tf32x3_bound(flops, nbytes), library)
+        entries[name]["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
+        redesigned(entries[name])
         del got, ref
 
     log("sweep ladder (tools/sweep_probe.py: ladder) at 'highest', same inputs:")
@@ -596,19 +680,23 @@ def mxu_probe_phase(dev):
     return entries, rates
 
 
-def fit_checked(fit, exp, data, dev, wrappers, what, absent=()):
-    """fit for 3 epochs with the wrappers' counts (and those of ``absent``)
-    set to 0 just before; fails unless each wrapper launched, no ``absent``
-    one did, and the loss is finite and falls. Returns (launches, history,
-    seconds)."""
+def fit_checked(fit, exp, data, dev, wrappers, what, absent=(), variants=()):
+    """fit for 3 epochs with the wrappers' counts, by variant too (and those
+    of ``absent``), set to 0 just before; fails unless each wrapper and each
+    of ``variants`` ("name[variant]") launched, no ``absent`` one did, and
+    the loss is finite and falls. Returns (launches, history, seconds)."""
     for fn in (*wrappers.values(), *absent):
         fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fit(exp, data, epochs=3, device=dev, verbose=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches.update({f"{name}[{v}]": n for name, fn in wrappers.items()
+                     for v, n in getattr(fn, "variant_launches", {}).items()})
     for row in res.history:
         log(f"  epoch {row['epoch']}: loss {row['train_loss']:.6f} mse {row['mse_loss']:.6f} "
             f"psnr {row['train_psnr']:.4f} {row['seconds']:.3f} s {row['pixels_per_s']:.0f} px/s")
@@ -618,13 +706,37 @@ def fit_checked(fit, exp, data, dev, wrappers, what, absent=()):
     # epoch 0 carries no collision term (no previous epoch); it enters at epoch 1
     if not all(math.isfinite(v) for v in losses) or not (losses[-1] < losses[1] and mses[-1] < mses[0]):
         raise AssertionError(f"{what}: loss not finite and falling: {losses}, mse {mses}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in (*wrappers, *variants):
+        if launches[name] == 0:
             raise AssertionError(f"{name} never launched on {what}")
     for fn in absent:
         if fn.launches:
             raise AssertionError(f"{fn.__name__} launched {fn.launches} times on {what}")
     return launches, res.history, fit_s
+
+
+def two_fits(fit, runs, dev) -> dict:
+    """Each (what, exp, data, epochs) of ``runs`` fit twice on the card from
+    one start; every final parameter and buffer compared bitwise, the
+    result printed on a line of its own. Raises if any differ. Returns
+    {what: {"bitwise": bool, "differ": [...], "max_abs_diff": x, "epoch_s": [...]}}."""
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+
+    out = {}
+    for what, exp, data, epochs in runs:
+        start = gngf.init_params(exp.model, SEED, "cpu")
+        fits = [fit(exp, data, epochs=epochs, device=dev, params=start, verbose=False)
+                for _ in range(2)]
+        sa, sb = (f.params.state_dict() for f in fits)
+        differ = [name for name in sa if not torch.equal(sa[name], sb[name])]
+        diff = max(((sa[n].double() - sb[n].double()).abs().max().item() for n in differ), default=0.0)
+        secs = [row["seconds"] for f in fits for row in f.history]
+        verdict = "bitwise equal" if not differ else f"DIFFER in {differ} (max abs diff {diff:.3e})"
+        log(f"two fits from one start, {what}, {epochs} epochs: {verdict}; epoch s {secs}")
+        out[what] = dict(bitwise=not differ, differ=differ, max_abs_diff=diff, epoch_s=secs)
+        if differ:
+            raise AssertionError(f"{what}: two fits from one start differ: {differ}")
+    return out
 
 
 def log_profile(profile) -> None:
@@ -634,11 +746,21 @@ def log_profile(profile) -> None:
         f"idle share {profile['idle_share']:.2%}")
 
 
+# every instance of these kernels must hold warpgroup MMAs (HGMMA): the
+# tensor-core passes of the dedup route's tail, forward and backward, and
+# K7; the fix-up of the rows pass is the exact fp32 sweep and must hold none
+TENSOR_CORE_KERNELS = ("hpd_fwd_rows_kernel", "hpd_fwd_cols_kernel", "hpd_probe_kernel",
+                       "hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
+                       "hpd_b2_rows_kernel")
+FP32_KERNELS = ("hpd_fix_rows_kernel",)
+
+
 def tensor_core_sass(build) -> dict:
-    """Tensor-core instructions (HGMMA, HMMA) per kernel of the built
-    hpd_stream library, from ``cuobjdump -sass``; printed. Raises unless
-    every instance of the four backward kernels holds HGMMA (warpgroup MMA)
-    and the forward passes hold none."""
+    """Tensor-core instructions (HGMMA, HMMA) per kernel instance of the
+    built hpd_stream library, from ``cuobjdump -sass``; printed. Raises
+    unless every instance (each template argument list) of
+    TENSOR_CORE_KERNELS holds HGMMA, each of them has an instance at every
+    precision (<0>, <1>, <2>), and FP32_KERNELS hold none."""
     import re
     import subprocess
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -647,23 +769,29 @@ def tensor_core_sass(build) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(r"\d+(hpd_\w+?_kernel)ILi(\d)", line)
-            name = f"{found.group(1)}<{found.group(2)}>" if found else None
-            if name:
+            # e.g. ..._116hpd_probe_kernelILi0ELb1EEEv... -> hpd_probe_kernel<0,1>
+            found = re.search(r"\d+(hpd_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
+            name = None
+            if found:
+                args = ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2)))
+                name = f"{found.group(1)}<{args}>"
                 counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
         elif name and ("HGMMA" in line or "HMMA" in line):
             counts[name]["HGMMA" if "HGMMA" in line else "HMMA"] += 1
     log("  SASS tensor-core instructions (hpd_stream.cu):")
     for k_, c in sorted(counts.items()):
         log(f"    {k_:34s} HGMMA {c['HGMMA']:4d}  HMMA {c['HMMA']:4d}")
-    bwd = ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel", "hpd_b2_rows_kernel")
-    for p in range(3):
-        for k_ in bwd:
-            if counts.get(f"{k_}<{p}>", {}).get("HGMMA", 0) == 0:
-                raise RuntimeError(f"{k_}<{p}>: no HGMMA in the SASS")
-    for k_, c in counts.items():
-        if "fwd" in k_ and c["HGMMA"] + c["HMMA"]:
-            raise RuntimeError(f"{k_}: tensor-core instructions in a forward pass")
+    for k_ in TENSOR_CORE_KERNELS:
+        for p in range(3):
+            inst = [n for n in counts if n.startswith(f"{k_}<{p}")]
+            if not inst:
+                raise RuntimeError(f"{k_}<{p}>: no instance in the SASS")
+            for n in inst:
+                if counts[n]["HGMMA"] == 0:
+                    raise RuntimeError(f"{n}: no HGMMA in the SASS")
+    for n, c in counts.items():
+        if n.split("<")[0] in FP32_KERNELS and c["HGMMA"] + c["HMMA"]:
+            raise RuntimeError(f"{n}: tensor-core instructions in the exact fp32 sweep")
     return counts
 
 
@@ -678,7 +806,7 @@ def main() -> int:
     from collision_handling_in_instantngp_tpu_torch.data import (
         image_dataset, load_image_dataset, make_shuffle_permutations,
     )
-    from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
     from collision_handling_in_instantngp_tpu_torch.ops import dedup
     from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
         build, hidden, hpd_full, hpd_stream, hpd_tail, scatter,
@@ -773,6 +901,8 @@ def main() -> int:
     log(f"  idx: rows with identical top-{k}: {same_idx:.6f}")
     if same_idx != 1.0:
         raise AssertionError("K1: top-K indices differ from the plain version")
+    fix = fixup_rows(hpd_stream.hpd_stream_fused_fwd, "K1")
+    log(f"  largest count: {counts_full.max().item():.0f}")
     err = max(compare(n, a, r, FWD_TOL)
               for n, a, r in zip(("marg", "vals", "m", "s"),
                                  (out_k[0], out_k[1], out_k[3], out_k[4]),
@@ -783,16 +913,17 @@ def main() -> int:
     ms = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd(h_full, w_head, b_head, counts_full, k), 5)
     plain = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd_plain(
         h_full, w_head, b_head, counts_full, k, "highest"), 2)
-    b_ms, b_by = bound_ms(
-        2.0 * u_c * H * T + 2.0 * L * u_c * T,
-        4.0 * (u_c * H + H * T + T + L * u_c + L * T + 2 * u_c * k + 2 * u_c),
-    )
+    flops = 2.0 * u_c * H * T
+    nbytes = 4.0 * (u_c * H + H * T + T + L * u_c + L * T + 2 * u_c * k + 2 * u_c)
+    b_ms, b_by = tf32x3_bound(flops, nbytes, 2.0 * L * u_c * T, counts_full)
     log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     entries["hpd_stream_fused_fwd"] = dict(
         name="hpd_stream_fused_fwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
         replaces="collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:570",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_fp32_ms=bound_ms(flops + 2.0 * L * u_c * T, nbytes)[0], fixup_rows=fix,
     )
+    redesigned(entries["hpd_stream_fused_fwd"])
 
     log("K2 hpd_stream_fused_bwd, full U_c of real h:")
     g_marg = torch.randn(L, T, device=dev, generator=gen)
@@ -819,6 +950,7 @@ def main() -> int:
         bound_fp32_ms=tail_bwd_bound(u_c, H, T, L, k, False)[0],
     )
     redesigned(entries["hpd_stream_fused_bwd"])
+    entries["scatter_add_serial[narrow]"] = gather_scatter_phase(geom, mcfg.feature_dim, dev, gen)
 
     # --------------- kernels vs plain versions end to end ------------------ #
     log("small streamed geometry, 2 epochs, card (kernels) vs CPU (plain versions):")
@@ -841,11 +973,15 @@ def main() -> int:
         "hidden_stack_fwd": hidden.hidden_stack_fwd,
         "hidden_stack_bwd": hidden.hidden_stack_bwd,
     }
+    k12 = {"scatter_add_serial": scatter.scatter_add_serial}   # both gathers' table gradients
     log("fit: grid 4061, scaled geometry, strawberry, 3 epochs:")
-    launches, history, fit_s = fit_checked(fit, exp, data, dev, wrappers, "the dedup route")
-    for name, n in launches.items():
-        entries[name]["launches"] = n
+    launches, history, fit_s = fit_checked(
+        fit, exp, data, dev, {**wrappers, **k12}, "the dedup route",
+        variants=("scatter_add_serial[ring]", "scatter_add_serial[narrow]"))
+    for name in (*wrappers, "scatter_add_serial[narrow]"):
+        entries[name]["launches"] = launches[name]
         entries[name]["route"] = "cuda"
+    fixup_rows(hpd_stream.hpd_stream_fused_fwd, "K1, the fit's last launch")
 
     # ------------------ where one epoch's device time goes ------------------ #
     log("profile: one epoch of the same training, device time by kernel:")
@@ -890,12 +1026,17 @@ def main() -> int:
         run_exp = dataclasses.replace(pr_exp, model=dataclasses.replace(pr_exp.model, hpd_backend=backend))
         log(f"fit: grid 4061, default geometry, batchnorm_input, hpd_backend {backend!r}, "
             "strawberry raw coords, 3 epochs:")
-        launches, pr_history, pr_fit_s = fit_checked(fit, run_exp, data_raw, dev, route_wrappers,
-                                                     f"the per-row route ({backend})")
+        launches, pr_history, pr_fit_s = fit_checked(
+            fit, run_exp, data_raw, dev, {**route_wrappers, **k12}, f"the per-row route ({backend})",
+            variants=("scatter_add_serial[ring]",))
         per_row_fits[route] = dict(history=pr_history, fit_s=pr_fit_s, launches=launches)
-        for name, n in launches.items():
-            entries[name]["launches"] = n
+        for name in route_wrappers:
+            entries[name]["launches"] = launches[name]
             entries[name]["route"] = "cuda"
+
+    log("two fits from one start on the card, every parameter and buffer compared bitwise:")
+    determinism = two_fits(fit, [("the dedup route at T = 2^14", exp, data, 3),
+                                 ("the per-row route", pr_exp, data_raw, 3)], dev)
 
     log("profile: one per-row epoch (hpd_backend 'auto'), device time by kernel:")
     pr_profile = profile_epoch(pr_exp, pr_statics, pr_batches, dev)
@@ -920,12 +1061,9 @@ def main() -> int:
         "scatter_add_serial": scatter.scatter_add_serial,
     }
     fused_pair = (hpd_stream.hpd_stream_fused_fwd, hpd_stream.hpd_stream_fused_bwd)
-    log("small split geometry (fused gate and blend threshold forced), 2 epochs, "
-        "card (kernels) vs CPU (plain versions):")
-    saved = (hpd_stream.FUSED_W_MAX_BYTES, encoding._BLEND_SMATRIX_MIN_ELEMENTS,
-             encoding.BLEND_SCATTER_BACKEND)
-    hpd_stream.FUSED_W_MAX_BYTES, encoding._BLEND_SMATRIX_MIN_ELEMENTS = 0, 0
-    encoding.BLEND_SCATTER_BACKEND = "vmem_serial"
+    log("small split geometry (fused gate forced), 2 epochs, card (kernels) vs CPU (plain versions):")
+    saved_gate = hpd_stream.FUSED_W_MAX_BYTES
+    hpd_stream.FUSED_W_MAX_BYTES = 0
     small = experiment_from_grid_id(4061, base_model=ModelConfig(
         hash_table_size=4096, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream"))
     start = gngf.init_params(small.model, SEED, "cpu")
@@ -940,21 +1078,22 @@ def main() -> int:
         log(f"  epoch {hg['epoch']}: loss card {hg['train_loss']:.7f} cpu {hc['train_loss']:.7f}")
         if not math.isclose(hg["train_loss"], hc["train_loss"], rel_tol=1e-4):
             raise AssertionError("split training on the card disagrees with the plain versions on the CPU")
-    hpd_stream.FUSED_W_MAX_BYTES, encoding._BLEND_SMATRIX_MIN_ELEMENTS = saved[:2]
+    hpd_stream.FUSED_W_MAX_BYTES = saved_gate
 
-    log("fit: grid 4061, instantngp_scaled_model(hash_table_size=2**16), "
-        "BLEND_SCATTER_BACKEND=vmem_serial, strawberry, 3 epochs:")
-    launches16, history16, fit16_s = fit_checked(fit, exp16, data, dev, split_wrappers,
-                                                 "the split route", absent=fused_pair)
-    for name in ("hpd_stream_select", "hpd_stream_marginal", "hpd_tail_unique_bwd", "scatter_add_serial"):
+    log("fit: grid 4061, instantngp_scaled_model(hash_table_size=2**16), strawberry, 3 epochs:")
+    launches16, history16, fit16_s = fit_checked(
+        fit, exp16, data, dev, split_wrappers, "the split route", absent=fused_pair,
+        variants=("scatter_add_serial[ring]", "scatter_add_serial[narrow]"))
+    for name in ("hpd_stream_select", "hpd_stream_marginal", "hpd_tail_unique_bwd",
+                 "scatter_add_serial[ring]"):
         entries[name]["launches"] = launches16[name]
         entries[name]["route"] = "cuda"
+    fixup_rows(hpd_stream.hpd_stream_select, "K4, the fit's last launch")
     log("profile: one epoch of the T = 2^16 training, device time by kernel:")
     profile16 = profile_epoch(exp16, statics16, batches16, dev)
     log_profile(profile16)
     entries["hpd_tail_unique_bwd"]["per_launch_ms"] = per_launch(
         "K6", profile16, ("hpd_b1_kernel", "hpd_b2_rows_kernel", "hpd_bwd_cols_kernel"))
-    encoding.BLEND_SCATTER_BACKEND = saved[2]
     del batches16
     torch.cuda.empty_cache()
     watermark(marks, "split route (steps 9-11)", dev)
@@ -977,7 +1116,7 @@ def main() -> int:
                        split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
                        split_profile=profile16, sweep_ladder_highest=ladder,
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
-                       sass_tensor_ops=sass), f, indent=1)
+                       sass_tensor_ops=sass, two_fits=determinism), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

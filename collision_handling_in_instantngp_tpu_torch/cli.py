@@ -3,8 +3,10 @@
   python -m collision_handling_in_instantngp_tpu_torch.cli \
       -f strawberry.jpeg -s 4061 -e 4061 [--scaled] [--epochs N] [--device cuda]
 
-``-e`` is inclusive; images load from ``--images_dir`` (a ``.npy`` uint8
-image needs neither cv2 nor PIL). Runs on the card unless ``--device cpu``.
+``-e`` is inclusive; without it the run goes from ``-s`` through the last id
+of the grid, as in the JAX package's CLI. Images load from ``--images_dir``
+(a ``.npy`` uint8 image needs neither cv2 nor PIL). Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--start_id_param", type=int, default=0,
                    help="First grid-search config id.")
     p.add_argument("-e", "--end_id_param", type=int, default=None,
-                   help="Last grid-search config id (inclusive; default: the first).")
+                   help="Last grid-search config id (inclusive; default: the last "
+                        "id of the grid).")
     p.add_argument("--epochs", type=int, default=None,
                    help="Override the 5000-epoch budget.")
     p.add_argument("--scaled", action="store_true",
@@ -48,7 +51,7 @@ def main(argv=None) -> int:
     print(f"Image: {image_path} ({data.height}x{data.width}, {data.num_pixels} pixels, "
           f"{data.channels} channels) on {device}")
     grid = get_grid_search_configs()
-    end = args.end_id_param if args.end_id_param is not None else args.start_id_param
+    end = args.end_id_param if args.end_id_param is not None else len(grid) - 1
     if not 0 <= args.start_id_param <= end < len(grid):
         raise ValueError(f"grid ids must satisfy 0 <= start <= end <= {len(grid) - 1}")
     for gid in range(args.start_id_param, end + 1):

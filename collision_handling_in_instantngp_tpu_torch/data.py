@@ -57,6 +57,15 @@ def _decode(path: str, bw: bool) -> np.ndarray:
         return np.asarray(img.convert("L" if bw else "RGB"))
 
 
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """uint8 (h, w, 3+) RGB -> (h, w) luma, cv2's RGB2GRAY bit for bit: its
+    15-bit fixed-point ITU-R 601 weights, rounded half up (the weights sum
+    to 2^15, so every sum fits in int32)."""
+    rgb = img[..., :3].astype(np.int32)
+    luma = (9798 * rgb[..., 0] + 19235 * rgb[..., 1] + 3735 * rgb[..., 2] + (1 << 14)) >> 15
+    return luma.astype(np.uint8)
+
+
 def load_image(path: str, bw: bool = False) -> np.ndarray:
     """uint8 RGB (h, w, 3) or grayscale (h, w) image."""
     if not os.path.exists(path):
@@ -69,9 +78,7 @@ def load_image(path: str, bw: bool = False) -> np.ndarray:
                 f"{img.dtype} {img.shape}"
             )
         if bw and img.ndim == 3:
-            # ITU-R 601 luma, as cv2's BGR2GRAY
-            luma = img[..., :3].astype(np.float64) @ np.array([0.299, 0.587, 0.114])
-            img = np.rint(luma).astype(np.uint8)
+            img = rgb_to_gray(img)
         return img
     return _decode(path, bw)
 

@@ -9,15 +9,15 @@ blended feature by vertex id. On the per-row route ``lookup_topk_blend``
 gathers every (pixel, level, corner, k) slot from the flat (L*T, F) view
 (the level folded into the slot id) and blends over K.
 
-Determinism: the gathers are ``index_select``, whose gradient autograd
-forms with ``index_add_``. On CUDA that scatter-add uses atomics, so the
-table gradient (and the vertex-feature gradient) is reproducible only
-within fp32 rounding, not bitwise; the tests hold it to a tolerance.
-``BLEND_SCATTER_BACKEND=vmem_serial`` (the JAX package's switch, read and
-checked when this module is imported) gives ``blend_unique``'s table gradient to the
-serial scatter kernel K12 instead, bitwise stable, for tables past
-``_BLEND_SMATRIX_MIN_ELEMENTS`` (U * T); ``gather_rows``' gradient stays an
-atomic ``index_add_``.
+Determinism: every gather here is ``index_select`` with a fixed-order
+backward (:class:`GatherSerial`): the gradient of a table row is the sum of
+the gradients of the rows gathered from it, added in ascending row order by
+``scatter_add_serial`` (kernel K12 on the card, its plain version on the
+CPU), never by atomics. So two fits from one start give the same
+parameters bit for bit, as in the JAX package (its gather backward is a
+sequential scan). The port has this one backward; the JAX package's switch
+``BLEND_SCATTER_BACKEND`` selects nothing here and is only checked, once at
+import, so that a value the JAX package refuses is refused here too.
 """
 
 from __future__ import annotations
@@ -44,14 +44,26 @@ def scatter_backend_from_env() -> str:
     return value
 
 
-# Table-gradient reduction of blend_unique past the large-regime threshold:
-# "segment_sum" (autograd's index_add_) or "vmem_serial" (kernel K12).
-BLEND_SCATTER_BACKEND = scatter_backend_from_env()
-# U * T past which the JAX package takes its large-regime blend. The port
-# has no large-regime form of its own: the threshold only decides where
-# "vmem_serial" applies, so that it runs K12 where the JAX package runs its
-# serial scatter.
-_BLEND_SMATRIX_MIN_ELEMENTS = 1 << 25
+scatter_backend_from_env()
+
+
+class GatherSerial(torch.autograd.Function):
+    """rows (N, C) of a table (T, C) by flat ids (N,); the table gradient
+    dt[t] = sum over the rows n with id t of g[n], added in ascending n by
+    ``scatter_add_serial`` (bitwise stable, no atomics). The forward's
+    ``index_select`` has checked the ids, so the backward skips the range
+    check and its host sync."""
+
+    @staticmethod
+    def forward(ctx, table, flat):
+        ctx.save_for_backward(flat)
+        ctx.slots = table.shape[0]
+        return table.index_select(0, flat)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        return scatter_add_serial(g.contiguous(), flat, ctx.slots, ids_checked=True), None
 
 
 def init_tables(
@@ -82,45 +94,12 @@ def blend_unique(
     """(L, T, F) tables, (U, K) slot ids shared by every level, (U, K)
     selected probabilities -> (L, U, F) blended per-vertex features."""
     w = blend_weights(vals_unique, cfg)
-    u, t = idx_unique.shape[0], tables.shape[1]
-    if BLEND_SCATTER_BACKEND == "vmem_serial" and u * t > _BLEND_SMATRIX_MIN_ELEMENTS:
-        return BlendSerial.apply(tables, idx_unique, w)
-    return _blend(tables, idx_unique, w)
-
-
-def _blend(tables, idx_unique, w):
     l, t, f = tables.shape
     u, k = idx_unique.shape
     tables2 = tables.permute(1, 0, 2).reshape(t, l * f)
-    rows = tables2.index_select(0, idx_unique.reshape(-1).long()).reshape(u, k, l * f)
+    rows = GatherSerial.apply(tables2, idx_unique.reshape(-1).long()).reshape(u, k, l * f)
     out = (rows * w[:, :, None]).sum(dim=1)
     return out.reshape(u, l, f).permute(1, 0, 2)
-
-
-class BlendSerial(torch.autograd.Function):
-    """``blend_unique``'s gather and K-blend with the JAX package's gather
-    backward: dt[t] = sum over (u, k) with idx[u, k] = t of w[u, k] g2[u],
-    added in (u, k) order by K12; dw[u, k] = <tables2[idx[u, k]], g2[u]>,
-    with tables2 (T, L*F) and g2 (U, L*F)."""
-
-    @staticmethod
-    def forward(ctx, tables, idx_unique, w):
-        ctx.save_for_backward(tables, idx_unique, w)
-        return _blend(tables, idx_unique, w)
-
-    @staticmethod
-    def backward(ctx, g):
-        tables, idx, w = ctx.saved_tensors
-        l, t, f = tables.shape
-        u, k = idx.shape
-        tables2 = tables.permute(1, 0, 2).reshape(t, l * f)
-        g2 = g.permute(1, 0, 2).reshape(u, l * f)
-        flat = idx.reshape(-1)
-        rows = tables2.index_select(0, flat.long()).reshape(u, k, l * f)
-        dw = (rows * g2[:, None, :]).sum(dim=-1)
-        scaled = (w[:, :, None] * g2[:, None, :]).reshape(u * k, l * f)
-        dt2 = scatter_add_serial(scaled, flat, t)
-        return dt2.reshape(t, l, f).permute(1, 0, 2), None, dw
 
 
 def gather_rows(per_level_table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -128,7 +107,7 @@ def gather_rows(per_level_table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
     l, u, f = per_level_table.shape
     level = torch.arange(l, device=ids.device).view(1, l, *([1] * (ids.dim() - 2)))
     flat = (ids.long() + level * u).reshape(-1)
-    return per_level_table.reshape(l * u, f).index_select(0, flat).reshape(*ids.shape, f)
+    return GatherSerial.apply(per_level_table.reshape(l * u, f), flat).reshape(*ids.shape, f)
 
 
 def flat_gather(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -137,7 +116,7 @@ def flat_gather(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     l, t, f = tables.shape
     level = torch.arange(l, device=indices.device).view(1, l, *([1] * (indices.dim() - 2)))
     flat = (indices.long() + level * t).reshape(-1)
-    return tables.reshape(l * t, f).index_select(0, flat).reshape(*indices.shape, f)
+    return GatherSerial.apply(tables.reshape(l * t, f), flat).reshape(*indices.shape, f)
 
 
 def lookup_topk_blend(
@@ -147,8 +126,8 @@ def lookup_topk_blend(
     cfg: ModelConfig,
 ) -> torch.Tensor:
     """(P, L, V, K) slot ids and selected probabilities -> (P, L, V, F)
-    blended features. The table gradient is an ``index_add_`` of every
-    (pixel, level, corner, k) row into the (L*T, F) table."""
+    blended features. The table gradient sums every (pixel, level, corner,
+    k) row into the (L*T, F) table in row order (GatherSerial)."""
     feats = flat_gather(tables, indices_topk)                   # (P, L, V, K, F)
     w = blend_weights(probs_topk, cfg)
     return torch.sum(feats * w[..., None], dim=-2)

@@ -23,34 +23,33 @@
 // The TPU's two forms differ in what they keep in VMEM: the fused pair
 // caches a (512, T) fp32 row block (32 MB) and the head, so its product runs
 // once per direction. A Hopper block has 227 KB, so here both forms stream
-// 128-column tiles of the logits and recompute them in each pass, and they
+// 64-column tiles of the logits and recompute them in each pass, and they
 // share every pass:
 //   rows pass     (hpd_fwd_rows_kernel): online max / sum-exp and the exact
-//                 top-K on raw logits, lowest index first -> vals, idx, m, s.
-//                 K1's first pass; all of K4.
+//                 top-K on raw logits, lowest index first -> vals, idx, m, s;
+//                 the rows its guard cannot settle go to the fp32 fix-up
+//                 (hpd_fix_rows_kernel). K1's first pass; all of K4.
 //   columns pass  (hpd_fwd_cols_kernel): p = exp(l - m) / s, marginal
 //                 counts @ p per row segment. K1's second pass; all of K5.
 //   g_sweep       G[r, l] = <p[r], g_marg[l]>. K2's row pass, K6's B1.
 //   dh_sweep      dl = p (g_p - dot), dh = dl w^T. K2's row pass, K6's B2.
 //   bwd columns   (hpd_bwd_cols_kernel): dl, dW = h^T dl, db per row
 //                 segment. K2's and K6-B2's column pass.
-// The three backward passes run their products on the tensor cores (see
-// "backward, on the tensor cores" below); the forward passes keep fp32 FMA
-// on the CUDA cores (stream_tile.cuh), whose exact logits decide top-K.
+// Every pass runs its products on the tensor cores as warpgroup MMAs (see
+// "backward, on the tensor cores" and "forward, on the tensor cores"
+// below); the top-K stays that of the fp32 logits by candidate refinement.
 // Sums across row blocks (marg, dW, db) go to per-segment partials over a
 // fixed number of row segments, summed in segment order by
 // hpd_reduce_segments_kernel: no atomics, bitwise stable run to run. Every
-// long sum is taken in two levels, a partial per tile (64 rows or 128
+// long sum is taken in two levels, a partial per tile (64 rows or 64
 // columns) added to the running total, so no fp32 chain runs over a whole
 // segment (20,224 rows at U_c = 161,792) or over T.
 //
 // Bound on this card: operations. At H = 128, T = 2^16, U_c = 161,792 one
-// logits product is 2.7 TFLOP against 32 MB of weight: 40 ms at the fp32
-// CUDA-core peak (the forward), 16 ms as 3xTF32 at the TF32 tensor peak
-// (the backward, five such products).
-// K4, K5 and B1 each compute the logits once, as the TPU's split kernels do;
-// B2 computes them twice (its row and its column part) where the TPU's runs
-// once.
+// logits product is 2.7 TFLOP against 32 MB of weight: 16 ms as 3xTF32 at
+// the TF32 tensor peak (40 ms at the fp32 CUDA-core peak). K4, K5 and B1
+// each compute the logits once, as the TPU's split kernels do; B2 computes
+// them twice (its row and its column part) where the TPU's runs once.
 
 #include <float.h>
 #include <limits.h>
@@ -64,39 +63,32 @@ constexpr int LMAX = 32;
 // Row segments of the column-parallel kernels. Each holds a (L, T), (H, T)
 // and (T,) partial: at H = 128, T = 2^16 the dW partials take 8 x 32 MB.
 constexpr int SEGS = 8;
+// blocks of the fix-up launch (one per SM of an H100)
+constexpr int FIX_BLOCKS = 132;
 
 int rows_per_seg(int u) {
   const int tiles = (u + R - 1) / R;
   return ((tiles + SEGS - 1) / SEGS) * R;
 }
 
-// Row statistics of rows [r0, r0 + R): p = 0 on rows past `limit` (m = inf);
-// s <= 0 reads as 1, as the TPU kernels pad s, so such a row's p stays finite
-// and a zero count times it adds exactly 0.
-__device__ __forceinline__ void load_ms(const float* __restrict__ m_in,
-                                        const float* __restrict__ s_in, int limit, int r0,
-                                        float* __restrict__ m_s, float* __restrict__ s_s) {
-  for (int r = threadIdx.x; r < R; r += THREADS) {
-    const bool ok = r0 + r < limit;
-    const float s = ok ? s_in[r0 + r] : 1.f;
-    m_s[r] = ok ? m_in[r0 + r] : INFINITY;
-    s_s[r] = s > 0.f ? s : 1.f;
-  }
-}
+// -------------------- exact fp32 rows sweep (the fix-up) -------------------- //
 
-// ------------------------------- forward ---------------------------------- //
-
-size_t fwd_rows_smem(int K) {
+size_t fix_rows_smem(int K) {
   return sizeof(float) * (R * HP + BK * TT + 2 * R * NSUB) + (size_t)R * NSUB * K * 8;
 }
 
-// One block per R rows sweeps every column tile: online max / sum-exp and,
-// per (row, 16-column sub-stream), a sorted top-K list; the block then merges
-// the NSUB lists of each row by (value desc, index asc).
+// The rows pass in fp32 FMA on the CUDA cores (stream_tile.cuh), exact to
+// the plain version's contract: the tensor-core rows pass below hands it the
+// rows whose top-K its guard cannot settle (fix_rows[0, *n_fix)). Blocks
+// stride over the list R rows at a time; each sweeps every column tile with
+// online max / sum-exp and, per (row, 16-column sub-stream), a sorted top-K
+// list, then merges the NSUB lists of each row by (value desc, index asc)
+// and writes the row's vals, idx, m and s.
 template <int P>
 __global__ void __launch_bounds__(THREADS)
-hpd_fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const float* __restrict__ b, int u, int H, int T, int K,
+hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const float* __restrict__ b, int H, int T, int K,
+                    const int* __restrict__ fix_rows, const int* __restrict__ n_fix,
                     float* __restrict__ vals, int* __restrict__ idx,
                     float* __restrict__ m_out, float* __restrict__ s_out) {
   extern __shared__ float smem[];
@@ -107,137 +99,30 @@ hpd_fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float* lv = ps + R * NSUB;
   int* li = (int*)(lv + R * NSUB * K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * R;
-  load_rows(h, u, H, r0, h_s);
-
-  // per (row, tx) column sub-stream: online max / sum-exp and a sorted
-  // top-K list (value descending, index ascending)
-  float mrun[4], srun[4], thr[4];
-  int cnt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrun[i] = -INFINITY;
-    srun[i] = 0.f;
-    thr[i] = -INFINITY;
-    cnt[i] = 0;
-  }
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    float acc[4][8];
-    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
+  const int n = *n_fix;
+  for (int base = blockIdx.x * R; base < n; base += gridDim.x * R) {
+    __syncthreads();  // the previous rows' merge has read lv / li
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i - r * HMAX;
+      h_s[r * HP + k] =
+          (base + r < n && k < H) ? h[(size_t)fix_rows[base + r] * H + k] : 0.f;
+    }
+    // per (row, tx) column sub-stream: online max / sum-exp and a sorted
+    // top-K list (value descending, index ascending)
+    float mrun[4], srun[4], thr[4];
+    int cnt[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float tmax = acc[i][0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, acc[i][j]);
-      const float mnew = fmaxf(mrun[i], tmax);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum += expf(acc[i][j] - mnew);
-      srun[i] = srun[i] * expf(mrun[i] - mnew) + sum;
-      mrun[i] = mnew;
-      // columns arrive in increasing index order, so inserting after every
-      // entry of equal value keeps the lowest index first
-      float* lvr = lv + ((ty * 4 + i) * NSUB + tx) * K;
-      int* lir = li + ((ty * 4 + i) * NSUB + tx) * K;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float v = acc[i][j];
-        if (cnt[i] < K || v > thr[i]) {
-          int pos = cnt[i] < K ? cnt[i] : K - 1;
-          while (pos > 0 && lvr[pos - 1] < v) {
-            lvr[pos] = lvr[pos - 1];
-            lir[pos] = lir[pos - 1];
-            --pos;
-          }
-          lvr[pos] = v;
-          lir[pos] = t0 + tx + 16 * j;
-          if (cnt[i] < K) ++cnt[i];
-          thr[i] = cnt[i] == K ? lvr[K - 1] : -INFINITY;
-        }
-      }
+      mrun[i] = -INFINITY;
+      srun[i] = 0.f;
+      thr[i] = -INFINITY;
+      cnt[i] = 0;
     }
-  }
+    for (int t0 = 0; t0 < T; t0 += TT) {
+      float acc[4][8];
+      tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int sub = (ty * 4 + i) * NSUB + tx;
-    pm[sub] = mrun[i];
-    ps[sub] = srun[i];
-    for (int q = cnt[i]; q < K; ++q) {
-      lv[sub * K + q] = -INFINITY;
-      li[sub * K + q] = INT_MAX;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < R && r0 + threadIdx.x < u) {
-    const int r = threadIdx.x;
-    float m = -INFINITY;
-    for (int sub = 0; sub < NSUB; ++sub) m = fmaxf(m, pm[r * NSUB + sub]);
-    float s = 0.f;
-    for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
-    int pos[NSUB];
-    for (int sub = 0; sub < NSUB; ++sub) pos[sub] = 0;
-    const size_t row = (size_t)(r0 + r);
-    for (int q = 0; q < K; ++q) {
-      int best = 0;
-      float bv = -INFINITY;
-      int bi = INT_MAX;
-      for (int sub = 0; sub < NSUB; ++sub) {
-        if (pos[sub] >= K) continue;
-        const int e = (r * NSUB + sub) * K + pos[sub];
-        const float v = lv[e];
-        const int ii = li[e];
-        if (v > bv || (v == bv && ii < bi)) {
-          best = sub;
-          bv = v;
-          bi = ii;
-        }
-      }
-      ++pos[best];
-      vals[row * K + q] = expf(bv - m) / s;
-      idx[row * K + q] = bi;
-    }
-    m_out[row] = m;
-    s_out[row] = s;
-  }
-}
-
-size_t probe_smem() { return sizeof(float) * (R * HP + BK * TT + 2 * R * NSUB); }
-
-// K7: the rows pass with its later phases removed. Softmax keeps the online
-// max / sum-exp per (row, sub-stream) and the NSUB merge; DOTS keeps only a
-// sum of the logits, per tile first, then across the NSUB sub-streams in
-// order (m = s = that sum).
-template <int P, bool DOTS>
-__global__ void __launch_bounds__(THREADS)
-hpd_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                 const float* __restrict__ b, int u, int H, int T,
-                 float* __restrict__ m_out, float* __restrict__ s_out) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* pm = w_s + BK * TT;
-  float* ps = pm + R * NSUB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * R;
-  load_rows(h, u, H, r0, h_s);
-
-  float mrun[4], srun[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrun[i] = -INFINITY;
-    srun[i] = 0.f;
-  }
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    float acc[4][8];
-    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (DOTS) {
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sum += acc[i][j];
-        srun[i] += sum;
-      } else {
+      for (int i = 0; i < 4; ++i) {
         float tmax = acc[i][0];
 #pragma unroll
         for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, acc[i][j]);
@@ -247,94 +132,88 @@ hpd_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
         for (int j = 0; j < 8; ++j) sum += expf(acc[i][j] - mnew);
         srun[i] = srun[i] * expf(mrun[i] - mnew) + sum;
         mrun[i] = mnew;
+        // columns arrive in increasing index order, so inserting after every
+        // entry of equal value keeps the lowest index first
+        float* lvr = lv + ((ty * 4 + i) * NSUB + tx) * K;
+        int* lir = li + ((ty * 4 + i) * NSUB + tx) * K;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float v = acc[i][j];
+          if (cnt[i] < K || v > thr[i]) {
+            int pos = cnt[i] < K ? cnt[i] : K - 1;
+            while (pos > 0 && lvr[pos - 1] < v) {
+              lvr[pos] = lvr[pos - 1];
+              lir[pos] = lir[pos - 1];
+              --pos;
+            }
+            lvr[pos] = v;
+            lir[pos] = t0 + tx + 16 * j;
+            if (cnt[i] < K) ++cnt[i];
+            thr[i] = cnt[i] == K ? lvr[K - 1] : -INFINITY;
+          }
+        }
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int sub = (ty * 4 + i) * NSUB + tx;
-    pm[sub] = mrun[i];
-    ps[sub] = srun[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < R && r0 + threadIdx.x < u) {
-    const int r = threadIdx.x;
-    float m = -INFINITY, s = 0.f;
-    if (DOTS) {
-      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub];
-      m = s;
-    } else {
-      for (int sub = 0; sub < NSUB; ++sub) m = fmaxf(m, pm[r * NSUB + sub]);
-      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
-    }
-    m_out[r0 + r] = m;
-    s_out[r0 + r] = s;
-  }
-}
-
-size_t fwd_cols_smem() {
-  return sizeof(float) * (R * HP + BK * TT + R * TT + LMAX * R + 2 * R);
-}
-
-// Grid (T / TT, SEGS): one block per column tile and row segment sums
-// counts @ p over the segment's rows into marg_part[seg].
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                    const float* __restrict__ b, const float* __restrict__ counts,
-                    const float* __restrict__ m_in, const float* __restrict__ s_in, int u,
-                    int H, int T, int L, int seg_rows, float* __restrict__ marg_part) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* p_s = w_s + BK * TT;
-  float* c_s = p_s + R * TT;
-  float* m_s = c_s + LMAX * R;
-  float* s_s = m_s + R;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int t0 = blockIdx.x * TT;
-  const int seg = blockIdx.y;
-  const int rbeg = seg * seg_rows;
-  const int rend = min(u, rbeg + seg_rows);
-  constexpr int NQ = LMAX * TT / THREADS;
-  float macc[NQ];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) macc[q] = 0.f;
-  for (int r0 = rbeg; r0 < rend; r0 += R) {
-    __syncthreads();
-    load_rows(h, rend, H, r0, h_s);
-    for (int i = threadIdx.x; i < LMAX * R; i += THREADS) {
-      const int l = i / R, r = i - l * R;
-      c_s[i] = (l < L && r0 + r < rend) ? counts[(size_t)l * u + r0 + r] : 0.f;
-    }
-    load_ms(m_in, s_in, rend, r0, m_s, s_s);
-    float acc[4][8];
-    tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      const float mr = m_s[row], sr = s_s[row];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) p_s[row * TT + tx + 16 * j] = expf(acc[i][j] - mr) / sr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int e = threadIdx.x + THREADS * q;
-      const int l = e / TT, c = e - l * TT;
-      if (l < L) {
-        float a = 0.f;
-        for (int r = 0; r < R; ++r) a = pfma<P>(c_s[l * R + r], p_s[r * TT + c], a);
-        macc[q] += a;
+      const int sub = (ty * 4 + i) * NSUB + tx;
+      pm[sub] = mrun[i];
+      ps[sub] = srun[i];
+      for (int q = cnt[i]; q < K; ++q) {
+        lv[sub * K + q] = -INFINITY;
+        li[sub * K + q] = INT_MAX;
       }
     }
+    __syncthreads();
+    if (threadIdx.x < R && base + threadIdx.x < n) {
+      const int r = threadIdx.x;
+      float m = -INFINITY;
+      for (int sub = 0; sub < NSUB; ++sub) m = fmaxf(m, pm[r * NSUB + sub]);
+      float s = 0.f;
+      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
+      int pos[NSUB];
+      for (int sub = 0; sub < NSUB; ++sub) pos[sub] = 0;
+      const size_t row = (size_t)fix_rows[base + r];
+      for (int q = 0; q < K; ++q) {
+        int best = 0;
+        float bv = -INFINITY;
+        int bi = INT_MAX;
+        for (int sub = 0; sub < NSUB; ++sub) {
+          if (pos[sub] >= K) continue;
+          const int e = (r * NSUB + sub) * K + pos[sub];
+          const float v = lv[e];
+          const int ii = li[e];
+          if (v > bv || (v == bv && ii < bi)) {
+            best = sub;
+            bv = v;
+            bi = ii;
+          }
+        }
+        ++pos[best];
+        vals[row * K + q] = expf(bv - m) / s;
+        idx[row * K + q] = bi;
+      }
+      m_out[row] = m;
+      s_out[row] = s;
+    }
   }
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int e = threadIdx.x + THREADS * q;
-    const int l = e / TT, c = e - l * TT;
-    if (l < L) marg_part[((size_t)seg * L + l) * T + t0 + c] = macc[q];
+}
+
+// absmax[k] = max_t |w[k, t]| (k < H), absmax[H] = max_t |b[t]|: the
+// rows pass's guard bound. One block per row of w, one for b.
+__global__ void hpd_absmax_kernel(const float* __restrict__ w, const float* __restrict__ b, int H,
+                                  int T, float* __restrict__ absmax) {
+  __shared__ float part[THREADS];
+  const float* x = blockIdx.x < H ? w + (size_t)blockIdx.x * T : b;
+  float a = 0.f;
+  for (int t = threadIdx.x; t < T; t += THREADS) a = fmaxf(a, fabsf(x[t]));
+  part[threadIdx.x] = a;
+  __syncthreads();
+  for (int n = THREADS / 2; n > 0; n >>= 1) {
+    if (threadIdx.x < n) part[threadIdx.x] = fmaxf(part[threadIdx.x], part[threadIdx.x + n]);
+    __syncthreads();
   }
+  if (threadIdx.x == 0) absmax[blockIdx.x] = part[0];
 }
 
 // out[i] = sum over segments in order of part[seg * n + i]
@@ -354,7 +233,9 @@ int reduce_segments(const float* part, float* out, size_t n, cudaStream_t st) {
 
 // ------------------------ backward, on the tensor cores --------------------- //
 //
-// K2 and K6 compute one function; their launches share three passes:
+// (The forward passes use the same machinery: see "forward, on the tensor
+// cores" below.) K2 and K6 compute one function; their launches share three
+// passes:
 //   G sweep   G[r, l] = <p[r], g_marg[l]> over every column tile
 //             (K6's B1; K2's row kernel, which then closes dot in the block)
 //   dh sweep  dl = p (g_p - dot) + top-K scatter, dh = dl w^T over every
@@ -598,31 +479,59 @@ __device__ __forceinline__ void mma_step(float (&d)[N / 2], const Frag& a, uint6
 
 // d = sum over k8 steps [s0, s1) (s1 - s0 <= S) of A(s) B(s), from zero
 // (the first MMA ignores d), as one commit group, waited for. a_of(s): the
-// A fragment; b_hi(s), b_lo(s): descriptors.
-template <int P, int N, int S, typename FA, typename FH, typename FL>
+// A fragment; b_hi(s), b_lo(s): descriptors. LO_APART (the forward passes)
+// takes the products with a lo operand into an accumulator of their own,
+// added to the hi_a hi_b one in fp32 at the end: the large accumulator then
+// takes a third of the MMAs, and so a third of the truncations toward zero
+// that bias the result.
+// b_lo_zero (uniform in the block; LO_APART only): B's lo part is zero, so
+// hi_a lo_b is skipped.
+template <int P, int N, int S, bool LO_APART = false, typename FA, typename FH, typename FL>
 __device__ __forceinline__ void chain(float (&d)[N / 2], int s0, int s1, FA a_of, FH b_hi,
-                                      FL b_lo) {
-  keep(d);
-  wg_fence();
+                                      FL b_lo, bool b_lo_zero = false) {
+  if constexpr (LO_APART && P != 2) {
+    float dl[N / 2];
+    keep(d);
+    keep(dl);
+    wg_fence();
 #pragma unroll
-  for (int j = 0; j < S; ++j) {
-    if (s0 + j < s1) mma_step<P, N>(d, a_of(s0 + j), b_hi(s0 + j), b_lo(s0 + j), j > 0);
+    for (int j = 0; j < S; ++j) {
+      if (s0 + j < s1) {
+        const Frag a = a_of(s0 + j);
+        wgmma<N>(dl, a.lo, b_hi(s0 + j), j > 0);
+        if (!b_lo_zero) wgmma<N>(dl, a.hi, b_lo(s0 + j), 1);
+        wgmma<N>(d, a.hi, b_hi(s0 + j), j > 0);
+      }
+    }
+    wg_commit();
+    wg_wait();
+    keep(d);
+    keep(dl);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] += dl[i];
+  } else {
+    keep(d);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (s0 + j < s1) mma_step<P, N>(d, a_of(s0 + j), b_hi(s0 + j), b_lo(s0 + j), j > 0);
+    }
+    wg_commit();
+    wg_wait();
+    keep(d);
   }
-  wg_commit();
-  wg_wait();
-  keep(d);
 }
 
 // run = sum over k8 steps [s0, s1) of A(s) B(s) in chains of KCH steps, each
 // from zero and added to run in fp32 in order (run = 0 for an empty range).
-template <int P, int N, typename FA, typename FH, typename FL>
+template <int P, int N, bool LO_APART = false, typename FA, typename FH, typename FL>
 __device__ __forceinline__ void chains(float (&run)[N / 2], int s0, int s1, FA a_of, FH b_hi,
                                        FL b_lo) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) run[i] = 0.f;
   for (int c0 = s0; c0 < s1; c0 += KCH) {
     float d[N / 2];
-    chain<P, N, KCH>(d, c0, min(s1, c0 + KCH), a_of, b_hi, b_lo);
+    chain<P, N, KCH, LO_APART>(d, c0, min(s1, c0 + KCH), a_of, b_hi, b_lo);
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) run[i] += d[i];
   }
@@ -634,12 +543,12 @@ __device__ __forceinline__ void chains(float (&run)[N / 2], int s0, int s1, FA a
 // the two partial sums meet through xbuf (4096 floats, free on entry and on
 // return): warpgroup wg keeps elements [16 wg, 16 wg + 16) of the m64n64
 // accumulator, N = 32 wg + [0, 32), as l (the m64n32 layout at n0 = 32 wg).
-template <int P, typename FA, typename FH, typename FL>
+template <int P, bool LO_APART = false, typename FA, typename FH, typename FL>
 __device__ __forceinline__ void split_k(float (&l)[16], int nk8, FA a_of, FH b_hi, FL b_lo,
                                         float* __restrict__ xbuf) {
   const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
   float part[32];
-  chains<P, 64>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, b_hi, b_lo);
+  chains<P, 64, LO_APART>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, b_hi, b_lo);
   // constant indices in each branch: the partial stays in registers
   if (wg == 0) {
 #pragma unroll
@@ -689,6 +598,551 @@ __device__ __forceinline__ void cp_wait() {
 __device__ __forceinline__ float recip_s(float s) { return 1.f / (s > 0.f ? s : 1.f); }
 __device__ __forceinline__ float to_p(float l, float m, float inv) { return expf(l - m) * inv; }
 
+// w tile of columns [t0, t0 + BT) and its bias into w_s / b_s by cp.async
+// (rows past H are zero from the kernel's start).
+__device__ __forceinline__ void load_w_async(const float* __restrict__ w,
+                                             const float* __restrict__ b, int H, int T, int t0,
+                                             float* __restrict__ w_s, float* __restrict__ b_s) {
+  for (int i = threadIdx.x; i < H * (BT / 4); i += THREADS) {
+    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
+    cp_async16(w_s + k * BT + swz_b(k, c), w + (size_t)k * T + t0 + c);
+  }
+  if (threadIdx.x < BT / 4) cp_async16(b_s + 4 * threadIdx.x, b + t0 + 4 * threadIdx.x);
+}
+
+// ------------------------ forward, on the tensor cores ---------------------- //
+//
+// Both forward passes take the logits as the backward does (wgmma tf32,
+// 3xTF32 at 'highest', the bf16 splits at 'high' / 'default', chains of at
+// most 4 k8 steps from zeroed accumulators added in fp32, split_k between
+// the warpgroups), but with the lo products apart from hi_a hi_b (chain's
+// LO_APART): the forward's outputs are held to 1e-5, and that takes two
+// thirds of the truncations toward zero off the large accumulator.
+//   rows pass    (hpd_fwd_rows_kernel; a block owns R rows, 64-column tiles
+//                stream): logits^T (cols x rows) = w^T (A, the streamed fp32
+//                w tile by cp.async, split in registers) x h^T (B: h hi/lo,
+//                made once per block). Thread (warp q, lane (g, t)) of
+//                warpgroup wg holds 8 rows x 2 columns of every tile: 32
+//                sub-streams per row, each with an online max / sum-exp,
+//                merged in sub-stream order at the end.
+//   columns pass (hpd_fwd_cols_kernel; a block owns 64 columns and a row
+//                segment, 64-row tiles stream through a cp.async ring):
+//                logits (rows x cols) = h (A) x w (B: w^T hi/lo, made once);
+//                p = exp(l - m) / s into a p tile; marg^T (cols x levels)
+//                += p^T (A, read by hand from the p tile) x counts^T (B:
+//                counts hi/lo, n = level, k = row: counts' own layout),
+//                m64n16k8 at L <= 16, warpgroup wg summing rows 32 wg + [0,
+//                32) of each tile. Per-tile chains, the warpgroups' sums in
+//                order, then the fixed segment partials: bitwise stable.
+// The columns pass selects nothing. The rows pass selects the exact top-K of
+// the fp32 logits (the plain version's, lowest index first) from tensor-core
+// logits by candidate refinement:
+//   1. each row keeps its top kc = K + GSLACK candidates by tensor-core
+//      logit (value desc, index asc): a per-row threshold (the kc-th value)
+//      filters each tile; survivors go to a per-row buffer, merged into the
+//      sorted list by one thread per row after the tile. The kept set is the
+//      exact tensor-core top kc whatever the buffer order.
+//   2. at the end each candidate's logit is recomputed in fp32, one fma
+//      chain over k ascending, then + b: the arithmetic of tile_dot, so the
+//      value the fp32 rows pass (hpd_fix_rows_kernel) gives.
+//   3. the top K of the recomputed values (desc, index asc) give idx;
+//      vals = exp(l - top) / s from the recomputed values, with s the
+//      sweep's sum-exp whose candidate terms are replaced by the
+//      recomputed ones; m is the sweep's row max.
+//   4. the guard: with eps_r >= |tensor-core logit - fp32 logit| for every
+//      column of row r (guard_coef below), every column outside the
+//      candidates has an fp32 logit <= (kc-th tensor-core value) + eps_r. So
+//      when the K-th recomputed value exceeds the kc-th tensor-core value by
+//      more than 2 eps_r, the fp32 top K lies among the candidates, ties
+//      included, and step 3 is exact.
+//   5. rows that fail the guard go to a list (fix_rows, an atomic count;
+//      the order of the list changes nothing) that hpd_fix_rows_kernel, the
+//      exact fp32 sweep, settles after the rows pass. The count is returned.
+// K7 (hpd_probe_kernel) is the same sweep with its later phases removed.
+
+constexpr int GSLACK = 4;                // candidates beyond K
+constexpr int KCMAX = KMAX + GSLACK;     // candidate list depth, K <= KMAX
+constexpr int NSUBT = 32;                // sub-streams per row in the rows pass
+constexpr int XBUF = 4096;               // split_k's exchange (floats)
+enum { MODE_DOTS = 0, MODE_SOFTMAX = 1, MODE_SELECT = 2 };
+
+// eps_r = guard_coef(P, H) * (sum_k |h_rk| max_t |w_kt| + max_t |b_t|) =
+// c 2^-20 S_r bounds |tensor-core logit - fp32 logit| for every column t,
+// since S_r >= sum_k |h_rk w_kt| + |b_t|. With n_f fmas in the fp32 chain
+// (H; 3H at 'high', pfma's three):
+//   fp32 chain: n_f fmas and the bias add, each one rounding of a running
+//     sum <= 1.01 S_r (the 1.01 covers the bf16 terms' growth at 'high' /
+//     'default'): <= (n_f + 1) 1.01 2^-24 S_r <= (n_f / 16 + 1) 2^-20 S_r.
+//   tensor cores: at 'highest' x = hi + lo + r with |r| <= 2^-22 |x|, and
+//     lo_a lo_b is dropped: <= 3 2^-22 = 0.75 2^-20 of each |term|; at
+//     'high' / 'default' the products are the contract's, exact. An MMA
+//     adds its 8 products to the accumulator with each addend truncated
+//     against the largest (<= 9 2^-23 S_r); a chain holds <= 12 MMAs
+//     (4 on the hi_a hi_b accumulator; this bound counts all 12):
+//     <= 13.5 2^-20 S_r. The fp32 sums of chains, of the two warpgroups and
+//     the bias: 4 roundings, <= 0.25 2^-20 S_r.
+//   Total <= (n_f / 16 + 15.5) 2^-20 S_r; c = n_f / 16 + 16 leaves 0.5 for
+//   S_r's own fp32 rounding (< 2^-16 of it).
+__device__ __forceinline__ float guard_coef(int P, int H) {
+  return ((P == 1 ? 3 : 1) * H / 16.f + 16.f) * 0x1p-20f;
+}
+
+// (v, i) before (v2, i2) in the candidate order: value desc, index asc.
+__device__ __forceinline__ bool before(float v, int i, float v2, int i2) {
+  return v > v2 || (v == v2 && i < i2);
+}
+
+// logits^T of a 64-column tile for the block's R rows: element i is column
+// c_m(0, i) of the tile and row c_n(32 wg, i) (split_k over h; its exchange
+// in xbuf), bias added.
+template <int P, bool LO_APART>
+__device__ __forceinline__ void tile_logits_t(const float* __restrict__ h_hi,
+                                              const float* __restrict__ h_lo,
+                                              const float* __restrict__ w_s,
+                                              const float* __restrict__ b_s, int nk8,
+                                              float* __restrict__ xbuf, float (&l)[16]) {
+  auto wA = [&](int m, int k) { return w_s[k * BT + swz_b(k, m)]; };
+  auto a_of = [&](int s) { return frag_a<P>(wA, 0, 8 * s); };
+  auto bh = [&](int s) { return desc_k8(h_hi, R, 0, s); };
+  auto bl = [&](int s) { return desc_k8(h_lo, R, 0, s); };
+  split_k<P, LO_APART>(l, nk8, a_of, bh, bl, xbuf);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) l[i] += b_s[c_m(0, i)];
+}
+
+// The rows pass's shared memory; the swizzled tiles first, 1024-byte aligned.
+struct FwdRowsSmem {
+  float *h_hi, *h_lo, *xbuf, *w_s, *b_s, *cv, *lv, *thr, *m_s, *s_s, *ex;
+  int *ci, *li, *ccnt;
+  __device__ explicit FwdRowsSmem(float* smem) {
+    h_hi = align1024(smem);
+    h_lo = h_hi + R * HMAX;
+    xbuf = h_lo + R * HMAX;
+    w_s = xbuf + XBUF;          // 2 stages of HMAX x BT, fp32
+    b_s = w_s + 2 * HMAX * BT;
+    cv = b_s + 2 * BT;          // per-row candidate buffer of a tile
+    ci = (int*)(cv + R * BT);
+    lv = (float*)(ci + R * BT);  // per-row candidate list, sorted
+    li = (int*)(lv + R * KCMAX);
+    thr = (float*)(li + R * KCMAX);
+    ccnt = (int*)(thr + R);
+    m_s = (float*)(ccnt + R);
+    s_s = m_s + R;
+    ex = cv;                    // the candidates' fp32 logits, after the sweep
+  }
+};
+constexpr int FWD_ROWS_SMEM =
+    2 * R * HMAX + XBUF + 2 * HMAX * BT + 2 * BT + 2 * R * BT + 2 * R * KCMAX + 4 * R;
+size_t fwd_rows_smem() { return sizeof(float) * FWD_ROWS_SMEM + 1024; }
+
+// The rows pass of the block's R rows. MODE_SELECT writes vals, idx (u, K),
+// m, s and lists the rows its guard leaves to the fix-up; MODE_SOFTMAX (K7)
+// writes the row max and sum-exp; MODE_DOTS (K7) m = s = the row sum of the
+// logits, per tile first, then over the sub-streams in order.
+template <int P, int MODE>
+__device__ __forceinline__ void fwd_rows_sweep(
+    float* smem, const float* __restrict__ h, const float* __restrict__ w,
+    const float* __restrict__ b, int u, int H, int T, int K, const float* __restrict__ absmax,
+    float* __restrict__ vals, int* __restrict__ idx, float* __restrict__ m_out,
+    float* __restrict__ s_out, int* __restrict__ fix_rows, int* __restrict__ n_fix) {
+  const FwdRowsSmem sm(smem);
+  const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
+  const int r0 = blockIdx.x * R;
+  const int nk8 = (H + 7) / 8;
+  const int kc = K + GSLACK;
+  // h^T (n = row, k = h) as hi / lo B tiles, zero past u and H; w rows past H
+  // zero in both stages
+  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+    const int r = i / HMAX, k = i % HMAX;
+    put<P>(sm.h_hi, sm.h_lo, sw128(R, r, k),
+           (r0 + r < u && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f);
+  }
+  for (int i = H * BT + threadIdx.x; i < HMAX * BT; i += THREADS) {
+    sm.w_s[i] = 0.f;
+    sm.w_s[HMAX * BT + i] = 0.f;
+  }
+  if (MODE == MODE_SELECT) {
+    for (int r = threadIdx.x; r < R; r += THREADS) {
+      sm.thr[r] = -INFINITY;
+      sm.ccnt[r] = 0;
+    }
+  }
+  // w tiles 0 and 1 by cp.async, one commit group each
+  load_w_async(w, b, H, T, 0, sm.w_s, sm.b_s);
+  cp_commit();
+  if (BT < T) load_w_async(w, b, H, T, BT, sm.w_s + HMAX * BT, sm.b_s + BT);
+  cp_commit();
+  float mrun[8], srun[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    mrun[q] = -INFINITY;
+    srun[q] = 0.f;
+  }
+  int len = 0;  // thread r < R: length of row r's candidate list
+  for (int t0 = 0, it = 0; t0 < T; t0 += BT, ++it) {
+    const int st = it & 1;
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    float l[16];
+    tile_logits_t<P, true>(sm.h_hi, sm.h_lo, sm.w_s + st * HMAX * BT, sm.b_s + st * BT, nk8,
+                           sm.xbuf, l);
+    // row q = 2 j + e of the thread: elements 4 j + e (column c) and
+    // 4 j + 2 + e (column c + 8)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 2 * j + e;
+        const float v0 = l[4 * j + e], v1 = l[4 * j + 2 + e];
+        if (MODE == MODE_DOTS) {
+          srun[q] += v0 + v1;
+        } else {
+          const float mnew = fmaxf(mrun[q], fmaxf(v0, v1));
+          srun[q] = srun[q] * expf(mrun[q] - mnew) + (expf(v0 - mnew) + expf(v1 - mnew));
+          mrun[q] = mnew;
+        }
+        if (MODE == MODE_SELECT) {
+          const int r = c_n(32 * wg, 4 * j + e), c = t0 + c_m(0, 4 * j + e);
+          const float th = sm.thr[r];
+          if (v0 > th) {
+            const int p = atomicAdd(&sm.ccnt[r], 1);
+            sm.cv[r * BT + p] = v0;
+            sm.ci[r * BT + p] = c;
+          }
+          if (v1 > th) {
+            const int p = atomicAdd(&sm.ccnt[r], 1);
+            sm.cv[r * BT + p] = v1;
+            sm.ci[r * BT + p] = c + 8;
+          }
+        }
+      }
+    __syncthreads();
+    if (MODE == MODE_SELECT && threadIdx.x < R) {
+      // merge the tile's survivors into row r's list (insertion, desc / asc)
+      const int r = threadIdx.x, n = sm.ccnt[r];
+      float* lvr = sm.lv + r * KCMAX;
+      int* lir = sm.li + r * KCMAX;
+      for (int e = 0; e < n; ++e) {
+        const float v = sm.cv[r * BT + e];
+        const int c = sm.ci[r * BT + e];
+        if (len == kc && !before(v, c, lvr[kc - 1], lir[kc - 1])) continue;
+        int pos = len < kc ? len : kc - 1;
+        while (pos > 0 && before(v, c, lvr[pos - 1], lir[pos - 1])) {
+          lvr[pos] = lvr[pos - 1];
+          lir[pos] = lir[pos - 1];
+          --pos;
+        }
+        lvr[pos] = v;
+        lir[pos] = c;
+        if (len < kc) ++len;
+      }
+      sm.ccnt[r] = 0;
+      if (len == kc) sm.thr[r] = lvr[kc - 1];
+    }
+    if (t0 + 2 * BT < T)
+      load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
+    cp_commit();
+  }
+  cp_wait<0>();
+  // the row statistics: sub-stream 8 wq + g of row r, merged in order
+  float* pm = sm.xbuf;
+  float* ps = sm.xbuf + R * NSUBT;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = c_n(32 * wg, 4 * j + e), sub = 8 * wq + g;
+      pm[r * NSUBT + sub] = mrun[2 * j + e];
+      ps[r * NSUBT + sub] = srun[2 * j + e];
+    }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    float m = -INFINITY, s = 0.f;
+    if (MODE == MODE_DOTS) {
+      for (int sub = 0; sub < NSUBT; ++sub) s += ps[r * NSUBT + sub];
+      m = s;
+    } else {
+      for (int sub = 0; sub < NSUBT; ++sub) m = fmaxf(m, pm[r * NSUBT + sub]);
+      for (int sub = 0; sub < NSUBT; ++sub) s += ps[r * NSUBT + sub] * expf(pm[r * NSUBT + sub] - m);
+    }
+    if (r0 + r < u) {
+      m_out[r0 + r] = m;
+      s_out[r0 + r] = s;
+    }
+    sm.m_s[r] = m;
+    sm.s_s[r] = s;
+  }
+  if (MODE != MODE_SELECT) return;
+  __syncthreads();
+  // each candidate's fp32 logit: tile_dot's chain over k ascending, then + b
+  for (int pi = threadIdx.x; pi < R * kc; pi += THREADS) {
+    const int r = pi / kc, c = pi % kc;
+    if (r0 + r >= u) continue;
+    const int t = sm.li[r * KCMAX + c];
+    const float* hr = h + (size_t)(r0 + r) * H;
+    float acc = 0.f;
+    for (int k = 0; k < H; ++k) acc = pfma<P>(hr[k], w[(size_t)k * T + t], acc);
+    sm.ex[r * KCMAX + c] = acc + b[t];
+  }
+  __syncthreads();
+  if (threadIdx.x < R && r0 + threadIdx.x < u) {
+    const int r = threadIdx.x;
+    const size_t row = (size_t)(r0 + r);
+    const float* exr = sm.ex + r * KCMAX;
+    const float* lvr = sm.lv + r * KCMAX;
+    const int* lir = sm.li + r * KCMAX;
+    const float m = sm.m_s[r];
+    int sel[KMAX];
+    unsigned taken = 0u;
+    for (int q = 0; q < K; ++q) {
+      int best = 0;
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+      for (int c = 0; c < kc; ++c) {
+        if ((taken >> c) & 1u) continue;
+        if (before(exr[c], lir[c], bv, bi)) {
+          best = c;
+          bv = exr[c];
+          bi = lir[c];
+        }
+      }
+      taken |= 1u << best;
+      sel[q] = best;
+      idx[row * K + q] = bi;
+    }
+    // s with the candidates' terms from the fp32 recompute, as differences
+    // from the top one (they carry most of a peaked row's sum, and a
+    // tensor-core logit near 70 is off by about 5e-5, which moves its term
+    // by as much), the rest from the sweep; m stays the sweep's, so that
+    // p = exp(l - m) / s of the later passes, on tensor-core logits, is
+    // 1 / s at the top. vals = exp(fp32 difference from the top) / s.
+    const float top = exr[sel[0]];
+    float rest = sm.s_s[r];
+    for (int c = 0; c < kc; ++c) rest -= expf(lvr[c] - m);
+    float s = fmaxf(rest, 0.f);
+    for (int c = 0; c < kc; ++c) s += expf(exr[c] - top);
+    for (int q = 0; q < K; ++q) vals[row * K + q] = expf(exr[sel[q]] - top) / s;
+    s_out[row] = s;
+    const float ek = exr[sel[K - 1]];
+    const float* hr = h + row * H;
+    float sr = absmax[H];
+    for (int k = 0; k < H; ++k) sr = fmaf(fabsf(hr[k]), absmax[k], sr);
+    // NaN anywhere fails the guard and goes to the fix-up as well
+    if (!(ek - sm.lv[r * KCMAX + kc - 1] > 2.f * guard_coef(P, H) * sr))
+      fix_rows[atomicAdd(n_fix, 1)] = (int)row;
+  }
+}
+
+// K4 and K1's first pass: vals, idx, m, s; rows the guard leaves go to
+// fix_rows / n_fix for hpd_fix_rows_kernel.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+hpd_fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const float* __restrict__ b, int u, int H, int T, int K,
+                    const float* __restrict__ absmax, float* __restrict__ vals,
+                    int* __restrict__ idx, float* __restrict__ m_out, float* __restrict__ s_out,
+                    int* __restrict__ fix_rows, int* __restrict__ n_fix) {
+  extern __shared__ float smem[];
+  fwd_rows_sweep<P, MODE_SELECT>(smem, h, w, b, u, H, T, K, absmax, vals, idx, m_out, s_out,
+                                 fix_rows, n_fix);
+}
+
+// K7: the rows pass with its later phases removed (DOTS: m = s = row sum of
+// the logits; else the row max and sum-exp).
+template <int P, bool DOTS>
+__global__ void __launch_bounds__(THREADS, 1)
+hpd_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                 const float* __restrict__ b, int u, int H, int T, float* __restrict__ m_out,
+                 float* __restrict__ s_out) {
+  extern __shared__ float smem[];
+  fwd_rows_sweep<P, DOTS ? MODE_DOTS : MODE_SOFTMAX>(smem, h, w, b, u, H, T, 1, nullptr, nullptr,
+                                                     nullptr, m_out, s_out, nullptr, nullptr);
+}
+
+// The columns pass's per-row-tile stage (fp32): the h tile (read by hand as
+// A, swz_a), counts (level-major, as in device memory), m, s.
+struct FwdColsStage {
+  float *h_s, *c_s, *m_s, *s_s;
+  __device__ explicit FwdColsStage(float* base) {
+    h_s = base;
+    c_s = h_s + R * HMAX;
+    m_s = c_s + LP * R;
+    s_s = m_s + R;
+  }
+};
+constexpr int FWD_COLS_STAGE = R * HMAX + LP * R + 2 * R;
+
+// Row tile [r0, r0 + R) of the segment (ending at rend) into a stage:
+// cp.async below rend, neutral values past it (h = 0, counts 0, m = inf,
+// s = 1: p = 0).
+__device__ __forceinline__ void load_fwd_stage_async(FwdColsStage st, const float* __restrict__ h,
+                                                     const float* __restrict__ counts,
+                                                     const float* __restrict__ m_in,
+                                                     const float* __restrict__ s_in, int u,
+                                                     int rend, int H, int L, int r0) {
+  if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
+    for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
+      const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
+      float* dst = st.h_s + r * HMAX + swz_a(r, k);
+      if (r0 + r < rend && k < H) {
+        cp_async16(dst, h + (size_t)(r0 + r) * H + k);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = 0.f;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i % HMAX;
+      float* dst = st.h_s + r * HMAX + swz_a(r, k);
+      if (r0 + r < rend && k < H)
+        cp_async4(dst, h + (size_t)(r0 + r) * H + k);
+      else
+        *dst = 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < LP * R; i += THREADS) {
+    const int l = i / R, r = i % R;
+    if (l < L && r0 + r < rend)
+      cp_async4(st.c_s + i, counts + (size_t)l * u + r0 + r);
+    else
+      st.c_s[i] = 0.f;
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    if (r0 + r < rend) {
+      cp_async4(st.m_s + r, m_in + r0 + r);
+      cp_async4(st.s_s + r, s_in + r0 + r);
+    } else {
+      st.m_s[r] = INFINITY;
+      st.s_s[r] = 1.f;
+    }
+  }
+}
+
+constexpr int FWD_COLS_SMEM =
+    2 * BT * HMAX + 2 * LP * R + R * BT + XBUF + BT + 2 * FWD_COLS_STAGE;
+size_t fwd_cols_smem() { return sizeof(float) * FWD_COLS_SMEM + 1024; }
+
+// K5 and K1's second pass. Grid (T / BT, SEGS): one block per 64-column
+// tile and row segment sums marg over the segment's rows into
+// marg_part[seg]. Logits and p: warpgroup wg holds the tile's 64 rows x
+// columns 32 wg + [0, 32); marg^T: warpgroup wg sums rows 32 wg + [0, 32)
+// of every tile, and the two sums meet in order at the end.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                    const float* __restrict__ b, const float* __restrict__ counts,
+                    const float* __restrict__ m_in, const float* __restrict__ s_in, int u,
+                    int H, int T, int L, int seg_rows, float* __restrict__ marg_part) {
+  extern __shared__ float smem[];
+  float* wt_hi = align1024(smem);  // w^T (n = column, k = h)
+  float* wt_lo = wt_hi + BT * HMAX;
+  float* c_hi = wt_lo + BT * HMAX;  // counts (n = level, k = row)
+  float* c_lo = c_hi + LP * R;
+  float* p_s = c_lo + LP * R;  // p (row, column), swz_b
+  float* xbuf = p_s + R * BT;
+  float* b_s = xbuf + XBUF;
+  float* stage0 = b_s + BT;
+  const int wg = threadIdx.x >> 7;
+  const int t0 = blockIdx.x * BT;
+  const int seg = blockIdx.y;
+  const int rbeg = seg * seg_rows;
+  const int rend = min(u, rbeg + seg_rows);
+  const int nk8 = (H + 7) / 8;
+  for (int s = 0; s < 2; ++s) {
+    if (rbeg + s * R < rend)
+      load_fwd_stage_async(FwdColsStage(stage0 + s * FWD_COLS_STAGE), h, counts, m_in, s_in, u,
+                           rend, H, L, rbeg + s * R);
+    cp_commit();
+  }
+  for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
+    const int k = i / BT, c = i % BT;
+    put<P>(wt_hi, wt_lo, sw128(BT, c, k), k < H ? w[(size_t)k * T + t0 + c] : 0.f);
+  }
+  if (threadIdx.x < BT) b_s[threadIdx.x] = b[t0 + threadIdx.x];
+  // marg^T partial: element i is column c_m(0, i), level c_n(0, i) (the
+  // first 8 elements, an m64n16 product, for L <= 16)
+  float macc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) macc[i] = 0.f;
+  for (int r0 = rbeg, it = 0; r0 < rend; r0 += R, ++it) {
+    const FwdColsStage st(stage0 + (it & 1) * FWD_COLS_STAGE);
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    // counts^T as the B tile (the m64n16 product reads levels 0-15 only);
+    // occurrence counts up to 2^11 are exact in tf32, so their lo part is
+    // zero and the tile's hi_a lo_b product is skipped (decided per tile,
+    // by the block's vote after the split, so any count stays exact)
+    bool c_lo_nonzero = false;
+    for (int i = threadIdx.x; i < (L <= 16 ? 16 : LP) * R; i += THREADS) {
+      const int l = i / R, r = i % R;
+      uint32_t hi, lo;
+      split<P>(st.c_s[i], hi, lo);
+      c_hi[sw128(LP, l, r)] = __uint_as_float(hi);
+      if (P != 2) c_lo[sw128(LP, l, r)] = __uint_as_float(lo);
+      c_lo_nonzero |= lo != 0u;
+    }
+    // logits: element i is row c_m(0, i), column c_n(32 wg, i)
+    float q[16];
+    {
+      auto hA = [&](int m, int k) { return st.h_s[m * HMAX + swz_a(m, k)]; };
+      auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
+      auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
+      split_k<P, true>(q, nk8, a_of, bh, bl, xbuf);
+    }
+    const float inv0 = recip_s(st.s_s[c_m(0, 0)]), inv1 = recip_s(st.s_s[c_m(0, 2)]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = c_m(0, i), c = c_n(32 * wg, i);
+      p_s[r * BT + swz_b(r, c)] =
+          to_p(q[i] + b_s[c], st.m_s[r], (i >> 1) & 1 ? inv1 : inv0);
+    }
+    async_view();
+    const bool c_lo_zero = !__syncthreads_or(c_lo_nonzero);
+    // marg^T += p^T counts^T: A (m = column, k = row) from the p tile
+    {
+      auto pA = [&](int m, int k) { return p_s[k * BT + swz_b(k, m)]; };
+      auto a_of = [&](int s) { return frag_a<P>(pA, 0, 8 * s); };
+      auto bh = [&](int s) { return desc_k8(c_hi, LP, 0, s); };
+      auto bl = [&](int s) { return desc_k8(c_lo, LP, 0, s); };
+      if (L <= 16) {
+        float d[8];
+        chain<P, 16, 4, true>(d, 4 * wg, 4 * wg + 4, a_of, bh, bl, c_lo_zero);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) macc[i] += d[i];
+      } else {
+        float d[16];
+        chain<P, 32, 4, true>(d, 4 * wg, 4 * wg + 4, a_of, bh, bl, c_lo_zero);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) macc[i] += d[i];
+      }
+    }
+    __syncthreads();
+    if (r0 + 2 * R < rend)
+      load_fwd_stage_async(FwdColsStage(stage0 + (it & 1) * FWD_COLS_STAGE), h, counts, m_in,
+                           s_in, u, rend, H, L, r0 + 2 * R);
+    cp_commit();
+  }
+  cp_wait<0>();
+  // marg^T = warpgroup 0's sum + warpgroup 1's, in that order
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xbuf[c_m(0, i) * LP + c_n(0, i)] = macc[i];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = c_m(0, i), l = c_n(0, i);
+      if (l < L) marg_part[((size_t)seg * L + l) * T + t0 + c] = macc[i] + xbuf[c * LP + l];
+    }
+  }
+}
+
 // ------------------------------ row kernels -------------------------------- //
 
 // The row kernels' shared memory; the swizzled tiles first, 1024-byte aligned.
@@ -719,18 +1173,6 @@ struct RowsSmem {
     g_s = dl_lo;
   }
 };
-
-// w tile of columns [t0, t0 + BT) and its bias into w_s / b_s by cp.async
-// (rows past H are zero from the kernel's start).
-__device__ __forceinline__ void load_w_async(const float* __restrict__ w,
-                                             const float* __restrict__ b, int H, int T, int t0,
-                                             float* __restrict__ w_s, float* __restrict__ b_s) {
-  for (int i = threadIdx.x; i < H * (BT / 4); i += THREADS) {
-    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
-    cp_async16(w_s + k * BT + swz_b(k, c), w + (size_t)k * T + t0 + c);
-  }
-  if (threadIdx.x < BT / 4) cp_async16(b_s + 4 * threadIdx.x, b + t0 + 4 * threadIdx.x);
-}
 
 // The g_marg tile of columns [t0, t0 + BT) into registers (zero past L) ...
 __device__ __forceinline__ void load_gm(const float* __restrict__ g_marg, int T, int L, int t0,
@@ -817,15 +1259,11 @@ template <int P>
 __device__ __forceinline__ void rows_p(const RowsSmem& sm, const float* __restrict__ w_s,
                                        const float* __restrict__ b_s, int nk8, float (&l)[16]) {
   const int n0 = 32 * (threadIdx.x >> 7);
-  auto wA = [&](int m, int k) { return w_s[k * BT + swz_b(k, m)]; };
-  auto a_of = [&](int s) { return frag_a<P>(wA, 0, 8 * s); };
-  auto bh = [&](int s) { return desc_k8(sm.h_hi, R, 0, s); };
-  auto bl = [&](int s) { return desc_k8(sm.h_lo, R, 0, s); };
-  split_k<P>(l, nk8, a_of, bh, bl, sm.dl_hi);
+  tile_logits_t<P, false>(sm.h_hi, sm.h_lo, w_s, b_s, nk8, sm.dl_hi, l);
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int r = c_n(n0, i);
-    l[i] = to_p(l[i] + b_s[c_m(0, i)], sm.m_s[r], sm.inv_s[r]);
+    l[i] = to_p(l[i], sm.m_s[r], sm.inv_s[r]);
   }
 }
 
@@ -1308,15 +1746,31 @@ int check_shape(int u, int H, int T, int L, int K) {
 
 // ------------------------- launches shared by K1-K6 ------------------------ //
 
-// Rows pass: vals, idx (u, K), m, s (u).
+// Rows pass: vals, idx (u, K), m, s (u), then the fix-up of the rows its
+// guard lists (n_fix of them, in fix_rows). Scratch absmax (H + 1),
+// fix_rows (u); n_fix (1) is zeroed here.
 int launch_select(const float* h, const float* w, const float* b, int u, int H, int T, int K,
-                  int prec, float* vals, int* idx, float* m, float* s, cudaStream_t st) {
-  if (u == 0) return 0;
+                  int prec, float* vals, int* idx, float* m, float* s, float* absmax,
+                  int* fix_rows, int* n_fix, cudaStream_t st) {
+  int err = (int)cudaMemsetAsync(n_fix, 0, sizeof(int), st);
+  if (err || u == 0) return err;
+  hpd_absmax_kernel<<<H + 1, THREADS, 0, st>>>(w, b, H, T, absmax);
+  err = (int)cudaGetLastError();
+  if (err) return err;
   const int row_blocks = (u + R - 1) / R;
   DISPATCH_PREC(prec, {
-    set_smem(hpd_fwd_rows_kernel<P>, fwd_rows_smem(K));
-    hpd_fwd_rows_kernel<P><<<row_blocks, THREADS, fwd_rows_smem(K), st>>>(h, w, b, u, H, T, K,
-                                                                      vals, idx, m, s);
+    set_smem(hpd_fwd_rows_kernel<P>, fwd_rows_smem());
+    hpd_fwd_rows_kernel<P><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(
+        h, w, b, u, H, T, K, absmax, vals, idx, m, s, fix_rows, n_fix);
+  });
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  // one block per SM at most, striding over the list (none when it is empty)
+  const int fix_blocks = row_blocks < FIX_BLOCKS ? row_blocks : FIX_BLOCKS;
+  DISPATCH_PREC(prec, {
+    set_smem(hpd_fix_rows_kernel<P>, fix_rows_smem(K));
+    hpd_fix_rows_kernel<P><<<fix_blocks, THREADS, fix_rows_smem(K), st>>>(
+        h, w, b, H, T, K, fix_rows, n_fix, vals, idx, m, s);
   });
   return (int)cudaGetLastError();
 }
@@ -1326,7 +1780,7 @@ int launch_marginal(const float* h, const float* w, const float* b, const float*
                     const float* m, const float* s, int u, int H, int T, int L, int prec,
                     float* marg, float* marg_part, cudaStream_t st) {
   if (u == 0) return (int)cudaMemsetAsync(marg, 0, sizeof(float) * L * T, st);
-  const dim3 cols_grid(T / TT, SEGS);
+  const dim3 cols_grid(T / BT, SEGS);
   DISPATCH_PREC(prec, {
     set_smem(hpd_fwd_cols_kernel<P>, fwd_cols_smem());
     hpd_fwd_cols_kernel<P><<<cols_grid, THREADS, fwd_cols_smem(), st>>>(
@@ -1374,12 +1828,15 @@ const char* hpd_stream_error_string(int code) { return port_error_string(code); 
 int hpd_stream_segments() { return SEGS; }
 
 // Rows pass (K4, K1's first): h (u, H), w (H, T), b (T) -> vals/idx (u, K),
-// m/s (u).
+// m/s (u); n_fix (1): the rows the fix-up settled. Scratch absmax (H + 1),
+// fix_rows (u).
 int hpd_select(const float* h, const float* w, const float* b, int u, int H, int T, int K,
-               int prec, float* vals, int* idx, float* m, float* s, void* stream) {
+               int prec, float* vals, int* idx, float* m, float* s, float* absmax,
+               int* fix_rows, int* n_fix, void* stream) {
   const int err = check_shape(u, H, T, 1, K);
   if (err) return err;
-  return launch_select(h, w, b, u, H, T, K, prec, vals, idx, m, s, (cudaStream_t)stream);
+  return launch_select(h, w, b, u, H, T, K, prec, vals, idx, m, s, absmax, fix_rows, n_fix,
+                       (cudaStream_t)stream);
 }
 
 // K7: h (u, H), w (H, T), b (T) -> m, s (u). dots = 1: m = s = the row sum
@@ -1392,12 +1849,13 @@ int hpd_probe(const float* h, const float* w, const float* b, int u, int H, int 
   const int row_blocks = (u + R - 1) / R;
   DISPATCH_PREC(prec, {
     if (dots) {
-      set_smem(hpd_probe_kernel<P, true>, probe_smem());
-      hpd_probe_kernel<P, true><<<row_blocks, THREADS, probe_smem(), st>>>(h, w, b, u, H, T, m, s);
+      set_smem(hpd_probe_kernel<P, true>, fwd_rows_smem());
+      hpd_probe_kernel<P, true><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(h, w, b, u, H, T,
+                                                                              m, s);
     } else {
-      set_smem(hpd_probe_kernel<P, false>, probe_smem());
-      hpd_probe_kernel<P, false><<<row_blocks, THREADS, probe_smem(), st>>>(h, w, b, u, H, T, m,
-                                                                           s);
+      set_smem(hpd_probe_kernel<P, false>, fwd_rows_smem());
+      hpd_probe_kernel<P, false><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(h, w, b, u, H, T,
+                                                                               m, s);
     }
   });
   return (int)cudaGetLastError();

@@ -22,14 +22,21 @@ Probe (K7): h, w, b -> (m, s), each (U, 1): "softmax" the row max and sum
 ``fused_supports`` is the JAX package's gate between the two forms, copied
 with its values: it only picks which kernel contract runs, as on the TPU.
 Its byte limits are the TPU's VMEM budget, not a Hopper memory limit; the
-Hopper kernels of both forms stream 128-column tiles at any T.
+Hopper kernels of both forms stream 64-column tiles at any T.
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_stream.cu`` (K1
-is K4's rows pass then K5's columns pass, counted as K1 alone); for a CPU
-tensor they run the plain version below, which processes the rows in
-chunks so that (U, T) never exists whole. The plain
-versions are the CPU path and the reference the kernels are held against;
-nothing on the card's path calls them.
+is K4's rows pass then K5's columns pass, counted as K1 alone), every
+product on the tensor cores (3xTF32 at 'highest'). The rows pass takes its
+top-K from tensor-core logits by candidate refinement: the top K + 4
+candidates of each row are recomputed in fp32 and a per-row guard
+(:func:`select_guard_eps`) decides whether they settle the fp32 top-K; the
+rows it cannot settle go to the exact fp32 sweep, a fix-up inside the same
+call, whose row count ``hpd_stream_select.fixup_rows`` (and
+``hpd_stream_fused_fwd.fixup_rows``) keeps as a device tensor. For a CPU
+tensor the wrappers run the plain version below, which processes the rows
+in chunks so that (U, T) never exists whole. The plain versions are the
+CPU path and the reference the kernels are held against; nothing on the
+card's path calls them.
 """
 
 from __future__ import annotations
@@ -79,6 +86,24 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def _chunk(t: int) -> int:
     return max(1, PLAIN_CHUNK_ELEMS // max(t, 1))
+
+
+# The rows pass's guard (hpd_stream.cu: guard_coef; derivation there): the
+# candidates' tensor-core logits may differ from the fp32 ones by at most
+# eps_r = (n_f / 16 + 16) 2^-20 (sum_k |h_rk| max_t |w_kt| + max_t |b_t|),
+# n_f = H fmas per fp32 logit (3H at 'high'); a row's candidates settle its
+# fp32 top-K when the K-th recomputed logit exceeds the (K + GUARD_SLACK)-th
+# tensor-core logit by more than 2 eps_r.
+GUARD_SLACK = 4
+
+
+def select_guard_eps(h, w, b, precision: str = "highest"):
+    """eps_r (U,) of the rows pass's guard for h (U, H), w (H, T), b (T,)."""
+    precision = kernel_precision(precision)
+    hd = h.shape[1]
+    n_f = (3 if precision == "high" else 1) * hd
+    s = h.abs() @ w.abs().amax(dim=1) + b.abs().max()
+    return (n_f / 16 + 16) * 2.0**-20 * s
 
 
 # ------------------------------ plain versions ------------------------------ #
@@ -219,7 +244,7 @@ def hpd_stream_fused_probe_plain(h, w, b, precision: str, variant: str):
 def _lib() -> ctypes.CDLL:
     lib = build.library("hpd_stream")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.hpd_select.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 5
+    lib.hpd_select.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 8
     lib.hpd_marginal.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 3
     lib.hpd_fused_bwd.argtypes = [vp] * 10 + [ci] * 7 + [vp] * 7
     lib.hpd_unique_bwd_g.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 2
@@ -271,7 +296,9 @@ def _stream(dev) -> int:
 
 
 def _select(h, w, b, k, precision, tile, what):
-    """The rows pass (K4; K1's first): (vals, idx, m, s). Counts nothing."""
+    """The rows pass (K4; K1's first): (vals, idx, m, s, n_fix), n_fix a
+    (1,) int32 device tensor holding the number of rows the kernel's guard
+    handed to the exact fp32 fix-up. Counts nothing."""
     dev = h.device
     h, w, b = _check_inputs(h, w, b, None, k, tile=tile)
     u, hd = h.shape
@@ -281,13 +308,17 @@ def _select(h, w, b, k, precision, tile, what):
     idx = torch.empty(u, k, device=dev, dtype=torch.int32)
     m = torch.empty(u, 1, **_f32(dev))
     s = torch.empty(u, 1, **_f32(dev))
+    absmax = torch.empty(hd + 1, **_f32(dev))                       # the guard's scratch
+    fix_rows = torch.empty(max(u, 1), device=dev, dtype=torch.int32)
+    n_fix = torch.empty(1, device=dev, dtype=torch.int32)
     with torch.cuda.device(dev):
         code = lib.hpd_select(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), u, hd, t, k, PRECISION_CODE[precision],
-            vals.data_ptr(), idx.data_ptr(), m.data_ptr(), s.data_ptr(), _stream(dev),
+            vals.data_ptr(), idx.data_ptr(), m.data_ptr(), s.data_ptr(), absmax.data_ptr(),
+            fix_rows.data_ptr(), n_fix.data_ptr(), _stream(dev),
         )
     build.check(code, lib, "hpd_stream_error_string", what)
-    return vals, idx, m, s
+    return vals, idx, m, s, n_fix
 
 
 def _marginal(h, w, b, counts, m, s, precision, tile, what):
@@ -313,9 +344,10 @@ def _marginal(h, w, b, counts, m, s, precision, tile, what):
 
 def _launch_fwd(h, w, b, counts, k, precision):
     _check_inputs(h, w, b, counts, k)
-    vals, idx, m, s = _select(h, w, b, k, precision, COL_TILE, "hpd_stream_fused_fwd")
+    vals, idx, m, s, n_fix = _select(h, w, b, k, precision, COL_TILE, "hpd_stream_fused_fwd")
     marg = _marginal(h, w, b, counts, m, s, precision, COL_TILE, "hpd_stream_fused_fwd")
     hpd_stream_fused_fwd.launches += 1
+    hpd_stream_fused_fwd.fixup_rows = n_fix
     return marg, vals, idx, m, s
 
 
@@ -349,9 +381,10 @@ def _launch_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision, 
 
 
 def _launch_select(h, w, b, k, precision):
-    out = _select(h, w, b, k, precision, LANE_TILE, "hpd_stream_select")
+    *out, n_fix = _select(h, w, b, k, precision, LANE_TILE, "hpd_stream_select")
     hpd_stream_select.launches += 1
-    return out
+    hpd_stream_select.fixup_rows = n_fix
+    return tuple(out)
 
 
 def _launch_marginal(h, w, b, counts, m, s, precision):
@@ -484,6 +517,10 @@ def hpd_stream_fused_probe(h, w, b, precision: str = "highest", variant: str = "
 hpd_stream_fused_fwd.launches = 0
 hpd_stream_fused_bwd.launches = 0
 hpd_stream_select.launches = 0
+# the rows the last launch's guard handed to the fp32 fix-up: a (1,) int32
+# device tensor (reading it waits for the launch), None before any launch
+hpd_stream_fused_fwd.fixup_rows = None
+hpd_stream_select.fixup_rows = None
 hpd_stream_marginal.launches = 0
 hpd_tail_unique_bwd.launches = 0
 hpd_stream_fused_probe.launches = 0

@@ -28,6 +28,15 @@
 // the ring full; what then holds the hot block is one SM streaming the
 // slot's rows (PERF.md §6), not the adds. Short slots take the same path.
 // Columns past 32 go to further blocks (grid.y).
+// Narrow rows in short slots (C <= 4 and at most 32 rows a slot on average,
+// chosen by the caller, scatter.py: narrow_path; the per-pixel gather's
+// gradient, F = 2, 3.7 M rows on 2.6 M slots) take scatter_narrow_kernel
+// after step 1 instead: one thread per
+// (slot, column) adds the slot's rows in the same order. The ring would
+// pay a block's set-up per 11 rows there, with all but C of each warp's
+// lanes idle; where slots are long (the per-row blend's gradient: 3.7 M
+// rows on 1,024 slots) a thread's serial chain would be slower than the
+// ring.
 #include <algorithm>
 
 #include "common.cuh"
@@ -150,6 +159,20 @@ scatter_serial_kernel(const float* __restrict__ sorted, const int* __restrict__ 
   if (slot < T && lane < cw) out[(size_t)slot * C + c0 + lane] = acc;
 }
 
+// out[slot, c] = the slot's rows' column c, added in row order from 0.
+__global__ void scatter_narrow_kernel(const float* __restrict__ sorted,
+                                      const int* __restrict__ offsets, int T, int C,
+                                      float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (size_t)T * C) return;
+  const int slot = (int)(i / C), c = (int)(i - (size_t)slot * C);
+  const int e = offsets[slot + 1];
+  float acc = 0.f;
+#pragma unroll 4
+  for (int j = offsets[slot]; j < e; ++j) acc += sorted[(size_t)j * C + c];
+  out[i] = acc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -157,10 +180,11 @@ extern "C" {
 const char* scatter_error_string(int code) { return port_error_string(code); }
 
 // rows (n, C), order (n) row ids sorted stably by slot, offsets (T + 1)
-// -> out (T, C). sorted: (n, C) scratch.
+// -> out (T, C). sorted: (n, C) scratch. narrow: sum with
+// scatter_narrow_kernel (C <= 4) instead of the ring.
 int scatter_add_serial(const float* rows, const int* order, const int* offsets, int n, int T,
-                       int C, float* out, float* sorted, void* stream) {
-  if (n < 0 || T < 0 || C < 1) return ERR_SHAPE;
+                       int C, int narrow, float* out, float* sorted, void* stream) {
+  if (n < 0 || T < 0 || C < 1 || (narrow && C > 4)) return ERR_SHAPE;
   if (T == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const bool vec = C % 4 == 0 && ((uintptr_t)rows & 15) == 0 && ((uintptr_t)sorted & 15) == 0;
@@ -177,6 +201,12 @@ int scatter_add_serial(const float* rows, const int* order, const int* offsets, 
       scatter_gather_kernel<1><<<blocks, THREADS, 0, st>>>(rows, order, n, C, sorted);
     const int err = (int)cudaGetLastError();
     if (err) return err;
+  }
+  if (narrow) {
+    const size_t cells = (size_t)T * C;
+    scatter_narrow_kernel<<<(unsigned)((cells + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+        sorted, offsets, T, C, out);
+    return (int)cudaGetLastError();
   }
   const dim3 grid((unsigned)((T + WARPS - 1) / WARPS), (unsigned)((C + CW - 1) / CW));
   if (vec) {

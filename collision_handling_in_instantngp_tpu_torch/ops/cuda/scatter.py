@@ -11,9 +11,14 @@ not do in its body: ``torch.sort``, ``torch.searchsorted`` and the range
 check, :func:`prepare`), then launches the reduction kernel of
 ``scatter.cu`` (:func:`scatter_sorted`): the rows are gathered into slot
 order, then a block streams the rows of 8 slots through a shared-memory
-ring while one warp per slot adds that slot's rows in row order. No
-atomics. For a CPU tensor it runs the plain version, the same serial sum
-in PyTorch. Both raise ValueError on an idx outside [0, T).
+ring while one warp per slot adds that slot's rows in row order (variant
+"ring"); rows of 4 columns or fewer in slots of at most 32 rows on average
+go to one thread per slot and column instead, adding in the same order
+(variant "narrow", :func:`narrow_path`). No atomics. For a CPU tensor it
+runs the plain version, the same serial sum in PyTorch. Both raise
+ValueError on an idx outside [0, T), except where the caller passes
+``ids_checked`` (ids a gather's forward has already checked): the card
+path then skips the check and its host sync.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ import ctypes
 import torch
 
 from . import build
+
+VARIANTS = ("ring", "narrow")
+NARROW_COLS = 4    # widest rows of the narrow variant
+NARROW_ROWS = 32   # most rows a slot on average for the narrow variant
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -76,56 +85,69 @@ def scatter_add_serial_plain(rows: torch.Tensor, idx: torch.Tensor, t: int) -> t
 def _lib() -> ctypes.CDLL:
     lib = build.library("scatter")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.scatter_add_serial.argtypes = [vp] * 3 + [ci] * 3 + [vp] * 3
+    lib.scatter_add_serial.argtypes = [vp] * 3 + [ci] * 4 + [vp] * 3
     lib.scatter_add_serial.restype = ci
     return lib
 
 
-def prepare(idx: torch.Tensor, t: int):
+def prepare(idx: torch.Tensor, t: int, check: bool = True):
     """(order (N,) int32 row ids sorted stably by slot, offsets (T + 1,)
-    int32 each slot's range in it) on idx's device; raises ValueError on an
-    idx outside [0, T) (one host sync)."""
+    int32 each slot's range in it) on idx's device; with ``check``, raises
+    ValueError on an idx outside [0, T) (one host sync)."""
     n = idx.shape[0]
     keys, order = torch.sort(idx, stable=True)
     offsets = torch.searchsorted(keys, torch.arange(t + 1, device=idx.device, dtype=keys.dtype),
                                  out_int32=True)
     # offsets[0] and offsets[T] (a view, one copy to the host) must be 0 and N
-    if (offsets[::t].tolist() != [0, n]) if t else n:
+    if check and ((offsets[::t].tolist() != [0, n]) if t else n):
         raise _out_of_range(t)
     return order.to(torch.int32), offsets
 
 
+def narrow_path(n: int, c: int, t: int) -> bool:
+    """Whether N rows of C columns on T slots take the narrow variant."""
+    return c <= NARROW_COLS and n <= NARROW_ROWS * t
+
+
 def scatter_sorted(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """The kernel alone on :func:`prepare`'s output: (T, C) float32. Counts
-    one launch of ``scatter_add_serial``. Allocates an (N, C) float32
+    one launch of ``scatter_add_serial``, in total and by variant
+    (``variant_launches``). Allocates an (N, C) float32
     scratch for the rows in slot order, as large as ``rows`` (83 MB at the
     blend's N = 647,168, C = 32), freed on return."""
     dev = rows.device
     rows = rows.contiguous()
     (n, c), t = rows.shape, offsets.shape[0] - 1
+    narrow = narrow_path(n, c, t)
     out = torch.empty(t, c, device=dev, dtype=torch.float32)
     rows_sorted = torch.empty(n, c, device=dev, dtype=torch.float32)   # the kernel's scratch
     lib = _lib()
     with torch.cuda.device(dev):
         code = lib.scatter_add_serial(
-            rows.data_ptr(), order.data_ptr(), offsets.data_ptr(), n, t, c, out.data_ptr(),
+            rows.data_ptr(), order.data_ptr(), offsets.data_ptr(), n, t, c, int(narrow),
+            out.data_ptr(),
             rows_sorted.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(code, lib, "scatter_error_string", "scatter_add_serial")
     scatter_add_serial.launches += 1
+    scatter_add_serial.variant_launches[VARIANTS[narrow]] += 1
     return out
 
 
-def _launch(rows: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+def _launch(rows: torch.Tensor, idx: torch.Tensor, t: int, check: bool) -> torch.Tensor:
     _check(rows, idx, t)
-    return scatter_sorted(rows, *prepare(idx, t))
+    return scatter_sorted(rows, *prepare(idx, t, check))
 
 
-def scatter_add_serial(rows: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
-    """(T, C) = segment_sum(rows, idx, T), each slot summed in row order (K12)."""
+def scatter_add_serial(rows: torch.Tensor, idx: torch.Tensor, t: int,
+                       ids_checked: bool = False) -> torch.Tensor:
+    """(T, C) = segment_sum(rows, idx, T), each slot summed in row order
+    (K12). ``ids_checked``: idx is known to lie in [0, T), so the card path
+    makes no range check (no host sync); the CPU path always checks."""
     if _on_card(rows):
-        return _launch(rows, idx, t)
+        return _launch(rows, idx, t, not ids_checked)
     return scatter_add_serial_plain(rows, idx, t)
 
 
 scatter_add_serial.launches = 0
+scatter_add_serial.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -3,7 +3,8 @@ same kernel structure, each with one more phase than the last.
 
   dots     K7 "dots": the logits product per column tile + a 1-pass sum
   softmax  K7 "softmax": + the online max / exp / sum-exp
-  select   K4 ``hpd_stream_select``: + the exact top-K lists and their merge
+  select   K4 ``hpd_stream_select``: + the top-K candidate lists, their fp32
+           recompute and guard, and the fix-up of the rows it lists
   full     K1 ``hpd_stream_fused_fwd``: + the marginal (on this card K1 is
            K4's rows pass, then K5's columns pass)
 

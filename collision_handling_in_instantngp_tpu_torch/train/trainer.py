@@ -5,7 +5,8 @@ zero-collision abort (the last two levels collision-free for the first 10
 checked epochs) and early stopping on the loss. The best-PSNR parameters,
 with the BatchNorm running statistics (buffers of the params), are kept in
 memory. Checkpoint files, histogram epochs, ensembles, multi-epoch
-spans and warm starts are not in this port yet (ROADMAP.md).
+spans and warm starts are not in this port yet (ROADMAP.md); ``fit`` warns
+once per process where the config asks for a checkpoint or a histogram.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -40,6 +42,27 @@ class FitResult:
     history: List[Dict[str, float]]
 
 
+# the config fields this port accepts but does not act on yet, each warned
+# about once per process
+_WARNED: set = set()
+
+
+def _warn_ignored_fields(tcfg) -> None:
+    ignored = {
+        "save_params": (tcfg.save_params,
+                        "TrainConfig.save_params is true, but this port writes no checkpoint "
+                        "yet (ROADMAP.md §1 item 4): the best parameters stay in memory "
+                        "(FitResult.best_params)"),
+        "histograms_rate": (tcfg.histograms_rate > 0,
+                            "TrainConfig.histograms_rate > 0, but this port writes no "
+                            "histogram yet (ROADMAP.md §1 item 5)"),
+    }
+    for field, (asked, message) in ignored.items():
+        if asked and field not in _WARNED:
+            _WARNED.add(field)
+            warnings.warn(message, UserWarning, stacklevel=3)
+
+
 def psnr_from_int_sq_err(og_max: float, int_sq_err: float) -> float:
     return float(20 * np.log10(og_max) - 10 * np.log10(max(int_sq_err, 1e-12)))
 
@@ -58,6 +81,7 @@ def fit(
     not modified."""
     dev = resolve_device(device)
     tcfg, mcfg = exp.train, exp.model
+    _warn_ignored_fields(tcfg)
     epochs = epochs if epochs is not None else tcfg.epochs
     statics = gngf.make_statics(mcfg)
     shuffled, _ = make_shuffle_permutations(data.num_pixels, tcfg.seed, tcfg.shuffle_pixels)

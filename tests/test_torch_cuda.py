@@ -7,7 +7,10 @@ to 65536, L from 1 to 32; for the tail backward on the tensor cores (K2,
 K6), T from 2048 to 65536, L 1 to 32, K 1 to 16, all three precisions,
 heads of 37 and 100; for
 the serial scatter K12, one slot, a 100,000-row slot, empty slots, C = 2
-and 32; for the probes K7 and K13, ragged U and T from 128;
+and 32, short and long slots of narrow rows; for the rows pass's guard,
+planted ties and near-tie clusters (its fp32 fix-up); for the encoding,
+its fixed-order table gradients; for the probes K7 and K13, ragged U and
+T from 128;
 K14/K15 at sizes not a multiple of 4 and from an unaligned address), plus
 training on the card against the CPU on the dedup route (fused and split)
 and the per-row routes.
@@ -186,7 +189,7 @@ def test_cli_runs_on_card(dev, tmp_path, capsys):
     img = np.random.default_rng(0).integers(0, 256, size=(12, 10, 3)).astype(np.uint8)
     np.save(tmp_path / "tiny.npy", img)
     assert cli.main(["-f", "tiny.npy", "--images_dir", str(tmp_path), "-s", "4061",
-                     "--epochs", "2"]) == 0
+                     "-e", "4061", "--epochs", "2"]) == 0
     assert "grid 4061: best PSNR" in capsys.readouterr().out
 
 
@@ -354,8 +357,11 @@ def test_scatter_serial_matches_plain(dev, c, layout):
               "empty_slots": rng.integers(0, t // 4, size=n) * 4}[layout].astype(np.int32)
     rows, idx = torch.as_tensor(rows_np, device=dev), torch.as_tensor(idx_np, device=dev)
     before = scatter.scatter_add_serial.launches
+    variant = "narrow" if c == 2 else "ring"
+    before_variant = scatter.scatter_add_serial.variant_launches[variant]
     got = scatter.scatter_add_serial(rows, idx, t)
     assert scatter.scatter_add_serial.launches == before + 1
+    assert scatter.scatter_add_serial.variant_launches[variant] == before_variant + 1
     assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
     assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
 
@@ -372,6 +378,21 @@ def test_scatter_serial_hot_slot_matches_plain(dev, c):
     rows = torch.as_tensor(rng.standard_normal((idx_np.size, c)).astype(np.float32), device=dev)
     idx = torch.as_tensor(idx_np.astype(np.int32), device=dev)
     got = scatter.scatter_add_serial(rows, idx, t)
+    assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
+    assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
+
+
+def test_scatter_serial_long_narrow_slots_match_plain(dev):
+    """Rows of 2 columns in long slots (2,000 a slot on average, as in the
+    per-row blend's gradient) take the ring, not the thread-per-slot path
+    of short slots: bitwise the plain version and equal run to run."""
+    rng = np.random.default_rng(5)
+    t = 64
+    idx = torch.as_tensor(rng.integers(0, t, size=128_000).astype(np.int32), device=dev)
+    rows = torch.as_tensor(rng.standard_normal((idx.numel(), 2)).astype(np.float32), device=dev)
+    before = scatter.scatter_add_serial.variant_launches["ring"]
+    got = scatter.scatter_add_serial(rows, idx, t)
+    assert scatter.scatter_add_serial.variant_launches["ring"] == before + 1
     assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
     assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
 
@@ -435,11 +456,9 @@ def test_split_wrappers_refuse_shapes(dev):
 
 def test_split_training_on_card_matches_cpu(dev, monkeypatch):
     """Two epochs through the split route (gate forced off) with the serial
-    blend scatter (threshold 0), on the card and on the CPU, same start;
+    scatter of the table gradients, on the card and on the CPU, same start;
     K4, K5, K6 and K12 launched, K1/K2 did not; losses agree to rtol 1e-4."""
     monkeypatch.setattr(hpd_stream, "FUSED_W_MAX_BYTES", 0)
-    monkeypatch.setattr(encoding, "_BLEND_SMATRIX_MIN_ELEMENTS", 0)
-    monkeypatch.setattr(encoding, "BLEND_SCATTER_BACKEND", "vmem_serial")
     exp = experiment_from_grid_id(4061, base_model=ModelConfig(
         hash_table_size=4096, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream"))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
@@ -515,3 +534,90 @@ def test_hbm_probes_exact(dev, n):
         y = probe.hbm_scale_copy(x)
         assert torch.equal(y, x * 2) and y.data_ptr() != x.data_ptr()
     assert (probe.hbm_write.launches, probe.hbm_scale_copy.launches) == (before[0] + 2, before[1] + 2)
+
+
+def _planted_select_inputs(dev, u=1024, t=2048):
+    """h, w, b (H = 128) whose rows 0, 8, 16, ... lift 8 columns above all
+    others, within 1.4e-4 of each other (bias steps of 2e-5, below the rows
+    pass's guard), and whose other rows hold an exact tie at the top
+    (columns 300 and 700) and a near tie at the 4th place (1200 and 450,
+    4e-6 to 2e-5 apart) that only the fp32 recompute orders."""
+    rng = np.random.default_rng(65535)
+    h = rng.random((u, 128), dtype=np.float32) * 0.5
+    h[:, 0], h[:, 1] = 1.0, 0.0
+    h[::8, 1] = 1.0
+    h[:, 2] = rng.choice([-1.0, 1.0], size=u) * rng.uniform(0.2, 1.0, size=u)
+    w = rng.standard_normal((128, t)).astype(np.float32) * 0.05
+    w[0:3] = 0.0
+    b = rng.standard_normal(t).astype(np.float32) * 0.05
+    base = w[:, 300].copy()
+    for col, bias in ((300, 3.0), (700, 3.0), (1500, 2.9), (1200, 2.0), (450, 2.0)):
+        w[:, col], b[col] = base, bias
+    w[2, 450] = 2e-5
+    for j, col in enumerate((1800, 60, 999, 1234, 77, 1600, 401, 1001)):
+        w[:, col], w[1, col], b[col] = base, 10.0, (j * 37 % 8) * 2e-5
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return f32(h), f32(w), f32(b), (u + 7) // 8
+
+
+def test_select_guard_hands_near_ties_to_the_fixup(dev):
+    """K4 and K1 on planted ties: top-K identical to the plain version on
+    every row, exactly the lifted rows settled by the fp32 fix-up, bitwise
+    equal run to run."""
+    h, w, b, lifted = _planted_select_inputs(dev)
+    counts = torch.ones(2, h.shape[0], device=dev)
+    ref = hpd_stream.hpd_stream_select_plain(h, w, b, 4, "highest")
+    assert (ref[1][1::8, :2] == torch.tensor([300, 700], device=dev, dtype=torch.int32)).all()
+    out = hpd_stream.hpd_stream_select(h, w, b, 4)
+    assert int(hpd_stream.hpd_stream_select.fixup_rows.item()) == lifted
+    assert torch.equal(out[1], ref[1])
+    for name, a, r in zip(("vals", "m", "s"), (out[0], *out[2:]), (ref[0], *ref[2:])):
+        _close(a, r, 1e-5, name)
+    assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_stream.hpd_stream_select(h, w, b, 4)))
+    fused = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, 4)
+    assert int(hpd_stream.hpd_stream_fused_fwd.fixup_rows.item()) == lifted
+    assert torch.equal(fused[2], ref[1])
+
+
+@pytest.mark.parametrize("gather", ["gather_rows", "blend_unique", "lookup_topk_blend"])
+def test_table_gradients_bitwise_on_card(dev, gather):
+    """The encoding's gathers on the card: the table gradient (K12, the
+    serial row-order sum) bitwise equal run to run and to the CPU's plain
+    version, with a hot slot (raw-sum blend: the blend weights are the
+    inputs themselves on both devices)."""
+    from collision_handling_in_instantngp_tpu_torch.config import TopkBlendMode
+
+    rng = np.random.default_rng(3)
+    l, t, f, u, k, p = 4, 256, 2, 3000, 4, 20000
+    cfg = ModelConfig(topk_blend=TopkBlendMode.RAW_SUM)
+    tables = rng.standard_normal((l, t, f)).astype(np.float32)
+    if gather == "gather_rows":
+        table = rng.standard_normal((l, u, f)).astype(np.float32)
+        ids = np.where(rng.random((p, l, 4)) < 0.3, 7, rng.integers(0, u, size=(p, l, 4)))
+        g = rng.standard_normal((p, l, 4, f)).astype(np.float32)
+        fn = lambda tab, d: encoding.gather_rows(tab, torch.as_tensor(ids, device=d))
+    elif gather == "blend_unique":
+        table = tables
+        idx = np.where(rng.random((u, k)) < 0.3, 7, rng.integers(0, t, size=(u, k))).astype(np.int32)
+        vals = (rng.random((u, k)) + 0.1).astype(np.float32)
+        g = rng.standard_normal((l, u, f)).astype(np.float32)
+        fn = lambda tab, d: encoding.blend_unique(tab, torch.as_tensor(idx, device=d),
+                                                  torch.as_tensor(vals, device=d), cfg)
+    else:
+        table = tables
+        idx = np.where(rng.random((p, l, 4, k)) < 0.3, 7, rng.integers(0, t, size=(p, l, 4, k)))
+        vals = (rng.random((p, l, 4, k)) + 0.1).astype(np.float32)
+        g = rng.standard_normal((p, l, 4, f)).astype(np.float32)
+        fn = lambda tab, d: encoding.lookup_topk_blend(tab, torch.as_tensor(idx, device=d),
+                                                       torch.as_tensor(vals, device=d), cfg)
+
+    def grad(d):
+        tab = torch.as_tensor(table, device=d).requires_grad_()
+        (fn(tab, d) * torch.as_tensor(g, device=d)).sum().backward()
+        return tab.grad
+
+    before = scatter.scatter_add_serial.launches
+    first, second = grad(dev), grad(dev)
+    assert scatter.scatter_add_serial.launches == before + 2
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), grad("cpu"))

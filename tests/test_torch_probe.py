@@ -235,3 +235,46 @@ def test_step_timer_syncs_through_a_host_copy():
     assert timer.stop(torch.ones(3)) >= 0.0
     with pytest.raises(RuntimeError):
         timer.stop()
+
+
+_FAKE_SMOKE = '''import json, os, sys
+ms = float(sys.argv[1]) if len(sys.argv) > 1 else {ms}
+os.makedirs("chiprun_out", exist_ok=True)
+fit = [dict(seconds={ms} / 100)] * 3
+json.dump(dict(gpu="card, 700 W", fit=fit, profile=dict(idle_share=0.01), split_fit=fit,
+               split_profile=dict(idle_share=0.02), per_row_fits=dict(auto=dict(history=fit)),
+               per_row_profile=dict(idle_share=0.03)), open("chiprun_out/chip_smoke.json", "w"))
+print(json.dumps(dict(kernels=[dict(name="{name}", ms={ms})])))
+print(json.dumps(dict(ok=True)))
+sys.exit({rc})
+'''
+
+
+def test_ab_smoke_orders_runs_and_tables_them(tmp_path, capsys):
+    """tools/ab_smoke runs each checkout's chip_smoke.py in the given order,
+    keeps each run's log and JSON, tables the kernels by name (a name one
+    run lacks shows "-") and the epochs by phase; a failing run fails it."""
+    from collision_handling_in_instantngp_tpu_torch.tools import ab_smoke
+
+    dirs = {}
+    for label, name, ms, rc in (("a", "k[ring]", 2.5, 0), ("b", "k", 4.0, 0), ("bad", "k", 1.0, 3)):
+        d = tmp_path / label
+        d.mkdir()
+        (d / "chip_smoke.py").write_text(_FAKE_SMOKE.format(name=name, ms=ms, rc=rc))
+        dirs[label] = str(d)
+    out = tmp_path / "out"
+    runs = [f"--run={k}={v}" for k, v in dirs.items()]
+    assert ab_smoke.main([*runs, "--order", "b,a,a,b", "--out", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert [line.split()[1] for line in text.splitlines() if line.startswith("run ")] == \
+        ["0_b:", "1_a:", "2_a:", "3_b:"]
+    assert any(line.split() == ["k", "4.000", "-", "-", "4.000"] for line in text.splitlines())
+    assert any(line.split() == ["k[ring]", "-", "2.500", "2.500", "-"] for line in text.splitlines())
+    saved = json.loads((out / "ab.json").read_text())
+    assert saved["order"] == ["b", "a", "a", "b"]
+    assert saved["runs"][1]["phases"]["dedup T=2^14"] == dict(epoch_s=[0.025] * 3, idle_share=0.01)
+    assert (out / "3_b.log").exists() and (out / "2_a.json").exists()
+    with pytest.raises(RuntimeError, match="2_bad"):
+        ab_smoke.main([*runs, "--order", "a,b,bad", "--out", str(out)])
+    with pytest.raises(SystemExit):
+        ab_smoke.main([*runs, "--order", "a,c"])

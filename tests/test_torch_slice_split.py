@@ -6,11 +6,12 @@ Both trainers start from the same weights (JAX init, copied with
 image through a streamed geometry (T = 4096, 4 levels,
 hpd_backend="unique_stream"). The port's fused gate is forced off
 (``FUSED_W_MAX_BYTES = 0``), so its tail runs the plain versions of K4-K6;
-the JAX side runs its lax.scan tail on the CPU, the same function. Both
-blends take the large-regime path (threshold forced to 0) with the table
-gradient reduced by ``segment_sum`` (autograd's ``index_add_`` in the port)
-or ``vmem_serial`` (the port's K12 plain version; the JAX Pallas kernel in
-interpret mode).
+the JAX side runs its lax.scan tail on the CPU, the same function. The JAX
+blend takes its large-regime path (threshold forced to 0) with the table
+gradient reduced by ``segment_sum`` or ``vmem_serial`` (the JAX Pallas kernel
+in interpret mode); the port's gathers have one backward, which reduces
+their gradients with K12's plain version (``models/encoding.py:
+GatherSerial``), held against both.
 
 Tolerances as in tests/test_torch_slice.py: per-epoch loss rtol 1e-5, PSNR
 and collisions exactly equal, parameters after the last epoch atol 1e-5.
@@ -64,8 +65,6 @@ def runs(request):
         mp.setattr(jenc, "BLEND_LARGE_BACKEND", "gather")
         mp.setattr(jenc, "BLEND_SCATTER_BACKEND", backend)
         mp.setattr(jenc, "BLEND_SCATTER_INTERPRET", True)
-        mp.setattr(enc, "_BLEND_SMATRIX_MIN_ELEMENTS", 0)
-        mp.setattr(enc, "BLEND_SCATTER_BACKEND", backend)
         mp.setattr(hpd_stream, "FUSED_W_MAX_BYTES", 0)
         for name in ("hpd_stream_select", "hpd_stream_marginal", "hpd_tail_unique_bwd",
                      "hpd_stream_fused_fwd", "hpd_stream_fused_bwd"):
@@ -78,12 +77,14 @@ def runs(request):
 
 
 def test_split_slice_took_the_split_route(runs):
-    backend, _, _, _, calls = runs
+    _, _, _, _, calls = runs
     steps = 3 * EPOCHS
     assert calls.get("hpd_stream_select", 0) >= steps and calls.get("hpd_stream_marginal", 0) >= steps
     assert calls.get("hpd_tail_unique_bwd") == steps
     assert "hpd_stream_fused_fwd" not in calls and "hpd_stream_fused_bwd" not in calls
-    assert (calls.get("scatter_add_serial", 0) == steps) == (backend == "vmem_serial")
+    # the blend's table gradient and gather_rows' vertex-feature gradient,
+    # under either backend
+    assert calls.get("scatter_add_serial", 0) == 2 * steps
 
 
 def test_split_slice_epochs_match_jax(runs):

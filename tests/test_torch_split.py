@@ -220,6 +220,18 @@ def test_scatter_prepare_ranges(rng):
         idx[7] = bad
         with pytest.raises(ValueError):
             scatter.prepare(_t(idx), t)
+        scatter.prepare(_t(idx), t, check=False)      # ids a gather has checked: no check
+
+
+@pytest.mark.parametrize("n, c, t, narrow", [
+    (3_700_000, 2, 2_600_000, True),      # gather_rows' gradient at T = 2^14
+    (3_700_000, 2, 1024, False),          # the per-row blend's: long slots
+    (647_168, 32, 65_536, False),         # the blend's: rows of L * F = 32
+    (32 * 100, 4, 100, True), (32 * 100 + 1, 4, 100, False), (100, 5, 100, False)])
+def test_scatter_narrow_path(n, c, t, narrow):
+    """K12's variant: rows of at most 4 columns in slots of at most 32 rows
+    on average take the narrow kernel, all others the ring."""
+    assert scatter.narrow_path(n, c, t) is narrow
 
 
 def _serial_sum(rows, idx, t):
@@ -255,20 +267,18 @@ def _blend_setup(rng, u=301, t=64, k=4):
 
 
 def test_blend_serial_grads_match_jax(rng, monkeypatch):
-    """blend_unique under vmem_serial (threshold 0: the serial Function
-    runs, its table gradient through scatter_add_serial) against the JAX
-    blend under its vmem_serial settings (the Pallas kernel, interpret)."""
+    """blend_unique (its table gradient through scatter_add_serial, the
+    port's one backward) against the JAX blend under its vmem_serial
+    settings (threshold 0: the Pallas kernel, interpret)."""
     monkeypatch.setattr(jenc, "_BLEND_SMATRIX_MIN_ELEMENTS", 0)
     monkeypatch.setattr(jenc, "BLEND_LARGE_BACKEND", "gather")
     monkeypatch.setattr(jenc, "BLEND_SCATTER_BACKEND", "vmem_serial")
     monkeypatch.setattr(jenc, "BLEND_SCATTER_INTERPRET", True)
-    monkeypatch.setattr(enc, "_BLEND_SMATRIX_MIN_ELEMENTS", 0)
-    monkeypatch.setattr(enc, "BLEND_SCATTER_BACKEND", "vmem_serial")
     calls = []
 
-    def counted(rows, idx, t):
+    def counted(rows, idx, t, **kw):
         calls.append(rows.shape)
-        return scatter.scatter_add_serial(rows, idx, t)
+        return scatter.scatter_add_serial(rows, idx, t, **kw)
 
     monkeypatch.setattr(enc, "scatter_add_serial", counted)
     tables, idx, vals, g = _blend_setup(rng)
@@ -289,18 +299,26 @@ def test_blend_serial_grads_match_jax(rng, monkeypatch):
 
 
 def test_blend_backend_default_and_refusal(rng, monkeypatch):
-    """Below the threshold, or under "segment_sum", the blend keeps
-    autograd's path (the serial scatter never runs); the environment's
-    value is read with "segment_sum" as default, and an unknown one
-    raises."""
-    monkeypatch.setattr(enc, "scatter_add_serial", lambda *a: pytest.fail("serial scatter ran"))
+    """The blend's table gradient is the serial row-order sum, one serial
+    scatter per backward, bitwise equal run to run, whatever the
+    environment says; the environment's value is read with "segment_sum"
+    as default, and an unknown one raises."""
+    calls = []
+
+    def counted(rows, idx, t, **kw):
+        calls.append((rows.shape, kw))
+        return scatter.scatter_add_serial(rows, idx, t, **kw)
+
+    monkeypatch.setattr(enc, "scatter_add_serial", counted)
     tables, idx, vals, _ = _blend_setup(rng)
     cfg = tcfg.ModelConfig()
-    for backend, threshold in (("vmem_serial", 1 << 25), ("segment_sum", 0)):
-        monkeypatch.setattr(enc, "BLEND_SCATTER_BACKEND", backend)
-        monkeypatch.setattr(enc, "_BLEND_SMATRIX_MIN_ELEMENTS", threshold)
+    grads = []
+    for _ in range(2):
         tt = _t(tables).requires_grad_()
         enc.blend_unique(tt, _t(idx), _t(vals), cfg).sum().backward()
+        grads.append(tt.grad)
+    assert calls == [((idx.size, L * 2), {"ids_checked": True})] * 2
+    assert torch.equal(grads[0], grads[1])
     monkeypatch.delenv("BLEND_SCATTER_BACKEND", raising=False)
     assert enc.scatter_backend_from_env() == "segment_sum"
     monkeypatch.setenv("BLEND_SCATTER_BACKEND", "vmem_serial")
