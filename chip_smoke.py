@@ -8,7 +8,9 @@
    ``hpd_stream.cu`` shows warpgroup MMAs (HGMMA) in every instance of
    every pass of the dedup route's tail (the forward's rows and columns
    passes, K7, the backward's four kernels) and no tensor-core instruction
-   in the forward's exact fp32 fix-up;
+   in the forward's exact fp32 fix-up, and that of ``hpd_full.cu`` shows
+   warp-level MMAs (HMMA) in every instance of K11's ``full_bwd_kernel``
+   (its head products) and none in K10's ``full_fwd_kernel``;
 2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
@@ -34,7 +36,9 @@
    4061, default geometry, ``batchnorm_input=True`` on raw pixel coords:
    T=256, L=4, K=4, HPD [2->32->64->128->256]), real vertices for K10/K11
    and real last hidden activations for K8/K9, with the same checks and
-   timings as step 2;
+   timings as step 2 (K11 beside its time before its head went on the
+   tensor cores, its bound the head's three products as 3xTF32 at the
+   TF32 peak plus the rest at the fp32 peak, the all-fp32 bound beside);
 7. trains a small per-row geometry on the card and on the CPU, through
    K10/K11 and through K8/K9, and compares the losses;
 8. runs ``fit`` on that per-row configuration for 3 epochs through
@@ -82,10 +86,11 @@
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
-   (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7, K12's
+   (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7, K11, K12's
    ring) their time before the redesign (``before_redesign_ms``, the
    records' figures in BEFORE_REDESIGN_MS) beside this run's; the tensor-core kernels' ``bound_ms`` is that of 3xTF32 at the
-   TF32 peak, with the fp32 CUDA-core bound as ``bound_fp32_ms``.
+   TF32 peak (K11: its head's products so, the rest at the fp32 peak),
+   with the fp32 CUDA-core bound as ``bound_fp32_ms``.
 
 Any failure raises, so the run exits non-zero without the last line. It
 exits non-zero at once where CUDA is not available.
@@ -116,9 +121,9 @@ SEED = 65535
 # fp32 sums) is the bf16 tensor cores' function and takes their peak.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
-# dense TF32 on the tensor cores: the dedup route's tail (K1, K2, K4-K6)
-# and K7 run their products there as 3xTF32, three tf32 products per fp32
-# term
+# dense TF32 on the tensor cores: the dedup route's tail (K1, K2, K4-K6),
+# K7 and K11's head run their products there as 3xTF32, three tf32
+# products per fp32 term
 PEAK_TF32_TENSOR_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # normwise tolerances: max |kernel - plain| <= tol * max |plain| (fp32,
@@ -139,7 +144,7 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "scatter_add_serial[ring]": 13.11, "hpd_stream_fused_fwd": 74.95,
                       "hpd_stream_select": 117.44, "hpd_stream_marginal": 171.63,
                       "hpd_stream_fused_probe[dots]": 25.63,
-                      "hpd_stream_fused_probe[softmax]": 26.50}
+                      "hpd_stream_fused_probe[softmax]": 26.50, "hpd_full_bwd": 24.82}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -171,6 +176,13 @@ def bitwise_same(name, a, b):
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mixed_bound(parts, nbytes: float):
+    """bound_ms of work whose parts run on different units one after the
+    other: parts [(flops, peak), ...], their times added."""
+    t_ops, t_bytes = sum(f / p for f, p in parts), nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -280,12 +292,19 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     bitwise_same("dW/db", [t for pair in got for t in pair],
                  [t for pair in hpd_full.hpd_full_bwd(*bargs) for t in pair])
     dx_macs = sum(a * c for a, c in zip(widths[1:-1], widths[2:]))
+    # the head's three products (logits replay, dW_head, dh) as 3xTF32 on the
+    # tensor cores; the hidden layers' replay, dW and dx on the CUDA cores
+    head_flops = 3 * 2.0 * rows * H * T
+    rest_flops = 2.0 * rows * (2 * macs + dx_macs) - head_flops
+    bwd_bytes = 4.0 * (rows * d + 2 * n_params + L * T + 2 * rows * k)
     entries["hpd_full_bwd"] = kernel_entry(
         "hpd_full_bwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:236", err,
         cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_full.hpd_full_bwd_plain(*bargs), 2),
-        bound_ms(2.0 * rows * (2 * macs + dx_macs),
-                 4.0 * (rows * d + 2 * n_params + L * T + 2 * rows * k)))
+        mixed_bound([(3 * head_flops, PEAK_TF32_TENSOR_FLOPS), (rest_flops, PEAK_FP32_FLOPS)],
+                    bwd_bytes))
+    entries["hpd_full_bwd"]["bound_fp32_ms"] = bound_ms(head_flops + rest_flops, bwd_bytes)[0]
+    redesigned(entries["hpd_full_bwd"])
     del got, want
 
     log("K8 hpd_tail_fwd, all rows of real h:")
@@ -753,24 +772,25 @@ TENSOR_CORE_KERNELS = ("hpd_fwd_rows_kernel", "hpd_fwd_cols_kernel", "hpd_probe_
                        "hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
                        "hpd_b2_rows_kernel")
 FP32_KERNELS = ("hpd_fix_rows_kernel",)
+# K11 takes its head's three products as mma.sync (HMMA) at every tile
+# size; K10's top-K rests on exact fp32 logits, so it holds none
+PER_ROW_TENSOR_CORE = "full_bwd_kernel"
+PER_ROW_FP32 = "full_fwd_kernel"
 
 
-def tensor_core_sass(build) -> dict:
-    """Tensor-core instructions (HGMMA, HMMA) per kernel instance of the
-    built hpd_stream library, from ``cuobjdump -sass``; printed. Raises
-    unless every instance (each template argument list) of
-    TENSOR_CORE_KERNELS holds HGMMA, each of them has an instance at every
-    precision (<0>, <1>, <2>), and FP32_KERNELS hold none."""
+def sass_counts(build, lib: str) -> dict:
+    """{kernel<template args>: {"HGMMA": n, "HMMA": n}} of a built library,
+    from ``cuobjdump -sass``; printed."""
     import re
     import subprocess
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", build._library_path("hpd_stream")],
+    sass = subprocess.run([cuobjdump, "-sass", build._library_path(lib)],
                           capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             # e.g. ..._116hpd_probe_kernelILi0ELb1EEEv... -> hpd_probe_kernel<0,1>
-            found = re.search(r"\d+(hpd_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
+            found = re.search(r"\d+((?:hpd|full)_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
             name = None
             if found:
                 args = ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2)))
@@ -778,9 +798,20 @@ def tensor_core_sass(build) -> dict:
                 counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
         elif name and ("HGMMA" in line or "HMMA" in line):
             counts[name]["HGMMA" if "HGMMA" in line else "HMMA"] += 1
-    log("  SASS tensor-core instructions (hpd_stream.cu):")
+    log(f"  SASS tensor-core instructions ({lib}.cu):")
     for k_, c in sorted(counts.items()):
         log(f"    {k_:34s} HGMMA {c['HGMMA']:4d}  HMMA {c['HMMA']:4d}")
+    return counts
+
+
+def tensor_core_sass(build) -> dict:
+    """Tensor-core instructions per kernel instance of the built hpd_stream
+    and hpd_full libraries. Raises unless every instance (each template
+    argument list) of TENSOR_CORE_KERNELS holds HGMMA, each of them has an
+    instance at every precision (<0>, <1>, <2>), and FP32_KERNELS hold none;
+    and unless K11 has an instance at every tile size (<1>, <2>, <4>), each
+    holding HMMA, and K10's instances hold none."""
+    counts = sass_counts(build, "hpd_stream")
     for k_ in TENSOR_CORE_KERNELS:
         for p in range(3):
             inst = [n for n in counts if n.startswith(f"{k_}<{p}")]
@@ -792,6 +823,20 @@ def tensor_core_sass(build) -> dict:
     for n, c in counts.items():
         if n.split("<")[0] in FP32_KERNELS and c["HGMMA"] + c["HMMA"]:
             raise RuntimeError(f"{n}: tensor-core instructions in the exact fp32 sweep")
+    full = sass_counts(build, "hpd_full")
+    for rpt in (1, 2, 4):
+        n = f"{PER_ROW_TENSOR_CORE}<{rpt}>"
+        if n not in full:
+            raise RuntimeError(f"{n}: no instance in the SASS")
+        if full[n]["HMMA"] == 0:
+            raise RuntimeError(f"{n}: no HMMA in the SASS")
+    fwd = [n for n in full if n.startswith(PER_ROW_FP32 + "<")]
+    if not fwd:
+        raise RuntimeError(f"{PER_ROW_FP32}: no instance in the SASS")
+    for n in fwd:
+        if full[n]["HGMMA"] + full[n]["HMMA"]:
+            raise RuntimeError(f"{n}: tensor-core instructions in K10's fp32 forward")
+    counts.update(full)
     return counts
 
 

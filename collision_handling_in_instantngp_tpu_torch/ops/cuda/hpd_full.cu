@@ -10,20 +10,55 @@
 //     db_i = sum_rows d down the stack, with d <- (d W_i^T) * (act_i > 0),
 //     the mask taken on the layer's post-activation input. No dverts.
 //
-// Bound on this card: operations. At the per-row route's shapes (L = 4,
-// N = 229,616, [2 -> 32 -> 64 -> 128 -> 256]) the forward is 79 GFLOP and
-// the backward about 3x that, against 7 MB of vertices and 29 MB of top-K
-// outputs. Only those touch device memory: a row tile's activations and
-// its (R, T) logits stay in shared memory, and the weights stream from L2
-// in 32-deep chunks (the head is 128 KB at T = 256 and 1 MB at T = 2048:
-// it cannot stay resident). dW/db of every layer accumulate in one partial
-// per block (read-modify-write by the owning thread), summed in block
-// order by a second kernel. No atomics.
+// At the per-row route's shapes (L = 4, N = 229,616, [2 -> 32 -> 64 -> 128
+// -> 256]) the forward is 79 GFLOP and the backward 237, against 7 MB of
+// vertices and 29 MB of top-K outputs. Only those touch device memory: a
+// row tile's activations and its (R, T) logits stay in shared memory, and
+// the weights stream from L2 (the head is 128 KB at T = 256 and 1 MB at
+// T = 2048: it cannot stay resident). The forward and the hidden layers of
+// the backward are fp32 FMA on the CUDA cores (per_row.cuh), the weights
+// staged in 32-deep chunks; the backward's three head products (the logits
+// replay, dW_head, dh: 181 of its 237 GFLOP) are 3xTF32 on the tensor cores
+// (per_row_mma.cuh), so its bound is the head at the TF32 peak plus the rest
+// at the fp32 peak. dW/db of every layer accumulate in one partial per
+// block (read-modify-write by the owning thread; for dW_head about 3.7 GB
+// of L2 traffic a launch at those shapes), summed in block order by a
+// second kernel. No atomics.
 #include "per_row.cuh"
+#include "per_row_mma.cuh"
 
 using namespace per_row;
 
 namespace {
+
+// Built with -DHPD_FULL_PHASES (tools/k11_phases.py), K11's thread 0 sums
+// the clock64() ticks of each phase of its tiles into k11_phase (the
+// phases end at a barrier, so its ticks are the block's); otherwise the
+// marks compile to nothing.
+#ifdef HPD_FULL_PHASES
+constexpr int NPHASES = 6;  // replay, logits, softmax + dl, dW_head, dh, hidden layers
+__device__ unsigned long long k11_phase[NPHASES];
+#define PHASE_START unsigned long long ph_[NPHASES] = {}, tc0_ = clock64(), tc1_
+#define PHASE_MARK(i)      \
+  do {                     \
+    tc1_ = clock64();      \
+    ph_[i] += tc1_ - tc0_; \
+    tc0_ = tc1_;           \
+  } while (0)
+#define PHASE_SYNC_MARK(i) \
+  do {                     \
+    __syncthreads();       \
+    PHASE_MARK(i);         \
+  } while (0)
+#define PHASE_END \
+  if (threadIdx.x == 0) \
+    for (int i_ = 0; i_ < NPHASES; ++i_) atomicAdd(&k11_phase[i_], ph_[i_])
+#else
+#define PHASE_START
+#define PHASE_MARK(i)
+#define PHASE_SYNC_MARK(i)
+#define PHASE_END
+#endif
 
 constexpr int MAXL = 16;  // layers, head included
 constexpr int KMAX = 32;
@@ -34,7 +69,7 @@ struct Net {
   int woff[MAXL];      // offset of W_i (w[i] x w[i+1], row-major) in params
   int boff[MAXL];      // offset of b_i (w[i+1])
   int aoff[MAXL];      // offset, in floats per tile row, of act_i in the backward
-  int acols;           // sum over i < n of (w[i] + 1)
+  int acols;           // sum over i < n - 1 of (w[i] + 1), + mma_ld(w[n - 1])
   int total;           // packed parameter count
 };
 
@@ -52,7 +87,7 @@ int make_net(int n, const int* widths, Net* net) {
     net->boff[i] = off;
     off += widths[i + 1];
     net->aoff[i] = acols;
-    acols += widths[i] + 1;
+    acols += i == n - 1 ? mma_ld(widths[i]) : widths[i] + 1;
   }
   net->acols = acols;
   net->total = off;
@@ -64,10 +99,15 @@ size_t fwd_smem(const Net& net, int R) {
   return sizeof(float) * (2 * (size_t)R * WLD + BK * BS + (size_t)R * (T + 1) + T);
 }
 
+// acts (the head's input at stride mma_ld(H)), gA, the staged chunk (the
+// hidden products' or the head's), the cache (stride mma_ld(T)), which the
+// hidden layers' backward reuses as gB once dh has read it, and g_marg.
 size_t bwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
+  const int stage = BK * BS > head_stage_floats(R / 16) ? BK * BS : head_stage_floats(R / 16);
+  const int ldc = mma_ld(T) > WLD ? mma_ld(T) : WLD;
   return sizeof(float) *
-         ((size_t)R * net.acols + 2 * (size_t)R * WLD + BK * BS + (size_t)R * (T + 1) + T);
+         ((size_t)R * net.acols + (size_t)R * WLD + stage + (size_t)R * ldc + T);
 }
 
 // rows per thread of the widest tile whose forward AND backward fit, 0 if none
@@ -179,39 +219,44 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
 template <int RPT>
 __global__ void __launch_bounds__(THREADS)
 full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ params, Net net,
-                int K, const int* __restrict__ idx, const float* __restrict__ g_marg,
-                const float* __restrict__ g_vals, Rows g, float* __restrict__ part) {
+                const float* __restrict__ w_pad, int K, const int* __restrict__ idx,
+                const float* __restrict__ g_marg, const float* __restrict__ g_vals, Rows g,
+                float* __restrict__ part) {
   constexpr int R = 16 * RPT;
+  constexpr int STAGE = BK * BS > head_stage_floats(RPT) ? BK * BS : head_stage_floats(RPT);
   extern __shared__ float smem[];
-  const int n = net.n, d = net.w[0], T = net.w[n];
+  const int n = net.n, d = net.w[0], T = net.w[n], H = net.w[n - 1];
+  const int ldh = mma_ld(H), ldc = mma_ld(T), ldw = head_ld(T);
   float* acts = smem;
   float* gA = acts + R * net.acols;
-  float* gB = gA + R * WLD;
-  float* b_s = gB + R * WLD;
-  float* cache = b_s + BK * BS;
-  float* gm_s = cache + R * (T + 1);
-  const int ldc = T + 1;
+  float* b_s = gA + R * WLD;
+  float* cache = b_s + STAGE;
+  float* gB = cache;
+  float* gm_s = cache + R * (ldc > WLD ? ldc : WLD);
+  float* a_head = acts + R * net.aoff[n - 1];
   const int l = blockIdx.y, seg = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   float* pp = part + ((size_t)l * g.spl + seg) * net.total;
   for (int c = threadIdx.x; c < T; c += THREADS) gm_s[c] = g_marg[(size_t)l * T + c] / (float)g.N;
+  for (int e = threadIdx.x; e < R * (ldh - H); e += THREADS)
+    a_head[e / (ldh - H) * ldh + H + e % (ldh - H)] = 0.f;
   const int tpl = (g.N + R - 1) / R;
   const int t_end = min(tpl, (seg + 1) * g.tps);
+  PHASE_START;
   for (int t = seg * g.tps; t < t_end; ++t) {
     const int r0 = t * R;
     const int rows = min(R, g.N - r0);
     const size_t base = (size_t)l * g.N + r0;
     __syncthreads();
-    load_rows<R>(verts, base, rows, d, acts, d + 1);
+    load_rows<R>(verts, base, rows, d, acts, n == 1 ? ldh : d + 1);
     // replay the stack, keeping every layer's input
     for (int i = 0; i < n - 1; ++i)
       hidden_layer<RPT>(acts + R * net.aoff[i], net.w[i] + 1, net.w[i], params + net.woff[i],
                         params + net.boff[i], net.w[i + 1], b_s, acts + R * net.aoff[i + 1],
-                        net.w[i + 1] + 1);
-    const float* a_head = acts + R * net.aoff[n - 1];
-    const int ld_head = net.w[n - 1] + 1;
-    tile_logits<RPT>(a_head, ld_head, net.w[n - 1], params + net.woff[n - 1],
-                     params + net.boff[n - 1], T, b_s, cache);
+                        i + 1 == n - 1 ? ldh : net.w[i + 1] + 1);
+    PHASE_SYNC_MARK(0);
+    head_logits<RPT>(a_head, ldh, H, w_pad, ldw, params + net.boff[n - 1], T, b_s, cache, ldc);
+    PHASE_MARK(1);
     __syncthreads();
     for (int r = warp; r < R; r += WARPS) {
       float* row = cache + r * ldc;
@@ -220,13 +265,14 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
       dlogits_row(row, T, K, gm_s, idx + gr, g_vals + gr, r < rows);
     }
     __syncthreads();
-    outer_acc<R>(a_head, ld_head, net.w[n - 1], cache, ldc, T, pp + net.woff[n - 1],
-                 pp + net.boff[n - 1]);
+    PHASE_MARK(2);
+    head_dw<RPT>(a_head, ldh, H, cache, ldc, T, pp + net.woff[n - 1], pp + net.boff[n - 1]);
     if (n > 1) {
       float* gc = gA;
       float* gn = gB;
-      back_layer<RPT>(cache, ldc, T, params + net.woff[n - 1], net.w[n - 1], a_head, ld_head, b_s,
-                      gc);
+      PHASE_SYNC_MARK(3);
+      head_dh<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, WLD);
+      PHASE_MARK(4);
       for (int i = n - 2; i >= 0; --i) {
         const float* a_i = acts + R * net.aoff[i];
         __syncthreads();
@@ -240,8 +286,10 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
           gn = tmp;
         }
       }
+      PHASE_SYNC_MARK(5);
     }
   }
+  PHASE_END;
 }
 
 template <int RPT>
@@ -260,17 +308,17 @@ int launch_fwd(const float* verts, const float* params, const Net& net, int L, i
 }
 
 template <int RPT>
-int launch_bwd(const float* verts, const float* params, const Net& net, int L, int N, int K,
-               const int* idx, const float* g_marg, const float* g_vals, float* part,
-               float* dparams, cudaStream_t st) {
+int launch_bwd(const float* verts, const float* params, const float* w_pad, const Net& net,
+               int L, int N, int K, const int* idx, const float* g_marg, const float* g_vals,
+               float* part, float* dparams, cudaStream_t st) {
   const Rows g = make_rows(L, N, 16 * RPT);
   const int nblocks = g.spl * L;
   int err = (int)cudaMemsetAsync(part, 0, sizeof(float) * (size_t)nblocks * net.total, st);
   if (err) return err;
   const size_t smem = bwd_smem(net, 16 * RPT);
   set_smem(full_bwd_kernel<RPT>, smem);
-  full_bwd_kernel<RPT><<<dim3(g.spl, L), THREADS, smem, st>>>(verts, params, net, K, idx,
-                                                              g_marg, g_vals, g, part);
+  full_bwd_kernel<RPT><<<dim3(g.spl, L), THREADS, smem, st>>>(verts, params, net, w_pad, K,
+                                                              idx, g_marg, g_vals, g, part);
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_blocks_kernel<<<(net.total + 255) / 256, 256, 0, st>>>(part, dparams, nblocks,
@@ -283,6 +331,22 @@ int launch_bwd(const float* verts, const float* params, const Net& net, int L, i
 extern "C" {
 
 const char* hpd_full_error_string(int code) { return port_error_string(code); }
+
+// Row stride of the backward's padded head at T columns.
+int hpd_full_head_ld(int T) { return head_ld(T); }
+
+#ifdef HPD_FULL_PHASES
+// K11's clock64() ticks by phase, summed over the blocks of the launches
+// since the last reset, into out[NPHASES]; then zeroes them if reset.
+int hpd_full_phases(unsigned long long* out, int reset) {
+  int err = (int)cudaMemcpyFromSymbol(out, k11_phase, sizeof(unsigned long long) * NPHASES);
+  if (!err && reset) {
+    const unsigned long long zero[NPHASES] = {};
+    err = (int)cudaMemcpyToSymbol(k11_phase, zero, sizeof(zero));
+  }
+  return err;
+}
+#endif
 
 // Blocks of the launch (rows of the partial buffers), 0 if the kernels do
 // not take these shapes. widths: n_layers + 1 ints, d first, T last.
@@ -309,21 +373,25 @@ int hpd_full_fwd(const float* verts, const float* params, int n_layers, const in
 }
 
 // + idx (L, N, K), g_marg (L, T), g_vals (L, N, K) -> dparams (packed like
-// params). part: (blocks, packed count) scratch.
-int hpd_full_bwd(const float* verts, const float* params, int n_layers, const int* widths,
-                 int L, int N, int K, const int* idx, const float* g_marg, const float* g_vals,
-                 float* part, float* dparams, void* stream) {
+// params). w_pad: the head padded with zeros to (128, hpd_full_head_ld(T)),
+// 16-byte aligned. part: (blocks, packed count) scratch.
+int hpd_full_bwd(const float* verts, const float* params, const float* w_pad, int n_layers,
+                 const int* widths, int L, int N, int K, const int* idx, const float* g_marg,
+                 const float* g_vals, float* part, float* dparams, void* stream) {
   Net net;
   const int err = check(n_layers, widths, L, N, K, &net);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   switch (pick_rpt(net)) {
     case 4:
-      return launch_bwd<4>(verts, params, net, L, N, K, idx, g_marg, g_vals, part, dparams, st);
+      return launch_bwd<4>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                             dparams, st);
     case 2:
-      return launch_bwd<2>(verts, params, net, L, N, K, idx, g_marg, g_vals, part, dparams, st);
+      return launch_bwd<2>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                             dparams, st);
     default:
-      return launch_bwd<1>(verts, params, net, L, N, K, idx, g_marg, g_vals, part, dparams, st);
+      return launch_bwd<1>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                             dparams, st);
   }
 }
 

@@ -10,9 +10,12 @@ Backward: + idx, g_marg, g_vals -> [(dW_i, db_i)] of every layer, the
   stack replayed from the vertices, with the ReLU mask ``act > 0`` on
   each layer's input. The vertices are data: their gradient is zero.
 
-For a CUDA tensor the wrappers launch the kernels of ``hpd_full.cu``
-(fp32 whatever the model's matmul precision); for a CPU tensor they run
-the plain version below: the hidden stack at fp32, then the chunked tail.
+For a CUDA tensor the wrappers launch the kernels of ``hpd_full.cu``,
+whatever the model's matmul precision: fp32 throughout the forward and
+the backward's hidden layers, 3xTF32 on the tensor cores for the
+backward's three head products (``per_row_mma.cuh``); for a CPU tensor
+they run the plain version below: the hidden stack at fp32, then the
+chunked tail.
 :class:`HpdFull` is the autograd Function over the pair.
 """
 
@@ -72,12 +75,18 @@ def hpd_full_bwd_plain(verts, layers: Layers, idx, g_marg, g_vals, k: int):
 # --------------------------------- kernels ---------------------------------- #
 
 def _lib() -> ctypes.CDLL:
-    lib = build.library("hpd_full")
+    return _configure(build.library("hpd_full"))
+
+
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a built hpd_full library."""
     vp, ci, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.hpd_full_fwd.argtypes = [vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp]
     lib.hpd_full_fwd.restype = ci
-    lib.hpd_full_bwd.argtypes = [vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.hpd_full_bwd.argtypes = [vp, vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.hpd_full_bwd.restype = ci
+    lib.hpd_full_head_ld.argtypes = [ci]
+    lib.hpd_full_head_ld.restype = ci
     lib.hpd_full_blocks.argtypes = [ci, ip, ci, ci, ci]
     lib.hpd_full_blocks.restype = ci
     return lib
@@ -157,12 +166,16 @@ def _launch_bwd(verts, layers, idx, g_marg, g_vals, k):
     if tuple(idx.shape) != (l, n, k) or tuple(g_vals.shape) != (l, n, k) or tuple(g_marg.shape) != (l, t):
         raise ValueError(f"idx {tuple(idx.shape)}, g_vals {tuple(g_vals.shape)}, g_marg "
                          f"{tuple(g_marg.shape)} do not match L={l}, N={n}, K={k}, T={t}")
+    # the head, zero-padded so that every chunk the kernel stages lies inside
+    w_head = layers[-1][0]
+    w_pad = torch.zeros(MAX_WIDTH, lib.hpd_full_head_ld(t), device=dev, dtype=torch.float32)
+    w_pad[: w_head.shape[0], :t] = w_head
     part = torch.empty(blocks, params.numel(), device=dev, dtype=torch.float32)
     dparams = torch.empty_like(params)
     with torch.cuda.device(dev):
         code = lib.hpd_full_bwd(
-            verts.data_ptr(), params.data_ptr(), len(layers), cw, l, n, k, idx.data_ptr(),
-            g_marg.data_ptr(), g_vals.data_ptr(), part.data_ptr(), dparams.data_ptr(),
+            verts.data_ptr(), params.data_ptr(), w_pad.data_ptr(), len(layers), cw, l, n, k,
+            idx.data_ptr(), g_marg.data_ptr(), g_vals.data_ptr(), part.data_ptr(), dparams.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(code, lib, "hpd_full_error_string", "hpd_full_bwd")

@@ -9,11 +9,13 @@
 // partials in block order: no atomics, bitwise stable run to run, and the
 // split does not depend on the card.
 //
-// Products are fp32 FMA on the CUDA cores: a 256-thread block computes an
-// (R x 128) output tile, thread (ty, tx) holding rows ty*RPT + i and
-// columns tx + 16*j, with the right operand staged through shared memory
-// in 32-deep chunks. Every kernel computes fp32 whatever matmul precision
-// the model names (the TPU kernels pass no precision to their dots).
+// The products here are fp32 FMA on the CUDA cores: a 256-thread block
+// computes an (R x 128) output tile, thread (ty, tx) holding rows
+// ty*RPT + i and columns tx + 16*j, with the right operand staged through
+// shared memory in 32-deep chunks. K8, K9, K10 and K11's hidden layers run
+// them, fp32 whatever matmul precision the model names (the TPU kernels
+// pass no precision to their dots); K11's three head products run as
+// 3xTF32 on the tensor cores instead (per_row_mma.cuh).
 #pragma once
 
 #include <float.h>

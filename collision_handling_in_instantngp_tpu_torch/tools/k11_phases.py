@@ -1,0 +1,112 @@
+"""Split K11 (``hpd_full_bwd``, the per-row route's backward) into its
+phases on the card: the hidden stack's replay, the head's logits replay,
+softmax and dlogits, dW_head, dh, and the hidden layers' dW/db/dx.
+
+    python3 -m collision_handling_in_instantngp_tpu_torch.tools.k11_phases
+
+Builds ``ops/cuda/hpd_full.cu`` a second time with ``-DHPD_FULL_PHASES``
+(into ``chiprun_out/k11_phases/``), under which K11's thread 0 sums the
+clock64() ticks of each phase of its tiles (every phase ends at a block
+barrier); runs that build on seeded inputs at the per-row route's shapes
+(L = 4, N = 229,616, HPD [2 -> 32 -> 64 -> 128 -> 256], K = 4); times the
+normal build on the same inputs; and prints each phase's share of the
+ticks and that share of the normal build's time, with the card's name and
+power limit (also to ``<out>/k11_phases.json``). The instrumented build's
+own extra barriers make its time a little longer; its shares are what it
+is for.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from ..ops.cuda import build, hpd_full
+from ..utils import profiling
+
+PHASES = ("replay", "logits", "softmax+dl", "dW_head", "dh", "hidden layers")
+
+
+def build_phases(out_dir: str) -> ctypes.CDLL:
+    """hpd_full.cu built with -DHPD_FULL_PHASES, loaded."""
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "hpd_full_phases.so")
+    cmd = [build.nvcc_path(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-DHPD_FULL_PHASES",
+           "-o", lib_path, os.path.join(build.HERE, "hpd_full.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for hpd_full.cu -DHPD_FULL_PHASES:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    lib.hpd_full_phases.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    lib.hpd_full_phases.restype = ctypes.c_int
+    return lib
+
+
+def inputs(dev, l, n, widths, k, seed):
+    """Seeded vertices (integer grid coordinates), layers, the plain
+    forward's top-K and random cotangents."""
+    rng = np.random.default_rng(seed)
+    verts = torch.as_tensor(rng.integers(0, 512, size=(l, n, widths[0])).astype(np.float32), device=dev)
+    layers = []
+    for i, (din, dout) in enumerate(zip(widths[:-1], widths[1:])):
+        scale = 0.5 / math.sqrt(din) if i < len(widths) - 2 else 0.2
+        layers.append((torch.as_tensor((rng.standard_normal((din, dout)) * scale).astype(np.float32), device=dev),
+                       torch.as_tensor((rng.standard_normal(dout) * 0.1).astype(np.float32), device=dev)))
+    idx = hpd_full.hpd_full_fwd_plain(verts, layers, k)[2].to(torch.int32).contiguous()
+    g_marg = torch.as_tensor(rng.standard_normal((l, widths[-1])).astype(np.float32), device=dev)
+    g_vals = torch.as_tensor(rng.standard_normal((l, n, k)).astype(np.float32), device=dev)
+    return verts, layers, idx, g_marg, g_vals, k
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--l", type=int, default=4)
+    ap.add_argument("--n", type=int, default=229_616)
+    ap.add_argument("--widths", default="2,32,64,128,256")
+    ap.add_argument("--k", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=65535)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "k11_phases"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: k11_phases times a CUDA kernel and has no CPU mode")
+    dev = torch.device("cuda", 0)
+    widths = [int(w) for w in args.widths.split(",")]
+    bargs = inputs(dev, args.l, args.n, widths, args.k, args.seed)
+    ms = profiling.cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), args.reps)
+
+    lib = build_phases(args.out)
+    ticks = (ctypes.c_ulonglong * len(PHASES))()
+    normal_lib = hpd_full._lib
+    hpd_full._lib = lambda: hpd_full._configure(lib)
+    try:
+        build.check(lib.hpd_full_phases(ticks, 1), lib, "hpd_full_error_string", "hpd_full_phases")
+        ms_phases = profiling.cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 1)
+        build.check(lib.hpd_full_phases(ticks, 0), lib, "hpd_full_error_string", "hpd_full_phases")
+    finally:
+        hpd_full._lib = normal_lib
+    share = {p: ticks[i] / sum(ticks) for i, p in enumerate(PHASES)}
+    result = dict(card=profiling.gpu_name_and_power_limit(),
+                  shape=dict(l=args.l, n=args.n, widths=widths, k=args.k), k11_ms=ms,
+                  instrumented_ms=ms_phases,
+                  phases={p: dict(share=share[p], ms=share[p] * ms) for p in PHASES})
+    print(f"card: {result['card']}")
+    print(f"K11 {ms:.3f} ms (instrumented build {ms_phases:.3f} ms) at L={args.l}, N={args.n}, "
+          f"widths {widths}, K={args.k}")
+    for p in PHASES:
+        print(f"  {p:14s} {100 * share[p]:6.2f} %  {share[p] * ms:7.3f} ms")
+    with open(os.path.join(args.out, "k11_phases.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,7 +22,7 @@ import torch
 from collision_handling_in_instantngp_tpu.ops.pallas import hpd_stream as jax_stream
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_stream, probe
 from collision_handling_in_instantngp_tpu_torch.ops.precision import bf16_round
-from collision_handling_in_instantngp_tpu_torch.tools import mxu_probe, profile_epoch, sweep_probe
+from collision_handling_in_instantngp_tpu_torch.tools import k11_phases, mxu_probe, profile_epoch, sweep_probe
 from collision_handling_in_instantngp_tpu_torch.utils import memory, profiling
 
 SWEEP_KEYS = {"dots_ms", "softmax_ms", "select_ms", "full_ms", "exp_max_cost_ms",
@@ -192,12 +192,12 @@ def test_profile_epoch_vanilla_not_ported(tmp_path):
         profile_epoch.main(["--device", "cpu", "--mode", "vanilla", "--image", str(tmp_path / "x.npy")])
 
 
-@pytest.mark.parametrize("tool", [sweep_probe, mxu_probe, profile_epoch])
+@pytest.mark.parametrize("tool", [sweep_probe, mxu_probe, profile_epoch, k11_phases])
 def test_tools_default_to_the_card(tool, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal is for machines without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tool.main(["--json-out", ""] if tool is not profile_epoch else [])
+        tool.main(["--json-out", ""] if tool in (sweep_probe, mxu_probe) else [])
 
 
 def test_memory_stats_zero_on_cpu(capsys):
