@@ -8,9 +8,11 @@
    ``hpd_stream.cu`` shows warpgroup MMAs (HGMMA) in every instance of
    every pass of the dedup route's tail (the forward's rows and columns
    passes, K7, the backward's four kernels) and no tensor-core instruction
-   in the forward's exact fp32 fix-up, and that of ``hpd_full.cu`` shows
-   warp-level MMAs (HMMA) in every instance of K11's ``full_bwd_kernel``
-   (its head products) and none in K10's ``full_fwd_kernel``;
+   in the forward's exact fp32 fix-up, and that of ``hpd_full.cu`` and
+   ``hpd_tail.cu`` shows warp-level MMAs (HMMA) in every instance of K11's
+   ``full_bwd_kernel``, K10's ``full_fwd_kernel`` and K9's
+   ``tail_bwd_kernel`` (their head products) and none in K8's
+   ``tail_fwd_kernel`` (fp32 on the CUDA cores);
 2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
@@ -36,9 +38,11 @@
    4061, default geometry, ``batchnorm_input=True`` on raw pixel coords:
    T=256, L=4, K=4, HPD [2->32->64->128->256]), real vertices for K10/K11
    and real last hidden activations for K8/K9, with the same checks and
-   timings as step 2 (K11 beside its time before its head went on the
-   tensor cores, its bound the head's three products as 3xTF32 at the
-   TF32 peak plus the rest at the fp32 peak, the all-fp32 bound beside);
+   timings as step 2; K10's top-K must be identical on every row, and it
+   prints how many rows its guard left to its fp32 redo; K9, K10 and K11
+   beside their times before their heads went on the tensor cores, their
+   bounds the head's products as 3xTF32 at the TF32 peak plus the rest at
+   the fp32 peak, the all-fp32 bound beside;
 7. trains a small per-row geometry on the card and on the CPU, through
    K10/K11 and through K8/K9, and compares the losses;
 8. runs ``fit`` on that per-row configuration for 3 epochs through
@@ -86,11 +90,12 @@
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
-   (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7, K11, K12's
-   ring) their time before the redesign (``before_redesign_ms``, the
-   records' figures in BEFORE_REDESIGN_MS) beside this run's; the tensor-core kernels' ``bound_ms`` is that of 3xTF32 at the
-   TF32 peak (K11: its head's products so, the rest at the fp32 peak),
-   with the fp32 CUDA-core bound as ``bound_fp32_ms``.
+   (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7,
+   K9-K11, K12's ring) their time before the redesign
+   (``before_redesign_ms``, the records' figures in BEFORE_REDESIGN_MS)
+   beside this run's; the tensor-core kernels' ``bound_ms`` is that of
+   3xTF32 at the TF32 peak (K9-K11: their head's products so, the rest at
+   the fp32 peak), with the fp32 CUDA-core bound as ``bound_fp32_ms``.
 
 Any failure raises, so the run exits non-zero without the last line. It
 exits non-zero at once where CUDA is not available.
@@ -122,8 +127,8 @@ SEED = 65535
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 # dense TF32 on the tensor cores: the dedup route's tail (K1, K2, K4-K6),
-# K7 and K11's head run their products there as 3xTF32, three tf32
-# products per fp32 term
+# K7 and the per-row heads (K9-K11) run their products there as 3xTF32,
+# three tf32 products per fp32 term
 PEAK_TF32_TENSOR_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # normwise tolerances: max |kernel - plain| <= tol * max |plain| (fp32,
@@ -144,7 +149,8 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "scatter_add_serial[ring]": 13.11, "hpd_stream_fused_fwd": 74.95,
                       "hpd_stream_select": 117.44, "hpd_stream_marginal": 171.63,
                       "hpd_stream_fused_probe[dots]": 25.63,
-                      "hpd_stream_fused_probe[softmax]": 26.50, "hpd_full_bwd": 24.82}
+                      "hpd_stream_fused_probe[softmax]": 26.50, "hpd_full_bwd": 24.82,
+                      "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -271,16 +277,28 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
         bitwise_same("marg/vals/idx", out_k, again)
         return err
 
+    # the head's products (K10's logits, K11's logits replay, dW_head and
+    # dh, and K9's three) as 3xTF32 on the tensor cores, three tf32 passes
+    # at the TF32 peak; the hidden layers' products on the CUDA cores
+    head_flops = 2.0 * rows * H * T
+
     log("K10 hpd_full_fwd, all rows of real vertices:")
     out_k = hpd_full.hpd_full_fwd(verts, layers, k)
+    fix = fixup_rows(hpd_full.hpd_full_fwd, "K10")
     out_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
     err = check_fwd("K10", out_k, out_p, hpd_full.hpd_full_fwd(verts, layers, k))
     idx_full = out_k[2]
+    fwd_bytes = 4.0 * (rows * d + n_params) + out_bytes
+    rest_flops = 2.0 * rows * macs - head_flops
     entries["hpd_full_fwd"] = kernel_entry(
         "hpd_full_fwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:162", err,
         cuda_ms(lambda: hpd_full.hpd_full_fwd(verts, layers, k), 10),
         cuda_ms(lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3),
-        bound_ms(2.0 * rows * macs, 4.0 * (rows * d + n_params) + out_bytes))
+        mixed_bound([(3 * head_flops, PEAK_TF32_TENSOR_FLOPS), (rest_flops, PEAK_FP32_FLOPS)],
+                    fwd_bytes))
+    entries["hpd_full_fwd"].update(bound_fp32_ms=bound_ms(2.0 * rows * macs, fwd_bytes)[0],
+                                   fixup_rows=fix)
+    redesigned(entries["hpd_full_fwd"])
     del out_k, out_p
 
     log("K11 hpd_full_bwd, all rows of real vertices:")
@@ -292,18 +310,17 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     bitwise_same("dW/db", [t for pair in got for t in pair],
                  [t for pair in hpd_full.hpd_full_bwd(*bargs) for t in pair])
     dx_macs = sum(a * c for a, c in zip(widths[1:-1], widths[2:]))
-    # the head's three products (logits replay, dW_head, dh) as 3xTF32 on the
-    # tensor cores; the hidden layers' replay, dW and dx on the CUDA cores
-    head_flops = 3 * 2.0 * rows * H * T
-    rest_flops = 2.0 * rows * (2 * macs + dx_macs) - head_flops
+    # the head's three products on the tensor cores; the hidden layers'
+    # replay, dW and dx on the CUDA cores
+    rest_flops = 2.0 * rows * (2 * macs + dx_macs) - 3 * head_flops
     bwd_bytes = 4.0 * (rows * d + 2 * n_params + L * T + 2 * rows * k)
     entries["hpd_full_bwd"] = kernel_entry(
         "hpd_full_bwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:236", err,
         cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_full.hpd_full_bwd_plain(*bargs), 2),
-        mixed_bound([(3 * head_flops, PEAK_TF32_TENSOR_FLOPS), (rest_flops, PEAK_FP32_FLOPS)],
+        mixed_bound([(9 * head_flops, PEAK_TF32_TENSOR_FLOPS), (rest_flops, PEAK_FP32_FLOPS)],
                     bwd_bytes))
-    entries["hpd_full_bwd"]["bound_fp32_ms"] = bound_ms(head_flops + rest_flops, bwd_bytes)[0]
+    entries["hpd_full_bwd"]["bound_fp32_ms"] = bound_ms(3 * head_flops + rest_flops, bwd_bytes)[0]
     redesigned(entries["hpd_full_bwd"])
     del got, want
 
@@ -317,7 +334,7 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
         "hpd_tail_fwd", SRC + "hpd_tail.cu", JAX_SRC + "hpd_tail.py:87", err,
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd(h, w_head, b_head, k), 10),
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k), 3),
-        bound_ms(2.0 * rows * H * T, 4.0 * rows * H + head_bytes + out_bytes))
+        bound_ms(head_flops, 4.0 * rows * H + head_bytes + out_bytes))
     del out_k, out_p
 
     log("K9 hpd_tail_bwd, all rows of real h:")
@@ -326,12 +343,15 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     want = hpd_tail.hpd_tail_bwd_plain(*bargs)
     err = max(compare(nm, a, r, GRAD_TOL) for nm, a, r in zip(("dh", "dw", "db"), got, want))
     bitwise_same("dh/dw/db", got, hpd_tail.hpd_tail_bwd(*bargs))
+    # its three products (logits replay, dW, dh) on the tensor cores: no other product
+    tail_bytes = 4.0 * (2 * rows * H + 2 * H * T + 2 * T + L * T + 2 * rows * k)
     entries["hpd_tail_bwd"] = kernel_entry(
         "hpd_tail_bwd", SRC + "hpd_tail.cu", JAX_SRC + "hpd_tail.py:182", err,
         cuda_ms(lambda: hpd_tail.hpd_tail_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_tail.hpd_tail_bwd_plain(*bargs), 2),
-        bound_ms(6.0 * rows * H * T,
-                 4.0 * (2 * rows * H + 2 * H * T + 2 * T + L * T + 2 * rows * k)))
+        mixed_bound([(9 * head_flops, PEAK_TF32_TENSOR_FLOPS)], tail_bytes))
+    entries["hpd_tail_bwd"]["bound_fp32_ms"] = bound_ms(3 * head_flops, tail_bytes)[0]
+    redesigned(entries["hpd_tail_bwd"])
     del got, want, h
     torch.cuda.empty_cache()
     return entries
@@ -772,10 +792,11 @@ TENSOR_CORE_KERNELS = ("hpd_fwd_rows_kernel", "hpd_fwd_cols_kernel", "hpd_probe_
                        "hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
                        "hpd_b2_rows_kernel")
 FP32_KERNELS = ("hpd_fix_rows_kernel",)
-# K11 takes its head's three products as mma.sync (HMMA) at every tile
-# size; K10's top-K rests on exact fp32 logits, so it holds none
-PER_ROW_TENSOR_CORE = "full_bwd_kernel"
-PER_ROW_FP32 = "full_fwd_kernel"
+# K9, K10 and K11 take their head's products as mma.sync (HMMA) at every
+# tile size; K8 stays fp32 FMA on the CUDA cores and must hold none
+PER_ROW_TENSOR_CORE = {"hpd_full": ("full_fwd_kernel", "full_bwd_kernel"),
+                       "hpd_tail": ("tail_bwd_kernel",)}
+PER_ROW_FP32 = {"hpd_tail": ("tail_fwd_kernel",)}
 
 
 def sass_counts(build, lib: str) -> dict:
@@ -790,7 +811,7 @@ def sass_counts(build, lib: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             # e.g. ..._116hpd_probe_kernelILi0ELb1EEEv... -> hpd_probe_kernel<0,1>
-            found = re.search(r"\d+((?:hpd|full)_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
+            found = re.search(r"\d+((?:hpd|full|tail)_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
             name = None
             if found:
                 args = ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2)))
@@ -805,12 +826,13 @@ def sass_counts(build, lib: str) -> dict:
 
 
 def tensor_core_sass(build) -> dict:
-    """Tensor-core instructions per kernel instance of the built hpd_stream
-    and hpd_full libraries. Raises unless every instance (each template
-    argument list) of TENSOR_CORE_KERNELS holds HGMMA, each of them has an
-    instance at every precision (<0>, <1>, <2>), and FP32_KERNELS hold none;
-    and unless K11 has an instance at every tile size (<1>, <2>, <4>), each
-    holding HMMA, and K10's instances hold none."""
+    """Tensor-core instructions per kernel instance of the built hpd_stream,
+    hpd_full and hpd_tail libraries. Raises unless every instance (each
+    template argument list) of TENSOR_CORE_KERNELS holds HGMMA, each of them
+    has an instance at every precision (<0>, <1>, <2>), and FP32_KERNELS
+    hold none; and unless each kernel of PER_ROW_TENSOR_CORE has an instance
+    at every tile size (<1>, <2>, <4>), each holding HMMA, and the instances
+    of PER_ROW_FP32 hold none."""
     counts = sass_counts(build, "hpd_stream")
     for k_ in TENSOR_CORE_KERNELS:
         for p in range(3):
@@ -823,20 +845,23 @@ def tensor_core_sass(build) -> dict:
     for n, c in counts.items():
         if n.split("<")[0] in FP32_KERNELS and c["HGMMA"] + c["HMMA"]:
             raise RuntimeError(f"{n}: tensor-core instructions in the exact fp32 sweep")
-    full = sass_counts(build, "hpd_full")
-    for rpt in (1, 2, 4):
-        n = f"{PER_ROW_TENSOR_CORE}<{rpt}>"
-        if n not in full:
-            raise RuntimeError(f"{n}: no instance in the SASS")
-        if full[n]["HMMA"] == 0:
-            raise RuntimeError(f"{n}: no HMMA in the SASS")
-    fwd = [n for n in full if n.startswith(PER_ROW_FP32 + "<")]
-    if not fwd:
-        raise RuntimeError(f"{PER_ROW_FP32}: no instance in the SASS")
-    for n in fwd:
-        if full[n]["HGMMA"] + full[n]["HMMA"]:
-            raise RuntimeError(f"{n}: tensor-core instructions in K10's fp32 forward")
-    counts.update(full)
+    for lib in ("hpd_full", "hpd_tail"):
+        per_row = sass_counts(build, lib)
+        for k_ in PER_ROW_TENSOR_CORE.get(lib, ()):
+            for rpt in (1, 2, 4):
+                n = f"{k_}<{rpt}>"
+                if n not in per_row:
+                    raise RuntimeError(f"{n}: no instance in the SASS")
+                if per_row[n]["HMMA"] == 0:
+                    raise RuntimeError(f"{n}: no HMMA in the SASS")
+        for k_ in PER_ROW_FP32.get(lib, ()):
+            inst = [n for n in per_row if n.startswith(k_ + "<")]
+            if not inst:
+                raise RuntimeError(f"{k_}: no instance in the SASS")
+            for n in inst:
+                if per_row[n]["HGMMA"] + per_row[n]["HMMA"]:
+                    raise RuntimeError(f"{n}: tensor-core instructions in K8's fp32 forward")
+        counts.update(per_row)
     return counts
 
 
@@ -1078,6 +1103,8 @@ def main() -> int:
         for name in route_wrappers:
             entries[name]["launches"] = launches[name]
             entries[name]["route"] = "cuda"
+        if route == "auto":
+            fixup_rows(hpd_full.hpd_full_fwd, "K10, the fit's last launch")
 
     log("two fits from one start on the card, every parameter and buffer compared bitwise:")
     determinism = two_fits(fit, [("the dedup route at T = 2^14", exp, data, 3),

@@ -203,7 +203,7 @@ def check_ported(cfg: ModelConfig) -> None:
     have yet: the vanilla hash."""
     if cfg.use_hash_function:
         raise NotImplementedError(
-            "the vanilla-hash path is not ported (ROADMAP.md §3 item 6, 'Vanilla hash')"
+            "the vanilla-hash path is not ported (ROADMAP.md, port queue: 'Vanilla hash')"
         )
 
 

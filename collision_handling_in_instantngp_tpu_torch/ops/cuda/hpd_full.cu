@@ -15,15 +15,23 @@
 // vertices and 29 MB of top-K outputs. Only those touch device memory: a
 // row tile's activations and its (R, T) logits stay in shared memory, and
 // the weights stream from L2 (the head is 128 KB at T = 256 and 1 MB at
-// T = 2048: it cannot stay resident). The forward and the hidden layers of
-// the backward are fp32 FMA on the CUDA cores (per_row.cuh), the weights
-// staged in 32-deep chunks; the backward's three head products (the logits
-// replay, dW_head, dh: 181 of its 237 GFLOP) are 3xTF32 on the tensor cores
-// (per_row_mma.cuh), so its bound is the head at the TF32 peak plus the rest
-// at the fp32 peak. dW/db of every layer accumulate in one partial per
-// block (read-modify-write by the owning thread; for dW_head about 3.7 GB
-// of L2 traffic a launch at those shapes), summed in block order by a
-// second kernel. No atomics.
+// T = 2048: it cannot stay resident). The hidden layers run as fp32 FMA on
+// the CUDA cores (per_row.cuh), the weights staged in 32-deep chunks; the
+// head's products run as 3xTF32 on the tensor cores (per_row_mma.cuh): the
+// forward's logits, the backward's logits replay, dW_head and dh (60 of the
+// forward's 79 GFLOP, 181 of the backward's 237), so the bounds are the
+// head at the TF32 peak plus the rest at the fp32 peak.
+// The forward's top-K stays the exact top-K of p from the fp32 logits (the
+// CUDA-core forward's): per tile, the candidates by tensor-core logit, p
+// and the column sums from the tensor-core logits, the candidates' fp32
+// recompute (the head streamed once more where the tile's candidates need
+// most of its columns), their ranking on p and the guard, and the fp32
+// redo of the rows it leaves (per_row_mma.cuh: the derivation and what can
+// still differ). The rows redone are counted in n_fix.
+// dW/db of every layer accumulate in one partial per block (read-modify-
+// write by the owning thread; for dW_head about 3.7 GB of L2 traffic a
+// launch at those shapes), summed in block order by a second kernel. No
+// atomics but the redo count.
 #include "per_row.cuh"
 #include "per_row_mma.cuh"
 
@@ -31,14 +39,28 @@ using namespace per_row;
 
 namespace {
 
-// Built with -DHPD_FULL_PHASES (tools/k11_phases.py), K11's thread 0 sums
-// the clock64() ticks of each phase of its tiles into k11_phase (the
-// phases end at a barrier, so its ticks are the block's); otherwise the
-// marks compile to nothing.
+// Built with -DHPD_FULL_PHASES (tools/k11_phases.py), thread 0 of K11 and
+// of K10 sums the clock64() ticks of each phase of its tiles into
+// k11_phase / k10_phase (the phases end at a barrier, so its ticks are the
+// block's); otherwise the marks compile to nothing.
 #ifdef HPD_FULL_PHASES
-constexpr int NPHASES = 6;  // replay, logits, softmax + dl, dW_head, dh, hidden layers
-__device__ unsigned long long k11_phase[NPHASES];
-#define PHASE_START unsigned long long ph_[NPHASES] = {}, tc0_ = clock64(), tc1_
+constexpr int K11_PHASES = 6;  // replay, logits, softmax + dl, dW_head, dh, hidden layers
+// hidden layers, logits, softmax, column sums, and the top-K's candidates,
+// fp32 recompute, ranking and redo
+constexpr int K10_PHASES = 7;
+__device__ unsigned long long k11_phase[K11_PHASES];
+__device__ unsigned long long k10_phase[K10_PHASES];
+// the ticks of src into out, then zeroed if reset
+template <int NP>
+int read_phases(unsigned long long (&src)[NP], unsigned long long* out, int reset) {
+  int err = (int)cudaMemcpyFromSymbol(out, src, sizeof(unsigned long long) * NP);
+  if (!err && reset) {
+    const unsigned long long zero[NP] = {};
+    err = (int)cudaMemcpyToSymbol(src, zero, sizeof(zero));
+  }
+  return err;
+}
+#define PHASE_START(n) unsigned long long ph_[n] = {}, tc0_ = clock64(), tc1_
 #define PHASE_MARK(i)      \
   do {                     \
     tc1_ = clock64();      \
@@ -50,14 +72,14 @@ __device__ unsigned long long k11_phase[NPHASES];
     __syncthreads();       \
     PHASE_MARK(i);         \
   } while (0)
-#define PHASE_END \
-  if (threadIdx.x == 0) \
-    for (int i_ = 0; i_ < NPHASES; ++i_) atomicAdd(&k11_phase[i_], ph_[i_])
+#define PHASE_END(arr, n) \
+  if (threadIdx.x == 0)   \
+    for (int i_ = 0; i_ < n; ++i_) atomicAdd(&arr[i_], ph_[i_])
 #else
-#define PHASE_START
+#define PHASE_START(n)
 #define PHASE_MARK(i)
 #define PHASE_SYNC_MARK(i)
-#define PHASE_END
+#define PHASE_END(arr, n)
 #endif
 
 constexpr int MAXL = 16;  // layers, head included
@@ -94,9 +116,26 @@ int make_net(int n, const int* widths, Net* net) {
   return 0;
 }
 
+constexpr int LDA = mma_ld(WMAX);  // row stride of the forward's activation tiles
+constexpr int GMAX = KMAX + GSLACK;  // candidates a row at most
+static_assert(refine_floats(1, GMAX) <= LDA, "the refinement's lists fit a spare activation tile");
+
+// Floats of the forward's staged buffer at R rows: the hidden products'
+// chunk, then the head's chunks (the logits', then the recompute's), with
+// the candidates' per-thread lists between them.
+__host__ __device__ constexpr int fwd_stage(int R) {
+  return BK * BS > head_stage_floats(R / 16) ? BK * BS : head_stage_floats(R / 16);
+}
+
+// chains a thread of the candidates' recompute at R rows, kc candidates
+__host__ __device__ constexpr int chains(int R, int kc) { return (R * kc + THREADS - 1) / THREADS; }
+
+// two activation tiles (stride LDA), the staged buffer, the logits tile
+// (stride mma_ld(T)), the column sums and the head's row maxima
 size_t fwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
-  return sizeof(float) * (2 * (size_t)R * WLD + BK * BS + (size_t)R * (T + 1) + T);
+  return sizeof(float) *
+         (2 * (size_t)R * LDA + fwd_stage(R) + (size_t)R * mma_ld(T) + T + WMAX + 1);
 }
 
 // acts (the head's input at stride mma_ld(H)), gA, the staged chunk (the
@@ -170,47 +209,116 @@ __device__ __forceinline__ void back_layer(const float* __restrict__ G, int ldg,
 template <int RPT>
 __global__ void __launch_bounds__(THREADS)
 full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ params, Net net,
-                int K, Rows g, float* __restrict__ vals, int* __restrict__ idx,
-                float* __restrict__ marg_part) {
+                const float* __restrict__ w_pad, int K, Rows g, float* __restrict__ vals,
+                int* __restrict__ idx, float* __restrict__ marg_part, int* __restrict__ n_fix) {
   constexpr int R = 16 * RPT;
-  extern __shared__ float smem[];
-  const int n = net.n, d = net.w[0], T = net.w[n];
+  extern __shared__ __align__(16) float smem[];
+  const int n = net.n, d = net.w[0], T = net.w[n], H = net.w[n - 1];
+  const int ldc = mma_ld(T), ldw = head_ld(T);
+  const int kc = min(K + GSLACK, T);
   float* buf0 = smem;
-  float* buf1 = buf0 + R * WLD;
-  float* b_s = buf1 + R * WLD;
-  float* cache = b_s + BK * BS;
-  float* colsum = cache + R * (T + 1);
-  const int ldc = T + 1;
+  float* buf1 = buf0 + R * LDA;
+  float* stage = buf1 + R * LDA;
+  float* cache = stage + fwd_stage(R);
+  float* colsum = cache + R * ldc;
+  float* amax = colsum + T;
+  // the refinement's lists, in the activation tile the stack does not end
+  // in (the stack's n - 1 layers swap the two tiles)
+  float* lv = n % 2 ? buf1 : buf0;
+  int* li = reinterpret_cast<int*>(lv + R * kc);
+  float* ex = lv + 2 * R * kc;
+  float* m_s = ex + R * kc;
+  float* s_s = m_s + R;
+  float* sr = s_s + R;
+  int* fix = reinterpret_cast<int*>(sr + R);
+  const float* w_head = params + net.woff[n - 1];
+  const float* b_head = params + net.boff[n - 1];
   const int l = blockIdx.y, seg = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int c = threadIdx.x; c < T; c += THREADS) colsum[c] = 0.f;
+  head_absmax(w_head, b_head, H, T, amax);
   const int tpl = (g.N + R - 1) / R;
   const int t_end = min(tpl, (seg + 1) * g.tps);
+  const int pad = (H + 7) / 8 * 8 - H;  // head_logits reads the head input to a multiple of 8
+  // the candidates' fp32 recompute streams the head where it needs most of
+  // its columns, else reads it column by column
+  const bool streamed = T <= 4 * R * kc;
+  PHASE_START(K10_PHASES);
   for (int t = seg * g.tps; t < t_end; ++t) {
     const int r0 = t * R;
     const int rows = min(R, g.N - r0);
     const size_t base = (size_t)l * g.N + r0;
     __syncthreads();
-    load_rows<R>(verts, base, rows, d, buf0, WLD);
+    load_rows<R>(verts, base, rows, d, buf0, LDA);
     float* in = buf0;
     float* out = buf1;
     for (int i = 0; i < n - 1; ++i) {
-      hidden_layer<RPT>(in, WLD, net.w[i], params + net.woff[i], params + net.boff[i],
-                        net.w[i + 1], b_s, out, WLD);
+      hidden_layer<RPT>(in, LDA, net.w[i], params + net.woff[i], params + net.boff[i],
+                        net.w[i + 1], stage, out, LDA);
       float* tmp = in;
       in = out;
       out = tmp;
     }
-    tile_logits<RPT>(in, WLD, net.w[n - 1], params + net.woff[n - 1], params + net.boff[n - 1], T,
-                     b_s, cache);
+    for (int e = threadIdx.x; e < R * pad; e += THREADS) in[e / pad * LDA + H + e % pad] = 0.f;
+    PHASE_SYNC_MARK(0);
+    // the logits on the tensor cores (begins and ends with a barrier)
+    head_logits<RPT>(in, LDA, H, w_pad, ldw, b_head, T, stage, cache, ldc);
+    PHASE_MARK(1);
+    // each row's candidates, before softmax overwrites the row (the threads'
+    // lists in the staged buffer, free after head_logits)
+    if (kc <= 8)
+      top_candidates<R, 8, GMAX>(cache, ldc, T, rows, kc, stage, lv, li);
+    else if (kc <= 16 && 2 * THREADS * 16 <= fwd_stage(R))
+      top_candidates<R, 16, GMAX>(cache, ldc, T, rows, kc, stage, lv, li);
+    else
+      top_candidates<R, 0, GMAX>(cache, ldc, T, rows, kc, stage, lv, li);
+    PHASE_MARK(4);
+    // p from the tensor-core logits, two rows a warp at a time (R / WARPS
+    // is even)
+    for (int r = warp; r < R; r += 2 * WARPS) {
+      float ma, sa, mb, sb;
+      softmax_pair(cache + r * ldc, cache + (r + WARPS) * ldc, T, ma, sa, mb, sb);
+      if (lane == 0) {
+        m_s[r] = ma;
+        s_s[r] = sa;
+        m_s[r + WARPS] = mb;
+        s_s[r + WARPS] = sb;
+      }
+    }
     __syncthreads();
-    for (int r = warp; r < R; r += WARPS) softmax_row(cache + r * ldc, T);
-    __syncthreads();
+    PHASE_MARK(2);
     column_sums(cache, ldc, rows, T, colsum);
+    PHASE_SYNC_MARK(3);
+    // the candidates' fp32 logits
+    guard_sums(in, LDA, H, amax, rows, sr);
+    if (streamed) {
+      if (kc <= 8)
+        recompute_streamed<RPT, chains(R, 8)>(in, LDA, H, w_pad, ldw, b_head, rows, kc, T, li,
+                                              stage, ex);
+      else
+        recompute_streamed<RPT, chains(R, GMAX)>(in, LDA, H, w_pad, ldw, b_head, rows, kc, T, li,
+                                                 stage, ex);
+    } else {
+      recompute_candidates(in, LDA, H, w_pad, ldw, b_head, rows, kc, li, ex);
+      __syncthreads();
+    }
+    PHASE_MARK(5);
+    if (threadIdx.x < rows) {
+      const int r = threadIdx.x;
+      const size_t o = (base + r) * K;
+      fix[r] = !settle_row(lv + r * kc, li + r * kc, ex + r * kc, kc, K, T, m_s[r], s_s[r],
+                           guard_coef(H) * sr[r], vals + o, idx + o);
+    }
     __syncthreads();
-    for (int r = warp; r < rows; r += WARPS)
-      topk_row(cache + r * ldc, T, K, vals + (base + r) * K, idx + (base + r) * K);
+    for (int r = warp; r < rows; r += WARPS) {
+      if (!fix[r]) continue;
+      const size_t o = (base + r) * K;
+      exact_row(in + r * LDA, H, w_pad, ldw, b_head, T, K, cache + r * ldc, vals + o, idx + o);
+      if (lane == 0) atomicAdd(n_fix, 1);
+    }
+    PHASE_SYNC_MARK(6);
   }
+  PHASE_END(k10_phase, K10_PHASES);
   __syncthreads();
   for (int c = threadIdx.x; c < T; c += THREADS)
     marg_part[((size_t)l * g.spl + seg) * T + c] = colsum[c];
@@ -242,7 +350,7 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     a_head[e / (ldh - H) * ldh + H + e % (ldh - H)] = 0.f;
   const int tpl = (g.N + R - 1) / R;
   const int t_end = min(tpl, (seg + 1) * g.tps);
-  PHASE_START;
+  PHASE_START(K11_PHASES);
   for (int t = seg * g.tps; t < t_end; ++t) {
     const int r0 = t * R;
     const int rows = min(R, g.N - r0);
@@ -289,19 +397,22 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
       PHASE_SYNC_MARK(5);
     }
   }
-  PHASE_END;
+  PHASE_END(k11_phase, K11_PHASES);
 }
 
 template <int RPT>
-int launch_fwd(const float* verts, const float* params, const Net& net, int L, int N, int K,
-               float* marg, float* marg_part, float* vals, int* idx, cudaStream_t st) {
+int launch_fwd(const float* verts, const float* params, const float* w_pad, const Net& net,
+               int L, int N, int K, float* marg, float* marg_part, float* vals, int* idx,
+               int* n_fix, cudaStream_t st) {
   const Rows g = make_rows(L, N, 16 * RPT);
   const int T = net.w[net.n];
+  int err = (int)cudaMemsetAsync(n_fix, 0, sizeof(int), st);
+  if (err) return err;
   const size_t smem = fwd_smem(net, 16 * RPT);
   set_smem(full_fwd_kernel<RPT>, smem);
-  full_fwd_kernel<RPT><<<dim3(g.spl, L), THREADS, smem, st>>>(verts, params, net, K, g, vals,
-                                                              idx, marg_part);
-  int err = (int)cudaGetLastError();
+  full_fwd_kernel<RPT><<<dim3(g.spl, L), THREADS, smem, st>>>(verts, params, net, w_pad, K, g,
+                                                              vals, idx, marg_part, n_fix);
+  err = (int)cudaGetLastError();
   if (err) return err;
   reduce_levels_kernel<<<(L * T + 255) / 256, 256, 0, st>>>(marg_part, marg, L, g.spl, T, N);
   return (int)cudaGetLastError();
@@ -336,15 +447,13 @@ const char* hpd_full_error_string(int code) { return port_error_string(code); }
 int hpd_full_head_ld(int T) { return head_ld(T); }
 
 #ifdef HPD_FULL_PHASES
-// K11's clock64() ticks by phase, summed over the blocks of the launches
-// since the last reset, into out[NPHASES]; then zeroes them if reset.
-int hpd_full_phases(unsigned long long* out, int reset) {
-  int err = (int)cudaMemcpyFromSymbol(out, k11_phase, sizeof(unsigned long long) * NPHASES);
-  if (!err && reset) {
-    const unsigned long long zero[NPHASES] = {};
-    err = (int)cudaMemcpyToSymbol(k11_phase, zero, sizeof(zero));
-  }
-  return err;
+// K11's (hpd_full_phases) and K10's (hpd_full_fwd_phases) clock64() ticks
+// by phase, summed over the blocks of the launches since the last reset,
+// into out[K11_PHASES] / out[K10_PHASES]; then zeroes them if reset.
+int hpd_full_phases(unsigned long long* out, int reset) { return read_phases(k11_phase, out, reset); }
+
+int hpd_full_fwd_phases(unsigned long long* out, int reset) {
+  return read_phases(k10_phase, out, reset);
 }
 #endif
 
@@ -357,18 +466,26 @@ int hpd_full_blocks(int n_layers, const int* widths, int L, int N, int K) {
 }
 
 // verts (L, N, d), params packed [W0 (w0 x w1), b0, W1, b1, ...] ->
-// marg (L, T), vals (L, N, K), idx (L, N, K). marg_part: (blocks, T).
-int hpd_full_fwd(const float* verts, const float* params, int n_layers, const int* widths,
-                 int L, int N, int K, float* marg, float* marg_part, float* vals, int* idx,
-                 void* stream) {
+// marg (L, T), vals (L, N, K), idx (L, N, K). w_pad: the head padded as for
+// hpd_full_bwd. marg_part: (blocks, T) scratch. n_fix (1): the rows the
+// guard left to the exact fp32 redo.
+int hpd_full_fwd(const float* verts, const float* params, const float* w_pad, int n_layers,
+                 const int* widths, int L, int N, int K, float* marg, float* marg_part,
+                 float* vals, int* idx, int* n_fix, void* stream) {
   Net net;
   const int err = check(n_layers, widths, L, N, K, &net);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   switch (pick_rpt(net)) {
-    case 4: return launch_fwd<4>(verts, params, net, L, N, K, marg, marg_part, vals, idx, st);
-    case 2: return launch_fwd<2>(verts, params, net, L, N, K, marg, marg_part, vals, idx, st);
-    default: return launch_fwd<1>(verts, params, net, L, N, K, marg, marg_part, vals, idx, st);
+    case 4:
+      return launch_fwd<4>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                           n_fix, st);
+    case 2:
+      return launch_fwd<2>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                           n_fix, st);
+    default:
+      return launch_fwd<1>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                           n_fix, st);
   }
 }
 

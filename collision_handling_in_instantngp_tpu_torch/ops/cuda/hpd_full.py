@@ -11,11 +11,15 @@ Backward: + idx, g_marg, g_vals -> [(dW_i, db_i)] of every layer, the
   each layer's input. The vertices are data: their gradient is zero.
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_full.cu``,
-whatever the model's matmul precision: fp32 throughout the forward and
-the backward's hidden layers, 3xTF32 on the tensor cores for the
-backward's three head products (``per_row_mma.cuh``); for a CPU tensor
-they run the plain version below: the hidden stack at fp32, then the
-chunked tail.
+whatever the model's matmul precision: the hidden layers in fp32 on the
+CUDA cores, the head's products as 3xTF32 on the tensor cores
+(``per_row_mma.cuh``: the forward's logits, the backward's logits replay,
+dW_head and dh). The forward's top-K stays that of the fp32 logits: the
+top K + 4 candidates of a row by tensor-core logit are recomputed in fp32
+and ranked on p, and a row whose guard cannot settle it is redone in fp32
+by the kernel itself; ``hpd_full_fwd.fixup_rows`` keeps the count of the
+last launch as a device tensor. For a CPU tensor they run the plain
+version below: the hidden stack at fp32, then the chunked tail.
 :class:`HpdFull` is the autograd Function over the pair.
 """
 
@@ -34,6 +38,24 @@ MAX_LAYERS = 16
 MAX_WIDTH = 128
 MAX_T = 2048
 MAX_K = 32
+
+
+# The forward's guard (per_row_mma.cuh: guard_coef, settle_row; derivation
+# there): the top K + GUARD_SLACK candidates of a row by tensor-core logit
+# settle its fp32 top-K when the K-th selected fp32 logit exceeds the
+# (K + GUARD_SLACK)-th tensor-core logit by more than 2 eps_r + GUARD_ABS
+# and its p is at least P_MIN.
+GUARD_SLACK = 4
+GUARD_ABS = 2.0**-18
+P_MIN = 2.0**-100
+
+
+def guard_eps(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """eps_r (..., rows) of the forward's guard for the head input h
+    (..., H), the head w (H, T) and b (T,)."""
+    hd = h.shape[-1]
+    coef = (1.25 * (-(-hd // 8)) + hd / 16 + 2) * 2.0**-20
+    return coef * (h.abs() @ w.abs().amax(dim=1) + b.abs().max())
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -81,7 +103,7 @@ def _lib() -> ctypes.CDLL:
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of a built hpd_full library."""
     vp, ci, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.hpd_full_fwd.argtypes = [vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp]
+    lib.hpd_full_fwd.argtypes = [vp, vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.hpd_full_fwd.restype = ci
     lib.hpd_full_bwd.argtypes = [vp, vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.hpd_full_bwd.restype = ci
@@ -134,24 +156,35 @@ def _prepare(verts, layers, k):
     return lib, verts, params, widths, cw, blocks
 
 
+def _padded_head(lib, w_head: torch.Tensor, t: int) -> torch.Tensor:
+    """The head padded with zeros to (128, hpd_full_head_ld(T)), so that
+    every chunk the kernels stage lies inside it."""
+    w_pad = torch.zeros(MAX_WIDTH, lib.hpd_full_head_ld(t), device=w_head.device, dtype=torch.float32)
+    w_pad[: w_head.shape[0], :t] = w_head
+    return w_pad
+
+
 def _launch_fwd(verts, layers, k):
     dev = verts.device
     lib, verts, params, widths, cw, blocks = _prepare(verts, layers, k)
     l, n, _ = verts.shape
     t = widths[-1]
     f32 = dict(device=dev, dtype=torch.float32)
+    w_pad = _padded_head(lib, layers[-1][0], t)
     marg = torch.empty(l, t, **f32)
     marg_part = torch.empty(blocks, t, **f32)
     vals = torch.empty(l, n, k, **f32)
     idx = torch.empty(l, n, k, device=dev, dtype=torch.int32)
+    n_fix = torch.empty(1, device=dev, dtype=torch.int32)
     with torch.cuda.device(dev):
         code = lib.hpd_full_fwd(
-            verts.data_ptr(), params.data_ptr(), len(layers), cw, l, n, k,
+            verts.data_ptr(), params.data_ptr(), w_pad.data_ptr(), len(layers), cw, l, n, k,
             marg.data_ptr(), marg_part.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            n_fix.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(code, lib, "hpd_full_error_string", "hpd_full_fwd")
     hpd_full_fwd.launches += 1
+    hpd_full_fwd.fixup_rows = n_fix
     return marg, vals, idx
 
 
@@ -166,10 +199,7 @@ def _launch_bwd(verts, layers, idx, g_marg, g_vals, k):
     if tuple(idx.shape) != (l, n, k) or tuple(g_vals.shape) != (l, n, k) or tuple(g_marg.shape) != (l, t):
         raise ValueError(f"idx {tuple(idx.shape)}, g_vals {tuple(g_vals.shape)}, g_marg "
                          f"{tuple(g_marg.shape)} do not match L={l}, N={n}, K={k}, T={t}")
-    # the head, zero-padded so that every chunk the kernel stages lies inside
-    w_head = layers[-1][0]
-    w_pad = torch.zeros(MAX_WIDTH, lib.hpd_full_head_ld(t), device=dev, dtype=torch.float32)
-    w_pad[: w_head.shape[0], :t] = w_head
+    w_pad = _padded_head(lib, layers[-1][0], t)
     part = torch.empty(blocks, params.numel(), device=dev, dtype=torch.float32)
     dparams = torch.empty_like(params)
     with torch.cuda.device(dev):
@@ -204,6 +234,7 @@ def hpd_full_bwd(verts: torch.Tensor, layers: Layers, idx, g_marg, g_vals, k: in
 
 
 hpd_full_fwd.launches = 0
+hpd_full_fwd.fixup_rows = None
 hpd_full_bwd.launches = 0
 
 

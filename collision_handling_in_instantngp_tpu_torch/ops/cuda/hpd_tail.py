@@ -11,11 +11,14 @@ Backward: + idx, g_marg (L, T), g_vals (L, N, K) -> dh (L, N, H), dw (H, T),
   db (T,), with g_p = g_marg[l] / N + g_vals scattered at idx and
   dlogits = p (g_p - <g_p, p>).
 
-For a CUDA tensor the wrappers launch the kernels of ``hpd_tail.cu``
-(fp32 whatever the model's matmul precision); for a CPU tensor they run the
-plain version below at fp32. The plain version streams the rows in chunks
-so that (L, N, T) never exists whole; at the model's precision it is also
-the port of the JAX package's ``lax.scan`` tail (``ops/fused_hpd.py``).
+For a CUDA tensor the wrappers launch the kernels of ``hpd_tail.cu``,
+whatever the model's matmul precision: the forward in fp32 on the CUDA
+cores, the backward's three products (the logits replay, dW, dh) as
+3xTF32 on the tensor cores (``per_row_mma.cuh``, as in K11), softmax and
+dlogits in fp32; for a CPU tensor they run the plain version below at
+fp32. The plain version streams the rows in chunks so that (L, N, T)
+never exists whole; at the model's precision it is also the port of the
+JAX package's ``lax.scan`` tail (``ops/fused_hpd.py``).
 """
 
 from __future__ import annotations
@@ -99,8 +102,10 @@ def _lib() -> ctypes.CDLL:
     lib.hpd_tail_fwd.restype = ci
     lib.hpd_tail_bwd.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 4
     lib.hpd_tail_bwd.restype = ci
-    lib.hpd_tail_blocks.argtypes = [ci] * 5
+    lib.hpd_tail_blocks.argtypes = [ci] * 6
     lib.hpd_tail_blocks.restype = ci
+    lib.hpd_tail_head_ld.argtypes = [ci]
+    lib.hpd_tail_head_ld.restype = ci
     return lib
 
 
@@ -138,7 +143,7 @@ def _launch_fwd(h, w, b, k):
     lib = _lib()
     f32 = dict(device=dev, dtype=torch.float32)
     marg = torch.empty(l, t, **f32)
-    marg_part = torch.empty(lib.hpd_tail_blocks(l, n, hd, t, k), t, **f32)
+    marg_part = torch.empty(lib.hpd_tail_blocks(l, n, hd, t, k, 0), t, **f32)
     vals = torch.empty(l, n, k, **f32)
     idx = torch.empty(l, n, k, device=dev, dtype=torch.int32)
     with torch.cuda.device(dev):
@@ -160,11 +165,14 @@ def _launch_bwd(h, w, b, idx, g_marg, g_vals, k):
     lib = _lib()
     f32 = dict(device=dev, dtype=torch.float32)
     dh = torch.empty(l, n, hd, **f32)
-    part = torch.empty(lib.hpd_tail_blocks(l, n, hd, t, k), hd * t + t, **f32)
+    part = torch.empty(lib.hpd_tail_blocks(l, n, hd, t, k, 1), hd * t + t, **f32)
     dwb = torch.empty(hd * t + t, **f32)
+    # the head, zero-padded so that every chunk the kernel stages lies inside
+    w_pad = torch.zeros(MAX_H, lib.hpd_tail_head_ld(t), **f32)
+    w_pad[:hd, :t] = w
     with torch.cuda.device(dev):
         code = lib.hpd_tail_bwd(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), idx.data_ptr(), g_marg.data_ptr(),
+            h.data_ptr(), w_pad.data_ptr(), b.data_ptr(), idx.data_ptr(), g_marg.data_ptr(),
             g_vals.data_ptr(), l, n, hd, t, k, dh.data_ptr(), part.data_ptr(), dwb.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

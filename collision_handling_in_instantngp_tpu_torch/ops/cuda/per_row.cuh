@@ -12,10 +12,10 @@
 // The products here are fp32 FMA on the CUDA cores: a 256-thread block
 // computes an (R x 128) output tile, thread (ty, tx) holding rows
 // ty*RPT + i and columns tx + 16*j, with the right operand staged through
-// shared memory in 32-deep chunks. K8, K9, K10 and K11's hidden layers run
-// them, fp32 whatever matmul precision the model names (the TPU kernels
-// pass no precision to their dots); K11's three head products run as
-// 3xTF32 on the tensor cores instead (per_row_mma.cuh).
+// shared memory in 32-deep chunks. K8 and the hidden layers of K10 and K11
+// run them, fp32 whatever matmul precision the model names (the TPU kernels
+// pass no precision to their dots); the head's products of K9, K10 and K11
+// run as 3xTF32 on the tensor cores instead (per_row_mma.cuh).
 #pragma once
 
 #include <float.h>

@@ -1,9 +1,10 @@
 // The per-row head's three products on the tensor cores: the logits replay
 // (R x H) (H x T), dW_head = a_head^T dl and dh = dl W_head^T, for a row
-// tile of R = 16 * RPT rows. hpd_full.cu's backward (K11) takes them; each
-// helper takes an (R x H) activation tile, the (H x T) head (a zero-padded
-// copy in device memory) and the (R x T) logits / dlogits tile, so the
-// per-row tail's backward (hpd_tail.cu) can take them as they are.
+// tile of R = 16 * RPT rows. hpd_full.cu's backward (K11) and the per-row
+// tail's backward (hpd_tail.cu, K9) take all three, hpd_full.cu's forward
+// (K10) the logits; each helper takes an (R x H) activation tile, the
+// (H x T) head (a zero-padded copy in device memory) and the (R x T)
+// logits / dlogits tile.
 //
 // Arithmetic: warp-level mma.sync m16n8k8 tf32 as 3xTF32. x = hi + lo,
 // hi = tf32(x), lo = tf32(x - hi), both rounded to nearest (ties away from
@@ -327,7 +328,9 @@ __device__ __forceinline__ void head_dw(const float* __restrict__ A, int lda, in
 // the head's input, stride lda; out stride ldo. Chains of CHAIN k8 steps
 // over T, added in order into out (each element by the thread that owns it).
 // Starts with a barrier (stage is free, G complete); stage as head_logits'.
-template <int RPT>
+// MASK = false (the per-row tail's dh: the gradient of the head's input
+// itself) drops the mask; act is then not read.
+template <int RPT, bool MASK = true>
 __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, int T,
                                         const float* __restrict__ w, int ldw, int H,
                                         const float* __restrict__ act, int lda,
@@ -373,11 +376,380 @@ __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, in
               const int h = n0 + 8 * j + 2 * t4 + (q & 1);
               if (h >= H) continue;
               float v = first ? d[i][j][q] : out[r * ldo + h] + d[i][j][q];
-              if (last) v *= act[r * lda + h] > 0.f ? 1.f : 0.f;
+              if (MASK && last) v *= act[r * lda + h] > 0.f ? 1.f : 0.f;
               out[r * ldo + h] = v;
             }
           }
       });
+}
+
+// ------------ the exact fp32 top-K of p from tensor-core logits ------------
+//
+// K10 takes its head's logits with head_logits and selects the top-K of p =
+// nan_to_num(e / s), e = exp(l - max l), with the fp32 logits (one fma chain
+// over k ascending from zero, then + b: tile_mm's arithmetic, which the
+// CUDA-core forward runs) by candidate refinement:
+//   1. top_candidates: each row keeps its top kc = K + GSLACK columns by
+//      tensor-core logit (value desc, index asc).
+//   2. recompute_streamed / recompute_candidates: each candidate's logit in
+//      fp32, tile_mm's chain.
+//   3. settle_row: one s for the row, the tensor-core softmax's sum with the
+//      candidates' terms replaced by their recomputed ones (as differences
+//      from the top recomputed logit); p = nan_to_num(exp(l - top) / s) of
+//      each candidate; the top K of those p, lowest index among equal p, as
+//      topk_row ranks them. p is monotone in l under one s, so the order is
+//      that of the fp32 logits but for values that round to one p.
+//   4. the guard: with eps_r >= |tensor-core logit - fp32 logit| for every
+//      column (guard_coef), a column outside the candidates has an fp32 logit
+//      <= (kc-th tensor-core value) + eps_r. So when the K-th selected
+//      logit exceeds the kc-th tensor-core value by more than 2 eps_r +
+//      2^-18, its e exceeds theirs by a factor > exp(2^-18) (64 ulps), and
+//      while its p is a normal float (>= 2^-100) no such column can reach it
+//      in p: the top K lies among the candidates. A row that fails (a
+//      near-tie cluster deeper than GSLACK at the K-th place, p underflowing
+//      there, a NaN) is redone whole in fp32 by one warp (exact_row): the
+//      CUDA-core forward's own arithmetic, bit for bit.
+// What can still differ from the plain version: two candidates whose e lie
+// within an ulp or two of each other may divide to one p under the plain
+// version's s and to two under the kernel's (or the reverse), since the
+// kernel's s comes from tensor-core terms; the two then swap places. This
+// needs two logits within about 2^-23 of each other (relative) at a place
+// of the top K; tests/test_torch_tf32_per_row.py plants it.
+
+constexpr int GSLACK = 4;      // candidates beyond K
+
+// eps_r = guard_coef(H) * S_r, S_r = max_t |b_t| + sum_k |a_rk| max_t |w_kt|
+// (>= sum_k |a_rk w_kt| + |b_t| for every t), bounds |head_logits' logit -
+// fp32 logit| of row r. With nk = ceil(H / 8) k8 steps, all in one chain
+// (H <= 128 = 8 CHAIN):
+//   split: x = hi + lo + r, |r| <= 2^-22 |x|, lo_a lo_b dropped: <= 3 2^-22
+//     = 0.75 2^-20 of each |term|.
+//   hi_a hi_b accumulator: nk MMAs; each aligns its 8 products and the
+//     accumulator to the largest and truncates (<= 9 2^-23 of a running sum
+//     <= S_r) and truncates its result (<= 2^-23): 1.25 nk 2^-20 S_r.
+//   lo accumulator: 2 nk MMAs on sums <= 2^-10 S_r: < 0.05 2^-20 S_r.
+//   the two accumulators' fp32 add and + b: 2 roundings, 0.125 2^-20 S_r.
+//   fp32 chain: H fmas and + b, each one rounding of a sum <= S_r:
+//     (H + 1) 2^-24 S_r = (H + 1) / 16 2^-20 S_r.
+// Total <= (1.25 nk + H / 16 + 1) 2^-20 S_r; c = 1.25 nk + H / 16 + 2 leaves
+// 2^-20 for S_r's own fp32 rounding (< 2^-17 of it). At H = 128: 30 2^-20.
+__host__ __device__ __forceinline__ float guard_coef(int H) {
+  return (1.25f * (float)((H + 7) / 8) + (float)H / 16.f + 2.f) * 0x1p-20f;
+}
+
+// (v, i) before (v2, i2) in the candidate order: value desc, index asc.
+__device__ __forceinline__ bool ranks_before(float v, int i, float v2, int i2) {
+  return v > v2 || (v == v2 && i < i2);
+}
+
+// Floats of the refinement's lists at R rows and kc candidates: lv, li, ex
+// (R x kc each), m, s, S_r and the fix-up flag (R each).
+__host__ __device__ constexpr int refine_floats(int R, int kc) { return R * (3 * kc + 4); }
+
+// Block: am[k] = max_t |w[k * T + t]| for k < H, am[H] = max_t |b[t]|.
+__device__ __forceinline__ void head_absmax(const float* __restrict__ w,
+                                            const float* __restrict__ b, int H, int T,
+                                            float* __restrict__ am) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int k = warp; k <= H; k += WARPS) {
+    const float* src = k < H ? w + (size_t)k * T : b;
+    float m = 0.f;
+    for (int c = lane; c < T; c += 32) m = fmaxf(m, fabsf(src[c]));
+    m = warp_max(m);
+    if (lane == 0) am[k] = m;
+  }
+}
+
+// One thread: the top KC of the columns c = part + P j of row[0:T) (value
+// desc, index asc), kept sorted in registers by insertion; the first n_out
+// into v[q ld], ix[q ld], sentinels (-inf, INT_MAX) where fewer. With P threads a row on consecutive lanes and rows at a stride
+// = 4 (mod 32), 8 rows x 4 parts of a warp read 32 banks.
+template <int KC>
+__device__ __forceinline__ void top_part(const float* __restrict__ row, int T, int P, int part,
+                                         float* __restrict__ v, int* __restrict__ ix, int ld,
+                                         int n_out) {
+  float tv[KC];
+  int ti[KC];
+#pragma unroll
+  for (int q = 0; q < KC; ++q) {
+    tv[q] = -INFINITY;
+    ti[q] = INT_MAX;
+  }
+#pragma unroll 4
+  for (int c = part; c < T; c += P) {
+    const float x = row[c];
+    if (ranks_before(x, c, tv[KC - 1], ti[KC - 1])) {
+      tv[KC - 1] = x;
+      ti[KC - 1] = c;
+      // every step, taken or not: an early exit would split the warp
+#pragma unroll
+      for (int q = KC - 1; q > 0; --q)
+        if (ranks_before(tv[q], ti[q], tv[q - 1], ti[q - 1])) {
+          const float x2 = tv[q];
+          const int i2 = ti[q];
+          tv[q] = tv[q - 1];
+          ti[q] = ti[q - 1];
+          tv[q - 1] = x2;
+          ti[q - 1] = i2;
+        }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < KC; ++q)
+    if (q < n_out) {
+      v[q * ld] = tv[q];
+      ix[q * ld] = ti[q];
+    }
+}
+
+// Block: each row r < rows of the (R x T) tile (stride ldc) gets its top kc
+// (<= KC) columns (value desc, index asc) in lv[r kc ..], li[r kc ..]: P =
+// THREADS / R threads a row each keep the top KC of their share of the
+// columns (top_part, into scr: 2 THREADS KC words), then one thread a row
+// merges the P sorted lists; with KC = 0 (no scratch) one thread a row
+// keeps the top GMAX of the whole row. A missing candidate (fewer than kc
+// ordered values: NaNs) gets lv = NaN, li = 0, which fails the guard. The
+// rows are only read. Ends with a barrier.
+template <int R, int KC, int GMAX>
+__device__ __forceinline__ void top_candidates(const float* __restrict__ cache, int ldc, int T,
+                                               int rows, int kc, float* __restrict__ scr,
+                                               float* __restrict__ lv, int* __restrict__ li) {
+  constexpr int P = KC > 0 ? THREADS / R : 1, KL = KC > 0 ? KC : GMAX;
+  float* sv = scr;
+  int* si = reinterpret_cast<int*>(scr + THREADS * KL);
+  if (KC > 0) {
+    // list (r, part) at column r P + part of a KC x THREADS array
+    top_part<KL>(cache + threadIdx.x / P * ldc, T, P, threadIdx.x % P, sv + threadIdx.x,
+                 si + threadIdx.x, THREADS, KL);
+    __syncthreads();
+  } else if (threadIdx.x < rows) {
+    top_part<KL>(cache + threadIdx.x * ldc, T, 1, 0, lv + threadIdx.x * kc,
+                 li + threadIdx.x * kc, 1, kc);
+  }
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    int head[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) head[p] = 0;
+    for (int q = 0; q < kc; ++q) {
+      float bv;
+      int bi;
+      if (KC == 0) {
+        bv = lv[r * kc + q];
+        bi = li[r * kc + q];
+      } else {
+        int best = 0;
+        bv = -INFINITY;
+        bi = INT_MAX;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (head[p] >= KL) continue;
+          const int o = head[p] * THREADS + r * P + p;
+          if (ranks_before(sv[o], si[o], bv, bi)) {
+            best = p;
+            bv = sv[o];
+            bi = si[o];
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) head[p] += p == best ? 1 : 0;
+      }
+      lv[r * kc + q] = bi == INT_MAX ? NAN : bv;
+      li[r * kc + q] = bi == INT_MAX ? 0 : bi;
+    }
+  }
+  __syncthreads();
+}
+
+// fp32 logit of column t for the head input a (H floats): one fma chain
+// over k ascending from zero, then + b[t] (tile_mm's arithmetic). w: the
+// padded head, row stride ldw.
+__device__ __forceinline__ float fp32_logit(const float* __restrict__ a, int H,
+                                            const float* __restrict__ w, int ldw,
+                                            const float* __restrict__ b, int t) {
+  float acc = 0.f;
+  for (int k = 0; k < H; ++k) acc = fmaf(a[k], __ldg(w + (size_t)k * ldw + t), acc);
+  return acc + __ldg(b + t);
+}
+
+// Block: ex[e] = fp32_logit of candidate li[e], e < rows kc (row e / kc).
+// A: the head input tile, stride lda. Each chain reads its column of the
+// head from device memory (the refinement's choice where the candidates
+// need few of the T columns).
+__device__ __forceinline__ void recompute_candidates(const float* __restrict__ A, int lda, int H,
+                                                     const float* __restrict__ w, int ldw,
+                                                     const float* __restrict__ b, int rows,
+                                                     int kc, const int* __restrict__ li,
+                                                     float* __restrict__ ex) {
+  for (int e = threadIdx.x; e < rows * kc; e += THREADS)
+    ex[e] = fp32_logit(A + e / kc * lda, H, w, ldw, b, li[e]);
+}
+
+// As recompute_candidates, the same chains, with the head streamed as
+// head_logits streams it (the padded head's [k][n] chunks, double-buffered
+// cp.async copies into stage): a chain advances over a chunk when the chunk
+// holds its column, in k order, the thread's chains side by side. The
+// refinement's choice where the candidates need most of the T columns.
+// MAXE >= ceil(rows kc / THREADS) chains a thread. Starts with a barrier
+// (stage is free) and ends with one.
+template <int RPT, int MAXE>
+__device__ __forceinline__ void recompute_streamed(const float* __restrict__ A, int lda, int H,
+                                                   const float* __restrict__ w, int ldw,
+                                                   const float* __restrict__ b, int rows,
+                                                   int kc, int T, const int* __restrict__ li,
+                                                   float* __restrict__ stage,
+                                                   float* __restrict__ ex) {
+  using G = Grid<RPT>;
+  const int n = rows * kc;
+  const int nkc = (H + G::KL - 1) / G::KL;  // k chunks per column block
+  float acc[MAXE];
+  int col[MAXE], arow[MAXE];  // the chain's column (INT_MAX: none) and head input row
+#pragma unroll
+  for (int j = 0; j < MAXE; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    col[j] = e < n ? li[e] : INT_MAX;
+    arow[j] = e < n ? e / kc * lda : 0;
+    acc[j] = 0.f;
+  }
+  staged<G::NBUF>(
+      (T + G::CB - 1) / G::CB * nkc,
+      [&](int ci, int buf) {
+        stage_chunk<G::KL, G::CB>(w, ldw, ci % nkc * G::KL, ci / nkc * G::CB,
+                                  stage + buf * G::BUF, G::LDL);
+      },
+      [&](int ci, int buf) {
+        const float* st = stage + buf * G::BUF;
+        const int c0 = ci / nkc * G::CB, k0 = ci % nkc * G::KL, kn = min(G::KL, H - k0);
+        int wo[MAXE];  // the chain's column in the chunk, -1 if not there
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < MAXE; ++j) {
+          wo[j] = col[j] >= c0 && col[j] < c0 + G::CB ? col[j] - c0 : -1;
+          any |= wo[j] >= 0;
+        }
+        if (!any) return;
+        const float* a = A + k0;
+        for (int k = 0; k < kn; ++k) {
+#pragma unroll
+          for (int j = 0; j < MAXE; ++j)
+            if (wo[j] >= 0) acc[j] = fmaf(a[arow[j] + k], st[k * G::LDL + wo[j]], acc[j]);
+        }
+      });
+#pragma unroll
+  for (int j = 0; j < MAXE; ++j)
+    if (col[j] != INT_MAX) ex[threadIdx.x + j * THREADS] = acc[j] + __ldg(b + col[j]);
+  __syncthreads();
+}
+
+// Block, rows r < rows: sr[r] = S_r = am[H] + sum_k |a_rk| am[k], one thread
+// a row. A: the head input tile, stride lda.
+__device__ __forceinline__ void guard_sums(const float* __restrict__ A, int lda, int H,
+                                           const float* __restrict__ am, int rows,
+                                           float* __restrict__ sr) {
+  if (threadIdx.x >= rows) return;
+  const float* a = A + threadIdx.x * lda;
+  float s = am[H];
+  for (int k = 0; k < H; ++k) s = fmaf(fabsf(a[k]), am[k], s);
+  sr[threadIdx.x] = s;
+}
+
+// One thread, one row: ranks its kc candidates (tensor-core values lv,
+// columns li, fp32 logits ex) on p under one s (from the tensor-core
+// softmax's max m and sum s_tc) and writes the top K to vals/idx; returns
+// whether the guard (eps = eps_r) settles the row. An unsettled row's
+// vals/idx are written again by exact_row. lv is overwritten with the p.
+__device__ __forceinline__ bool settle_row(float* __restrict__ lv, const int* __restrict__ li,
+                                           const float* __restrict__ ex, int kc, int K, int T,
+                                           float m, float s_tc, float eps,
+                                           float* __restrict__ vals, int* __restrict__ idx) {
+  float top = -INFINITY;
+  for (int c = 0; c < kc; ++c) top = fmaxf(top, ex[c]);
+  float rest = s_tc;
+  for (int c = 0; c < kc; ++c) rest -= expf(lv[c] - m);
+  float s = fmaxf(rest, 0.f);
+  for (int c = 0; c < kc; ++c) s += expf(ex[c] - top);
+  const float lv_last = lv[kc - 1];
+  for (int c = 0; c < kc; ++c) lv[c] = nan_to_num(expf(ex[c] - top) / s);
+  unsigned long long taken = 0ull;
+  int last = 0;
+  float p_last = 0.f;
+  for (int q = 0; q < K; ++q) {
+    float bp = -INFINITY;
+    int bi = INT_MAX;
+    for (int c = 0; c < kc; ++c) {
+      // p is never NaN, so some candidate is always picked
+      if (!((taken >> c) & 1ull) && ranks_before(lv[c], li[c], bp, bi)) {
+        last = c;
+        bp = lv[c];
+        bi = li[c];
+      }
+    }
+    taken |= 1ull << last;
+    vals[q] = bp;
+    idx[q] = bi;
+    p_last = bp;
+  }
+  const bool all = kc >= T;  // no column outside the candidates
+  return p_last >= 0x1p-100f && (all || ex[last] - lv_last > 2.f * eps + 0x1p-18f);
+}
+
+// One warp, two rows (K10's p, which only the column sums read): each row's
+// logits -> p = nan_to_num(e * (1 / s)), e = exp(l - max l), s = sum e,
+// in place; the rows' max and sum in ma, sa, mb, sb on every lane. The two
+// rows' passes side by side, for the latency of the warp's reductions.
+__device__ __forceinline__ void softmax_pair(float* __restrict__ ra, float* __restrict__ rb,
+                                             int T, float& ma, float& sa, float& mb,
+                                             float& sb) {
+  const int lane = threadIdx.x & 31;
+  float xa = -INFINITY, xb = -INFINITY;
+  for (int c = lane; c < T; c += 32) {
+    xa = fmaxf(xa, ra[c]);
+    xb = fmaxf(xb, rb[c]);
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    xa = fmaxf(xa, __shfl_xor_sync(FULL, xa, off));
+    xb = fmaxf(xb, __shfl_xor_sync(FULL, xb, off));
+  }
+  float ua = 0.f, ub = 0.f;
+  for (int c = lane; c < T; c += 32) {
+    const float ea = expf(ra[c] - xa), eb = expf(rb[c] - xb);
+    ra[c] = ea;
+    rb[c] = eb;
+    ua += ea;
+    ub += eb;
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    ua += __shfl_xor_sync(FULL, ua, off);
+    ub += __shfl_xor_sync(FULL, ub, off);
+  }
+  const float ia = 1.f / ua, ib = 1.f / ub;
+  for (int c = lane; c < T; c += 32) {
+    ra[c] = nan_to_num(ra[c] * ia);
+    rb[c] = nan_to_num(rb[c] * ib);
+  }
+  __syncwarp();
+  ma = xa;
+  sa = ua;
+  mb = xb;
+  sb = ub;
+}
+
+// One warp: the row's fp32 logits (fp32_logit for every column; the lanes
+// read consecutive columns of the padded head w) into row[0:T), then
+// softmax_row and topk_row: the CUDA-core forward's arithmetic, bit for
+// bit. a: the row's head input.
+__device__ __noinline__ void exact_row(const float* __restrict__ a, int H,
+                                       const float* __restrict__ w, int ldw,
+                                       const float* __restrict__ b, int T, int K,
+                                       float* __restrict__ row, float* __restrict__ vals,
+                                       int* __restrict__ idx) {
+  const int lane = threadIdx.x & 31;
+  for (int c = lane; c < T; c += 32) row[c] = fp32_logit(a, H, w, ldw, b, c);
+  __syncwarp();
+  softmax_row(row, T);
+  topk_row(row, T, K, vals, idx);
 }
 
 }  // namespace per_row

@@ -1,19 +1,23 @@
-"""Split K11 (``hpd_full_bwd``, the per-row route's backward) into its
-phases on the card: the hidden stack's replay, the head's logits replay,
-softmax and dlogits, dW_head, dh, and the hidden layers' dW/db/dx.
+"""Split K11 (``hpd_full_bwd``, the per-row route's backward) and K10
+(``hpd_full_fwd``, its forward) into their phases on the card. K11: the
+hidden stack's replay, the head's logits replay, softmax and dlogits,
+dW_head, dh, and the hidden layers' dW/db/dx. K10: the hidden layers, the
+head's logits, softmax, the column sums, and the top-K: its candidates,
+their fp32 recompute, and their ranking with the redo of the rows the
+guard leaves.
 
     python3 -m collision_handling_in_instantngp_tpu_torch.tools.k11_phases
 
 Builds ``ops/cuda/hpd_full.cu`` a second time with ``-DHPD_FULL_PHASES``
-(into ``chiprun_out/k11_phases/``), under which K11's thread 0 sums the
-clock64() ticks of each phase of its tiles (every phase ends at a block
-barrier); runs that build on seeded inputs at the per-row route's shapes
-(L = 4, N = 229,616, HPD [2 -> 32 -> 64 -> 128 -> 256], K = 4); times the
-normal build on the same inputs; and prints each phase's share of the
-ticks and that share of the normal build's time, with the card's name and
-power limit (also to ``<out>/k11_phases.json``). The instrumented build's
-own extra barriers make its time a little longer; its shares are what it
-is for.
+(into ``chiprun_out/k11_phases/``), under which thread 0 of each kernel
+sums the clock64() ticks of each phase of its tiles (every phase ends at a
+block barrier); runs that build on seeded inputs at the per-row route's
+shapes (L = 4, N = 229,616, HPD [2 -> 32 -> 64 -> 128 -> 256], K = 4);
+times the normal build on the same inputs; and prints each phase's share
+of the ticks and that share of the normal build's time, with the card's
+name and power limit (also to ``<out>/k11_phases.json``). The
+instrumented build's own extra barriers make its time a little longer;
+its shares are what it is for.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from ..ops.cuda import build, hpd_full
 from ..utils import profiling
 
 PHASES = ("replay", "logits", "softmax+dl", "dW_head", "dh", "hidden layers")
+K10_PHASES = ("hidden layers", "logits", "softmax", "column sums", "top-K candidates",
+              "top-K recompute", "top-K ranking")
 
 
 def build_phases(out_dir: str) -> ctypes.CDLL:
@@ -44,9 +50,20 @@ def build_phases(out_dir: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for hpd_full.cu -DHPD_FULL_PHASES:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(lib_path)
-    lib.hpd_full_phases.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
-    lib.hpd_full_phases.restype = ctypes.c_int
+    for fn in (lib.hpd_full_phases, lib.hpd_full_fwd_phases):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def split(lib, reader, names, run) -> tuple:
+    """Ticks by phase of one run of ``run()`` on the instrumented build:
+    ({phase: share}, the run's ms)."""
+    ticks = (ctypes.c_ulonglong * len(names))()
+    build.check(reader(ticks, 1), lib, "hpd_full_error_string", reader.__name__)
+    ms = profiling.cuda_ms(run, 1)
+    build.check(reader(ticks, 0), lib, "hpd_full_error_string", reader.__name__)
+    return {p: ticks[i] / sum(ticks) for i, p in enumerate(names)}, ms
 
 
 def inputs(dev, l, n, widths, k, seed):
@@ -80,28 +97,34 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     widths = [int(w) for w in args.widths.split(",")]
     bargs = inputs(dev, args.l, args.n, widths, args.k, args.seed)
+    fargs = bargs[:2] + (args.k,)
     ms = profiling.cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), args.reps)
+    fwd_ms = profiling.cuda_ms(lambda: hpd_full.hpd_full_fwd(*fargs), args.reps)
 
     lib = build_phases(args.out)
-    ticks = (ctypes.c_ulonglong * len(PHASES))()
     normal_lib = hpd_full._lib
     hpd_full._lib = lambda: hpd_full._configure(lib)
     try:
-        build.check(lib.hpd_full_phases(ticks, 1), lib, "hpd_full_error_string", "hpd_full_phases")
-        ms_phases = profiling.cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 1)
-        build.check(lib.hpd_full_phases(ticks, 0), lib, "hpd_full_error_string", "hpd_full_phases")
+        share, ms_phases = split(lib, lib.hpd_full_phases, PHASES,
+                                 lambda: hpd_full.hpd_full_bwd(*bargs))
+        fwd_share, fwd_ms_phases = split(lib, lib.hpd_full_fwd_phases, K10_PHASES,
+                                         lambda: hpd_full.hpd_full_fwd(*fargs))
     finally:
         hpd_full._lib = normal_lib
-    share = {p: ticks[i] / sum(ticks) for i, p in enumerate(PHASES)}
     result = dict(card=profiling.gpu_name_and_power_limit(),
                   shape=dict(l=args.l, n=args.n, widths=widths, k=args.k), k11_ms=ms,
                   instrumented_ms=ms_phases,
-                  phases={p: dict(share=share[p], ms=share[p] * ms) for p in PHASES})
+                  phases={p: dict(share=share[p], ms=share[p] * ms) for p in PHASES},
+                  k10_ms=fwd_ms, k10_instrumented_ms=fwd_ms_phases,
+                  k10_phases={p: dict(share=fwd_share[p], ms=fwd_share[p] * fwd_ms)
+                              for p in K10_PHASES})
     print(f"card: {result['card']}")
-    print(f"K11 {ms:.3f} ms (instrumented build {ms_phases:.3f} ms) at L={args.l}, N={args.n}, "
-          f"widths {widths}, K={args.k}")
-    for p in PHASES:
-        print(f"  {p:14s} {100 * share[p]:6.2f} %  {share[p] * ms:7.3f} ms")
+    for name, t, t_ph, names, sh in (("K11", ms, ms_phases, PHASES, share),
+                                     ("K10", fwd_ms, fwd_ms_phases, K10_PHASES, fwd_share)):
+        print(f"{name} {t:.3f} ms (instrumented build {t_ph:.3f} ms) at L={args.l}, N={args.n}, "
+              f"widths {widths}, K={args.k}")
+        for p in names:
+            print(f"  {p:14s} {100 * sh[p]:6.2f} %  {sh[p] * t:7.3f} ms")
     with open(os.path.join(args.out, "k11_phases.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))

@@ -193,12 +193,12 @@ def test_cli_runs_on_card(dev, tmp_path, capsys):
     assert "grid 4061: best PSNR" in capsys.readouterr().out
 
 
-def _per_row_tail_inputs(dev, l, n, t, k, seed=0):
+def _per_row_tail_inputs(dev, l, n, t, k, seed=0, hd=128):
     rng = np.random.default_rng(seed)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     return dict(
-        h=f32(rng.random((l, n, 128)) * 0.5),
-        w=f32(rng.standard_normal((128, t)) * 0.2),
+        h=f32(rng.random((l, n, hd)) * 0.5),
+        w=f32(rng.standard_normal((hd, t)) * 0.2),
         b=f32(rng.standard_normal(t) * 0.1),
         g_marg=f32(rng.standard_normal((l, t))),
         g_vals=f32(rng.standard_normal((l, n, k))),
@@ -217,6 +217,23 @@ def test_per_row_tail_kernels_match_plain(dev, l, n, t, k):
     _close(out[0], ref[0], 1e-5, "marg")
     _close(out[1], ref[1], 1e-5, "vals")
     assert all(torch.equal(a, b) for a, b in zip(out, hpd_tail.hpd_tail_fwd(x["h"], x["w"], x["b"], k)))
+    bargs = (x["h"], x["w"], x["b"], ref[2], x["g_marg"], x["g_vals"], k)
+    got = hpd_tail.hpd_tail_bwd(*bargs)
+    want = hpd_tail.hpd_tail_bwd_plain(*bargs)
+    for name, a, r in zip(("dh", "dw", "db"), got, want):
+        _close(a, r, 1e-4, name)
+    assert all(torch.equal(a, b) for a, b in zip(got, hpd_tail.hpd_tail_bwd(*bargs)))
+
+
+@pytest.mark.parametrize("l,n,t,k,hd", [(2, 300, 256, 4, 100), (1, 150, 200, 8, 37), (2, 90, 2048, 4, 1),
+                                        (3, 400, 512, 4, 128)])
+def test_per_row_tail_bwd_on_tensor_cores_at_odd_widths(dev, l, n, t, k, hd):
+    """K9 (3xTF32 on the tensor cores) at head input widths and T that are
+    not multiples of 32, and at T = 512 (a narrower tile than the forward's):
+    dh, dw and db within 1e-4 normwise of the plain version, bitwise equal
+    run to run."""
+    x = _per_row_tail_inputs(dev, l, n, t, k, hd=hd)
+    ref = hpd_tail.hpd_tail_fwd_plain(x["h"], x["w"], x["b"], k)
     bargs = (x["h"], x["w"], x["b"], ref[2], x["g_marg"], x["g_vals"], k)
     got = hpd_tail.hpd_tail_bwd(*bargs)
     want = hpd_tail.hpd_tail_bwd_plain(*bargs)
@@ -269,8 +286,8 @@ def test_per_row_full_kernels_match_plain(dev, widths, k, n):
 
 def test_k11_phases_tool(dev, tmp_path):
     """tools/k11_phases: the -DHPD_FULL_PHASES build of hpd_full.cu builds,
-    launches and splits K11's ticks into its six phases, every one of them
-    taking some."""
+    launches and splits K11's ticks into its six phases and K10's into its
+    seven, every one of them taking some."""
     import json
     from collision_handling_in_instantngp_tpu_torch.tools import k11_phases
 
@@ -280,6 +297,9 @@ def test_k11_phases_tool(dev, tmp_path):
     shares = [p["share"] for p in result["phases"].values()]
     assert len(shares) == 6 and all(x > 0 for x in shares)
     assert abs(sum(shares) - 1) < 1e-9 and result["k11_ms"] > 0
+    shares = [p["share"] for p in result["k10_phases"].values()]
+    assert len(shares) == 7 and all(x > 0 for x in shares)
+    assert abs(sum(shares) - 1) < 1e-9 and result["k10_ms"] > 0
 
 
 def test_per_row_kernels_select_on_p(dev):
@@ -296,6 +316,41 @@ def test_per_row_kernels_select_on_p(dev):
     verts = torch.randint(0, 9, (2, 50, 2), device=dev).float()
     _, _, idx = hpd_full.hpd_full_fwd(verts, layers, k)
     assert (idx[..., 0] == lo).all() and (idx[..., 1] == hi).all()
+
+
+def test_full_fwd_guard_hands_near_ties_to_the_redo(dev):
+    """K10 on a planted [2 -> 128 -> 256] network (as
+    tests/test_torch_tf32_per_row.py plants it): an exact tie at the top,
+    a near-tie at the 4th place in both orders, and on every 8th row a
+    cluster of 8 columns within 1.4e-4 at the top. Top-K identical to the
+    plain version on every row, exactly the cluster rows redone in fp32,
+    bitwise equal run to run."""
+    rng = np.random.default_rng(65535)
+    n, hd, t = 1024, 128, 256
+    v = rng.uniform(0.0, 0.75, size=n)
+    v = np.where(v < 0.375, v, v + 0.25)
+    lift = (np.arange(n) % 8 == 0).astype(np.float64)
+    w0, b0 = rng.standard_normal((2, hd)) * 0.5, rng.standard_normal(hd) * 0.3
+    w0[:, :4], b0[:4] = [[0, 0, 0.8, -0.8], [0, 1, 0, 0]], [1, 0, 0.2, 1]
+    w, b = rng.standard_normal((hd, t)) * 0.05, rng.standard_normal(t) * 0.05
+    w[:4] = 0.0
+    base = w[:, 30].copy()
+    for col, bias in ((30, 3.0), (70, 3.0), (150, 2.9), (120, 2.0), (45, 2.0)):
+        w[:, col], b[col] = base, bias
+    w[2, 45], w[3, 45] = 2e-5, -2e-5
+    for j, col in enumerate((200, 6, 99, 123, 77, 160, 41, 101)):
+        w[:, col], w[1, col], b[col] = base, 10.0, (j * 37 % 8) * 2e-5
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    verts = f32(np.stack([v, lift], axis=-1)[None])
+    layers = [(f32(w0), f32(b0)), (f32(w), f32(b))]
+    ref = hpd_full.hpd_full_fwd_plain(verts, layers, 4)
+    assert set(ref[2][0, lift == 0, 3].tolist()) == {120, 45}
+    out = hpd_full.hpd_full_fwd(verts, layers, 4)
+    assert int(hpd_full.hpd_full_fwd.fixup_rows.item()) == int(lift.sum())
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_full.hpd_full_fwd(verts, layers, 4)))
 
 
 def test_per_row_wrappers_refuse_shapes(dev):

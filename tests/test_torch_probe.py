@@ -188,7 +188,7 @@ def test_profile_epoch_main_cpu(tmp_path, capsys, mode):
 
 
 def test_profile_epoch_vanilla_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §3 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue: 'Vanilla hash'"):
         profile_epoch.main(["--device", "cpu", "--mode", "vanilla", "--image", str(tmp_path / "x.npy")])
 
 
