@@ -39,7 +39,12 @@
    T=256, L=4, K=4, HPD [2->32->64->128->256]), real vertices for K10/K11
    and real last hidden activations for K8/K9, with the same checks and
    timings as step 2; K10's top-K must be identical on every row, and it
-   prints how many rows its guard left to its fp32 redo; K9, K10 and K11
+   prints how many rows its guard left to its fp32 redo; then K10 on a
+   planted network at the same L and N (near-ties at the K-th place on
+   every row, a cluster deeper than the candidates on every 8th), where
+   the top-K must again be identical on every row and exactly the cluster
+   rows must be redone in fp32 (the redo at a tiling where each block
+   walks many row tiles); K9, K10 and K11
    beside their times before their heads went on the tensor cores, their
    bounds the head's products as 3xTF32 at the TF32 peak plus the rest at
    the fp32 peak, the all-fp32 bound beside;
@@ -300,6 +305,7 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
                                    fixup_rows=fix)
     redesigned(entries["hpd_full_fwd"])
     del out_k, out_p
+    entries["hpd_full_fwd"]["planted_fixup_rows"] = planted_near_ties(L, n, dev, check_fwd)
 
     log("K11 hpd_full_bwd, all rows of real vertices:")
     bargs = (verts, layers, idx_full, g_marg, g_vals, k)
@@ -355,6 +361,51 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     del got, want, h
     torch.cuda.empty_cache()
     return entries
+
+
+def planted_near_ties(L, n, dev, check_fwd) -> int:
+    """K10's guard and fp32 redo at the per-row route's tiling (L levels of
+    n rows: a block walks many row tiles): a [2 -> 128 -> 256] network
+    planted as ``tests/test_torch_cuda.py -k full_fwd_guard`` plants it, on
+    every row an exact tie at the top and a near-tie at the K-th place that
+    only the fp32 recompute orders (both orders occur), and on every 8th row
+    a cluster of 8 columns within 1.4e-4 at the top, deeper than the
+    candidates. Fails unless the top-K is identical to the plain version's
+    on every row, marg/vals agree, the outputs are bitwise equal run to run
+    and exactly the cluster rows were redone in fp32. Returns that count."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_full
+
+    rng = np.random.default_rng(SEED)
+    hd, t, k = 128, 256, 4
+    v = rng.uniform(0.0, 0.75, size=(L, n))
+    v = np.where(v < 0.375, v, v + 0.25)
+    lift = np.broadcast_to((np.arange(n) % 8 == 0).astype(np.float64), (L, n))
+    w0, b0 = rng.standard_normal((2, hd)) * 0.5, rng.standard_normal(hd) * 0.3
+    w0[:, :4], b0[:4] = [[0, 0, 0.8, -0.8], [0, 1, 0, 0]], [1, 0, 0.2, 1]
+    w, b = rng.standard_normal((hd, t)) * 0.05, rng.standard_normal(t) * 0.05
+    w[:4] = 0.0
+    base = w[:, 30].copy()
+    for col, bias in ((30, 3.0), (70, 3.0), (150, 2.9), (120, 2.0), (45, 2.0)):
+        w[:, col], b[col] = base, bias
+    w[2, 45], w[3, 45] = 2e-5, -2e-5
+    for j, col in enumerate((200, 6, 99, 123, 77, 160, 41, 101)):
+        w[:, col], w[1, col], b[col] = base, 10.0, (j * 37 % 8) * 2e-5
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    verts = f32(np.stack([v, lift], axis=-1))
+    layers = [(f32(w0), f32(b0)), (f32(w), f32(b))]
+    log(f"K10 on planted near-ties, L={L}, N={n}, [2 -> {hd} -> {t}], K={k}:")
+    out_k = hpd_full.hpd_full_fwd(verts, layers, k)
+    fix = fixup_rows(hpd_full.hpd_full_fwd, "K10, planted")
+    out_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+    fourth = set(out_p[2][torch.as_tensor(lift == 0, device=dev)][:, k - 1].tolist())
+    if fourth != {120, 45}:
+        raise AssertionError(f"planted near-tie: the plain version's K-th places are {fourth}")
+    check_fwd("K10 planted", out_k, out_p, hpd_full.hpd_full_fwd(verts, layers, k))
+    want = int(lift.sum())
+    if fix != want:
+        raise AssertionError(f"K10 planted: {fix} rows redone in fp32, the cluster rows are {want}")
+    del out_k, out_p
+    return fix
 
 
 def tail_bwd_bound(u, H, T, L, k, tensor=True):

@@ -24,10 +24,10 @@
 // The forward's top-K stays the exact top-K of p from the fp32 logits (the
 // CUDA-core forward's): per tile, the candidates by tensor-core logit, p
 // and the column sums from the tensor-core logits, the candidates' fp32
-// recompute (the head streamed once more where the tile's candidates need
-// most of its columns), their ranking on p and the guard, and the fp32
-// redo of the rows it leaves (per_row_mma.cuh: the derivation and what can
-// still differ). The rows redone are counted in n_fix.
+// recompute (the head streamed once more), their ranking on p and the
+// guard, and the fp32 redo of the rows it leaves (per_row_mma.cuh: the
+// derivation and what can still differ). The rows redone are counted in
+// n_fix.
 // dW/db of every layer accumulate in one partial per block (read-modify-
 // write by the owning thread; for dW_head about 3.7 GB of L2 traffic a
 // launch at those shapes), summed in block order by a second kernel. No
@@ -240,9 +240,6 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
   const int tpl = (g.N + R - 1) / R;
   const int t_end = min(tpl, (seg + 1) * g.tps);
   const int pad = (H + 7) / 8 * 8 - H;  // head_logits reads the head input to a multiple of 8
-  // the candidates' fp32 recompute streams the head where it needs most of
-  // its columns, else reads it column by column
-  const bool streamed = T <= 4 * R * kc;
   PHASE_START(K10_PHASES);
   for (int t = seg * g.tps; t < t_end; ++t) {
     const int r0 = t * R;
@@ -265,11 +262,10 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     head_logits<RPT>(in, LDA, H, w_pad, ldw, b_head, T, stage, cache, ldc);
     PHASE_MARK(1);
     // each row's candidates, before softmax overwrites the row (the threads'
-    // lists in the staged buffer, free after head_logits)
+    // lists in the staged buffer, free after head_logits): at K <= 4 (the
+    // per-row route's) several threads a row, past it one thread a row
     if (kc <= 8)
       top_candidates<R, 8, GMAX>(cache, ldc, T, rows, kc, stage, lv, li);
-    else if (kc <= 16 && 2 * THREADS * 16 <= fwd_stage(R))
-      top_candidates<R, 16, GMAX>(cache, ldc, T, rows, kc, stage, lv, li);
     else
       top_candidates<R, 0, GMAX>(cache, ldc, T, rows, kc, stage, lv, li);
     PHASE_MARK(4);
@@ -291,17 +287,12 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     PHASE_SYNC_MARK(3);
     // the candidates' fp32 logits
     guard_sums(in, LDA, H, amax, rows, sr);
-    if (streamed) {
-      if (kc <= 8)
-        recompute_streamed<RPT, chains(R, 8)>(in, LDA, H, w_pad, ldw, b_head, rows, kc, T, li,
-                                              stage, ex);
-      else
-        recompute_streamed<RPT, chains(R, GMAX)>(in, LDA, H, w_pad, ldw, b_head, rows, kc, T, li,
-                                                 stage, ex);
-    } else {
-      recompute_candidates(in, LDA, H, w_pad, ldw, b_head, rows, kc, li, ex);
-      __syncthreads();
-    }
+    if (kc <= 8)
+      recompute_streamed<RPT, chains(R, 8)>(in, LDA, H, w_pad, ldw, b_head, rows, kc, T, li,
+                                            stage, ex);
+    else
+      recompute_streamed<RPT, chains(R, GMAX)>(in, LDA, H, w_pad, ldw, b_head, rows, kc, T, li,
+                                               stage, ex);
     PHASE_MARK(5);
     if (threadIdx.x < rows) {
       const int r = threadIdx.x;
@@ -443,9 +434,6 @@ extern "C" {
 
 const char* hpd_full_error_string(int code) { return port_error_string(code); }
 
-// Row stride of the backward's padded head at T columns.
-int hpd_full_head_ld(int T) { return head_ld(T); }
-
 #ifdef HPD_FULL_PHASES
 // K11's (hpd_full_phases) and K10's (hpd_full_fwd_phases) clock64() ticks
 // by phase, summed over the blocks of the launches since the last reset,
@@ -490,7 +478,7 @@ int hpd_full_fwd(const float* verts, const float* params, const float* w_pad, in
 }
 
 // + idx (L, N, K), g_marg (L, T), g_vals (L, N, K) -> dparams (packed like
-// params). w_pad: the head padded with zeros to (128, hpd_full_head_ld(T)),
+// params). w_pad: the head padded with zeros to (128, hpd_tail_head_ld(T)),
 // 16-byte aligned. part: (blocks, packed count) scratch.
 int hpd_full_bwd(const float* verts, const float* params, const float* w_pad, int n_layers,
                  const int* widths, int L, int N, int K, const int* idx, const float* g_marg,

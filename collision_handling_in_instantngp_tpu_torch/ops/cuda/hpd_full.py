@@ -31,7 +31,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import build
-from .hpd_tail import hpd_tail_bwd_plain, hpd_tail_fwd_plain
+from .hpd_tail import hpd_tail_bwd_plain, hpd_tail_fwd_plain, padded_head
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 MAX_LAYERS = 16
@@ -40,22 +40,28 @@ MAX_T = 2048
 MAX_K = 32
 
 
-# The forward's guard (per_row_mma.cuh: guard_coef, settle_row; derivation
-# there): the top K + GUARD_SLACK candidates of a row by tensor-core logit
-# settle its fp32 top-K when the K-th selected fp32 logit exceeds the
-# (K + GUARD_SLACK)-th tensor-core logit by more than 2 eps_r + GUARD_ABS
-# and its p is at least P_MIN.
+# The forward's guard (per_row_mma.cuh: GSLACK, GUARD_ABS, P_MIN,
+# guard_coef, settle_row; derivation there), restated for the CPU emulation
+# of the refinement (tests/test_torch_tf32_per_row.py, which holds these
+# copies to the header): the top K + GUARD_SLACK candidates of a row by
+# tensor-core logit settle its fp32 top-K when the K-th selected fp32 logit
+# exceeds the (K + GUARD_SLACK)-th tensor-core logit by more than
+# 2 eps_r + GUARD_ABS and its p is at least P_MIN.
 GUARD_SLACK = 4
 GUARD_ABS = 2.0**-18
 P_MIN = 2.0**-100
 
 
+def guard_coef(hd: int) -> float:
+    """eps_r / S_r for a head input of width hd (per_row_mma.cuh: guard_coef)."""
+    nk = (hd + 7) // 8
+    return (1.25 * nk + hd / 16 + 2) * 2.0**-20
+
+
 def guard_eps(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """eps_r (..., rows) of the forward's guard for the head input h
     (..., H), the head w (H, T) and b (T,)."""
-    hd = h.shape[-1]
-    coef = (1.25 * (-(-hd // 8)) + hd / 16 + 2) * 2.0**-20
-    return coef * (h.abs() @ w.abs().amax(dim=1) + b.abs().max())
+    return guard_coef(h.shape[-1]) * (h.abs() @ w.abs().amax(dim=1) + b.abs().max())
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -107,8 +113,6 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hpd_full_fwd.restype = ci
     lib.hpd_full_bwd.argtypes = [vp, vp, vp, ci, ip, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.hpd_full_bwd.restype = ci
-    lib.hpd_full_head_ld.argtypes = [ci]
-    lib.hpd_full_head_ld.restype = ci
     lib.hpd_full_blocks.argtypes = [ci, ip, ci, ci, ci]
     lib.hpd_full_blocks.restype = ci
     return lib
@@ -156,21 +160,13 @@ def _prepare(verts, layers, k):
     return lib, verts, params, widths, cw, blocks
 
 
-def _padded_head(lib, w_head: torch.Tensor, t: int) -> torch.Tensor:
-    """The head padded with zeros to (128, hpd_full_head_ld(T)), so that
-    every chunk the kernels stage lies inside it."""
-    w_pad = torch.zeros(MAX_WIDTH, lib.hpd_full_head_ld(t), device=w_head.device, dtype=torch.float32)
-    w_pad[: w_head.shape[0], :t] = w_head
-    return w_pad
-
-
 def _launch_fwd(verts, layers, k):
     dev = verts.device
     lib, verts, params, widths, cw, blocks = _prepare(verts, layers, k)
     l, n, _ = verts.shape
     t = widths[-1]
     f32 = dict(device=dev, dtype=torch.float32)
-    w_pad = _padded_head(lib, layers[-1][0], t)
+    w_pad = padded_head(layers[-1][0])
     marg = torch.empty(l, t, **f32)
     marg_part = torch.empty(blocks, t, **f32)
     vals = torch.empty(l, n, k, **f32)
@@ -199,7 +195,7 @@ def _launch_bwd(verts, layers, idx, g_marg, g_vals, k):
     if tuple(idx.shape) != (l, n, k) or tuple(g_vals.shape) != (l, n, k) or tuple(g_marg.shape) != (l, t):
         raise ValueError(f"idx {tuple(idx.shape)}, g_vals {tuple(g_vals.shape)}, g_marg "
                          f"{tuple(g_marg.shape)} do not match L={l}, N={n}, K={k}, T={t}")
-    w_pad = _padded_head(lib, layers[-1][0], t)
+    w_pad = padded_head(layers[-1][0])
     part = torch.empty(blocks, params.numel(), device=dev, dtype=torch.float32)
     dparams = torch.empty_like(params)
     with torch.cuda.device(dev):

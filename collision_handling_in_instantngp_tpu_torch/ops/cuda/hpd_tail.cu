@@ -21,8 +21,9 @@
 // then runs dW/db and dh from it. The backward's three products are 3xTF32
 // on the tensor cores (per_row_mma.cuh's head_logits, head_dw, head_dh, as
 // in K11), from h at stride mma_ld(H) with zeros past H and a copy of the
-// head padded with zeros to WMAX x head_ld(T); its bound is their work at
-// the TF32 peak plus softmax and dl at the fp32 peak. dW/db accumulate in
+// head padded with zeros to WMAX x head_ld(T); its bound is the three
+// products' work at the TF32 peak (3xTF32: three passes each), softmax and
+// dl not counted. dW/db accumulate in
 // one partial per block (read-modify-write by the owning thread), summed in
 // block order by a second kernel. No atomics. dh is written into the h tile
 // (free once dW has read it), then stored to device memory row by row.
@@ -189,7 +190,8 @@ extern "C" {
 
 const char* hpd_tail_error_string(int code) { return port_error_string(code); }
 
-// Row stride of the backward's padded head at T columns.
+// Row stride of the padded head at T columns, the one the per-row kernels
+// read: K9 here, K10 and K11 (hpd_full.cu, through hpd_tail.padded_head).
 int hpd_tail_head_ld(int T) { return head_ld(T); }
 
 // Blocks of the forward's (bwd = 0) or the backward's (bwd = 1) launch for

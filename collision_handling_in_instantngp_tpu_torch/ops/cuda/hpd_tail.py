@@ -135,6 +135,16 @@ def check_inputs(h, w, b, k, **more):
     return out
 
 
+def padded_head(w: torch.Tensor) -> torch.Tensor:
+    """The head w (H, T) padded with zeros to (128, hpd_tail_head_ld(T)),
+    so that every chunk the per-row kernels stage lies inside it: K9's, and
+    K10's and K11's (``hpd_full.py``)."""
+    t = w.shape[1]
+    w_pad = torch.zeros(MAX_H, _lib().hpd_tail_head_ld(t), device=w.device, dtype=torch.float32)
+    w_pad[: w.shape[0], :t] = w
+    return w_pad
+
+
 def _launch_fwd(h, w, b, k):
     dev = h.device
     h, w, b = check_inputs(h, w, b, k)
@@ -167,9 +177,7 @@ def _launch_bwd(h, w, b, idx, g_marg, g_vals, k):
     dh = torch.empty(l, n, hd, **f32)
     part = torch.empty(lib.hpd_tail_blocks(l, n, hd, t, k, 1), hd * t + t, **f32)
     dwb = torch.empty(hd * t + t, **f32)
-    # the head, zero-padded so that every chunk the kernel stages lies inside
-    w_pad = torch.zeros(MAX_H, lib.hpd_tail_head_ld(t), **f32)
-    w_pad[:hd, :t] = w
+    w_pad = padded_head(w)
     with torch.cuda.device(dev):
         code = lib.hpd_tail_bwd(
             h.data_ptr(), w_pad.data_ptr(), b.data_ptr(), idx.data_ptr(), g_marg.data_ptr(),

@@ -391,8 +391,7 @@ __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, in
 // CUDA-core forward runs) by candidate refinement:
 //   1. top_candidates: each row keeps its top kc = K + GSLACK columns by
 //      tensor-core logit (value desc, index asc).
-//   2. recompute_streamed / recompute_candidates: each candidate's logit in
-//      fp32, tile_mm's chain.
+//   2. recompute_streamed: each candidate's logit in fp32, tile_mm's chain.
 //   3. settle_row: one s for the row, the tensor-core softmax's sum with the
 //      candidates' terms replaced by their recomputed ones (as differences
 //      from the top recomputed logit); p = nan_to_num(exp(l - top) / s) of
@@ -403,12 +402,12 @@ __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, in
 //      column (guard_coef), a column outside the candidates has an fp32 logit
 //      <= (kc-th tensor-core value) + eps_r. So when the K-th selected
 //      logit exceeds the kc-th tensor-core value by more than 2 eps_r +
-//      2^-18, its e exceeds theirs by a factor > exp(2^-18) (64 ulps), and
-//      while its p is a normal float (>= 2^-100) no such column can reach it
-//      in p: the top K lies among the candidates. A row that fails (a
-//      near-tie cluster deeper than GSLACK at the K-th place, p underflowing
-//      there, a NaN) is redone whole in fp32 by one warp (exact_row): the
-//      CUDA-core forward's own arithmetic, bit for bit.
+//      GUARD_ABS, its e exceeds theirs by a factor > exp(GUARD_ABS) (64
+//      ulps), and while its p is a normal float (>= P_MIN) no such column
+//      can reach it in p: the top K lies among the candidates. A row that
+//      fails (a near-tie cluster deeper than GSLACK at the K-th place, p
+//      underflowing there, a NaN) is redone whole in fp32 by one warp
+//      (exact_row): the CUDA-core forward's own arithmetic, bit for bit.
 // What can still differ from the plain version: two candidates whose e lie
 // within an ulp or two of each other may divide to one p under the plain
 // version's s and to two under the kernel's (or the reverse), since the
@@ -416,7 +415,12 @@ __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, in
 // needs two logits within about 2^-23 of each other (relative) at a place
 // of the top K; tests/test_torch_tf32_per_row.py plants it.
 
-constexpr int GSLACK = 4;      // candidates beyond K
+// The guard's constants. hpd_full.py restates them (GUARD_SLACK, GUARD_ABS,
+// P_MIN, guard_eps) for the CPU emulation of the refinement, and
+// tests/test_torch_tf32_per_row.py holds them to this file.
+constexpr int GSLACK = 4;             // candidates beyond K
+constexpr float GUARD_ABS = 0x1p-18f;  // the guard's margin beyond 2 eps_r
+constexpr float P_MIN = 0x1p-100f;     // the least p of a settled K-th place
 
 // eps_r = guard_coef(H) * S_r, S_r = max_t |b_t| + sum_k |a_rk| max_t |w_kt|
 // (>= sum_k |a_rk w_kt| + |b_t| for every t), bounds |head_logits' logit -
@@ -434,7 +438,8 @@ constexpr int GSLACK = 4;      // candidates beyond K
 // Total <= (1.25 nk + H / 16 + 1) 2^-20 S_r; c = 1.25 nk + H / 16 + 2 leaves
 // 2^-20 for S_r's own fp32 rounding (< 2^-17 of it). At H = 128: 30 2^-20.
 __host__ __device__ __forceinline__ float guard_coef(int H) {
-  return (1.25f * (float)((H + 7) / 8) + (float)H / 16.f + 2.f) * 0x1p-20f;
+  const int nk = (H + 7) / 8;
+  return (1.25f * nk + H / 16.f + 2.f) * 0x1p-20f;
 }
 
 // (v, i) before (v2, i2) in the candidate order: value desc, index asc.
@@ -572,26 +577,13 @@ __device__ __forceinline__ float fp32_logit(const float* __restrict__ a, int H,
   return acc + __ldg(b + t);
 }
 
-// Block: ex[e] = fp32_logit of candidate li[e], e < rows kc (row e / kc).
-// A: the head input tile, stride lda. Each chain reads its column of the
-// head from device memory (the refinement's choice where the candidates
-// need few of the T columns).
-__device__ __forceinline__ void recompute_candidates(const float* __restrict__ A, int lda, int H,
-                                                     const float* __restrict__ w, int ldw,
-                                                     const float* __restrict__ b, int rows,
-                                                     int kc, const int* __restrict__ li,
-                                                     float* __restrict__ ex) {
-  for (int e = threadIdx.x; e < rows * kc; e += THREADS)
-    ex[e] = fp32_logit(A + e / kc * lda, H, w, ldw, b, li[e]);
-}
-
-// As recompute_candidates, the same chains, with the head streamed as
-// head_logits streams it (the padded head's [k][n] chunks, double-buffered
-// cp.async copies into stage): a chain advances over a chunk when the chunk
-// holds its column, in k order, the thread's chains side by side. The
-// refinement's choice where the candidates need most of the T columns.
-// MAXE >= ceil(rows kc / THREADS) chains a thread. Starts with a barrier
-// (stage is free) and ends with one.
+// Block: ex[e] = fp32_logit of candidate li[e], e < rows kc (row e / kc),
+// the same chains, with the head streamed as head_logits streams it (the
+// padded head's [k][n] chunks, double-buffered cp.async copies into stage):
+// a chain advances over a chunk when the chunk holds its column, in k
+// order, the thread's chains side by side. A: the head input tile, stride
+// lda. MAXE >= ceil(rows kc / THREADS) chains a thread. Starts with a
+// barrier (stage is free) and ends with one.
 template <int RPT, int MAXE>
 __device__ __forceinline__ void recompute_streamed(const float* __restrict__ A, int lda, int H,
                                                    const float* __restrict__ w, int ldw,
@@ -690,7 +682,7 @@ __device__ __forceinline__ bool settle_row(float* __restrict__ lv, const int* __
     p_last = bp;
   }
   const bool all = kc >= T;  // no column outside the candidates
-  return p_last >= 0x1p-100f && (all || ex[last] - lv_last > 2.f * eps + 0x1p-18f);
+  return p_last >= P_MIN && (all || ex[last] - lv_last > 2.f * eps + GUARD_ABS);
 }
 
 // One warp, two rows (K10's p, which only the column sums read): each row's

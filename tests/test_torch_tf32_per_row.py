@@ -431,3 +431,28 @@ def test_k10_ranking_residual_case():
     for s in (tie[0], split[0]):
         p = torch.nan_to_num(e / s)
         assert [int(cols[i]) for i in topk_lowest_index(p, 2)[1]] == rank_on_p(ex, cols, 0.0, s, 2)[0]
+
+
+def test_k10_guard_constants_match_the_header():
+    """The CPU emulation's guard (hpd_full: GUARD_SLACK, GUARD_ABS, P_MIN,
+    guard_coef) is the kernel's: the constants and guard_coef's expression
+    as ``ops/cuda/per_row_mma.cuh`` states them, and settle_row's test
+    written in those names."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(hpd_full.__file__), "per_row_mma.cuh")
+    with open(path) as f:
+        src = f.read()
+    hexf = r"(0x[0-9a-fA-F.]+p[-+]?\d+)f"
+    assert int(re.search(r"constexpr int GSLACK = (\d+);", src).group(1)) == hpd_full.GUARD_SLACK
+    assert float.fromhex(re.search(r"constexpr float GUARD_ABS = " + hexf, src).group(1)) == hpd_full.GUARD_ABS
+    assert float.fromhex(re.search(r"constexpr float P_MIN = " + hexf, src).group(1)) == hpd_full.P_MIN
+    assert "p_last >= P_MIN && (all || ex[last] - lv_last > 2.f * eps + GUARD_ABS)" in src
+    body = re.search(r"float guard_coef\(int H\) \{\s*const int nk = \(H \+ 7\) / 8;\s*return ([^;]+);\s*\}", src)
+    assert body, "guard_coef's form changed: restate it in hpd_full.guard_coef and here"
+    expr = re.sub(hexf, lambda m: repr(float.fromhex(m.group(1))), body.group(1))
+    expr = re.sub(r"(\d+\.\d*|\.\d+)f\b", r"\1", expr)
+    for hd in range(1, 129):
+        want = eval(expr, {}, {"H": hd, "nk": (hd + 7) // 8})
+        assert hpd_full.guard_coef(hd) == pytest.approx(want, rel=1e-6), hd
