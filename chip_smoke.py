@@ -12,13 +12,20 @@
    ``hpd_tail.cu`` shows warp-level MMAs (HMMA) in every instance of K11's
    ``full_bwd_kernel``, K10's ``full_fwd_kernel`` and K9's
    ``tail_bwd_kernel`` (their head products) and none in K8's
-   ``tail_fwd_kernel`` (fp32 on the CUDA cores);
+   ``tail_fwd_kernel`` (fp32 on the CUDA cores), that of ``hidden.cu``
+   HMMA in every instance (precision x row tile x weight staging) of K3a's
+   and K3b's kernels and in K3b's dW kernel, and that of the wide passes
+   of ``hpd_stream.cu`` (heads past 128) no tensor-core instruction;
 2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
    U_c = 161,792 rows of the first batch, real h for the tail), checks
    that the deterministic outputs are bitwise equal run to run, and times
-   kernel and plain version on the same inputs (K1 and K2 beside their
+   kernel and plain version on the same inputs (K3a and K3b also on the
+   wide stack [2 -> 256 -> 512 -> 256] at the same U_c and the init's
+   scale, there against the stack's algebra in float64 with the kernels'
+   own ReLU decisions, the flips against the fp32 plain version counted
+   and its own error logged; K1 and K2 beside their
    times before the tensor-core redesigns; step 5 prints K2's device time
    by launch); K1's top-K must be identical on every row, and it prints
    how many rows its guard handed to the fp32 fix-up; holds K12's narrow
@@ -76,14 +83,26 @@
    variants) launched, K1 and K2 did not, and the loss is finite and
    falls; then profiles one epoch of it (and prints K6's device time by
    launch from that profile);
-12. the measurement path, part 1: holds the probe K7 (both variants)
+12. the wide stack ``hpd_hidden=(256, 512, 256)`` (ROADMAP §3.1): holds
+   every tail kernel at a head input of 256 against its plain version at
+   a small L and T (K1, K2, K4-K6: U = 20,000, T = 4096, L = 4; K8-K11:
+   L = 2, N = 20,000, T = 256, the stack at the init's scale), bitwise run
+   to run and timed (bounds: 3xTF32 at the TF32 peak, the fp32 bound
+   beside them for the streamed passes); trains the
+   dedup, split, per-row "auto" and per-row "pallas" routes at small
+   geometries on the card and on the CPU (losses compared; K4-K6's and
+   K8/K9's launches there); then fits 3 epochs each, the counts set to 0
+   just before, at the scaled geometry (K3a, K3b, K1, K2, K12) and on the
+   per-row route with ``batchnorm_input`` (K10, K11, K12), and fails unless
+   each launched and the loss is finite and falls;
+13. the measurement path, part 1: holds the probe K7 (both variants)
    against its plain version on all U_c = 161,792 rows of real h from K3a
    at T = 2^14 (the head of ``instantngp_scaled_model()``), bitwise run to
    run and timed; then, with K7's counts set to 0 just before, runs the
    sweep ladder of ``tools/sweep_probe.py`` (dots, softmax, K4, K1) at
    'highest', prints its four rungs and three differences, and fails
    unless both variants launched and the rungs telescope (each within 3 %);
-13. the measurement path, part 2, at ``tools/mxu_probe.py``'s shapes
+14. the measurement path, part 2, at ``tools/mxu_probe.py``'s shapes
    (U = 162,304, H = 128, T = 16,384): holds K13 in its four regimes
    against their plain versions and K14, K15 exactly, bitwise run to run,
    each timed beside one PyTorch call that computes the same function;
@@ -91,7 +110,7 @@
    (its TF/s and GB/s lines; the calibration goes to
    ``chiprun_out/roofline_calibration.json``) and fails unless each
    launched;
-14. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+15. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -770,6 +789,324 @@ def mxu_probe_phase(dev):
     return entries, rates
 
 
+# The wide stack of ROADMAP §3.1: HPD hidden widths past the tensor-core
+# passes' 128, at the JAX kernels' contract (hidden widths <= 512)
+WIDE_HIDDEN = (256, 512, 256)
+WIDE_TAG = "[2-256-512-256]"
+WIDE_H = f"[H={WIDE_HIDDEN[-1]}]"
+
+
+def seeded_layers(widths, dev, seed=SEED):
+    """Layers [(w, b)] of an HPD stack at the init's scale, from a seed."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [((torch.randn(a, b, generator=gen) / math.sqrt(a)).to(dev),
+             (torch.randn(b, generator=gen) * 0.1).to(dev)) for a, b in zip(widths[:-1], widths[1:])]
+
+
+def per_row_layers(verts, widths, head, dev, seed=SEED):
+    """Hidden layers of ``widths`` at the init's scale (seeded_layers), then
+    a seeded (w_n x head) head scaled to logits of about 4 at most on the
+    rows of verts (..., d)."""
+    layers = seeded_layers(widths, dev, seed)
+    a = verts.reshape(-1, widths[0])
+    for w, b in layers:
+        a = torch.relu(a @ w + b)
+    w, b = seeded_layers([widths[-1], head], dev, seed + 2)[0]
+    return layers + [(w * (4.0 / (a @ w).abs().max()), b)]
+
+
+def kernel_relu_masks(hidden, x, layers) -> list:
+    """The K3 kernels' own ReLU decisions, pre_l >= 0, of every layer l on
+    the rows of x: K3a on the stack cut after layer l, that layer negated,
+    gives relu(-pre_l), which is 0 exactly where pre_l >= 0. (The 3xTF32
+    split, the tensor cores' sums and the fp32 adds are odd in the weights,
+    so the kernel's -pre_l is its pre_l negated bit for bit; K3b recomputes
+    with K3a's arithmetic.) Checked against the full stack's h: h > 0
+    wherever the last layer's mask says off would be a contradiction."""
+    masks = [hidden.hidden_stack_fwd(x, layers[:l] + [(-w, -b)]) == 0
+             for l, (w, b) in enumerate(layers)]
+    h = hidden.hidden_stack_fwd(x, layers)
+    if ((h > 0) & ~masks[-1]).any():
+        raise AssertionError("K3's ReLU masks from the negated stack contradict its h")
+    return masks
+
+
+def masked_reference(x, layers, gh, masks):
+    """h, [(dW, db)] and the pre-activations of the stack in float64, the
+    backward's ReLU masks given (hidden.hidden_stack_bwd_plain's algebra)."""
+    a = x.double()
+    acts, pres = [a], []
+    for w, b in layers:
+        z = a @ w.double() + b.double()
+        pres.append(z)
+        a = z.clamp(min=0.0)
+        acts.append(a)
+    g = gh.double()
+    grads = [None] * len(layers)
+    for i in reversed(range(len(layers))):
+        g = torch.where(masks[i], g, torch.zeros_like(g))
+        grads[i] = (acts[i].T @ g, g.sum(dim=0))
+        if i > 0:
+            g = g @ layers[i][0].double().T
+    return acts[-1], grads, pres
+
+
+def hidden_stack_phase(hidden, x, layers, gen, tag, exact=False) -> dict:
+    """K3a and K3b on all U_c rows of x through ``layers``: against their
+    plain versions, bitwise run to run, timed. ``exact``: against the plain
+    algebra in float64 with the kernel's own ReLU masks (kernel_relu_masks)
+    instead of the fp32 plain version, whose decisions at the pre-activations
+    within rounding of zero differ from the kernel's (each such (row, unit)
+    moves dW by up to that row's whole term); the flips, and the fp32 plain
+    version's own error against that reference, are logged and kept.
+    Bounds: the products as 3xTF32 at the TF32 peak (the kernels' route)
+    against the bytes of x, h (K3a) or gh (K3b) and the parameters; the fp32
+    CUDA-core bound (the route before the redesign) as ``bound_fp32_ms``."""
+    u_c = x.shape[0]
+    widths = [x.shape[1]] + [w.shape[1] for w, _ in layers]
+    n_params = sum(w.numel() + b.numel() for w, b in layers)
+    mac_row = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    da_mac = sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
+    gh = torch.randn(u_c, widths[-1], device=x.device, generator=gen) * 1e-3
+    out, notes = {}, {}
+    if exact:
+        masks = kernel_relu_masks(hidden, x, layers)
+        h_ref, g_ref, pres = masked_reference(x, layers, gh, masks)
+        a = x
+        for i, ((w, b), m, z) in enumerate(zip(layers, masks, pres)):
+            zp = hidden.hidden_stack_fwd_plain(a, [(w, b)], "highest")  # relu(fp32 plain pre)
+            pre_p = a @ w + b
+            a = zp
+            notes[f"layer{i}"] = dict(
+                units=m.numel(), kernel_vs_float64=int((m != (z >= 0)).sum()),
+                plain_vs_float64=int(((pre_p >= 0) != (z >= 0)).sum()),
+                kernel_vs_plain=int((m != (pre_p >= 0)).sum()))
+            log(f"  ReLU decisions, layer {i}: kernel vs float64 {notes[f'layer{i}']['kernel_vs_float64']}, "
+                f"fp32 plain vs float64 {notes[f'layer{i}']['plain_vs_float64']}, kernel vs fp32 plain "
+                f"{notes[f'layer{i}']['kernel_vs_plain']} of {m.numel()} (row, unit) pairs")
+        del masks, pres, a, zp, pre_p
+    log(f"K3a hidden_stack forward{tag}, widths {widths}, full U_c:")
+    h_k = hidden.hidden_stack_fwd(x, layers)
+    h_p = hidden.hidden_stack_fwd_plain(x, layers, "highest")
+    err = compare("h", h_k, h_ref if exact else h_p, FWD_TOL)
+    if exact:
+        notes["plain_h_err"] = (h_p.double() - h_ref).abs().max().item() / h_ref.abs().max().item()
+        log(f"  (fp32 plain h against the float64 reference: {notes['plain_h_err']:.3e} normwise)")
+    bitwise_same("h", [h_k], [hidden.hidden_stack_fwd(x, layers)])
+    del h_k, h_p
+    ms = cuda_ms(lambda: hidden.hidden_stack_fwd(x, layers), 20)
+    plain = cuda_ms(lambda: hidden.hidden_stack_fwd_plain(x, layers, "highest"), 20)
+    flops, nbytes = 2.0 * u_c * mac_row, 4.0 * (u_c * widths[0] + u_c * widths[-1] + n_params)
+    out["hidden_stack_fwd" + tag] = kernel_entry(
+        "hidden_stack_fwd" + tag, SRC + "hidden.cu", JAX_SRC + "hidden.py:126", err, ms, plain,
+        bound_ms(3 * flops, nbytes, PEAK_TF32_TENSOR_FLOPS))
+    out["hidden_stack_fwd" + tag]["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
+
+    log(f"K3b hidden_stack backward{tag}, widths {widths}, full U_c:")
+    g_k = hidden.hidden_stack_bwd(x, layers, gh)
+    g_p = hidden.hidden_stack_bwd_plain(x, layers, gh, "highest")
+    ref = g_ref if exact else g_p
+    err = max(compare(f"{n}{i}", a, r, GRAD_TOL)
+              for i, (ka, pa) in enumerate(zip(g_k, ref)) for n, a, r in zip("dW db".split(), ka, pa))
+    if exact:
+        for i, ((kw, kb), (pw, pb), (rw, rb)) in enumerate(zip(g_k, g_p, g_ref)):
+            for n, a, p_, r in (("dW", kw, pw, rw), ("db", kb, pb, rb)):
+                sc = r.abs().max().item()
+                notes[f"{n}{i}"] = dict(kernel=(a.double() - r).abs().max().item() / sc,
+                                        plain=(p_.double() - r).abs().max().item() / sc,
+                                        kernel_vs_plain=(a.double() - p_.double()).abs().max().item()
+                                        / max(p_.abs().max().item(), 1e-30))
+                log(f"  {n}{i} normwise against the float64 reference: kernel "
+                    f"{notes[f'{n}{i}']['kernel']:.3e}, fp32 plain {notes[f'{n}{i}']['plain']:.3e}; "
+                    f"kernel against fp32 plain {notes[f'{n}{i}']['kernel_vs_plain']:.3e}")
+    g_k2 = hidden.hidden_stack_bwd(x, layers, gh)
+    bitwise_same("dW/db", [t for pair in g_k for t in pair], [t for pair in g_k2 for t in pair])
+    del g_k, g_k2, g_p, ref
+    if exact:
+        del g_ref, h_ref
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: hidden.hidden_stack_bwd(x, layers, gh), 10)
+    plain = cuda_ms(lambda: hidden.hidden_stack_bwd_plain(x, layers, gh, "highest"), 10)
+    flops = 2.0 * u_c * (2 * mac_row + da_mac)
+    nbytes = 4.0 * (u_c * widths[0] + u_c * widths[-1] + 2 * n_params)
+    out["hidden_stack_bwd" + tag] = kernel_entry(
+        "hidden_stack_bwd" + tag, SRC + "hidden.cu", JAX_SRC + "hidden.py:161", err, ms, plain,
+        bound_ms(3 * flops, nbytes, PEAK_TF32_TENSOR_FLOPS))
+    out["hidden_stack_bwd" + tag]["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
+    if exact:
+        out["hidden_stack_bwd" + tag]["relu_check"] = notes
+    return out
+
+
+def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, n=20_000) -> dict:
+    """Every tail kernel at a head input of 256 (the wide stack's), against
+    its plain version at a small L and T, bitwise run to run, timed: the
+    dedup route's K1, K2 (fused gate holds at T = 2^12), K4, K5, K6, and
+    the per-row route's K8, K9, K10, K11 (the stack [2 -> 256 -> 512 ->
+    256]). Bounds as at H = 128: the products of fp32 'highest' as 3xTF32
+    at the TF32 peak (the stream kernels' wide passes run fp32 FMA on the
+    CUDA cores: their fp32 bound beside it as ``bound_fp32_ms``); K8's
+    fp32 head at the fp32 peak, as at H = 128."""
+    hd, l, k = WIDE_HIDDEN[-1], 4, 4
+    f32 = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=gen) * scale
+    h = torch.rand(u, hd, device=dev, generator=gen) * 0.1
+    w, b = f32(hd, t, scale=0.2), f32(t, scale=0.1)
+    counts = torch.randint(0, 5, (l, u), device=dev, generator=gen).float()
+    g_marg, g_vals = f32(l, t), f32(u, k)
+    out = {}
+
+    def entry(name, src, fn, plain_fn, reps, flops, nbytes, peak, err, bound=None, fp32=None):
+        ms, plain = cuda_ms(fn, reps), cuda_ms(plain_fn, reps)
+        out[name + WIDE_H] = kernel_entry(name + WIDE_H, SRC + src, JAX_SRC + REPLACES[name], err,
+                                          ms, plain, bound or bound_ms(flops, nbytes, peak))
+        if fp32 is not None:
+            out[name + WIDE_H]["bound_fp32_ms"] = fp32
+
+    log(f"K1/K2 and K4-K6 at H={hd}, U={u}, T={t}, L={l}, K={k} (the wide passes):")
+    fwd_k = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k)
+    fwd_p = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest")
+    if not torch.equal(fwd_k[2], fwd_p[2]):
+        raise AssertionError("K1 at H = 256: top-K indices differ from the plain version")
+    err = max(compare(n, a, r, FWD_TOL) for n, a, r in zip(("marg", "vals", "m", "s"),
+              (fwd_k[0], fwd_k[1], *fwd_k[3:]), (fwd_p[0], fwd_p[1], *fwd_p[3:])))
+    bitwise_same("K1 outputs", fwd_k, hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k))
+    fb = 4.0 * (u * hd + hd * t + t + l * u + l * t + 2 * u * k + 2 * u)
+    # bounds as at H = 128: the products as 3xTF32 (the card's rate for an
+    # fp32-exact product), the fp32 CUDA-core bound (the wide passes' unit) beside
+    entry("hpd_stream_fused_fwd", "hpd_stream.cu",
+          lambda: hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k),
+          lambda: hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest"), 3,
+          None, fb, None, err, tf32x3_bound(2.0 * u * hd * t, fb, 2.0 * l * u * t, counts),
+          bound_ms(2.0 * u * hd * t + 2.0 * l * u * t, fb)[0])
+    sel_k = hpd_stream.hpd_stream_select(h, w, b, k)
+    if not torch.equal(sel_k[1], fwd_p[2]):
+        raise AssertionError("K4 at H = 256: top-K indices differ from the plain version")
+    err = max(compare(n, a, r, FWD_TOL) for n, a, r in zip(("vals", "m", "s"),
+              (sel_k[0], *sel_k[2:]), (fwd_p[1], *fwd_p[3:])))
+    bitwise_same("K4 outputs", sel_k, hpd_stream.hpd_stream_select(h, w, b, k))
+    sb = 4.0 * (u * hd + hd * t + t + 2 * u * k + 2 * u)
+    entry("hpd_stream_select", "hpd_stream.cu", lambda: hpd_stream.hpd_stream_select(h, w, b, k),
+          lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"), 3,
+          None, sb, None, err, tf32x3_bound(2.0 * u * hd * t, sb), bound_ms(2.0 * u * hd * t, sb)[0])
+    _, vals, idx, m, s = fwd_p
+    marg_k = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)
+    err = compare("marg", marg_k, fwd_p[0], FWD_TOL)
+    bitwise_same("K5 marg", [marg_k], [hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)])
+    mb = 4.0 * (u * hd + hd * t + t + l * u + 2 * u + l * t)
+    entry("hpd_stream_marginal", "hpd_stream.cu",
+          lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s),
+          lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 3,
+          None, mb, None, err, tf32x3_bound(2.0 * u * hd * t, mb, 2.0 * l * u * t, counts),
+          bound_ms(2.0 * u * hd * t + 2.0 * l * u * t, mb)[0])
+    bargs = (h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k)
+    bwd_p = hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False)
+    for name, fn in (("hpd_stream_fused_bwd", hpd_stream.hpd_stream_fused_bwd),
+                     ("hpd_tail_unique_bwd", hpd_stream.hpd_tail_unique_bwd)):
+        got = fn(*bargs)
+        err = max(compare(f"{name} {n}", a, r, GRAD_TOL) for n, a, r in zip(("dh", "dw", "db"), got, bwd_p))
+        bitwise_same(f"{name} dh/dw/db", got, fn(*bargs))
+        entry(name, "hpd_stream.cu", lambda: fn(*bargs),
+              lambda: hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False), 2,
+              None, None, None, err, tail_bwd_bound(u, hd, t, l, k),
+              tail_bwd_bound(u, hd, t, l, k, False)[0])
+    del fwd_k, fwd_p, sel_k, bwd_p, got
+
+    lr, tr = 2, 256
+    log(f"K8/K9 and K10/K11 at H={hd}, L={lr}, N={n}, T={tr}, K={k}:")
+    verts = torch.randint(0, 64, (lr, n, 2), device=dev, generator=gen).float()
+    layers = per_row_layers(verts, [2, *WIDE_HIDDEN], tr, dev)
+    full_k = hpd_full.hpd_full_fwd(verts, layers, k)
+    full_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+    if not torch.equal(full_k[2], full_p[2]):
+        raise AssertionError("K10 at H = 256: top-K indices differ from the plain version")
+    err = max(compare(f"K10 {n_}", a, r, FWD_TOL) for n_, a, r in zip(("marg", "vals"), full_k, full_p))
+    bitwise_same("K10 outputs", full_k, hpd_full.hpd_full_fwd(verts, layers, k))
+    widths = [2, *WIDE_HIDDEN, tr]
+    macs = sum(a * c for a, c in zip(widths[:-1], widths[1:]))
+    head = hd * tr
+    rows = lr * n
+    entry("hpd_full_fwd", "hpd_full.cu", lambda: hpd_full.hpd_full_fwd(verts, layers, k),
+          lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3,
+          2.0 * rows * (3 * head + macs - head), 4.0 * rows * (2 + 2 * k), PEAK_TF32_TENSOR_FLOPS, err)
+    gm, gv = f32(lr, tr), f32(lr, n, k)
+    fb_k = hpd_full.hpd_full_bwd(verts, layers, full_p[2], gm, gv, k)
+    fb_p = hpd_full.hpd_full_bwd_plain(verts, layers, full_p[2], gm, gv, k)
+    err = max(compare(f"K11 {n_}{i}", a, r, GRAD_TOL) for i, (ka, pa) in enumerate(zip(fb_k, fb_p))
+              for n_, a, r in zip(("dW", "db"), ka, pa))
+    bitwise_same("K11 dW/db", [t_ for pr in fb_k for t_ in pr],
+                 [t_ for pr in hpd_full.hpd_full_bwd(verts, layers, full_p[2], gm, gv, k) for t_ in pr])
+    entry("hpd_full_bwd", "hpd_full.cu",
+          lambda: hpd_full.hpd_full_bwd(verts, layers, full_p[2], gm, gv, k),
+          lambda: hpd_full.hpd_full_bwd_plain(verts, layers, full_p[2], gm, gv, k), 2,
+          2.0 * rows * (9 * head + 3 * (macs - head)), 4.0 * rows * (2 + 2 * k), PEAK_TF32_TENSOR_FLOPS,
+          err)
+    ht = torch.relu(torch.randn(lr, n, hd, device=dev, generator=gen))
+    wt, bt = seeded_layers([hd, tr], dev)[0]
+    tf_k = hpd_tail.hpd_tail_fwd(ht, wt, bt, k)
+    tf_p = hpd_tail.hpd_tail_fwd_plain(ht, wt, bt, k)
+    if not torch.equal(tf_k[2], tf_p[2]):
+        raise AssertionError("K8 at H = 256: top-K indices differ from the plain version")
+    err = max(compare(f"K8 {n_}", a, r, FWD_TOL) for n_, a, r in zip(("marg", "vals"), tf_k, tf_p))
+    bitwise_same("K8 outputs", tf_k, hpd_tail.hpd_tail_fwd(ht, wt, bt, k))
+    tb = 4.0 * (rows * hd + head + tr + lr * tr + 2 * rows * k)
+    entry("hpd_tail_fwd", "hpd_tail.cu", lambda: hpd_tail.hpd_tail_fwd(ht, wt, bt, k),
+          lambda: hpd_tail.hpd_tail_fwd_plain(ht, wt, bt, k), 3, 2.0 * rows * head, tb,
+          PEAK_FP32_FLOPS, err)
+    targs = (ht, wt, bt, tf_p[2], gm, gv, k)
+    tb_k = hpd_tail.hpd_tail_bwd(*targs)
+    err = max(compare(f"K9 {n_}", a, r, GRAD_TOL)
+              for n_, a, r in zip(("dh", "dw", "db"), tb_k, hpd_tail.hpd_tail_bwd_plain(*targs)))
+    bitwise_same("K9 dh/dw/db", tb_k, hpd_tail.hpd_tail_bwd(*targs))
+    entry("hpd_tail_bwd", "hpd_tail.cu", lambda: hpd_tail.hpd_tail_bwd(*targs),
+          lambda: hpd_tail.hpd_tail_bwd_plain(*targs), 2, 3 * 6.0 * rows * head,
+          tb + 4.0 * (rows * hd + head), PEAK_TF32_TENSOR_FLOPS, err)
+    return out
+
+
+# the JAX kernel each wrapper replaces (JAX_SRC + this)
+REPLACES = {"hpd_stream_fused_fwd": "hpd_stream.py:570", "hpd_stream_fused_bwd": "hpd_stream.py:722",
+            "hpd_stream_select": "hpd_stream.py:193", "hpd_stream_marginal": "hpd_stream.py:282",
+            "hpd_tail_unique_bwd": "hpd_stream.py:921", "hpd_tail_fwd": "hpd_tail.py:87",
+            "hpd_tail_bwd": "hpd_tail.py:182", "hpd_full_fwd": "hpd_full.py:162",
+            "hpd_full_bwd": "hpd_full.py:236"}
+
+
+def wide_fits(fit, routes, dev) -> dict:
+    """The wide stack on each of ``routes`` ((what, config overrides,
+    image, {name: wrapper}, force the split route)): 2 epochs on the card
+    and on the CPU from one start, the losses compared; fails unless each
+    wrapper launched. Returns {name[H=256]: launches}."""
+    from collision_handling_in_instantngp_tpu_torch.config import ModelConfig, experiment_from_grid_id
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_stream
+
+    launches = {}
+    for what, kw, img, wrappers, force_split in routes:
+        exp = experiment_from_grid_id(4061, base_model=ModelConfig(hpd_hidden=WIDE_HIDDEN, **kw))
+        start = gngf.init_params(exp.model, SEED, "cpu")
+        saved_gate = hpd_stream.FUSED_W_MAX_BYTES
+        if force_split:
+            hpd_stream.FUSED_W_MAX_BYTES = 0
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            r_gpu = fit(exp, img, epochs=2, device=dev, params=start, verbose=False)
+            for name, fn in wrappers.items():
+                if fn.launches == 0:
+                    raise AssertionError(f"{name} never launched on the wide {what}")
+                launches[name + WIDE_H] = fn.launches
+            r_cpu = fit(exp, img, epochs=2, device="cpu", params=start, verbose=False)
+        finally:
+            hpd_stream.FUSED_W_MAX_BYTES = saved_gate
+        for hg, hc in zip(r_gpu.history, r_cpu.history):
+            log(f"  wide {what} epoch {hg['epoch']}: loss card {hg['train_loss']:.7f} "
+                f"cpu {hc['train_loss']:.7f}")
+            if not math.isclose(hg["train_loss"], hc["train_loss"], rel_tol=1e-4):
+                raise AssertionError(f"wide {what}: training on the card disagrees with the CPU")
+    return launches
+
+
+
 def fit_checked(fit, exp, data, dev, wrappers, what, absent=(), variants=()):
     """fit for 3 epochs with the wrappers' counts, by variant too (and those
     of ``absent``), set to 0 just before; fails unless each wrapper and each
@@ -842,7 +1179,14 @@ def log_profile(profile) -> None:
 TENSOR_CORE_KERNELS = ("hpd_fwd_rows_kernel", "hpd_fwd_cols_kernel", "hpd_probe_kernel",
                        "hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
                        "hpd_b2_rows_kernel")
-FP32_KERNELS = ("hpd_fix_rows_kernel",)
+# ... and the wide passes (heads past 128) run fp32 FMA on the CUDA cores
+FP32_KERNELS = ("hpd_fix_rows_kernel", "hpd_wide_cols_kernel", "hpd_wide_g_kernel",
+                "hpd_wide_dh_kernel", "hpd_wide_dw_kernel", "hpd_wide_probe_kernel")
+# K3a / K3b take every product as mma.sync (HMMA) at every precision, row
+# tile and (K3b's backward kernel) weight staging; so does K3b's dW kernel
+HIDDEN_KERNELS = {"hidden_fwd_kernel": [(rt,) for rt in (16, 32, 64)],
+                  "hidden_bwd_kernel": [(rt, ws) for rt in (16, 32, 64) for ws in (0, 1)],
+                  "hidden_dw_kernel": [()]}
 # K9, K10 and K11 take their head's products as mma.sync (HMMA) at every
 # tile size; K8 stays fp32 FMA on the CUDA cores and must hold none
 PER_ROW_TENSOR_CORE = {"hpd_full": ("full_fwd_kernel", "full_bwd_kernel"),
@@ -862,7 +1206,7 @@ def sass_counts(build, lib: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             # e.g. ..._116hpd_probe_kernelILi0ELb1EEEv... -> hpd_probe_kernel<0,1>
-            found = re.search(r"\d+((?:hpd|full|tail)_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
+            found = re.search(r"\d+((?:hpd|full|tail|hidden)_\w+?_kernel)I((?:L[a-z]+\d+E)+)E", line)
             name = None
             if found:
                 args = ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2)))
@@ -881,9 +1225,11 @@ def tensor_core_sass(build) -> dict:
     hpd_full and hpd_tail libraries. Raises unless every instance (each
     template argument list) of TENSOR_CORE_KERNELS holds HGMMA, each of them
     has an instance at every precision (<0>, <1>, <2>), and FP32_KERNELS
-    hold none; and unless each kernel of PER_ROW_TENSOR_CORE has an instance
-    at every tile size (<1>, <2>, <4>), each holding HMMA, and the instances
-    of PER_ROW_FP32 hold none."""
+    hold none; unless each kernel of PER_ROW_TENSOR_CORE has an instance
+    at every tile size and width (<1 / 2 / 4, WIDE 0 / 1>), each holding
+    HMMA, and the instances
+    of PER_ROW_FP32 hold none; and unless every instance of HIDDEN_KERNELS
+    (K3a's and K3b's kernels) holds HMMA."""
     counts = sass_counts(build, "hpd_stream")
     for k_ in TENSOR_CORE_KERNELS:
         for p in range(3):
@@ -900,11 +1246,12 @@ def tensor_core_sass(build) -> dict:
         per_row = sass_counts(build, lib)
         for k_ in PER_ROW_TENSOR_CORE.get(lib, ()):
             for rpt in (1, 2, 4):
-                n = f"{k_}<{rpt}>"
-                if n not in per_row:
-                    raise RuntimeError(f"{n}: no instance in the SASS")
-                if per_row[n]["HMMA"] == 0:
-                    raise RuntimeError(f"{n}: no HMMA in the SASS")
+                for wide in (0, 1):
+                    n = f"{k_}<{rpt},{wide}>"
+                    if n not in per_row:
+                        raise RuntimeError(f"{n}: no instance in the SASS")
+                    if per_row[n]["HMMA"] == 0:
+                        raise RuntimeError(f"{n}: no HMMA in the SASS")
         for k_ in PER_ROW_FP32.get(lib, ()):
             inst = [n for n in per_row if n.startswith(k_ + "<")]
             if not inst:
@@ -913,6 +1260,16 @@ def tensor_core_sass(build) -> dict:
                 if per_row[n]["HGMMA"] + per_row[n]["HMMA"]:
                     raise RuntimeError(f"{n}: tensor-core instructions in K8's fp32 forward")
         counts.update(per_row)
+    k3 = sass_counts(build, "hidden")
+    for k_, args in HIDDEN_KERNELS.items():
+        for p in range(3):
+            for rest in args:
+                n = f"{k_}<{','.join(str(a_) for a_ in (p, *rest))}>"
+                if n not in k3:
+                    raise RuntimeError(f"{n}: no instance in the SASS")
+                if k3[n]["HMMA"] == 0:
+                    raise RuntimeError(f"{n}: no HMMA in the SASS")
+    counts.update(k3)
     return counts
 
 
@@ -972,43 +1329,13 @@ def main() -> int:
         f"H={w_head.shape[0]}, T={mcfg.hash_table_size}, L={mcfg.num_levels}, K={mcfg.topk_k}")
 
     entries = {}
-    n_params = sum(w.numel() + b.numel() for w, b in hidden_layers)
-    widths = [x.shape[1]] + [w.shape[1] for w, _ in hidden_layers]
-    mac_row = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
 
     # --------------------------- K3a / K3b --------------------------------- #
-    log("K3a hidden_stack forward, full U_c:")
+    entries.update(hidden_stack_phase(hidden, x, hidden_layers, gen, ""))
     h_k = hidden.hidden_stack_fwd(x, hidden_layers)
-    h_p = hidden.hidden_stack_fwd_plain(x, hidden_layers, "highest")
-    err = compare("h", h_k, h_p, FWD_TOL)
-    bitwise_same("h", [h_k], [hidden.hidden_stack_fwd(x, hidden_layers)])
-    ms = cuda_ms(lambda: hidden.hidden_stack_fwd(x, hidden_layers), 20)
-    plain = cuda_ms(lambda: hidden.hidden_stack_fwd_plain(x, hidden_layers, "highest"), 20)
-    b_ms, b_by = bound_ms(2.0 * u_c * mac_row, 4.0 * (u_c * widths[0] + u_c * widths[-1] + n_params))
-    entries["hidden_stack_fwd"] = dict(
-        name="hidden_stack_fwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hidden.cu",
-        replaces="collision_handling_in_instantngp_tpu/ops/pallas/hidden.py:126",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
-
-    log("K3b hidden_stack backward, full U_c:")
-    gh = torch.randn(u_c, widths[-1], device=dev, generator=gen) * 1e-3
-    g_k = hidden.hidden_stack_bwd(x, hidden_layers, gh)
-    g_p = hidden.hidden_stack_bwd_plain(x, hidden_layers, gh, "highest")
-    err = max(compare(f"{n}{i}", a, r, GRAD_TOL)
-              for i, (ka, pa) in enumerate(zip(g_k, g_p)) for n, a, r in zip("dW db".split(), ka, pa))
-    g_k2 = hidden.hidden_stack_bwd(x, hidden_layers, gh)
-    bitwise_same("dW/db", [t for pair in g_k for t in pair], [t for pair in g_k2 for t in pair])
-    ms = cuda_ms(lambda: hidden.hidden_stack_bwd(x, hidden_layers, gh), 10)
-    plain = cuda_ms(lambda: hidden.hidden_stack_bwd_plain(x, hidden_layers, gh, "highest"), 10)
-    da_mac = sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
-    b_ms, b_by = bound_ms(2.0 * u_c * (2 * mac_row + da_mac),
-                          4.0 * (u_c * widths[0] + u_c * widths[-1] + 2 * n_params))
-    entries["hidden_stack_bwd"] = dict(
-        name="hidden_stack_bwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hidden.cu",
-        replaces="collision_handling_in_instantngp_tpu/ops/pallas/hidden.py:161",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    wide_layers = seeded_layers([x.shape[1], *WIDE_HIDDEN], dev)
+    entries.update(hidden_stack_phase(hidden, x, wide_layers, gen, WIDE_TAG, exact=True))
+    del wide_layers
 
     # ------------------------------ K1 / K2 -------------------------------- #
     k, L, T, H = mcfg.topk_k, mcfg.num_levels, mcfg.hash_table_size, w_head.shape[0]
@@ -1110,7 +1437,7 @@ def main() -> int:
     log_profile(profile)
     entries["hpd_stream_fused_bwd"]["per_launch_ms"] = per_launch(
         "K2", profile, ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel"))
-    del batches, geom, h_k, h_full, args, out_k       # x, counts_full: step 12
+    del batches, geom, h_k, h_full, args, out_k       # x, counts_full: step 13
     torch.cuda.empty_cache()
     marks = {}
     watermark(marks, "dedup route (steps 2-5)", dev)
@@ -1221,16 +1548,59 @@ def main() -> int:
     torch.cuda.empty_cache()
     watermark(marks, "split route (steps 9-11)", dev)
 
+    # -------- the wide stack [2 -> 256 -> 512 -> 256] (ROADMAP §3.1) -------- #
+    entries.update(wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen))
+    k3_pair = {"hidden_stack_fwd": hidden.hidden_stack_fwd, "hidden_stack_bwd": hidden.hidden_stack_bwd}
+    small_stream = dict(num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream")
+    log(f"wide stack {WIDE_HIDDEN}: small geometries, 2 epochs, card (kernels) vs CPU (plain versions):")
+    wide_launches = wide_fits(fit, [
+        ("dedup route", dict(hash_table_size=2048, **small_stream), small_data,
+         {**k3_pair, "hpd_stream_fused_fwd": hpd_stream.hpd_stream_fused_fwd,
+          "hpd_stream_fused_bwd": hpd_stream.hpd_stream_fused_bwd}, False),
+        ("split route", dict(hash_table_size=4096, **small_stream), small_data,
+         {"hpd_stream_select": hpd_stream.hpd_stream_select,
+          "hpd_stream_marginal": hpd_stream.hpd_stream_marginal,
+          "hpd_tail_unique_bwd": hpd_stream.hpd_tail_unique_bwd}, True),
+        ("per-row route (auto)", dict(batchnorm_input=True), small_img,
+         {"hpd_full_fwd": hpd_full.hpd_full_fwd, "hpd_full_bwd": hpd_full.hpd_full_bwd}, False),
+        ("per-row route (pallas)", dict(batchnorm_input=True, hpd_backend="pallas"), small_img,
+         {"hpd_tail_fwd": hpd_tail.hpd_tail_fwd, "hpd_tail_bwd": hpd_tail.hpd_tail_bwd}, False),
+    ], dev)
+    exp_w = experiment_from_grid_id(4061, base_model=instantngp_scaled_model(hpd_hidden=WIDE_HIDDEN))
+    log(f"fit: grid 4061, scaled geometry, hpd_hidden {WIDE_HIDDEN}, strawberry, 3 epochs:")
+    wide_dedup = {**k3_pair, "hpd_stream_fused_fwd": hpd_stream.hpd_stream_fused_fwd,
+                  "hpd_stream_fused_bwd": hpd_stream.hpd_stream_fused_bwd}
+    launches_w, history_w, fit_w_s = fit_checked(fit, exp_w, data, dev, {**wide_dedup, **k12},
+                                                 "the wide dedup route")
+    pr_exp_w = experiment_from_grid_id(4061, base_model=ModelConfig(batchnorm_input=True,
+                                                                    hpd_hidden=WIDE_HIDDEN))
+    log(f"fit: grid 4061, default geometry, batchnorm_input, hpd_hidden {WIDE_HIDDEN}, "
+        "hpd_backend 'auto', strawberry raw coords, 3 epochs:")
+    wide_full = {"hpd_full_fwd": hpd_full.hpd_full_fwd, "hpd_full_bwd": hpd_full.hpd_full_bwd}
+    launches_pw, history_pw, fit_pw_s = fit_checked(fit, pr_exp_w, data_raw, dev, {**wide_full, **k12},
+                                                    "the wide per-row route (auto)")
+    for name in (*wide_dedup, *wide_full):
+        wide_launches[name + (WIDE_TAG if name.startswith("hidden") else WIDE_H)] = (
+            launches_w if name in wide_dedup else launches_pw)[name]
+    for name, n in wide_launches.items():
+        if name in entries:
+            entries[name]["launches"] = n
+            entries[name]["route"] = "cuda"
+    wide_fit = dict(dedup=dict(history=history_w, fit_s=fit_w_s, launches=launches_w),
+                    per_row_auto=dict(history=history_pw, fit_s=fit_pw_s, launches=launches_pw))
+    torch.cuda.empty_cache()
+    watermark(marks, "wide stack (step 12)", dev)
+
     # ------ the measurement path: the K7 ladder, then the mxu probe --------- #
     h_c = hidden.hidden_stack_fwd(x, hidden_layers).contiguous()
     ladder_entries, ladder = probe_ladder_phase(h_c, w_head, b_head, counts_full, k)
     entries.update(ladder_entries)
     del h_c, x, counts_full
     torch.cuda.empty_cache()
-    watermark(marks, "K7 ladder (step 12)", dev)
+    watermark(marks, "K7 ladder (step 13)", dev)
     mxu_entries, mxu_rates = mxu_probe_phase(dev)
     entries.update(mxu_entries)
-    watermark(marks, "mxu probe (step 13)", dev)
+    watermark(marks, "mxu probe (step 14)", dev)
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
@@ -1239,6 +1609,7 @@ def main() -> int:
                        split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
                        split_profile=profile16, sweep_ladder_highest=ladder,
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
+                       wide_fit=wide_fit,
                        sass_tensor_ops=sass, two_fits=determinism), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

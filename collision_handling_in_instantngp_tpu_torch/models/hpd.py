@@ -3,9 +3,11 @@ distribution over hash-table slots, followed by the straight-through top-k.
 
 ``apply_hpd_unique`` evaluates it once per unique vertex (ops/dedup.py). Small
 tables run dense (the (U, T) probabilities fit easily); scaled tables
-stream: the hidden stack is kernel K3 and the head + softmax + top-k +
-marginal is the streamed tail (ops/fused_hpd.py), routed by the JAX
-package's gate ``fused_supports(T, K, H)``: the fused pair K1/K2 where it
+stream: the hidden stack is kernel K3 where the JAX package's gate
+``hidden.supports`` holds (widths <= 512, hidden widths multiples of 8;
+past it the plain stack, as JAX runs its XLA stack) and the head + softmax
++ top-k + marginal is the streamed tail (ops/fused_hpd.py), routed by the
+JAX package's gate ``fused_supports(T, K, H)``: the fused pair K1/K2 where it
 holds (T = 2^14 at H = 128), the split kernels K4 + K5 / K6 past it
 (T = 2^16). On a CUDA tensor the stream branch launches the kernels; on a
 CPU tensor it runs their plain versions.
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig, TopkScatterMode
-from ..ops.cuda.hidden import hidden_stack
+from ..ops.cuda import hidden
 from ..ops.cuda.hpd_full import hpd_full
 from ..ops.cuda.hpd_stream import MAX_K
 from ..ops.fused_hpd import hpd_tail, hpd_tail_unique
@@ -44,6 +46,13 @@ def apply_hpd(hpd: MLP, vertices: torch.Tensor, cfg: ModelConfig):
     noop = cfg.topk_scatter is TopkScatterMode.NOOP
     values, indices = differentiable_topk(probs, cfg.topk_k, noop)
     return probs, values, indices
+
+
+def relu_stack(h: torch.Tensor, layers, precision) -> torch.Tensor:
+    """The plain hidden stack, ReLU after every layer (autograd's backward)."""
+    for w, b in layers:
+        h = F.relu(pdot(h, w, precision) + b)
+    return h
 
 
 def use_stream(cfg: ModelConfig, u: int) -> bool:
@@ -78,7 +87,11 @@ def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=N
             "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
         )
     layers = hpd.layers()
-    h = hidden_stack(ucoords, layers[:-1], cfg.matmul_precision) if len(layers) > 1 else ucoords
+    widths = [ucoords.shape[1]] + [w.shape[1] for w, _ in layers[:-1]]
+    if len(layers) > 1 and hidden.supports(widths):
+        h = hidden.hidden_stack(ucoords, layers[:-1], cfg.matmul_precision)      # K3
+    else:
+        h = relu_stack(ucoords, layers[:-1], cfg.matmul_precision)
     w, b = layers[-1]
     counts_in = counts if counts is not None else torch.zeros(
         1, u, dtype=torch.float32, device=ucoords.device
@@ -122,9 +135,7 @@ def apply_hpd_fused(hpd: MLP, vertices: torch.Tensor, cfg: ModelConfig):
     if backend == "pallas_full":
         marginal, vals, idx = hpd_full(rows, layers, cfg.topk_k)
     else:
-        h = rows
-        for w, b in layers[:-1]:
-            h = F.relu(pdot(h, w, cfg.matmul_precision) + b)
+        h = relu_stack(rows, layers[:-1], cfg.matmul_precision)
         w, b = layers[-1]
         marginal, vals, idx = hpd_tail(h, w, b, cfg.topk_k, cfg.matmul_precision, backend)
     k = cfg.topk_k

@@ -39,6 +39,44 @@ __device__ __forceinline__ float pfma(float a, float b, float acc) {
     default: return ERR_PRECISION;                   \
   }
 
+// Phase marks of the instrumented builds (tools/k11_phases.py builds
+// hpd_full.cu with -DHPD_FULL_PHASES, tools/k3_phases.py hidden.cu with
+// -DHIDDEN_PHASES): thread 0 of a block sums the clock64() ticks of each
+// phase into a __device__ array (a phase that ends at a barrier counts the
+// block's time). In a normal build the marks compile to nothing.
+#if defined(HPD_FULL_PHASES) || defined(HIDDEN_PHASES)
+// the ticks of src into out, then zeroed if reset
+template <int NP>
+int read_phases(unsigned long long (&src)[NP], unsigned long long* out, int reset) {
+  int err = (int)cudaMemcpyFromSymbol(out, src, sizeof(unsigned long long) * NP);
+  if (!err && reset) {
+    const unsigned long long zero[NP] = {};
+    err = (int)cudaMemcpyToSymbol(src, zero, sizeof(zero));
+  }
+  return err;
+}
+#define PHASE_START(n) unsigned long long ph_[n] = {}, tc0_ = clock64(), tc1_
+#define PHASE_MARK(i)      \
+  do {                     \
+    tc1_ = clock64();      \
+    ph_[i] += tc1_ - tc0_; \
+    tc0_ = tc1_;           \
+  } while (0)
+#define PHASE_SYNC_MARK(i) \
+  do {                     \
+    __syncthreads();       \
+    PHASE_MARK(i);         \
+  } while (0)
+#define PHASE_END(arr, n) \
+  if (threadIdx.x == 0)   \
+    for (int i_ = 0; i_ < n; ++i_) atomicAdd(&arr[i_], ph_[i_])
+#else
+#define PHASE_START(n)
+#define PHASE_MARK(i)
+#define PHASE_SYNC_MARK(i)
+#define PHASE_END(arr, n)
+#endif
+
 static inline const char* port_error_string(int code) {
   if (code == ERR_SHAPE) return "shape not supported by the kernel";
   if (code == ERR_PRECISION) return "unknown precision code";

@@ -42,7 +42,7 @@ namespace {
 // Built with -DHPD_FULL_PHASES (tools/k11_phases.py), thread 0 of K11 and
 // of K10 sums the clock64() ticks of each phase of its tiles into
 // k11_phase / k10_phase (the phases end at a barrier, so its ticks are the
-// block's); otherwise the marks compile to nothing.
+// block's); otherwise the marks (common.cuh) compile to nothing.
 #ifdef HPD_FULL_PHASES
 constexpr int K11_PHASES = 6;  // replay, logits, softmax + dl, dW_head, dh, hidden layers
 // hidden layers, logits, softmax, column sums, and the top-K's candidates,
@@ -50,36 +50,6 @@ constexpr int K11_PHASES = 6;  // replay, logits, softmax + dl, dW_head, dh, hid
 constexpr int K10_PHASES = 7;
 __device__ unsigned long long k11_phase[K11_PHASES];
 __device__ unsigned long long k10_phase[K10_PHASES];
-// the ticks of src into out, then zeroed if reset
-template <int NP>
-int read_phases(unsigned long long (&src)[NP], unsigned long long* out, int reset) {
-  int err = (int)cudaMemcpyFromSymbol(out, src, sizeof(unsigned long long) * NP);
-  if (!err && reset) {
-    const unsigned long long zero[NP] = {};
-    err = (int)cudaMemcpyToSymbol(src, zero, sizeof(zero));
-  }
-  return err;
-}
-#define PHASE_START(n) unsigned long long ph_[n] = {}, tc0_ = clock64(), tc1_
-#define PHASE_MARK(i)      \
-  do {                     \
-    tc1_ = clock64();      \
-    ph_[i] += tc1_ - tc0_; \
-    tc0_ = tc1_;           \
-  } while (0)
-#define PHASE_SYNC_MARK(i) \
-  do {                     \
-    __syncthreads();       \
-    PHASE_MARK(i);         \
-  } while (0)
-#define PHASE_END(arr, n) \
-  if (threadIdx.x == 0)   \
-    for (int i_ = 0; i_ < n; ++i_) atomicAdd(&arr[i_], ph_[i_])
-#else
-#define PHASE_START(n)
-#define PHASE_MARK(i)
-#define PHASE_SYNC_MARK(i)
-#define PHASE_END(arr, n)
 #endif
 
 constexpr int MAXL = 16;  // layers, head included
@@ -95,14 +65,21 @@ struct Net {
   int total;           // packed parameter count
 };
 
+// The strides of a stack past WMAX (the WIDE instances' last argument):
+// the forward's activation tiles and the backward's gradient tiles.
+struct Wide {
+  int lda;
+  int gld;
+};
+
 int make_net(int n, const int* widths, Net* net) {
   if (n < 1 || n > MAXL) return ERR_SHAPE;
   net->n = n;
   int off = 0, acols = 0;
   for (int i = 0; i <= n; ++i) net->w[i] = widths[i];
   for (int i = 0; i < n; ++i) {
-    const int wmax = i == n - 1 ? TMAX : WMAX;
-    if (widths[i] < 1 || widths[i] > WMAX || widths[i + 1] < 1 || widths[i + 1] > wmax)
+    const int wmax = i == n - 1 ? TMAX : WIDE_MAX;
+    if (widths[i] < 1 || widths[i] > WIDE_MAX || widths[i + 1] < 1 || widths[i + 1] > wmax)
       return ERR_SHAPE;
     net->woff[i] = off;
     off += widths[i] * widths[i + 1];
@@ -116,9 +93,19 @@ int make_net(int n, const int* widths, Net* net) {
   return 0;
 }
 
-constexpr int LDA = mma_ld(WMAX);  // row stride of the forward's activation tiles
+// mma_ld(WMAX) and WLD up to WMAX-wide stacks
+Wide wide_strides(const Net& net) {
+  int maxw = WMAX, maxg = WMAX;
+  for (int i = 0; i < net.n; ++i) {
+    maxw = net.w[i] > maxw ? net.w[i] : maxw;
+    if (i > 0) maxg = net.w[i] > maxg ? net.w[i] : maxg;
+  }
+  return Wide{mma_ld(maxw), maxg + 1};
+}
+
 constexpr int GMAX = KMAX + GSLACK;  // candidates a row at most
-static_assert(refine_floats(1, GMAX) <= LDA, "the refinement's lists fit a spare activation tile");
+static_assert(refine_floats(1, GMAX) <= mma_ld(WMAX),
+              "the refinement's lists fit a spare activation tile");
 
 // Floats of the forward's staged buffer at R rows: the hidden products'
 // chunk, then the head's chunks (the logits', then the recompute's), with
@@ -130,12 +117,12 @@ __host__ __device__ constexpr int fwd_stage(int R) {
 // chains a thread of the candidates' recompute at R rows, kc candidates
 __host__ __device__ constexpr int chains(int R, int kc) { return (R * kc + THREADS - 1) / THREADS; }
 
-// two activation tiles (stride LDA), the staged buffer, the logits tile
-// (stride mma_ld(T)), the column sums and the head's row maxima
+// two activation tiles (stride Wide::lda), the staged buffer, the logits
+// tile (stride mma_ld(T)), the column sums and the head's row maxima
 size_t fwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
-  return sizeof(float) *
-         (2 * (size_t)R * LDA + fwd_stage(R) + (size_t)R * mma_ld(T) + T + WMAX + 1);
+  return sizeof(float) * (2 * (size_t)R * wide_strides(net).lda + fwd_stage(R) +
+                          (size_t)R * mma_ld(T) + T + net.w[net.n - 1] + 1);
 }
 
 // acts (the head's input at stride mma_ld(H)), gA, the staged chunk (the
@@ -144,9 +131,9 @@ size_t fwd_smem(const Net& net, int R) {
 size_t bwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
   const int stage = BK * BS > head_stage_floats(R / 16) ? BK * BS : head_stage_floats(R / 16);
-  const int ldc = mma_ld(T) > WLD ? mma_ld(T) : WLD;
-  return sizeof(float) *
-         ((size_t)R * net.acols + (size_t)R * WLD + stage + (size_t)R * ldc + T);
+  const int gld = wide_strides(net).gld;
+  const int ldc = mma_ld(T) > gld ? mma_ld(T) : gld;
+  return sizeof(float) * ((size_t)R * net.acols + (size_t)R * gld + stage + (size_t)R * ldc + T);
 }
 
 // rows per thread of the widest tile whose forward AND backward fit, 0 if none
@@ -206,16 +193,65 @@ __device__ __forceinline__ void back_layer(const float* __restrict__ G, int ldg,
   }
 }
 
+// hidden_layer for any n: TT output columns a pass
 template <int RPT>
+__device__ __forceinline__ void hidden_layer_wide(const float* __restrict__ A, int lda, int kdim,
+                                                  const float* __restrict__ W,
+                                                  const float* __restrict__ bias, int n,
+                                                  float* __restrict__ b_s, float* __restrict__ out,
+                                                  int ldo) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int c0 = 0; c0 < n; c0 += TT) {
+    float acc[RPT][8];
+    tile_mm<RPT, false>(A, lda, kdim, W, n, c0, b_s, acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c >= n) continue;
+      const float bc = bias[c];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) out[(ty * RPT + i) * ldo + c] = fmaxf(acc[i][j] + bc, 0.f);
+    }
+  }
+}
+
+// back_layer for any n, out at stride ldo: TT columns a pass
+template <int RPT>
+__device__ __forceinline__ void back_layer_wide(const float* __restrict__ G, int ldg, int kdim,
+                                                const float* __restrict__ W, int n,
+                                                const float* __restrict__ act, int lda,
+                                                float* __restrict__ b_s, float* __restrict__ out,
+                                                int ldo) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int c0 = 0; c0 < n; c0 += TT) {
+    float acc[RPT][8];
+    tile_mm<RPT, true>(G, ldg, kdim, W, n, c0, b_s, acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c >= n) continue;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = ty * RPT + i;
+        out[r * ldo + c] = acc[i][j] * (act[r * lda + c] > 0.f ? 1.f : 0.f);
+      }
+    }
+  }
+}
+
+// WIDE: a width of the stack past WMAX (its tiles' strides at run time)
+template <int RPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ params, Net net,
                 const float* __restrict__ w_pad, int K, Rows g, float* __restrict__ vals,
-                int* __restrict__ idx, float* __restrict__ marg_part, int* __restrict__ n_fix) {
+                int* __restrict__ idx, float* __restrict__ marg_part, int* __restrict__ n_fix,
+                Wide wide) {
   constexpr int R = 16 * RPT;
   extern __shared__ __align__(16) float smem[];
   const int n = net.n, d = net.w[0], T = net.w[n], H = net.w[n - 1];
   const int ldc = mma_ld(T), ldw = head_ld(T);
   const int kc = min(K + GSLACK, T);
+  const int LDA = WIDE ? wide.lda : mma_ld(WMAX);
   float* buf0 = smem;
   float* buf1 = buf0 + R * LDA;
   float* stage = buf1 + R * LDA;
@@ -250,8 +286,12 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     float* in = buf0;
     float* out = buf1;
     for (int i = 0; i < n - 1; ++i) {
-      hidden_layer<RPT>(in, LDA, net.w[i], params + net.woff[i], params + net.boff[i],
-                        net.w[i + 1], stage, out, LDA);
+      if (WIDE)
+        hidden_layer_wide<RPT>(in, LDA, net.w[i], params + net.woff[i], params + net.boff[i],
+                               net.w[i + 1], stage, out, LDA);
+      else
+        hidden_layer<RPT>(in, LDA, net.w[i], params + net.woff[i], params + net.boff[i],
+                          net.w[i + 1], stage, out, LDA);
       float* tmp = in;
       in = out;
       out = tmp;
@@ -315,23 +355,24 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     marg_part[((size_t)l * g.spl + seg) * T + c] = colsum[c];
 }
 
-template <int RPT>
+template <int RPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ params, Net net,
                 const float* __restrict__ w_pad, int K, const int* __restrict__ idx,
                 const float* __restrict__ g_marg, const float* __restrict__ g_vals, Rows g,
-                float* __restrict__ part) {
+                float* __restrict__ part, Wide wide) {
   constexpr int R = 16 * RPT;
   constexpr int STAGE = BK * BS > head_stage_floats(RPT) ? BK * BS : head_stage_floats(RPT);
   extern __shared__ float smem[];
   const int n = net.n, d = net.w[0], T = net.w[n], H = net.w[n - 1];
   const int ldh = mma_ld(H), ldc = mma_ld(T), ldw = head_ld(T);
+  const int gld = WIDE ? wide.gld : WLD;
   float* acts = smem;
   float* gA = acts + R * net.acols;
-  float* b_s = gA + R * WLD;
+  float* b_s = gA + R * gld;
   float* cache = b_s + STAGE;
   float* gB = cache;
-  float* gm_s = cache + R * (ldc > WLD ? ldc : WLD);
+  float* gm_s = cache + R * (ldc > gld ? ldc : gld);
   float* a_head = acts + R * net.aoff[n - 1];
   const int l = blockIdx.y, seg = blockIdx.x;
   const int warp = threadIdx.x >> 5;
@@ -349,10 +390,16 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     __syncthreads();
     load_rows<R>(verts, base, rows, d, acts, n == 1 ? ldh : d + 1);
     // replay the stack, keeping every layer's input
-    for (int i = 0; i < n - 1; ++i)
-      hidden_layer<RPT>(acts + R * net.aoff[i], net.w[i] + 1, net.w[i], params + net.woff[i],
-                        params + net.boff[i], net.w[i + 1], b_s, acts + R * net.aoff[i + 1],
-                        i + 1 == n - 1 ? ldh : net.w[i + 1] + 1);
+    for (int i = 0; i < n - 1; ++i) {
+      if (WIDE)
+        hidden_layer_wide<RPT>(acts + R * net.aoff[i], net.w[i] + 1, net.w[i],
+                               params + net.woff[i], params + net.boff[i], net.w[i + 1], b_s,
+                               acts + R * net.aoff[i + 1], i + 1 == n - 1 ? ldh : net.w[i + 1] + 1);
+      else
+        hidden_layer<RPT>(acts + R * net.aoff[i], net.w[i] + 1, net.w[i], params + net.woff[i],
+                          params + net.boff[i], net.w[i + 1], b_s, acts + R * net.aoff[i + 1],
+                          i + 1 == n - 1 ? ldh : net.w[i + 1] + 1);
+    }
     PHASE_SYNC_MARK(0);
     head_logits<RPT>(a_head, ldh, H, w_pad, ldw, params + net.boff[n - 1], T, b_s, cache, ldc);
     PHASE_MARK(1);
@@ -370,16 +417,27 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
       float* gc = gA;
       float* gn = gB;
       PHASE_SYNC_MARK(3);
-      head_dh<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, WLD);
+      if (WIDE)
+        head_dh_wide<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, gld);
+      else
+        head_dh<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, WLD);
       PHASE_MARK(4);
       for (int i = n - 2; i >= 0; --i) {
         const float* a_i = acts + R * net.aoff[i];
         __syncthreads();
-        outer_acc<R>(a_i, net.w[i] + 1, net.w[i], gc, WLD, net.w[i + 1], pp + net.woff[i],
-                     pp + net.boff[i]);
+        if (WIDE)
+          outer_acc_wide<R>(a_i, net.w[i] + 1, net.w[i], gc, gld, net.w[i + 1], pp + net.woff[i],
+                            pp + net.boff[i]);
+        else
+          outer_acc<R>(a_i, net.w[i] + 1, net.w[i], gc, WLD, net.w[i + 1], pp + net.woff[i],
+                       pp + net.boff[i]);
         if (i > 0) {
-          back_layer<RPT>(gc, WLD, net.w[i + 1], params + net.woff[i], net.w[i], a_i,
-                          net.w[i] + 1, b_s, gn);
+          if (WIDE)
+            back_layer_wide<RPT>(gc, gld, net.w[i + 1], params + net.woff[i], net.w[i], a_i,
+                                 net.w[i] + 1, b_s, gn, gld);
+          else
+            back_layer<RPT>(gc, WLD, net.w[i + 1], params + net.woff[i], net.w[i], a_i,
+                            net.w[i] + 1, b_s, gn);
           float* tmp = gc;
           gc = gn;
           gn = tmp;
@@ -391,7 +449,7 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
   PHASE_END(k11_phase, K11_PHASES);
 }
 
-template <int RPT>
+template <int RPT, bool WIDE>
 int launch_fwd(const float* verts, const float* params, const float* w_pad, const Net& net,
                int L, int N, int K, float* marg, float* marg_part, float* vals, int* idx,
                int* n_fix, cudaStream_t st) {
@@ -400,16 +458,16 @@ int launch_fwd(const float* verts, const float* params, const float* w_pad, cons
   int err = (int)cudaMemsetAsync(n_fix, 0, sizeof(int), st);
   if (err) return err;
   const size_t smem = fwd_smem(net, 16 * RPT);
-  set_smem(full_fwd_kernel<RPT>, smem);
-  full_fwd_kernel<RPT><<<dim3(g.spl, L), THREADS, smem, st>>>(verts, params, net, w_pad, K, g,
-                                                              vals, idx, marg_part, n_fix);
+  set_smem(full_fwd_kernel<RPT, WIDE>, smem);
+  full_fwd_kernel<RPT, WIDE><<<dim3(g.spl, L), THREADS, smem, st>>>(
+      verts, params, net, w_pad, K, g, vals, idx, marg_part, n_fix, wide_strides(net));
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_levels_kernel<<<(L * T + 255) / 256, 256, 0, st>>>(marg_part, marg, L, g.spl, T, N);
   return (int)cudaGetLastError();
 }
 
-template <int RPT>
+template <int RPT, bool WIDE>
 int launch_bwd(const float* verts, const float* params, const float* w_pad, const Net& net,
                int L, int N, int K, const int* idx, const float* g_marg, const float* g_vals,
                float* part, float* dparams, cudaStream_t st) {
@@ -418,14 +476,52 @@ int launch_bwd(const float* verts, const float* params, const float* w_pad, cons
   int err = (int)cudaMemsetAsync(part, 0, sizeof(float) * (size_t)nblocks * net.total, st);
   if (err) return err;
   const size_t smem = bwd_smem(net, 16 * RPT);
-  set_smem(full_bwd_kernel<RPT>, smem);
-  full_bwd_kernel<RPT><<<dim3(g.spl, L), THREADS, smem, st>>>(verts, params, net, w_pad, K,
-                                                              idx, g_marg, g_vals, g, part);
+  set_smem(full_bwd_kernel<RPT, WIDE>, smem);
+  full_bwd_kernel<RPT, WIDE><<<dim3(g.spl, L), THREADS, smem, st>>>(
+      verts, params, net, w_pad, K, idx, g_marg, g_vals, g, part, wide_strides(net));
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_blocks_kernel<<<(net.total + 255) / 256, 256, 0, st>>>(part, dparams, nblocks,
                                                                 net.total);
   return (int)cudaGetLastError();
+}
+
+// a width of the stack past WMAX: the WIDE instances
+bool wide(const Net& net) { return wide_strides(net).lda > mma_ld(WMAX); }
+
+// launch_fwd / launch_bwd at the tile size the shared memory allows
+template <bool WIDE>
+int fwd_rpt(const float* verts, const float* params, const float* w_pad, const Net& net, int L,
+            int N, int K, float* marg, float* marg_part, float* vals, int* idx, int* n_fix,
+            cudaStream_t st) {
+  switch (pick_rpt(net)) {
+    case 4:
+      return launch_fwd<4, WIDE>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                                 n_fix, st);
+    case 2:
+      return launch_fwd<2, WIDE>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                                 n_fix, st);
+    default:
+      return launch_fwd<1, WIDE>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                                 n_fix, st);
+  }
+}
+
+template <bool WIDE>
+int bwd_rpt(const float* verts, const float* params, const float* w_pad, const Net& net, int L,
+            int N, int K, const int* idx, const float* g_marg, const float* g_vals, float* part,
+            float* dparams, cudaStream_t st) {
+  switch (pick_rpt(net)) {
+    case 4:
+      return launch_bwd<4, WIDE>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                                 dparams, st);
+    case 2:
+      return launch_bwd<2, WIDE>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                                 dparams, st);
+    default:
+      return launch_bwd<1, WIDE>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                                 dparams, st);
+  }
 }
 
 }  // namespace
@@ -464,21 +560,15 @@ int hpd_full_fwd(const float* verts, const float* params, const float* w_pad, in
   const int err = check(n_layers, widths, L, N, K, &net);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (pick_rpt(net)) {
-    case 4:
-      return launch_fwd<4>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
-                           n_fix, st);
-    case 2:
-      return launch_fwd<2>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
-                           n_fix, st);
-    default:
-      return launch_fwd<1>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
-                           n_fix, st);
-  }
+  return wide(net) ? fwd_rpt<true>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals, idx,
+                                   n_fix, st)
+                   : fwd_rpt<false>(verts, params, w_pad, net, L, N, K, marg, marg_part, vals,
+                                    idx, n_fix, st);
 }
 
 // + idx (L, N, K), g_marg (L, T), g_vals (L, N, K) -> dparams (packed like
-// params). w_pad: the head padded with zeros to (128, hpd_tail_head_ld(T)),
+// params). w_pad: the head padded with zeros to (hpd_tail_head_rows(H),
+// hpd_tail_head_ld(T)),
 // 16-byte aligned. part: (blocks, packed count) scratch.
 int hpd_full_bwd(const float* verts, const float* params, const float* w_pad, int n_layers,
                  const int* widths, int L, int N, int K, const int* idx, const float* g_marg,
@@ -487,17 +577,10 @@ int hpd_full_bwd(const float* verts, const float* params, const float* w_pad, in
   const int err = check(n_layers, widths, L, N, K, &net);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (pick_rpt(net)) {
-    case 4:
-      return launch_bwd<4>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
-                             dparams, st);
-    case 2:
-      return launch_bwd<2>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
-                             dparams, st);
-    default:
-      return launch_bwd<1>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
-                             dparams, st);
-  }
+  return wide(net) ? bwd_rpt<true>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                                   dparams, st)
+                   : bwd_rpt<false>(verts, params, w_pad, net, L, N, K, idx, g_marg, g_vals, part,
+                                    dparams, st);
 }
 
 }  // extern "C"

@@ -35,7 +35,7 @@ from .hpd_tail import hpd_tail_bwd_plain, hpd_tail_fwd_plain, padded_head
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 MAX_LAYERS = 16
-MAX_WIDTH = 128
+MAX_WIDTH = 512                  # the JAX package's hidden-stack width
 MAX_T = 2048
 MAX_K = 32
 
@@ -156,7 +156,8 @@ def _prepare(verts, layers, k):
     l, n, _ = verts.shape
     blocks = lib.hpd_full_blocks(len(layers), cw, l, n, k)
     if blocks == 0:
-        raise ValueError(f"hpd_full kernels: a 16-row tile of the stack {widths} does not fit in shared memory")
+        raise ValueError(f"hpd_full kernels: a 16-row tile of the stack {widths} does not fit in "
+                         "shared memory (ROADMAP.md §3)")
     return lib, verts, params, widths, cw, blocks
 
 

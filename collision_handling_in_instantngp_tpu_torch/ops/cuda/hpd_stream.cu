@@ -71,6 +71,486 @@ int rows_per_seg(int u) {
   return ((tiles + SEGS - 1) / SEGS) * R;
 }
 
+// ---------------- wide heads: H past HMAX, on the CUDA cores ---------------- //
+//
+// A head wider than HMAX (up to HWIDE, the JAX kernels' hidden-stack width)
+// takes the passes of this section instead of the tensor-core passes below,
+// whose shared-memory plans hold a whole R x HMAX tile of h (and its hi /
+// lo split) for the block's life. Each wide pass streams h through the
+// R x HMAX tile of stream_tile.cuh in HMAX-deep chunks, the logits of a
+// column tile accumulating over the chunks as one fma chain over k
+// ascending (the exact fp32 arithmetic of the fix-up's sweep, pfma<P>):
+//   rows pass    the fix-up's exact sweep over every row (no guard needed):
+//                m, s, vals, idx of K1 / K4.
+//   columns pass (hpd_wide_cols_kernel) marg partials per (column tile,
+//                row segment) of K1 / K5.
+//   G pass       (hpd_wide_g_kernel) G = p g_marg^T per row tile: K6's B1,
+//                and K2's at these widths (dot closed between, as K6 does).
+//   dh pass      (hpd_wide_dh_kernel) dl, then dh = dl w^T, one HMAX-wide
+//                chunk of dh per block (grid.y), the logits recomputed for
+//                each chunk.
+//   dW pass      (hpd_wide_dw_kernel) dl, then dW = h^T dl for a 64-row
+//                chunk of dW per block (grid.z), db on the first chunk.
+//   probe        (hpd_wide_probe_kernel) K7's two variants.
+// Sums: two-level (a tile's partial added to the running value), across
+// blocks in the fixed segment partials: bitwise stable run to run. Speed
+// at these widths is not tuned (PERF.md §6).
+
+constexpr int HWIDE = 512;
+constexpr int TP = TT + 4;   // row stride of the p / dl tiles
+constexpr int DWK = 64;      // rows of dW a block of the dW pass owns
+
+// The logits h w + b of the rows row(r) (r < R; -1: a zero row) x columns
+// [t0, t0 + TT), h streamed through h_s (R x HP) in HMAX-deep chunks; laid
+// out as in tile_dot. Starts with a barrier.
+template <int P, typename Row>
+__device__ __forceinline__ void wide_tile_logits(const float* __restrict__ h, Row row, int H,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ b, int T, int t0,
+                                                 float* __restrict__ h_s, float* __restrict__ w_s,
+                                                 float (&acc)[4][8]) {
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int c0 = 0; c0 < H; c0 += HMAX) {
+    const int hc = H - c0 < HMAX ? H - c0 : HMAX;
+    __syncthreads();  // h_s is free
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i - r * HMAX;
+      const int gr = row(r);
+      h_s[r * HP + k] = (gr >= 0 && k < hc) ? h[(size_t)gr * H + c0 + k] : 0.f;
+    }
+    tile_dot_acc<P>(h_s, w + (size_t)c0 * T, hc, T, t0, w_s, acc);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float bj = b[t0 + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i][j] += bj;
+  }
+}
+
+// p = exp(l - m) / s of the tile (s <= 0 reads as 1, as the plain version
+// pads it), 0 on rows where row(r) < 0
+template <typename Row>
+__device__ __forceinline__ void wide_tile_p(Row row, const float* __restrict__ m,
+                                            const float* __restrict__ s, float (&acc)[4][8]) {
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gr = row(ty * 4 + i);
+    const float mr = gr >= 0 ? m[gr] : 0.f;
+    const float sr = gr >= 0 && s[gr] > 0.f ? s[gr] : 1.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = gr >= 0 ? expf(acc[i][j] - mr) / sr : 0.f;
+  }
+}
+
+// dl = p (g_p - dot) of the tile into dl_s (R x TP), g_p = counts^T g_marg
+// (+ g_vals at the rows' top-K columns): cnt_s (L x R), gm_s (L x TP) the
+// tile's columns, idx_s / gv_s (R x K) the rows' top-K; 0 on rows < 0.
+template <int P, typename Row>
+__device__ __forceinline__ void wide_tile_dl(Row row, const float (&p)[4][8], int t0, int L,
+                                             int K, bool noop, const float* __restrict__ cnt_s,
+                                             const float* __restrict__ gm_s,
+                                             const int* __restrict__ idx_s,
+                                             const float* __restrict__ gv_s,
+                                             const float* __restrict__ dot,
+                                             float* __restrict__ dl_s) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i, gr = row(r);
+    const float dr = gr >= 0 ? dot[gr] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = tx + 16 * j;
+      float gp = 0.f;
+      for (int l = 0; l < L; ++l) gp = pfma<P>(cnt_s[l * R + r], gm_s[l * TP + c], gp);
+      if (!noop)
+        for (int q = 0; q < K; ++q)
+          if (idx_s[r * K + q] == t0 + c) gp += gv_s[r * K + q];
+      dl_s[r * TP + c] = gr >= 0 ? p[i][j] * (gp - dr) : 0.f;
+    }
+  }
+}
+
+size_t wide_cols_smem(int L) {
+  return sizeof(float) * (R * HP + BK * TT + R * TP + (size_t)L * R);
+}
+
+// Columns pass at a wide head: block (column tile x, row segment y) sums
+// counts @ p over its segment's rows into marg_part[y, :, x's columns].
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+hpd_wide_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                     const float* __restrict__ b, const float* __restrict__ counts,
+                     const float* __restrict__ m, const float* __restrict__ s, int u, int H,
+                     int T, int L, int rows_seg, float* __restrict__ marg_part) {
+  extern __shared__ float smem[];
+  float* h_s = smem;
+  float* w_s = h_s + R * HP;
+  float* p_s = w_s + BK * TT;
+  float* cnt_s = p_s + R * TP;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int t0 = blockIdx.x * TT, seg = blockIdx.y;
+  const int rb = seg * rows_seg, re = min(u, rb + rows_seg);
+  float run[LMAX * TT / THREADS];
+#pragma unroll
+  for (int i = 0; i < LMAX * TT / THREADS; ++i) run[i] = 0.f;
+  for (int r0 = rb; r0 < re; r0 += R) {
+    const auto row = [&](int r) { return r0 + r < re ? r0 + r : -1; };
+    float acc[4][8];
+    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, acc);
+    wide_tile_p(row, m, s, acc);
+    __syncthreads();  // the previous tile's sums have read p_s, cnt_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p_s[(ty * 4 + i) * TP + tx + 16 * j] = acc[i][j];
+    for (int e = threadIdx.x; e < L * R; e += THREADS) {
+      const int l = e / R, r = e - l * R;
+      cnt_s[e] = row(r) >= 0 ? counts[(size_t)l * u + r0 + r] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < LMAX * TT / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS, l = e / TT, c = e - l * TT;
+      if (l < L) {
+        float t = 0.f;
+        for (int r = 0; r < R; ++r) t = pfma<P>(cnt_s[l * R + r], p_s[r * TP + c], t);
+        run[i] += t;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LMAX * TT / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS, l = e / TT, c = e - l * TT;
+    if (l < L) marg_part[((size_t)seg * L + l) * T + t0 + c] = run[i];
+  }
+}
+
+size_t wide_g_smem(int L) {
+  return sizeof(float) * (R * HP + BK * TT + R * (TT + 1) + (size_t)L * TP);
+}
+
+// G pass at a wide head: g_rows[r, l] = <p[r], g_marg[l]> for the block's R
+// rows, column tile by column tile.
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+hpd_wide_g_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                  const float* __restrict__ b, const float* __restrict__ m,
+                  const float* __restrict__ s, const float* __restrict__ g_marg, int u, int H,
+                  int T, int L, float* __restrict__ g_rows) {
+  extern __shared__ float smem[];
+  float* h_s = smem;
+  float* w_s = h_s + R * HP;
+  float* p_s = w_s + BK * TT;        // stride TT + 1: the sums' lanes run over rows
+  float* gm_s = p_s + R * (TT + 1);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int r0 = blockIdx.x * R;
+  const auto row = [&](int r) { return r0 + r < u ? r0 + r : -1; };
+  float run[R * LMAX / THREADS];
+#pragma unroll
+  for (int i = 0; i < R * LMAX / THREADS; ++i) run[i] = 0.f;
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    float acc[4][8];
+    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, acc);
+    wide_tile_p(row, m, s, acc);
+    __syncthreads();  // the previous tile's sums have read p_s, gm_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p_s[(ty * 4 + i) * (TT + 1) + tx + 16 * j] = acc[i][j];
+    for (int e = threadIdx.x; e < L * TT; e += THREADS) {
+      const int l = e / TT, c = e - l * TT;
+      gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < R * LMAX / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS, l = e / R, r = e - l * R;
+      if (l < L) {
+        float t = 0.f;
+        for (int c = 0; c < TT; ++c) t = pfma<P>(p_s[r * (TT + 1) + c], gm_s[l * TP + c], t);
+        run[i] += t;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R * LMAX / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS, l = e / R, r = e - l * R;
+    if (l < L && r0 + r < u) g_rows[(size_t)(r0 + r) * L + l] = run[i];
+  }
+}
+
+// The rows' top-K (idx, g_vals) of a tile into idx_s / gv_s (R x K)
+template <typename Row>
+__device__ __forceinline__ void wide_load_topk(Row row, const int* __restrict__ idx,
+                                               const float* __restrict__ g_vals, int K,
+                                               int* __restrict__ idx_s, float* __restrict__ gv_s) {
+  for (int e = threadIdx.x; e < R * K; e += THREADS) {
+    const int r = e / K, gr = row(r);
+    idx_s[e] = gr >= 0 ? idx[(size_t)gr * K + e - r * K] : -1;
+    gv_s[e] = gr >= 0 ? g_vals[(size_t)gr * K + e - r * K] : 0.f;
+  }
+}
+
+size_t wide_dh_smem(int L, int K) {
+  return sizeof(float) * (R * HP + BK * (TT + 1) + R * TP + (size_t)L * TP + (size_t)L * R +
+                          2 * (size_t)R * K);
+}
+
+// dh pass at a wide head: block (row tile x, dh chunk y) writes dh[rows,
+// HMAX y + [0, HMAX)] = sum over column tiles of dl w^T.
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+hpd_wide_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                   const float* __restrict__ b, const float* __restrict__ counts,
+                   const int* __restrict__ idx, const float* __restrict__ m,
+                   const float* __restrict__ s, const float* __restrict__ dot,
+                   const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
+                   int H, int T, int L, int K, int noop, float* __restrict__ dh) {
+  extern __shared__ float smem[];
+  float* h_s = smem;
+  float* w_s = h_s + R * HP;          // the logits' w chunks; then w^T, stride TT + 1
+  float* dl_s = w_s + BK * (TT + 1);
+  float* gm_s = dl_s + R * TP;
+  float* cnt_s = gm_s + L * TP;
+  int* idx_s = (int*)(cnt_s + L * R);
+  float* gv_s = (float*)(idx_s + R * K);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int r0 = blockIdx.x * R, kc0 = blockIdx.y * HMAX;
+  const auto row = [&](int r) { return r0 + r < u ? r0 + r : -1; };
+  for (int e = threadIdx.x; e < L * R; e += THREADS) {
+    const int l = e / R, r = e - l * R;
+    cnt_s[e] = row(r) >= 0 ? counts[(size_t)l * u + r0 + r] : 0.f;
+  }
+  wide_load_topk(row, idx, g_vals, K, idx_s, gv_s);
+  float run[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) run[i][j] = 0.f;
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    float p[4][8];
+    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, p);
+    wide_tile_p(row, m, s, p);
+    __syncthreads();  // the previous tile's dh has read dl_s, gm_s, w_s
+    for (int e = threadIdx.x; e < L * TT; e += THREADS) {
+      const int l = e / TT, c = e - l * TT;
+      gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
+    }
+    __syncthreads();
+    wide_tile_dl<P>(row, p, t0, L, K, noop, cnt_s, gm_s, idx_s, gv_s, dot, dl_s);
+    // dh chunk += dl (R x TT) w[kc0 + k, t0 + c]^T: thread (ty, tx) holds
+    // rows ty*4 + i, k = tx + 16 j; w^T staged BK columns at a time in w_s
+    float part[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+    for (int cb = 0; cb < TT; cb += BK) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < BK * HMAX; e += THREADS) {
+        const int k = e / BK, cc = e - k * BK;   // consecutive threads on consecutive columns
+        w_s[cc * (TT + 1) + k] = kc0 + k < H ? w[(size_t)(kc0 + k) * T + t0 + cb + cc] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int cc = 0; cc < BK; ++cc) {
+        float a[4], bb[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = dl_s[(ty * 4 + i) * TP + cb + cc];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bb[j] = w_s[cc * (TT + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) part[i][j] = pfma<P>(a[i], bb[j], part[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) run[i][j] += part[i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty * 4 + i;
+    if (r >= u) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = kc0 + tx + 16 * j;
+      if (k < H) dh[(size_t)r * H + k] = run[i][j];
+    }
+  }
+}
+
+size_t wide_dw_smem(int L, int K) {
+  return sizeof(float) * (R * HP + BK * TT + R * TP + (size_t)L * TP + (size_t)L * R +
+                          2 * (size_t)R * K + (size_t)R * (DWK + 4));
+}
+
+// dW pass at a wide head: block (column tile x, row segment y, dW chunk z)
+// sums h[:, DWK z + k]^T dl over its segment's rows into dw_part[y], and
+// (z = 0) the rows' dl into db_part[y].
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+hpd_wide_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                   const float* __restrict__ b, const float* __restrict__ counts,
+                   const int* __restrict__ idx, const float* __restrict__ m,
+                   const float* __restrict__ s, const float* __restrict__ dot,
+                   const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
+                   int H, int T, int L, int K, int noop, int rows_seg,
+                   float* __restrict__ dw_part, float* __restrict__ db_part) {
+  extern __shared__ float smem[];
+  float* h_s = smem;
+  float* w_s = h_s + R * HP;
+  float* dl_s = w_s + BK * TT;
+  float* gm_s = dl_s + R * TP;
+  float* cnt_s = gm_s + L * TP;
+  int* idx_s = (int*)(cnt_s + L * R);
+  float* gv_s = (float*)(idx_s + R * K);
+  float* hk_s = gv_s + R * K;                 // h[rows, kc0 + [0, DWK)], stride DWK + 4
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int t0 = blockIdx.x * TT, seg = blockIdx.y, kc0 = blockIdx.z * DWK;
+  const int rb = seg * rows_seg, re = min(u, rb + rows_seg);
+  for (int e = threadIdx.x; e < L * TT; e += THREADS) {
+    const int l = e / TT, c = e - l * TT;
+    gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
+  }
+  float run[4][8], brun = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) run[i][j] = 0.f;
+  for (int r0 = rb; r0 < re; r0 += R) {
+    const auto row = [&](int r) { return r0 + r < re ? r0 + r : -1; };
+    float p[4][8];
+    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, p);
+    wide_tile_p(row, m, s, p);
+    __syncthreads();  // the previous tile's sums have read dl_s, hk_s, cnt_s, idx_s
+    for (int e = threadIdx.x; e < L * R; e += THREADS) {
+      const int l = e / R, r = e - l * R;
+      cnt_s[e] = row(r) >= 0 ? counts[(size_t)l * u + r0 + r] : 0.f;
+    }
+    for (int e = threadIdx.x; e < R * DWK; e += THREADS) {
+      const int r = e / DWK, k = e - r * DWK;
+      hk_s[r * (DWK + 4) + k] = row(r) >= 0 && kc0 + k < H ? h[(size_t)(r0 + r) * H + kc0 + k] : 0.f;
+    }
+    wide_load_topk(row, idx, g_vals, K, idx_s, gv_s);
+    __syncthreads();
+    wide_tile_dl<P>(row, p, t0, L, K, noop, cnt_s, gm_s, idx_s, gv_s, dot, dl_s);
+    __syncthreads();
+    float part[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) {
+      float a[4], bb[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = hk_s[r * (DWK + 4) + ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bb[j] = dl_s[r * TP + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part[i][j] = pfma<P>(a[i], bb[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) run[i][j] += part[i][j];
+    if (blockIdx.z == 0 && threadIdx.x < TT) {
+      float sb = 0.f;
+      for (int r = 0; r < R; ++r) sb += dl_s[r * TP + threadIdx.x];
+      brun += sb;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = kc0 + ty * 4 + i;
+    if (k >= H) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dw_part[((size_t)seg * H + k) * T + t0 + tx + 16 * j] = run[i][j];
+  }
+  if (blockIdx.z == 0 && threadIdx.x < TT) db_part[(size_t)seg * T + t0 + threadIdx.x] = brun;
+}
+
+size_t wide_probe_smem() { return sizeof(float) * (R * HP + BK * TT + 2 * R * NSUB); }
+
+// K7 at a wide head: the rows pass with its later phases removed, on the
+// CUDA cores. "softmax": the row max and sum-exp (online per 16-column
+// sub-stream, merged in sub-stream order); DOTS: m = s = the row sum of
+// the logits (per tile first, then over the sub-streams in order).
+template <int P, bool DOTS>
+__global__ void __launch_bounds__(THREADS)
+hpd_wide_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                      const float* __restrict__ b, int u, int H, int T,
+                      float* __restrict__ m_out, float* __restrict__ s_out) {
+  extern __shared__ float smem[];
+  float* h_s = smem;
+  float* w_s = h_s + R * HP;
+  float* pm = w_s + BK * TT;
+  float* ps = pm + R * NSUB;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int r0 = blockIdx.x * R;
+  const auto row = [&](int r) { return r0 + r < u ? r0 + r : -1; };
+  float mrun[4], srun[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mrun[i] = -INFINITY;
+    srun[i] = 0.f;
+  }
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    float acc[4][8];
+    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (DOTS) {
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part += acc[i][j];
+        srun[i] += part;
+      } else {
+        float tmax = acc[i][0];
+#pragma unroll
+        for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, acc[i][j]);
+        const float mnew = fmaxf(mrun[i], tmax);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += expf(acc[i][j] - mnew);
+        srun[i] = srun[i] * expf(mrun[i] - mnew) + sum;
+        mrun[i] = mnew;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    pm[(ty * 4 + i) * NSUB + tx] = mrun[i];
+    ps[(ty * 4 + i) * NSUB + tx] = srun[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < R && r0 + threadIdx.x < u) {
+    const int r = threadIdx.x;
+    float m = -INFINITY, s = 0.f;
+    if (DOTS) {
+      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub];
+      m = s;
+    } else {
+      for (int sub = 0; sub < NSUB; ++sub) m = fmaxf(m, pm[r * NSUB + sub]);
+      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
+    }
+    m_out[r0 + r] = m;
+    s_out[r0 + r] = s;
+  }
+}
+
 // -------------------- exact fp32 rows sweep (the fix-up) -------------------- //
 
 size_t fix_rows_smem(int K) {
@@ -84,11 +564,13 @@ size_t fix_rows_smem(int K) {
 // online max / sum-exp and, per (row, 16-column sub-stream), a sorted top-K
 // list, then merges the NSUB lists of each row by (value desc, index asc)
 // and writes the row's vals, idx, m and s.
-template <int P>
+// WIDE (the rows pass of a head wider than HMAX, wide_tile_logits): every
+// one of the u rows, in order; *n_fix is set to u.
+template <int P, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, int H, int T, int K,
-                    const int* __restrict__ fix_rows, const int* __restrict__ n_fix,
+                    const int* __restrict__ fix_rows, int* __restrict__ n_fix, int u,
                     float* __restrict__ vals, int* __restrict__ idx,
                     float* __restrict__ m_out, float* __restrict__ s_out) {
   extern __shared__ float smem[];
@@ -99,10 +581,11 @@ hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float* lv = ps + R * NSUB;
   int* li = (int*)(lv + R * NSUB * K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n = *n_fix;
+  const int n = WIDE ? u : *n_fix;
+  if (WIDE && blockIdx.x == 0 && threadIdx.x == 0) *n_fix = u;
   for (int base = blockIdx.x * R; base < n; base += gridDim.x * R) {
     __syncthreads();  // the previous rows' merge has read lv / li
-    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+    for (int i = threadIdx.x; !WIDE && i < R * HMAX; i += THREADS) {
       const int r = i / HMAX, k = i - r * HMAX;
       h_s[r * HP + k] =
           (base + r < n && k < H) ? h[(size_t)fix_rows[base + r] * H + k] : 0.f;
@@ -120,7 +603,11 @@ hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
     }
     for (int t0 = 0; t0 < T; t0 += TT) {
       float acc[4][8];
-      tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
+      if (WIDE)
+        wide_tile_logits<P>(h, [&](int r) { return base + r < n ? base + r : -1; }, H, w, b, T,
+                            t0, h_s, w_s, acc);
+      else
+        tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float tmax = acc[i][0];
@@ -173,7 +660,7 @@ hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
       for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
       int pos[NSUB];
       for (int sub = 0; sub < NSUB; ++sub) pos[sub] = 0;
-      const size_t row = (size_t)fix_rows[base + r];
+      const size_t row = WIDE ? (size_t)(base + r) : (size_t)fix_rows[base + r];
       for (int q = 0; q < K; ++q) {
         int best = 0;
         float bv = -INFINITY;
@@ -1737,8 +2224,9 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
   if (threadIdx.x < BT) db_part[(size_t)seg * T + t0 + threadIdx.x] = bacc;
 }
 
-int check_shape(int u, int H, int T, int L, int K) {
-  if (u < 0 || H < 1 || H > HMAX || T < TT || T % TT != 0 || L < 1 || L > LMAX ||
+// hmax: HWIDE where the wide passes stand in past HMAX, else HMAX
+int check_shape(int u, int H, int T, int L, int K, int hmax = HWIDE) {
+  if (u < 0 || H < 1 || H > hmax || T < TT || T % TT != 0 || L < 1 || L > LMAX ||
       K < 1 || K > KMAX)
     return ERR_SHAPE;
   return 0;
@@ -1754,10 +2242,18 @@ int launch_select(const float* h, const float* w, const float* b, int u, int H, 
                   int* fix_rows, int* n_fix, cudaStream_t st) {
   int err = (int)cudaMemsetAsync(n_fix, 0, sizeof(int), st);
   if (err || u == 0) return err;
+  const int row_blocks = (u + R - 1) / R;
+  if (H > HMAX) {  // the exact sweep over every row
+    DISPATCH_PREC(prec, {
+      set_smem(hpd_fix_rows_kernel<P, true>, fix_rows_smem(K));
+      hpd_fix_rows_kernel<P, true><<<row_blocks, THREADS, fix_rows_smem(K), st>>>(
+          h, w, b, H, T, K, nullptr, n_fix, u, vals, idx, m, s);
+    });
+    return (int)cudaGetLastError();
+  }
   hpd_absmax_kernel<<<H + 1, THREADS, 0, st>>>(w, b, H, T, absmax);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const int row_blocks = (u + R - 1) / R;
   DISPATCH_PREC(prec, {
     set_smem(hpd_fwd_rows_kernel<P>, fwd_rows_smem());
     hpd_fwd_rows_kernel<P><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(
@@ -1768,9 +2264,9 @@ int launch_select(const float* h, const float* w, const float* b, int u, int H, 
   // one block per SM at most, striding over the list (none when it is empty)
   const int fix_blocks = row_blocks < FIX_BLOCKS ? row_blocks : FIX_BLOCKS;
   DISPATCH_PREC(prec, {
-    set_smem(hpd_fix_rows_kernel<P>, fix_rows_smem(K));
-    hpd_fix_rows_kernel<P><<<fix_blocks, THREADS, fix_rows_smem(K), st>>>(
-        h, w, b, H, T, K, fix_rows, n_fix, vals, idx, m, s);
+    set_smem(hpd_fix_rows_kernel<P, false>, fix_rows_smem(K));
+    hpd_fix_rows_kernel<P, false><<<fix_blocks, THREADS, fix_rows_smem(K), st>>>(
+        h, w, b, H, T, K, fix_rows, n_fix, u, vals, idx, m, s);
   });
   return (int)cudaGetLastError();
 }
@@ -1780,6 +2276,16 @@ int launch_marginal(const float* h, const float* w, const float* b, const float*
                     const float* m, const float* s, int u, int H, int T, int L, int prec,
                     float* marg, float* marg_part, cudaStream_t st) {
   if (u == 0) return (int)cudaMemsetAsync(marg, 0, sizeof(float) * L * T, st);
+  if (H > HMAX) {
+    DISPATCH_PREC(prec, {
+      set_smem(hpd_wide_cols_kernel<P>, wide_cols_smem(L));
+      hpd_wide_cols_kernel<P><<<dim3(T / TT, SEGS), THREADS, wide_cols_smem(L), st>>>(
+          h, w, b, counts, m, s, u, H, T, L, rows_per_seg(u), marg_part);
+    });
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    return reduce_segments(marg_part, marg, (size_t)L * T, st);
+  }
   const dim3 cols_grid(T / BT, SEGS);
   DISPATCH_PREC(prec, {
     set_smem(hpd_fwd_cols_kernel<P>, fwd_cols_smem());
@@ -1804,13 +2310,23 @@ int launch_bwd_cols(const float* h, const float* w, const float* b, const float*
     if (err) return err;
     return (int)cudaMemsetAsync(db, 0, sizeof(float) * T, st);
   }
-  const dim3 cols_grid(T / BT, SEGS);
-  DISPATCH_PREC(prec, {
-    set_smem(hpd_bwd_cols_kernel<P>, bwd_cols_smem());
-    hpd_bwd_cols_kernel<P><<<cols_grid, THREADS, bwd_cols_smem(), st>>>(
-        h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop, rows_per_seg(u),
-        dw_part, db_part);
-  });
+  if (H > HMAX) {
+    const dim3 grid(T / TT, SEGS, (H + DWK - 1) / DWK);
+    DISPATCH_PREC(prec, {
+      set_smem(hpd_wide_dw_kernel<P>, wide_dw_smem(L, K));
+      hpd_wide_dw_kernel<P><<<grid, THREADS, wide_dw_smem(L, K), st>>>(
+          h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop,
+          rows_per_seg(u), dw_part, db_part);
+    });
+  } else {
+    const dim3 cols_grid(T / BT, SEGS);
+    DISPATCH_PREC(prec, {
+      set_smem(hpd_bwd_cols_kernel<P>, bwd_cols_smem());
+      hpd_bwd_cols_kernel<P><<<cols_grid, THREADS, bwd_cols_smem(), st>>>(
+          h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop,
+          rows_per_seg(u), dw_part, db_part);
+    });
+  }
   int err = (int)cudaGetLastError();
   if (err) return err;
   err = reduce_segments(dw_part, dw, (size_t)H * T, st);
@@ -1847,6 +2363,20 @@ int hpd_probe(const float* h, const float* w, const float* b, int u, int H, int 
   if (err || u == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   const int row_blocks = (u + R - 1) / R;
+  if (H > HMAX) {
+    DISPATCH_PREC(prec, {
+      if (dots) {
+        set_smem(hpd_wide_probe_kernel<P, true>, wide_probe_smem());
+        hpd_wide_probe_kernel<P, true><<<row_blocks, THREADS, wide_probe_smem(), st>>>(
+            h, w, b, u, H, T, m, s);
+      } else {
+        set_smem(hpd_wide_probe_kernel<P, false>, wide_probe_smem());
+        hpd_wide_probe_kernel<P, false><<<row_blocks, THREADS, wide_probe_smem(), st>>>(
+            h, w, b, u, H, T, m, s);
+      }
+    });
+    return (int)cudaGetLastError();
+  }
   DISPATCH_PREC(prec, {
     if (dots) {
       set_smem(hpd_probe_kernel<P, true>, fwd_rows_smem());
@@ -1879,7 +2409,8 @@ int hpd_fused_bwd(const float* h, const float* w, const float* b, const float* c
                   const float* g_marg, const float* g_vals, int u, int H, int T, int L, int K,
                   int noop, int prec, float* dh, float* dot, float* dw, float* db,
                   float* dw_part, float* db_part, void* stream) {
-  int err = check_shape(u, H, T, L, K);
+  // past HMAX the wrapper runs K6's launches, which compute the same function
+  int err = check_shape(u, H, T, L, K, HMAX);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (u > 0) {
@@ -1903,6 +2434,14 @@ int hpd_unique_bwd_g(const float* h, const float* w, const float* b, const float
   const int err = check_shape(u, H, T, L, 1);
   if (err || u == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
+  if (H > HMAX) {
+    DISPATCH_PREC(prec, {
+      set_smem(hpd_wide_g_kernel<P>, wide_g_smem(L));
+      hpd_wide_g_kernel<P><<<(u + R - 1) / R, THREADS, wide_g_smem(L), st>>>(
+          h, w, b, m, s, g_marg, u, H, T, L, g_rows);
+    });
+    return (int)cudaGetLastError();
+  }
   DISPATCH_PREC(prec, {
     set_smem(hpd_b1_kernel<P>, bwd_rows_smem());
     hpd_b1_kernel<P><<<(u + R - 1) / R, THREADS, bwd_rows_smem(), st>>>(h, w, b, m, s, g_marg, u, H, T,
@@ -1921,7 +2460,16 @@ int hpd_unique_bwd_main(const float* h, const float* w, const float* b, const fl
   int err = check_shape(u, H, T, L, K);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (u > 0) {
+  if (u > 0 && H > HMAX) {
+    const dim3 grid((u + R - 1) / R, (H + HMAX - 1) / HMAX);
+    DISPATCH_PREC(prec, {
+      set_smem(hpd_wide_dh_kernel<P>, wide_dh_smem(L, K));
+      hpd_wide_dh_kernel<P><<<grid, THREADS, wide_dh_smem(L, K), st>>>(
+          h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop, dh);
+    });
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  } else if (u > 0) {
     DISPATCH_PREC(prec, {
       set_smem(hpd_b2_rows_kernel<P>, bwd_rows_smem());
       hpd_b2_rows_kernel<P><<<(u + R - 1) / R, THREADS, bwd_rows_smem(), st>>>(

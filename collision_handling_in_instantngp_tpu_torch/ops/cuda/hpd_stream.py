@@ -26,7 +26,11 @@ Hopper kernels of both forms stream 64-column tiles at any T.
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_stream.cu`` (K1
 is K4's rows pass then K5's columns pass, counted as K1 alone), every
-product on the tensor cores (3xTF32 at 'highest'). The rows pass takes its
+product on the tensor cores (3xTF32 at 'highest') for H <= TC_MAX_H. A
+wider head (up to MAX_H) takes the wide passes of ``hpd_stream.cu``
+instead: fp32 FMA under the precision contract, the exact sweep for the
+rows pass (every row counts as fixed up), and K2 runs K6's launches (the
+same function). The rows pass takes its
 top-K from tensor-core logits by candidate refinement: the top K + 4
 candidates of each row are recomputed in fp32 and a per-row guard
 (:func:`select_guard_eps`) decides whether they settle the fp32 top-K; the
@@ -50,7 +54,10 @@ from ..topk import topk_lowest_index
 from . import build
 
 MAX_K = 16
-MAX_H = 128
+# The tensor-core passes take heads up to TC_MAX_H wide; past it, up to
+# MAX_H (the JAX package's hidden-stack width), the CUDA-core wide passes.
+TC_MAX_H = 128
+MAX_H = 512
 MAX_L = 32
 COL_TILE = 128
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB
@@ -356,6 +363,11 @@ def _launch_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision, 
     h, w, b, counts, idx, vals, m, s, g_marg, g_vals = _check_inputs(
         h, w, b, counts, k, idx=idx, vals=vals, m=m, s=s, g_marg=g_marg, g_vals=g_vals
     )
+    if h.shape[1] > TC_MAX_H:
+        out = _unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision,
+                          noop_topk, COL_TILE, "hpd_stream_fused_bwd")
+        hpd_stream_fused_bwd.launches += 1
+        return out
     u, hd = h.shape
     t = w.shape[1]
     l = counts.shape[0]
@@ -395,9 +407,18 @@ def _launch_marginal(h, w, b, counts, m, s, precision):
 
 def _launch_unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision,
                        noop_topk):
+    out = _unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision,
+                      noop_topk, LANE_TILE, "hpd_tail_unique_bwd")
+    hpd_tail_unique_bwd.launches += 1
+    return out
+
+
+def _unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision, noop_topk,
+                tile, what):
+    """K6's launches (B1, the per-row dot, B2): (dh, dw, db). Counts nothing."""
     dev = h.device
     h, w, b, counts, idx, vals, m, s, g_marg, g_vals = _check_inputs(
-        h, w, b, counts, k, tile=LANE_TILE, idx=idx, vals=vals, m=m, s=s, g_marg=g_marg,
+        h, w, b, counts, k, tile=tile, idx=idx, vals=vals, m=m, s=s, g_marg=g_marg,
         g_vals=g_vals,
     )
     u, hd = h.shape
@@ -412,7 +433,7 @@ def _launch_unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, prec
             h.data_ptr(), w.data_ptr(), b.data_ptr(), m.data_ptr(), s.data_ptr(),
             g_marg.data_ptr(), u, hd, t, l, prec, g_rows.data_ptr(), _stream(dev),
         )
-        build.check(code, lib, "hpd_stream_error_string", "hpd_tail_unique_bwd (B1)")
+        build.check(code, lib, "hpd_stream_error_string", f"{what} (B1)")
         dot = _close_dot(counts, g_rows, vals, g_vals, noop_topk).contiguous()
         dh = torch.empty(u, hd, **_f32(dev))
         dw = torch.empty(hd, t, **_f32(dev))
@@ -425,8 +446,7 @@ def _launch_unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, prec
             u, hd, t, l, k, int(noop_topk), prec, dh.data_ptr(), dw.data_ptr(), db.data_ptr(),
             dw_part.data_ptr(), db_part.data_ptr(), _stream(dev),
         )
-    build.check(code, lib, "hpd_stream_error_string", "hpd_tail_unique_bwd (B2)")
-    hpd_tail_unique_bwd.launches += 1
+    build.check(code, lib, "hpd_stream_error_string", f"{what} (B2)")
     return dh, dw, db
 
 

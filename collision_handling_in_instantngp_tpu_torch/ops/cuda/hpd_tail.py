@@ -31,7 +31,7 @@ from ..precision import pdot
 from ..topk import topk_lowest_index
 from . import build
 
-MAX_H = 128
+MAX_H = 512                      # the JAX package's hidden-stack width
 MAX_T = 2048
 MAX_K = 128
 CHUNK_ROWS = 4096
@@ -106,6 +106,8 @@ def _lib() -> ctypes.CDLL:
     lib.hpd_tail_blocks.restype = ci
     lib.hpd_tail_head_ld.argtypes = [ci]
     lib.hpd_tail_head_ld.restype = ci
+    lib.hpd_tail_head_rows.argtypes = [ci]
+    lib.hpd_tail_head_rows.restype = ci
     return lib
 
 
@@ -136,11 +138,14 @@ def check_inputs(h, w, b, k, **more):
 
 
 def padded_head(w: torch.Tensor) -> torch.Tensor:
-    """The head w (H, T) padded with zeros to (128, hpd_tail_head_ld(T)),
-    so that every chunk the per-row kernels stage lies inside it: K9's, and
-    K10's and K11's (``hpd_full.py``)."""
-    t = w.shape[1]
-    w_pad = torch.zeros(MAX_H, _lib().hpd_tail_head_ld(t), device=w.device, dtype=torch.float32)
+    """The head w (H, T) padded with zeros to (hpd_tail_head_rows(H),
+    hpd_tail_head_ld(T)): H up to whole 128-row chunks of dh, so that every
+    chunk the per-row kernels stage lies inside it: K9's, and K10's and
+    K11's (``hpd_full.py``)."""
+    hd, t = w.shape
+    lib = _lib()
+    w_pad = torch.zeros(lib.hpd_tail_head_rows(hd), lib.hpd_tail_head_ld(t), device=w.device,
+                        dtype=torch.float32)
     w_pad[: w.shape[0], :t] = w
     return w_pad
 

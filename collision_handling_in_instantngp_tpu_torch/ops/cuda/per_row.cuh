@@ -30,8 +30,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TT = 128;          // output columns per product pass
 constexpr int BK = 32;           // contraction chunk staged in shared memory
 constexpr int BS = TT + 1;       // padded row stride of the staged chunk
-constexpr int WMAX = 128;        // widest hidden layer and head input
-constexpr int WLD = WMAX + 1;    // row stride of activation tiles
+constexpr int WMAX = 128;        // columns of one product pass over a layer's width
+constexpr int WLD = WMAX + 1;    // row stride of activation tiles up to WMAX wide
+constexpr int WIDE_MAX = 512;    // widest hidden layer and head input (the JAX kernels')
 constexpr int TMAX = 2048;       // widest head
 constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may use
 constexpr int TARGET_BLOCKS = 256;
@@ -100,8 +101,9 @@ __device__ __forceinline__ void tile_mm(const float* __restrict__ A, int lda, in
 
 // part[a * n + c] += sum_r A[r, a] G[r, c] (a < m, c < n) and
 // partb[c] += sum_r G[r, c], rows r < R in order. Each element of a block's
-// partial is always updated by the same thread.
-template <int R>
+// partial is always updated by the same thread. m <= WMAX (outer_acc_wide
+// below takes more); BIAS = false leaves partb out.
+template <int R, bool BIAS = true>
 __device__ __forceinline__ void outer_acc(const float* __restrict__ A, int lda, int m,
                                           const float* __restrict__ G, int ldg, int n,
                                           float* __restrict__ part, float* __restrict__ partb) {
@@ -137,11 +139,23 @@ __device__ __forceinline__ void outer_acc(const float* __restrict__ A, int lda, 
       }
     }
   }
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += G[r * ldg + c];
-    partb[c] += s;
-  }
+  if (BIAS)
+    for (int c = threadIdx.x; c < n; c += THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < R; ++r) s += G[r * ldg + c];
+      partb[c] += s;
+    }
+}
+
+// outer_acc for any m: one pass per WMAX rows of part, partb with the first.
+template <int R>
+__device__ __forceinline__ void outer_acc_wide(const float* __restrict__ A, int lda, int m,
+                                               const float* __restrict__ G, int ldg, int n,
+                                               float* __restrict__ part, float* __restrict__ partb) {
+  outer_acc<R>(A, lda, m < WMAX ? m : WMAX, G, ldg, n, part, partb);
+  for (int a0 = WMAX; a0 < m; a0 += WMAX)
+    outer_acc<R, false>(A + a0, lda, m - a0 < WMAX ? m - a0 : WMAX, G, ldg, n,
+                        part + (size_t)a0 * n, partb);
 }
 
 // src rows [base, base + rows) of width `width` into dst (R x ld), zeros

@@ -23,7 +23,8 @@
 // those loads hit 32 banks too (8 t + g). The head streams through a staged
 // chunk, [k][n] with a stride = 8 (mod 32) for the logits, [n][k] with a
 // stride = 4 (mod 32) for dh, copied in 16-byte pieces from a copy of the
-// head padded with zeros to WMAX x head_ld(T), so no copy needs a bound.
+// head padded with zeros to head_rows(H) x head_ld(T), so no copy needs a
+// bound.
 #pragma once
 
 #include "per_row.cuh"
@@ -37,9 +38,12 @@ __host__ __device__ constexpr int round32(int w) { return (w + 31) / 32 * 32; }
 // Row stride of a tile the helpers read: >= round32(w) and = 4 (mod 32).
 __host__ __device__ constexpr int mma_ld(int w) { return round32(w) + 4; }
 
-// Row stride of the padded head (WMAX x head_ld(T), zeros past H and T):
-// every staged chunk lies inside it.
+// Row stride of the padded head (head_rows(H) x head_ld(T), zeros past H
+// and T): every staged chunk lies inside it.
 __host__ __device__ constexpr int head_ld(int T) { return (T + 255) / 256 * 256; }
+
+// Rows of the padded head: H rounded up to a whole WMAX-row chunk of dh.
+__host__ __device__ constexpr int head_rows(int H) { return (H + WMAX - 1) / WMAX * WMAX; }
 
 // Warp grid over an (R x .) output: MT m16 tiles a warp, WR warps down the
 // rows, WC across. The staged chunks of the head are double-buffered at
@@ -212,7 +216,7 @@ __device__ __forceinline__ void mma3_steps(float (&d)[MT][NT][4], float (&dl)[MT
 
 // cache[r, c] = (A @ w)[r, c] + b[c] for c < T, 0 for T <= c < round32(T).
 // A: R x H, stride lda (mma_ld(H), zeros past H); w: the head padded with
-// zeros to WMAX x ldw in device memory, ldw = head_ld(T), 16-byte aligned;
+// zeros to head_rows(H) x ldw in device memory, ldw = head_ld(T), 16-byte aligned;
 // cache: stride ldc >= round32(T). Starts with a barrier (stage is
 // free, A complete) and ends with one; stage: head_stage_floats(RPT) floats.
 template <int RPT>
@@ -329,7 +333,8 @@ __device__ __forceinline__ void head_dw(const float* __restrict__ A, int lda, in
 // over T, added in order into out (each element by the thread that owns it).
 // Starts with a barrier (stage is free, G complete); stage as head_logits'.
 // MASK = false (the per-row tail's dh: the gradient of the head's input
-// itself) drops the mask; act is then not read.
+// itself) drops the mask; act is then not read. H <= WMAX (head_dh_wide
+// below takes wider heads).
 template <int RPT, bool MASK = true>
 __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, int T,
                                         const float* __restrict__ w, int ldw, int H,
@@ -383,6 +388,19 @@ __device__ __forceinline__ void head_dh(const float* __restrict__ G, int ldg, in
       });
 }
 
+// head_dh for any H <= head_rows(H): one head_dh per WMAX columns of dh,
+// each reading its WMAX rows of the padded head.
+template <int RPT, bool MASK = true>
+__device__ __forceinline__ void head_dh_wide(const float* __restrict__ G, int ldg, int T,
+                                             const float* __restrict__ w, int ldw, int H,
+                                             const float* __restrict__ act, int lda,
+                                             float* __restrict__ stage, float* __restrict__ out,
+                                             int ldo) {
+  for (int h0 = 0; h0 < H; h0 += WMAX)
+    head_dh<RPT, MASK>(G, ldg, T, w + (size_t)h0 * ldw, ldw, H - h0 < WMAX ? H - h0 : WMAX,
+                       MASK ? act + h0 : act, lda, stage, out + h0, ldo);
+}
+
 // ------------ the exact fp32 top-K of p from tensor-core logits ------------
 //
 // K10 takes its head's logits with head_logits and selects the top-K of p =
@@ -425,18 +443,21 @@ constexpr float P_MIN = 0x1p-100f;     // the least p of a settled K-th place
 // eps_r = guard_coef(H) * S_r, S_r = max_t |b_t| + sum_k |a_rk| max_t |w_kt|
 // (>= sum_k |a_rk w_kt| + |b_t| for every t), bounds |head_logits' logit -
 // fp32 logit| of row r. With nk = ceil(H / 8) k8 steps, all in one chain
-// (H <= 128 = 8 CHAIN):
+// (head_logits restarts no chain; nothing below depends on nk's size, so
+// the bound holds at every H <= WIDE_MAX):
 //   split: x = hi + lo + r, |r| <= 2^-22 |x|, lo_a lo_b dropped: <= 3 2^-22
 //     = 0.75 2^-20 of each |term|.
 //   hi_a hi_b accumulator: nk MMAs; each aligns its 8 products and the
 //     accumulator to the largest and truncates (<= 9 2^-23 of a running sum
 //     <= S_r) and truncates its result (<= 2^-23): 1.25 nk 2^-20 S_r.
-//   lo accumulator: 2 nk MMAs on sums <= 2^-10 S_r: < 0.05 2^-20 S_r.
+//   lo accumulator: 2 nk MMAs on sums <= 2^-10 S_r: <= 2.5 nk 2^-30 S_r,
+//     < 0.16 2^-20 S_r at nk = 64 (H = 512).
 //   the two accumulators' fp32 add and + b: 2 roundings, 0.125 2^-20 S_r.
 //   fp32 chain: H fmas and + b, each one rounding of a sum <= S_r:
 //     (H + 1) 2^-24 S_r = (H + 1) / 16 2^-20 S_r.
-// Total <= (1.25 nk + H / 16 + 1) 2^-20 S_r; c = 1.25 nk + H / 16 + 2 leaves
-// 2^-20 for S_r's own fp32 rounding (< 2^-17 of it). At H = 128: 30 2^-20.
+// Total <= (1.25 nk + H / 16 + 0.35) 2^-20 S_r; c = 1.25 nk + H / 16 + 2
+// leaves 1.6 2^-20 for S_r's own fp32 rounding ((H + 1) 2^-24 of it, under
+// 0.004 2^-20 S_r at H = 512). At H = 128: 30 2^-20; at H = 512: 114 2^-20.
 __host__ __device__ __forceinline__ float guard_coef(int H) {
   const int nk = (H + 7) / 8;
   return (1.25f * nk + H / 16.f + 2.f) * 0x1p-20f;

@@ -27,17 +27,14 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ h, int limit
   }
 }
 
-// (h w)[rows, t0 + columns] of the tile, no bias. Thread (ty, tx) holds
-// rows ty*4 + i and columns tx + 16*j. Starts with a barrier.
+// acc += (h w)[rows, t0 + columns] of the tile over k < H, each element one
+// fma chain over k ascending. Thread (ty, tx) holds rows ty*4 + i and
+// columns tx + 16*j. Starts with a barrier.
 template <int P>
-__device__ __forceinline__ void tile_dot(const float* __restrict__ h_s,
-                                         const float* __restrict__ w, int H, int T, int t0,
-                                         float* __restrict__ w_s, float (&acc)[4][8]) {
+__device__ __forceinline__ void tile_dot_acc(const float* __restrict__ h_s,
+                                             const float* __restrict__ w, int H, int T, int t0,
+                                             float* __restrict__ w_s, float (&acc)[4][8]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < H; k0 += BK) {
     __syncthreads();
     for (int i = threadIdx.x; i < BK * TT; i += THREADS) {
@@ -58,6 +55,18 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ h_s,
         for (int j = 0; j < 8; ++j) acc[i][j] = pfma<P>(a[i], bb[j], acc[i][j]);
     }
   }
+}
+
+// (h w)[rows, t0 + columns] of the tile, no bias, as tile_dot_acc from zero.
+template <int P>
+__device__ __forceinline__ void tile_dot(const float* __restrict__ h_s,
+                                         const float* __restrict__ w, int H, int T, int t0,
+                                         float* __restrict__ w_s, float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  tile_dot_acc<P>(h_s, w, H, T, t0, w_s, acc);
 }
 
 // Logits h w + b of the tile rows x columns [t0, t0 + TT), laid out as in

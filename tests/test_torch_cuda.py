@@ -125,10 +125,8 @@ def test_tail_planted_tie_selects_lowest_index(dev):
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
-@pytest.mark.parametrize("widths", [(2, 32, 64, 128), (8, 128), (3, 16, 24, 40, 96)])
-def test_hidden_kernels_match_plain(dev, widths, precision):
+def _hidden_inputs(dev, widths, u=1000):
     rng = np.random.default_rng(1)
-    u = 1000
     x = torch.as_tensor(rng.integers(0, 514, size=(u, widths[0])).astype(np.float32), device=dev)
     layers = [
         (torch.as_tensor(rng.uniform(-1, 1, (a, c)).astype(np.float32) / math.sqrt(a), device=dev),
@@ -136,6 +134,13 @@ def test_hidden_kernels_match_plain(dev, widths, precision):
         for a, c in zip(widths[:-1], widths[1:])
     ]
     gh = torch.as_tensor(rng.standard_normal((u, widths[-1])).astype(np.float32) * 1e-3, device=dev)
+    return x, layers, gh
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("widths", [(2, 32, 64, 128), (8, 128), (3, 16, 24, 40, 96)])
+def test_hidden_kernels_match_plain(dev, widths, precision):
+    x, layers, gh = _hidden_inputs(dev, widths)
     fwd_tol, grad_tol = TOL[precision]
     _close(hidden.hidden_stack_fwd(x, layers, precision),
            hidden.hidden_stack_fwd_plain(x, layers, precision), fwd_tol, "h")
@@ -146,6 +151,54 @@ def test_hidden_kernels_match_plain(dev, widths, precision):
         assert torch.equal(dw, dw2) and torch.equal(db, db2), i
         _close(dw, rw, grad_tol, f"dW{i}")
         _close(db, rb, grad_tol, f"db{i}")
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+# 256 and 512 wide (the backward's weights read from L2, not staged), and
+# (2,) + (512,) * 8 (its activations in device memory too)
+@pytest.mark.parametrize("widths", [(2, 256, 512, 256), (2, 512, 256, 512, 128, 64),
+                                    (2,) + (512,) * 8])
+def test_hidden_kernels_match_plain_wide(dev, widths, precision):
+    """At 'highest' the tolerances above. At 'high' / 'default' the plain
+    version itself is off the exact (float64) gradients by up to 3e-2 / 1e-1
+    normwise on these deep stacks (sums of |x| up to 514 that cancel; the
+    contract drops lo*lo, or rounds every term to bf16), and the kernel
+    carries an error of the same size, of unrelated sign: the kernel is held
+    to its mode's tolerance or to twice the plain version's own error
+    against float64, whichever is larger."""
+    x, layers, gh = _hidden_inputs(dev, widths)
+    fwd_tol, grad_tol = TOL[precision]
+    h = hidden.hidden_stack_fwd(x, layers, precision)
+    assert torch.equal(h, hidden.hidden_stack_fwd(x, layers, precision))
+    _close(h, hidden.hidden_stack_fwd_plain(x, layers, precision), fwd_tol, "h")
+    got = hidden.hidden_stack_bwd(x, layers, gh, precision)
+    again = hidden.hidden_stack_bwd(x, layers, gh, precision)
+    want = hidden.hidden_stack_bwd_plain(x, layers, gh, precision)
+    exact = hidden.hidden_stack_bwd_plain(
+        x.double(), [(w.double(), b.double()) for w, b in layers], gh.double(), "highest")
+    for i, ((dw, db), (dw2, db2), (rw, rb), (ew, eb)) in enumerate(zip(got, again, want, exact)):
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), i
+        for name, a, r, e in ((f"dW{i}", dw, rw, ew), (f"db{i}", db, rb, eb)):
+            own = (r.double() - e).abs().max().item() / max(e.abs().max().item(), 1e-30)
+            _close(a, r, max(grad_tol, 2 * own), name)
+
+
+def test_hidden_bwd_chunks_match_plain(dev):
+    """A stack whose act / g scratch takes several chunks of rows (eight
+    512-wide layers: 8,736 rows a chunk, 3 chunks at 20,000 rows), each
+    chunk's dW kernel adding to the partials of the last: equal, within
+    1e-5 normwise, to the sum of the gradients of the chunks' rows taken
+    apart (one chunk each), and bitwise stable run to run."""
+    widths = (2,) + (512,) * 8
+    x, layers, gh = _hidden_inputs(dev, widths, u=20_000)
+    got = hidden.hidden_stack_bwd(x, layers, gh)
+    again = hidden.hidden_stack_bwd(x, layers, gh)
+    bounds = (0, 8_736, 17_472, 20_000)
+    parts = [hidden.hidden_stack_bwd(x[a:b], layers, gh[a:b]) for a, b in zip(bounds, bounds[1:])]
+    for i, ((dw, db), (dw2, db2)) in enumerate(zip(got, again)):
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), i
+        _close(dw, sum(p[i][0].double() for p in parts), 1e-5, f"dW{i}")
+        _close(db, sum(p[i][1].double() for p in parts), 1e-5, f"db{i}")
 
 
 def test_wrappers_count_launches_and_refuse_shapes(dev):
@@ -500,6 +553,85 @@ def test_tail_bwd_on_tensor_cores_matches_plain(dev, u, t, l, k, hd, precision):
             assert all(torch.equal(a, b_) for a, b_ in zip(got, fn(*bargs)))
 
 
+# heads past the tensor-core passes' 128 (ROADMAP §3.1): the wide passes of
+# hpd_stream.cu (CUDA-core fp32 under the precision contract) for K1, K2
+# (through K6's launches), K4, K5 and K6, at the JAX kernels' widths
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("u,t,l,k,hd", [(300, 2048, 3, 4, 256), (200, 4096, 16, 16, 512),
+                                        (77, 256, 2, 1, 136)])
+def test_stream_kernels_match_plain_wide(dev, u, t, l, k, hd, precision):
+    x = _tail_inputs(dev, u, t, l, k, hd=hd)
+    h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
+    fwd_tol, grad_tol = TOL[precision]
+    ref = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, precision)
+    outs = [hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k, precision)]
+    if t % hpd_stream.LANE_TILE == 0:
+        sel = hpd_stream.hpd_stream_select(h, w, b, k, precision)
+        outs.append((hpd_stream.hpd_stream_marginal(h, w, b, counts, *sel[2:], precision), *sel))
+    for out in outs:
+        if precision == "highest":
+            assert torch.equal(out[2], ref[2])
+        for name, a, r in zip(("marg", "vals", "m", "s"), (out[0], out[1], *out[3:]),
+                              (ref[0], ref[1], *ref[3:])):
+            _close(a, r, fwd_tol, name)
+    assert int(hpd_stream.hpd_stream_fused_fwd.fixup_rows.item()) == u   # the exact sweep: every row
+    _, vals, idx, m, s = ref
+    fns = [hpd_stream.hpd_stream_fused_bwd]
+    if t % hpd_stream.LANE_TILE == 0:
+        fns.append(hpd_stream.hpd_tail_unique_bwd)
+    for noop in (False, True):
+        bargs = (h, w, b, counts, idx, vals, m, s, x["g_marg"], x["g_vals"], k, precision, noop)
+        want = hpd_stream.hpd_stream_fused_bwd_plain(*bargs)
+        for fn in fns:
+            got = fn(*bargs)
+            for name, a, r in zip(("dh", "dw", "db"), got, want):
+                _close(a, r, grad_tol, f"{fn.__name__} {name} noop={noop}")
+            assert all(torch.equal(a, b_) for a, b_ in zip(got, fn(*bargs)))
+
+
+@pytest.mark.parametrize("l,n,t,k,hd", [(2, 500, 256, 4, 256), (3, 333, 2048, 20, 512),
+                                        (1, 77, 1000, 8, 200)])
+def test_per_row_tail_kernels_match_plain_wide(dev, l, n, t, k, hd):
+    """K8/K9 at head inputs past 128: as test_per_row_tail_kernels_match_plain."""
+    x = _per_row_tail_inputs(dev, l, n, t, k, hd=hd)
+    out = hpd_tail.hpd_tail_fwd(x["h"], x["w"], x["b"], k)
+    ref = hpd_tail.hpd_tail_fwd_plain(x["h"], x["w"], x["b"], k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    bargs = (x["h"], x["w"], x["b"], ref[2], x["g_marg"], x["g_vals"], k)
+    got = hpd_tail.hpd_tail_bwd(*bargs)
+    want = hpd_tail.hpd_tail_bwd_plain(*bargs)
+    for name, a, r in zip(("dh", "dw", "db"), got, want):
+        _close(a, r, 1e-4, name)
+    assert all(torch.equal(a, b) for a, b in zip(got, hpd_tail.hpd_tail_bwd(*bargs)))
+
+
+@pytest.mark.parametrize("widths,k,n", [((2, 256, 512, 256, 256), 4, 700),
+                                        ((2, 512, 2048), 20, 200), ((3, 200, 136, 96), 8, 77)])
+def test_per_row_full_kernels_match_plain_wide(dev, widths, k, n):
+    """K10/K11 on stacks past 128 wide: as test_per_row_full_kernels_match_plain."""
+    l = 2
+    rng = np.random.default_rng(2)
+    verts = torch.as_tensor(rng.integers(0, 33, size=(l, n, widths[0])).astype(np.float32), device=dev)
+    layers = _full_layers(dev, widths)
+    t = widths[-1]
+    out = hpd_full.hpd_full_fwd(verts, layers, k)
+    ref = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    g_marg = torch.as_tensor(rng.standard_normal((l, t)).astype(np.float32), device=dev)
+    g_vals = torch.as_tensor(rng.standard_normal((l, n, k)).astype(np.float32), device=dev)
+    got = hpd_full.hpd_full_bwd(verts, layers, ref[2], g_marg, g_vals, k)
+    again = hpd_full.hpd_full_bwd(verts, layers, ref[2], g_marg, g_vals, k)
+    want = hpd_full.hpd_full_bwd_plain(verts, layers, ref[2], g_marg, g_vals, k)
+    for i, ((dw, db), (dw2, db2), (rw, rb)) in enumerate(zip(got, again, want)):
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), i
+        _close(dw, rw, 1e-4, f"dW{i}")
+        _close(db, rb, 1e-4, f"db{i}")
+
+
 def test_split_wrappers_refuse_shapes(dev):
     x = _tail_inputs(dev, 100, 2048, 2, 4)
     h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
@@ -560,6 +692,22 @@ def test_fused_probe_matches_plain(dev, u, t, variant, precision):
     m, s = hpd_stream.hpd_stream_fused_probe(x["h"], x["w"], x["b"], precision, variant)
     again = hpd_stream.hpd_stream_fused_probe(x["h"], x["w"], x["b"][None], precision, variant)
     assert hpd_stream.hpd_stream_fused_probe.launches == before + 2
+    rm, rs = hpd_stream.hpd_stream_fused_probe_plain(x["h"], x["w"], x["b"], precision, variant)
+    tol = max(TOL[precision][0], 1e-4 if variant == "dots" else 0.0)
+    _close(m, rm, tol, "m")
+    _close(s, rs, tol, "s")
+    assert torch.equal(m, again[0]) and torch.equal(s, again[1])
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("variant", ["softmax", "dots"])
+@pytest.mark.parametrize("u,t,hd", [(333, 256, 256), (100, 2048, 512)])
+def test_fused_probe_matches_plain_wide(dev, u, t, hd, variant, precision):
+    """K7's wide pass (heads past 128) against its plain version, bitwise
+    equal run to run; tolerances as test_fused_probe_matches_plain."""
+    x = _tail_inputs(dev, u, t, 1, 1, hd=hd)
+    m, s = hpd_stream.hpd_stream_fused_probe(x["h"], x["w"], x["b"], precision, variant)
+    again = hpd_stream.hpd_stream_fused_probe(x["h"], x["w"], x["b"], precision, variant)
     rm, rs = hpd_stream.hpd_stream_fused_probe_plain(x["h"], x["w"], x["b"], precision, variant)
     tol = max(TOL[precision][0], 1e-4 if variant == "dots" else 0.0)
     _close(m, rm, tol, "m")

@@ -189,18 +189,26 @@ def test_hidden_bwd_relu_mask_is_pre_ge_zero():
     """A pre-activation of exactly 0 passes the gradient (the kernel's rule),
     where torch.relu's gradient would block it."""
     x = torch.tensor([[1.0, 0.0]])
-    w = torch.tensor([[1.0], [0.0]])
-    b = torch.tensor([-1.0])                       # pre = 0 exactly
-    (dw, db), = hidden.hidden_stack_bwd(x, [(w, b)], torch.ones(1, 1))
-    assert db.item() == 1.0 and dw[0, 0].item() == 1.0
+    w = torch.zeros(2, 8)                          # the kernels' least hidden width
+    w[0, 0] = 1.0
+    b = torch.full((8,), -1.0)                     # pre = 0 exactly in column 0
+    (dw, db), = hidden.hidden_stack_bwd(x, [(w, b)], torch.ones(1, 8))
+    assert db[0].item() == 1.0 and dw[0, 0].item() == 1.0
+    assert (db[1:] == 0).all()                     # pre = -1 blocks it
 
 
 def test_kernel_shape_checks_raise():
-    """Shapes the kernels do not take raise before any launch."""
-    h, w, b, c = torch.zeros(4, 256), torch.zeros(256, 2048), torch.zeros(2048), torch.zeros(2, 4)
+    """Shapes the kernels do not take raise before any launch: a head past
+    the JAX kernels' 512, T not a multiple of the column tile, and a K3
+    width that is not a multiple of 8 (or past 512) given to the wrapper."""
+    h, w, b, c = torch.zeros(4, 520), torch.zeros(520, 2048), torch.zeros(2048), torch.zeros(2, 4)
     with pytest.raises(ValueError):
-        hpd_stream._check_inputs(h, w, b, c, 4)            # H > 128
+        hpd_stream._check_inputs(h, w, b, c, 4)            # H > 512
+    hpd_stream._check_inputs(h[:, :512], w[:512], b, c, 4)  # H = 512 is taken
     with pytest.raises(ValueError):
         hpd_stream._check_inputs(torch.zeros(4, 128), torch.zeros(128, 2000), torch.zeros(2000), c, 4)
-    with pytest.raises(ValueError):
-        hidden._widths(torch.zeros(4, 2), [(torch.zeros(2, 256), torch.zeros(256))])
+    with pytest.raises(ValueError):                        # a hidden width of 36
+        hidden.hidden_stack_fwd(torch.zeros(4, 2), [(torch.zeros(2, 36), torch.zeros(36))])
+    with pytest.raises(ValueError):                        # a hidden width of 520
+        hidden.hidden_stack_bwd(torch.zeros(4, 2), [(torch.zeros(2, 520), torch.zeros(520))],
+                                torch.zeros(4, 520))

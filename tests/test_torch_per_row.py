@@ -340,8 +340,8 @@ def test_per_row_routing(monkeypatch, kw, route):
 def test_per_row_kernels_refuse_shapes():
     """Shapes past the kernels' limits raise ValueError naming them, before
     any launch."""
-    h, w, b = torch.zeros(1, 4, 256), torch.zeros(256, 64), torch.zeros(64)
-    with pytest.raises(ValueError, match="H <= 128"):
+    h, w, b = torch.zeros(1, 4, 520), torch.zeros(520, 64), torch.zeros(64)
+    with pytest.raises(ValueError, match="H <= 512"):
         hpd_tail.check_inputs(h, w, b, 4)
     with pytest.raises(ValueError, match="T <= 2048"):
         hpd_tail.check_inputs(torch.zeros(1, 4, 8), torch.zeros(8, 4096), torch.zeros(4096), 4)
@@ -351,5 +351,5 @@ def test_per_row_kernels_refuse_shapes():
     with pytest.raises(ValueError, match="K <= min"):
         hpd_full.widths_of(v, [(torch.zeros(2, 8), torch.zeros(8)), (torch.zeros(8, 256), torch.zeros(256))], 33)
     with pytest.raises(ValueError, match="hidden widths"):
-        hpd_full.widths_of(v, [(torch.zeros(2, 256), torch.zeros(256)), (torch.zeros(256, 64), torch.zeros(64))], 4)
+        hpd_full.widths_of(v, [(torch.zeros(2, 520), torch.zeros(520)), (torch.zeros(520, 64), torch.zeros(64))], 4)
     assert hpd.fused_backend(dataclasses.replace(tcfg.ModelConfig(), topk_k=32)) == "pallas_full"
