@@ -12,7 +12,8 @@
    ``hpd_tail.cu`` shows warp-level MMAs (HMMA) in every instance of K11's
    ``full_bwd_kernel``, K10's ``full_fwd_kernel`` and K9's
    ``tail_bwd_kernel`` (their head products) and none in K8's
-   ``tail_fwd_kernel`` (fp32 on the CUDA cores), that of ``hidden.cu``
+   ``tail_fwd_kernel`` (redesigned in fp32 on the CUDA cores: its
+   tensor-core design lost to it), that of ``hidden.cu``
    HMMA in every instance (precision x row tile x weight staging) of K3a's
    and K3b's kernels and in K3b's dW kernel, and that of the wide passes
    of ``hpd_stream.cu`` (heads past 128) no tensor-core instruction;
@@ -51,10 +52,12 @@
    every row, a cluster deeper than the candidates on every 8th), where
    the top-K must again be identical on every row and exactly the cluster
    rows must be redone in fp32 (the redo at a tiling where each block
-   walks many row tiles); K9, K10 and K11
-   beside their times before their heads went on the tensor cores, their
-   bounds the head's products as 3xTF32 at the TF32 peak plus the rest at
-   the fp32 peak, the all-fp32 bound beside;
+   walks many row tiles); K8 also at K = 32 and 128 on the same rows, and
+   on the planted network's head input at K = 4 and 8 (top-K identical on
+   every row, bitwise stable); K8, K9, K10 and K11 beside their times
+   before their redesigns, the bounds of K9-K11 the head's products as
+   3xTF32 at the TF32 peak plus the rest at the fp32 peak, the all-fp32
+   bound beside;
 7. trains a small per-row geometry on the card and on the CPU, through
    K10/K11 and through K8/K9, and compares the losses;
 8. runs ``fit`` on that per-row configuration for 3 epochs through
@@ -94,7 +97,12 @@
    K8/K9's launches there); then fits 3 epochs each, the counts set to 0
    just before, at the scaled geometry (K3a, K3b, K1, K2, K12) and on the
    per-row route with ``batchnorm_input`` (K10, K11, K12), and fails unless
-   each launched and the loss is finite and falls;
+   each launched and the loss is finite and falls; then heads past 512
+   (K1, K2, K4-K6, K8, K9 at H = 640 and 1000 against their plain
+   versions, bitwise run to run), and the stack [2 -> 512 x 4 -> 2048],
+   whose row tile K10/K11 cannot hold, on the per-row route "auto": it must
+   launch K8 and K9 once each and K10/K11 never, and match the chunked
+   PyTorch tail in the forward and every layer's gradients;
 13. the measurement path, part 1: holds the probe K7 (both variants)
    against its plain version on all U_c = 161,792 rows of real h from K3a
    at T = 2^14 (the head of ``instantngp_scaled_model()``), bitwise run to
@@ -115,7 +123,7 @@
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
    (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7,
-   K9-K11, K12's ring) their time before the redesign
+   K8-K11, K12's ring) their time before the redesign
    (``before_redesign_ms``, the records' figures in BEFORE_REDESIGN_MS)
    beside this run's; the tensor-core kernels' ``bound_ms`` is that of
    3xTF32 at the TF32 peak (K9-K11: their head's products so, the rest at
@@ -174,7 +182,7 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "hpd_stream_select": 117.44, "hpd_stream_marginal": 171.63,
                       "hpd_stream_fused_probe[dots]": 25.63,
                       "hpd_stream_fused_probe[softmax]": 26.50, "hpd_full_bwd": 24.82,
-                      "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861}
+                      "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861, "hpd_tail_fwd": 6.777}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -292,9 +300,9 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     g_vals = torch.randn(L, n, k, device=dev, generator=gen)
     entries = {}
 
-    def check_fwd(tag, out_k, out_p, again):
+    def check_fwd(tag, out_k, out_p, again, kk=k):
         same = (out_k[2] == out_p[2]).all(dim=2).double().mean().item()
-        log(f"  idx: rows with identical top-{k}: {same:.6f}")
+        log(f"  idx: rows with identical top-{kk}: {same:.6f}")
         if same != 1.0:
             raise AssertionError(f"{tag}: top-K indices differ from the plain version")
         err = max(compare("marg", out_k[0], out_p[0], FWD_TOL), compare("vals", out_k[1], out_p[1], FWD_TOL))
@@ -360,7 +368,19 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd(h, w_head, b_head, k), 10),
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k), 3),
         bound_ms(head_flops, 4.0 * rows * H + head_bytes + out_bytes))
+    redesigned(entries["hpd_tail_fwd"])
     del out_k, out_p
+    by_k = {}
+    for kk in (32, 128):    # the rest of K8's K range, on the same rows
+        log(f"K8 at K={kk}, all rows of real h:")
+        out_k = hpd_tail.hpd_tail_fwd(h, w_head, b_head, kk)
+        check_fwd(f"K8 K={kk}", out_k, hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, kk),
+                  hpd_tail.hpd_tail_fwd(h, w_head, b_head, kk), kk)
+        by_k[kk] = cuda_ms(lambda: hpd_tail.hpd_tail_fwd(h, w_head, b_head, kk), 5)
+        log(f"  kernel {by_k[kk]:.3f} ms")
+        del out_k
+    entries["hpd_tail_fwd"]["ms_by_k"] = by_k
+    entries["hpd_tail_fwd"]["planted"] = planted_tail_ties(L, n, dev, check_fwd)
 
     log("K9 hpd_tail_bwd, all rows of real h:")
     bargs = (h, w_head, b_head, idx_tail, g_marg, g_vals, k)
@@ -382,20 +402,15 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     return entries
 
 
-def planted_near_ties(L, n, dev, check_fwd) -> int:
-    """K10's guard and fp32 redo at the per-row route's tiling (L levels of
-    n rows: a block walks many row tiles): a [2 -> 128 -> 256] network
-    planted as ``tests/test_torch_cuda.py -k full_fwd_guard`` plants it, on
-    every row an exact tie at the top and a near-tie at the K-th place that
-    only the fp32 recompute orders (both orders occur), and on every 8th row
-    a cluster of 8 columns within 1.4e-4 at the top, deeper than the
-    candidates. Fails unless the top-K is identical to the plain version's
-    on every row, marg/vals agree, the outputs are bitwise equal run to run
-    and exactly the cluster rows were redone in fp32. Returns that count."""
-    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_full
-
+def planted_network(L, n, dev):
+    """The planted [2 -> 128 -> 256] network of ``tests/test_torch_cuda.py
+    -k full_fwd_guard`` on L levels of n rows: on every row an exact tie at
+    the top and a near-tie at the K-th place (K = 4) that only the fp32
+    logits order (both orders occur), and on every 8th row a cluster of 8
+    columns within 1.4e-4 at the top. Returns (verts, layers, lift), lift
+    the cluster rows."""
     rng = np.random.default_rng(SEED)
-    hd, t, k = 128, 256, 4
+    hd, t = 128, 256
     v = rng.uniform(0.0, 0.75, size=(L, n))
     v = np.where(v < 0.375, v, v + 0.25)
     lift = np.broadcast_to((np.arange(n) % 8 == 0).astype(np.float64), (L, n))
@@ -410,9 +425,21 @@ def planted_near_ties(L, n, dev, check_fwd) -> int:
     for j, col in enumerate((200, 6, 99, 123, 77, 160, 41, 101)):
         w[:, col], w[1, col], b[col] = base, 10.0, (j * 37 % 8) * 2e-5
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
-    verts = f32(np.stack([v, lift], axis=-1))
-    layers = [(f32(w0), f32(b0)), (f32(w), f32(b))]
-    log(f"K10 on planted near-ties, L={L}, N={n}, [2 -> {hd} -> {t}], K={k}:")
+    return f32(np.stack([v, lift], axis=-1)), [(f32(w0), f32(b0)), (f32(w), f32(b))], lift
+
+
+def planted_near_ties(L, n, dev, check_fwd) -> int:
+    """K10's guard and fp32 redo at the per-row route's tiling (L levels of
+    n rows: a block walks many row tiles) on the planted network
+    (planted_network). Fails unless the top-K is identical to the plain
+    version's on every row, marg/vals agree, the outputs are bitwise equal
+    run to run and exactly the cluster rows were redone in fp32. Returns
+    that count."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_full
+
+    k = 4
+    verts, layers, lift = planted_network(L, n, dev)
+    log(f"K10 on planted near-ties, L={L}, N={n}, [2 -> 128 -> 256], K={k}:")
     out_k = hpd_full.hpd_full_fwd(verts, layers, k)
     fix = fixup_rows(hpd_full.hpd_full_fwd, "K10, planted")
     out_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
@@ -425,6 +452,35 @@ def planted_near_ties(L, n, dev, check_fwd) -> int:
         raise AssertionError(f"K10 planted: {fix} rows redone in fp32, the cluster rows are {want}")
     del out_k, out_p
     return fix
+
+
+def planted_tail_ties(L, n, dev, check_fwd) -> dict:
+    """K8 on the planted network's head input (planted_network: its hidden
+    layer's ReLU output, h (L, n, 128), and its head) at the per-row
+    route's tiling, at K = 4 (the near-tie at the K-th place, both orders)
+    and K = 8 (the clusters of 8 within 1.4e-4 at the top): the top-K
+    identical to the plain version's on every row, marg/vals agreeing,
+    bitwise equal run to run. Returns the rows where the plain version's
+    K-th place is each near-tie column."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_tail
+
+    verts, layers, lift = planted_network(L, n, dev)
+    h = torch.relu(verts @ layers[0][0] + layers[0][1]).contiguous()
+    w, b = layers[1]
+    out = {}
+    for k in (4, 8):
+        log(f"K8 on planted near-ties, L={L}, N={n}, H=128, T=256, K={k}:")
+        out_p = hpd_tail.hpd_tail_fwd_plain(h, w, b, k)
+        check_fwd(f"K8 planted K={k}", hpd_tail.hpd_tail_fwd(h, w, b, k), out_p,
+                  hpd_tail.hpd_tail_fwd(h, w, b, k), k)
+        if k == 4:
+            kth = out_p[2][torch.as_tensor(lift == 0, device=dev)][:, k - 1]
+            out = {int(c): int((kth == c).sum()) for c in kth.unique()}
+            log(f"  the plain version's K-th places on the rows without a cluster: {out}")
+            if set(out) != {120, 45}:
+                raise AssertionError(f"planted near-tie: the plain version's K-th places are {set(out)}")
+        del out_p
+    return out
 
 
 def tail_bwd_bound(u, H, T, L, k, tensor=True):
@@ -1063,6 +1119,126 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     return out
 
 
+def dyadic(gen, shape, lo, hi, scale, dev):
+    """Integers in [lo, hi) times scale (a power of two), from gen."""
+    return torch.randint(lo, hi, shape, device=dev, generator=gen).float() * scale
+
+
+def past_512_phase(hpd_stream, hpd_tail, dev, gen) -> dict:
+    """ROADMAP §3.1's heads past 512: K1, K2, K4, K5, K6 (U = 4,000, T =
+    2048, L = 4, K = 4) and K8, K9 (L = 2, N = 4,000, T = 256, K = 4) at
+    head inputs of 640 and 1000 against their plain versions (identical
+    top-K, 1e-5 forward, 1e-4 gradients), bitwise run to run; K8's and K9's
+    times logged. h, w and b are multiples of 1/8, 1/128 and 1/512: every
+    logit is exact in fp32 whatever the order of its 640-1000 terms, so the
+    kernels' sums and cuBLAS's rank the columns alike (random fp32 data
+    puts near-ties within their rounding differences at these widths).
+    Returns {H: {check: normwise error}}."""
+    out = {}
+    for hd in (640, 1000):
+        u, t, l, k = 4000, 2048, 4, 4
+        errs = out[hd] = {}
+        h = dyadic(gen, (u, hd), 0, 8, 1 / 8, dev)
+        w = dyadic(gen, (hd, t), -8, 9, 1 / 128, dev)
+        b = dyadic(gen, (t,), -64, 65, 1 / 512, dev)
+        counts = torch.randint(0, 5, (l, u), device=dev, generator=gen).float()
+        log(f"K1/K2, K4-K6 at H={hd}, U={u}, T={t}, L={l}, K={k}:")
+        ref = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest")
+        fwd = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k)
+        sel = hpd_stream.hpd_stream_select(h, w, b, k)
+        if not (torch.equal(fwd[2], ref[2]) and torch.equal(sel[1], ref[2])):
+            raise AssertionError(f"K1/K4 at H = {hd}: top-K indices differ from the plain version")
+        for n_, a, r in zip(("K1 marg", "K1 vals", "K4 vals", "K4 m", "K4 s"),
+                            (fwd[0], fwd[1], sel[0], sel[2], sel[3]), (ref[0], ref[1], ref[1], ref[3], ref[4])):
+            errs[n_] = compare(n_, a, r, FWD_TOL)
+        errs["K5 marg"] = compare("K5 marg", hpd_stream.hpd_stream_marginal(h, w, b, counts, *ref[3:]),
+                                  ref[0], FWD_TOL)
+        bitwise_same(f"K1 at H={hd}", fwd, hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k))
+        bargs = (h, w, b, counts, ref[2], ref[1], ref[3], ref[4],
+                 torch.randn(l, t, device=dev, generator=gen), torch.randn(u, k, device=dev, generator=gen), k)
+        want = hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False)
+        for name, fn in (("K2", hpd_stream.hpd_stream_fused_bwd), ("K6", hpd_stream.hpd_tail_unique_bwd)):
+            got = fn(*bargs)
+            for n_, a, r in zip(("dh", "dw", "db"), got, want):
+                errs[f"{name} {n_}"] = compare(f"{name} {n_}", a, r, GRAD_TOL)
+            bitwise_same(f"{name} at H={hd}", got, fn(*bargs))
+        del ref, fwd, sel, want, got
+        lr, nr, tr = 2, 4000, 256
+        log(f"K8/K9 at H={hd}, L={lr}, N={nr}, T={tr}, K={k}:")
+        ht = dyadic(gen, (lr, nr, hd), 0, 8, 1 / 8, dev)
+        wt, bt = dyadic(gen, (hd, tr), -8, 9, 1 / 128, dev), dyadic(gen, (tr,), -64, 65, 1 / 512, dev)
+        tf = hpd_tail.hpd_tail_fwd(ht, wt, bt, k)
+        tp = hpd_tail.hpd_tail_fwd_plain(ht, wt, bt, k)
+        if not torch.equal(tf[2], tp[2]):
+            raise AssertionError(f"K8 at H = {hd}: top-K indices differ from the plain version")
+        errs["K8 marg"], errs["K8 vals"] = (compare(f"K8 {n_}", a, r, FWD_TOL)
+                                            for n_, a, r in zip(("marg", "vals"), tf[:2], tp[:2]))
+        bitwise_same(f"K8 at H={hd}", tf, hpd_tail.hpd_tail_fwd(ht, wt, bt, k))
+        targs = (ht, wt, bt, tp[2], torch.randn(lr, tr, device=dev, generator=gen),
+                 torch.randn(lr, nr, k, device=dev, generator=gen), k)
+        got = hpd_tail.hpd_tail_bwd(*targs)
+        for n_, a, r in zip(("dh", "dw", "db"), got, hpd_tail.hpd_tail_bwd_plain(*targs)):
+            errs[f"K9 {n_}"] = compare(f"K9 {n_}", a, r, GRAD_TOL)
+        bitwise_same(f"K9 at H={hd}", got, hpd_tail.hpd_tail_bwd(*targs))
+        errs["K8 ms"] = cuda_ms(lambda: hpd_tail.hpd_tail_fwd(ht, wt, bt, k), 3)
+        errs["K9 ms"] = cuda_ms(lambda: hpd_tail.hpd_tail_bwd(*targs), 3)
+        log(f"  K8 {errs['K8 ms']:.3f} ms, K9 {errs['K9 ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ROADMAP §3.1's overflowing stack: four hidden layers of 512 at T = 2048,
+# whose 16-row tile K10/K11 cannot hold
+DEEP_HIDDEN = (512, 512, 512, 512)
+
+
+def overflow_stack_phase(hpd_tail, hpd_full, dev) -> dict:
+    """The per-row route "auto" on [2 -> 512 x 4 -> 2048], K = 4, L = 4, N =
+    16,384 a level (apply_hpd_fused with the wrappers' counts set to 0 just
+    before): it must take the plain stack and K8/K9 (one launch each, none
+    of K10/K11), and match the chunked PyTorch tail (the plain stack and
+    the tail's plain version, "jax") in the forward (identical top-K, 1e-5)
+    and in every layer's gradients (1e-4)."""
+    from collision_handling_in_instantngp_tpu_torch.config import ModelConfig
+    from collision_handling_in_instantngp_tpu_torch.models import hpd as port_hpd
+    from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP
+
+    cfg = ModelConfig(hpd_hidden=DEEP_HIDDEN, hash_table_size=2048, topk_k=4)
+    widths = (2, *DEEP_HIDDEN, 2048)
+    route = port_hpd.fused_backend(cfg)
+    log(f"the stack {list(widths)} on the per-row route 'auto': K10/K11 tile fits "
+        f"{hpd_full.supports(widths, 4)}, route {route!r}")
+    if route != "pallas":
+        raise AssertionError(f"the overflowing stack takes {route!r}, not K8/K9")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    verts = torch.randint(0, 64, (4096, 4, 4, 2), generator=gen).float().to(dev)
+    g_marg = torch.randn(4, 2048, generator=gen).to(dev)
+    g_vals = torch.randn(4096, 4, 4, 4, generator=gen).to(dev)
+    wrappers = (hpd_tail.hpd_tail_fwd, hpd_tail.hpd_tail_bwd, hpd_full.hpd_full_fwd, hpd_full.hpd_full_bwd)
+    outs = []
+    for backend in ("auto", "jax"):
+        net = MLP(widths, generator=torch.Generator().manual_seed(SEED), device=dev)
+        for fn in wrappers:
+            fn.launches = 0
+        marg, vals, idx = port_hpd.apply_hpd_fused(net, verts, dataclasses.replace(cfg, hpd_backend=backend))
+        ((marg * g_marg).sum() + (vals * g_vals).sum()).backward()
+        outs.append((marg.detach(), vals.detach(), idx, [p.grad for p in net.parameters()]))
+        if backend == "auto":
+            launches = [fn.launches for fn in wrappers]
+            log(f"  launches K8, K9, K10, K11: {launches}")
+            if launches != [1, 1, 0, 0]:
+                raise AssertionError(f"the overflowing stack launched K8, K9, K10, K11 {launches} times")
+    (mk, vk, ik, gk), (mp, vp, ip, gp) = outs
+    same = (ik == ip).all(dim=-1).double().mean().item()
+    log(f"  idx: rows with identical top-4: {same:.6f}")
+    if same != 1.0:
+        raise AssertionError("the overflowing stack: top-K indices differ from the plain version")
+    errs = {"marg": compare("marg", mk, mp, FWD_TOL), "vals": compare("vals", vk, vp, FWD_TOL)}
+    for i, (a, r) in enumerate(zip(gk, gp)):
+        errs[f"grad{i}"] = compare(f"grad {i}", a, r, GRAD_TOL)
+    return dict(route=route, launches=dict(zip(("K8", "K9", "K10", "K11"), launches)), errors=errs)
+
+
 # the JAX kernel each wrapper replaces (JAX_SRC + this)
 REPLACES = {"hpd_stream_fused_fwd": "hpd_stream.py:570", "hpd_stream_fused_bwd": "hpd_stream.py:722",
             "hpd_stream_select": "hpd_stream.py:193", "hpd_stream_marginal": "hpd_stream.py:282",
@@ -1188,7 +1364,8 @@ HIDDEN_KERNELS = {"hidden_fwd_kernel": [(rt,) for rt in (16, 32, 64)],
                   "hidden_bwd_kernel": [(rt, ws) for rt in (16, 32, 64) for ws in (0, 1)],
                   "hidden_dw_kernel": [()]}
 # K9, K10 and K11 take their head's products as mma.sync (HMMA) at every
-# tile size; K8 stays fp32 FMA on the CUDA cores and must hold none
+# tile size; K8 is fp32 FMA on the CUDA cores (its 3xTF32 design lost to
+# it on the card) and must hold none
 PER_ROW_TENSOR_CORE = {"hpd_full": ("full_fwd_kernel", "full_bwd_kernel"),
                        "hpd_tail": ("tail_bwd_kernel",)}
 PER_ROW_FP32 = {"hpd_tail": ("tail_fwd_kernel",)}
@@ -1550,6 +1727,8 @@ def main() -> int:
 
     # -------- the wide stack [2 -> 256 -> 512 -> 256] (ROADMAP §3.1) -------- #
     entries.update(wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen))
+    past_512 = past_512_phase(hpd_stream, hpd_tail, dev, gen)
+    overflow = overflow_stack_phase(hpd_tail, hpd_full, dev)
     k3_pair = {"hidden_stack_fwd": hidden.hidden_stack_fwd, "hidden_stack_bwd": hidden.hidden_stack_bwd}
     small_stream = dict(num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream")
     log(f"wide stack {WIDE_HIDDEN}: small geometries, 2 epochs, card (kernels) vs CPU (plain versions):")
@@ -1609,7 +1788,7 @@ def main() -> int:
                        split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
                        split_profile=profile16, sweep_ladder_highest=ladder,
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
-                       wide_fit=wide_fit,
+                       wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

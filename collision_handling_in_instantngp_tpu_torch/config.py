@@ -78,9 +78,10 @@ class ModelConfig:
     # dedup route: "auto" streams the HPD tail past DEDUP_DENSE_MAX_ELEMENTS
     # (U*T), "unique_stream" always streams; anything else runs dense.
     # per-row route: "auto" takes the whole-network kernels (K10/K11) for
-    # K <= 32 and T <= 2048, "pallas_full" always; "pallas" the tail
-    # kernels (K8/K9) after a plain hidden stack; anything else the chunked
-    # PyTorch tail
+    # K <= 32 and T <= 2048, "pallas_full" always, both only where their
+    # row tile fits the stack; "pallas" (and those two past that tile) the
+    # tail kernels (K8/K9) after a plain hidden stack; anything else the
+    # chunked PyTorch tail (models/hpd.py: fused_backend)
     hpd_backend: str = "auto"
 
     @property

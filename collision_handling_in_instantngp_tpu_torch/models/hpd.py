@@ -14,10 +14,12 @@ CPU tensor it runs their plain versions.
 
 ``apply_hpd_fused`` evaluates it on every (pixel, level, corner) row (the
 per-row route) without the dense (P, L, V, T) probabilities. The route
-follows the config alone: "auto" with K <= 32 and T <= 2048, or
-"pallas_full", runs the whole network as kernels K10/K11; "pallas" runs a
-plain hidden stack and the tail kernels K8/K9; anything else the chunked
-PyTorch tail. On a CPU tensor a kernel route runs its plain versions.
+follows the config alone (``fused_backend``): "auto" with K <= 32 and
+T <= 2048, or "pallas_full", runs the whole network as kernels K10/K11
+where their row tile fits the stack; "pallas", and those two past that
+tile, run a plain hidden stack and the tail kernels K8/K9; anything else
+the chunked PyTorch tail. On a CPU tensor a kernel route runs its plain
+versions.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig, TopkScatterMode
 from ..ops.cuda import hidden
+from ..ops.cuda import hpd_full as hpd_full_kernels
 from ..ops.cuda.hpd_full import hpd_full
 from ..ops.cuda.hpd_stream import MAX_K
 from ..ops.fused_hpd import hpd_tail, hpd_tail_unique
@@ -112,12 +115,22 @@ FULL_MAX_T = 2048
 
 
 def fused_backend(cfg: ModelConfig) -> str:
-    """"pallas_full" (K10/K11), "pallas" (K8/K9) or "jax" (chunked tail)."""
+    """"pallas_full" (K10/K11), "pallas" (K8/K9) or "jax" (chunked tail).
+
+    "auto" (up to FULL_MAX_K, FULL_MAX_T) and "pallas_full" take K10/K11
+    only where their row tile fits the stack (``hpd_full.supports``, from
+    the shapes alone); past it a plain hidden stack and K8/K9, which compute
+    the same function, as JAX's "pallas" route runs its XLA stack. A head
+    K9's tile does not hold raises there, on the card, naming the limit."""
     backend = cfg.hpd_backend
     if backend == "auto":
-        ok = cfg.topk_k <= FULL_MAX_K and cfg.hash_table_size <= FULL_MAX_T
-        return "pallas_full" if ok else "jax"
-    return backend if backend in ("pallas_full", "pallas") else "jax"
+        if not (cfg.topk_k <= FULL_MAX_K and cfg.hash_table_size <= FULL_MAX_T):
+            return "jax"
+        backend = "pallas_full"
+    if backend == "pallas_full":
+        widths = (cfg.input_dim, *cfg.hpd_hidden, cfg.hash_table_size)
+        return "pallas_full" if hpd_full_kernels.supports(widths, cfg.topk_k) else "pallas"
+    return backend if backend == "pallas" else "jax"
 
 
 def apply_hpd_fused(hpd: MLP, vertices: torch.Tensor, cfg: ModelConfig):

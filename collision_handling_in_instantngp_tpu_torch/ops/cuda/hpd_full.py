@@ -31,7 +31,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import build
-from .hpd_tail import hpd_tail_bwd_plain, hpd_tail_fwd_plain, padded_head
+from .hpd_tail import (BK, SMEM_MAX, TT, WMAX, head_stage_floats, hpd_tail_bwd_plain,
+                       hpd_tail_fwd_plain, mma_ld, padded_head)
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 MAX_LAYERS = 16
@@ -66,6 +67,45 @@ def guard_eps(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+# ------------------- the row tile's plan (hpd_full.cu) --------------------- #
+#
+# K10/K11 keep a row tile's every activation in shared memory, so a deep
+# and wide stack can leave no tile that fits. These restate the plan of
+# hpd_full.cu (make_net, wide_strides, fwd_smem, bwd_smem, pick_rpt), in
+# floats, so that the route is decided from the shapes before any launch
+# (models/hpd.py: fused_backend); tests/test_torch_cuda.py holds the plan
+# to hpd_full_blocks.
+
+def tile_floats(widths: Sequence[int], rpt: int) -> Tuple[int, int]:
+    """Shared-memory floats of the forward's and the backward's row tile at
+    rpt rows a thread (hpd_full.cu: fwd_smem, bwd_smem). widths: [d,
+    hidden..., T]."""
+    n, t = len(widths) - 1, widths[-1]
+    acols = sum(w + 1 for w in widths[:n - 1]) + mma_ld(widths[n - 1])
+    lda = mma_ld(max([WMAX, *widths[:n]]))
+    gld = max([WMAX, *widths[1:n]]) + 1
+    r, stage = 16 * rpt, max(BK * (TT + 1), head_stage_floats(rpt))
+    return (2 * r * lda + stage + r * mma_ld(t) + t + widths[n - 1] + 1,
+            r * acols + r * gld + stage + r * max(mma_ld(t), gld) + t)
+
+
+def tile_rpt(widths: Sequence[int]) -> int:
+    """Rows a thread of the widest row tile whose forward and backward both
+    fit in shared memory (hpd_full.cu: pick_rpt), 0 if none does."""
+    for rpt in (4, 2, 1):
+        if 4 * max(tile_floats(widths, rpt)) <= SMEM_MAX:
+            return rpt
+    return 0
+
+
+def supports(widths: Sequence[int], k: int) -> bool:
+    """Whether K10/K11 take the stack widths [d, hidden..., T] at top-K k:
+    the kernels' width, depth, T and K limits, and a row tile that fits."""
+    n = len(widths) - 1
+    return (1 <= n <= MAX_LAYERS and max(widths[:-1]) <= MAX_WIDTH and widths[-1] <= MAX_T
+            and 1 <= k <= min(MAX_K, widths[-1]) and tile_rpt(widths) > 0)
 
 
 # ------------------------------ plain versions ------------------------------ #
@@ -157,7 +197,8 @@ def _prepare(verts, layers, k):
     blocks = lib.hpd_full_blocks(len(layers), cw, l, n, k)
     if blocks == 0:
         raise ValueError(f"hpd_full kernels: a 16-row tile of the stack {widths} does not fit in "
-                         "shared memory (ROADMAP.md §3)")
+                         "shared memory (supports() is False: models/hpd.py routes such a stack "
+                         "to the per-row tail)")
     return lib, verts, params, widths, cw, blocks
 
 

@@ -73,7 +73,7 @@ int rows_per_seg(int u) {
 
 // ---------------- wide heads: H past HMAX, on the CUDA cores ---------------- //
 //
-// A head wider than HMAX (up to HWIDE, the JAX kernels' hidden-stack width)
+// A head wider than HMAX (any width up to HWIDE, the grid's limit below)
 // takes the passes of this section instead of the tensor-core passes below,
 // whose shared-memory plans hold a whole R x HMAX tile of h (and its hi /
 // lo split) for the block's life. Each wide pass streams h through the
@@ -96,9 +96,13 @@ int rows_per_seg(int u) {
 // blocks in the fixed segment partials: bitwise stable run to run. Speed
 // at these widths is not tuned (PERF.md §6).
 
-constexpr int HWIDE = 512;
 constexpr int TP = TT + 4;   // row stride of the p / dl tiles
 constexpr int DWK = 64;      // rows of dW a block of the dW pass owns
+// The widest head: the dW pass puts its ceil(H / DWK) chunks on grid.z
+// and the dh pass its ceil(H / HMAX) on grid.y, both at most 65,535 blocks;
+// no shared-memory plan of a wide pass grows with H (h streams through the
+// R x HMAX tile).
+constexpr int HWIDE = 65535 * DWK;
 
 // The logits h w + b of the rows row(r) (r < R; -1: a zero row) x columns
 // [t0, t0 + TT), h streamed through h_s (R x HP) in HMAX-deep chunks; laid

@@ -27,10 +27,10 @@ Hopper kernels of both forms stream 64-column tiles at any T.
 For a CUDA tensor the wrappers launch the kernels of ``hpd_stream.cu`` (K1
 is K4's rows pass then K5's columns pass, counted as K1 alone), every
 product on the tensor cores (3xTF32 at 'highest') for H <= TC_MAX_H. A
-wider head (up to MAX_H) takes the wide passes of ``hpd_stream.cu``
-instead: fp32 FMA under the precision contract, the exact sweep for the
-rows pass (every row counts as fixed up), and K2 runs K6's launches (the
-same function). The rows pass takes its
+wider head (any width to MAX_H, the launch grid's limit) takes the wide
+passes of ``hpd_stream.cu`` instead: fp32 FMA under the precision
+contract, the exact sweep for the rows pass (every row counts as fixed
+up), and K2 runs K6's launches (the same function). The rows pass takes its
 top-K from tensor-core logits by candidate refinement: the top K + 4
 candidates of each row are recomputed in fp32 and a per-row guard
 (:func:`select_guard_eps`) decides whether they settle the fp32 top-K; the
@@ -54,10 +54,11 @@ from ..topk import topk_lowest_index
 from . import build
 
 MAX_K = 16
-# The tensor-core passes take heads up to TC_MAX_H wide; past it, up to
-# MAX_H (the JAX package's hidden-stack width), the CUDA-core wide passes.
+# The tensor-core passes take heads up to TC_MAX_H wide; past it the
+# CUDA-core wide passes take any width up to MAX_H, where the dW pass's
+# ceil(H / 64) chunks fill the launch grid's z limit (hpd_stream.cu: HWIDE).
 TC_MAX_H = 128
-MAX_H = 512
+MAX_H = 65535 * 64
 MAX_L = 32
 COL_TILE = 128
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB

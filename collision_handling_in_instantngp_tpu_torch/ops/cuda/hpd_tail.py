@@ -12,13 +12,18 @@ Backward: + idx, g_marg (L, T), g_vals (L, N, K) -> dh (L, N, H), dw (H, T),
   dlogits = p (g_p - <g_p, p>).
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_tail.cu``,
-whatever the model's matmul precision: the forward in fp32 on the CUDA
-cores, the backward's three products (the logits replay, dW, dh) as
-3xTF32 on the tensor cores (``per_row_mma.cuh``, as in K11), softmax and
-dlogits in fp32; for a CPU tensor they run the plain version below at
-fp32. The plain version streams the rows in chunks so that (L, N, T)
-never exists whole; at the model's precision it is also the port of the
-JAX package's ``lax.scan`` tail (``ops/fused_hpd.py``).
+whatever the model's matmul precision. The forward (any H) takes the
+logits in fp32 FMA on the CUDA cores, each one fma chain over k
+ascending, then softmax, the column sums and the top-K of p from the
+same tile (``hpd_tail.cu``). The backward's three products (the logits
+replay, dW, dh) run as 3xTF32 on the tensor cores (``per_row_mma.cuh``,
+as in K11), softmax and dlogits in fp32; its row tile holds all of h, so
+it takes head inputs up to ``bwd_max_h(T)`` (1,152 at T = 2048, 3,040 at
+T = 256).
+For a CPU tensor they run the plain version below at fp32. The plain
+version streams the rows in chunks so that (L, N, T) never exists whole;
+at the model's precision it is also the port of the JAX package's
+``lax.scan`` tail (``ops/fused_hpd.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +36,6 @@ from ..precision import pdot
 from ..topk import topk_lowest_index
 from . import build
 
-MAX_H = 512                      # the JAX package's hidden-stack width
 MAX_T = 2048
 MAX_K = 128
 CHUNK_ROWS = 4096
@@ -41,6 +45,38 @@ TILE_BUDGET = 1 << 24
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+# ---------------- the per-row kernels' shared-memory plans ----------------- #
+#
+# The constants and strides of per_row.cuh and per_row_mma.cuh, restated
+# so that a route is decided from the shapes before any launch: K9's tile
+# here, K10/K11's in hpd_full.py. tests/test_torch_width_faults.py holds
+# them to the headers.
+THREADS = 256
+BK, TT, WMAX = 32, 128, 128
+SMEM_MAX = 232448                # bytes a block may use
+
+
+def mma_ld(w: int) -> int:
+    """per_row_mma.cuh: the row stride of a tile the head's helpers read."""
+    return (w + 31) // 32 * 32 + 4
+
+
+def head_stage_floats(rpt: int) -> int:
+    """per_row_mma.cuh: the staged head chunks at rpt rows a thread."""
+    wc = THREADS // 32 // (rpt // (2 if rpt >= 2 else 1))
+    kl, kd = (64, 64) if rpt >= 4 else (16, 32)
+    buf = max(kl * (wc * 32 + 8), WMAX * (kd + 4))
+    return (2 if rpt >= 4 else 1) * buf
+
+
+def bwd_max_h(t: int) -> int:
+    """The widest head input whose 16-row backward tile fits at T = t
+    (hpd_tail.cu: tail_bwd_smem at one row a thread: the h and logits tiles
+    at mma_ld strides, the staged head and g_marg's row)."""
+    room = (SMEM_MAX // 4 - head_stage_floats(1) - 16 * mma_ld(t) - t) // 16 - 4
+    return room // 32 * 32          # round32(H) <= room
 
 
 def chunk_rows(num_levels: int, t: int) -> int:
@@ -96,7 +132,11 @@ def hpd_tail_bwd_plain(h, w, b, idx, g_marg, g_vals, k: int, precision: str = "h
 # --------------------------------- kernels ---------------------------------- #
 
 def _lib() -> ctypes.CDLL:
-    lib = build.library("hpd_tail")
+    return _configure(build.library("hpd_tail"))
+
+
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a built hpd_tail library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.hpd_tail_fwd.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 5
     lib.hpd_tail_fwd.restype = ci
@@ -111,17 +151,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(h, w, b, k, **more):
+def check_inputs(h, w, b, k, bwd=False, **more):
     """Contiguous float32/int32 copies on h's device; raises ValueError
-    naming the kernels' limits."""
+    naming the kernels' limits (the backward's: its tile's widest H)."""
     if h.dim() != 3:
         raise ValueError(f"h must be (L, N, H), got {tuple(h.shape)}")
     l, n, hd = h.shape
     t = w.shape[1]
-    if not (l >= 1 and n >= 1 and 1 <= hd <= MAX_H and 1 <= t <= MAX_T and 1 <= k <= min(MAX_K, t)):
+    if not (l >= 1 and n >= 1 and hd >= 1 and 1 <= t <= MAX_T and 1 <= k <= min(MAX_K, t)):
         raise ValueError(
-            f"hpd_tail kernels take L >= 1, N >= 1, H <= {MAX_H}, T <= {MAX_T}, "
+            f"hpd_tail kernels take L >= 1, N >= 1, H >= 1, T <= {MAX_T}, "
             f"1 <= K <= min({MAX_K}, T); got L={l}, N={n}, H={hd}, T={t}, K={k}"
+        )
+    if bwd and hd > bwd_max_h(t):
+        raise ValueError(
+            f"hpd_tail backward (K9): its 16-row tile holds all of h, so it takes H <= "
+            f"{bwd_max_h(t)} at T={t} (the card's 227 KB of shared memory a block); got H={hd}"
         )
     if tuple(w.shape) != (hd, t) or tuple(b.shape) != (t,):
         raise ValueError(f"shapes h {tuple(h.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} do not agree")
@@ -140,7 +185,7 @@ def check_inputs(h, w, b, k, **more):
 def padded_head(w: torch.Tensor) -> torch.Tensor:
     """The head w (H, T) padded with zeros to (hpd_tail_head_rows(H),
     hpd_tail_head_ld(T)): H up to whole 128-row chunks of dh, so that every
-    chunk the per-row kernels stage lies inside it: K9's, and K10's and
+    chunk the per-row kernels stage lies inside it: K8's and K9's, and K10's and
     K11's (``hpd_full.py``)."""
     hd, t = w.shape
     lib = _lib()
@@ -157,13 +202,14 @@ def _launch_fwd(h, w, b, k):
     t = w.shape[1]
     lib = _lib()
     f32 = dict(device=dev, dtype=torch.float32)
+    w_pad = padded_head(w)
     marg = torch.empty(l, t, **f32)
     marg_part = torch.empty(lib.hpd_tail_blocks(l, n, hd, t, k, 0), t, **f32)
     vals = torch.empty(l, n, k, **f32)
     idx = torch.empty(l, n, k, device=dev, dtype=torch.int32)
     with torch.cuda.device(dev):
         code = lib.hpd_tail_fwd(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), l, n, hd, t, k,
+            h.data_ptr(), w_pad.data_ptr(), b.data_ptr(), l, n, hd, t, k,
             marg.data_ptr(), marg_part.data_ptr(), vals.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -174,7 +220,8 @@ def _launch_fwd(h, w, b, k):
 
 def _launch_bwd(h, w, b, idx, g_marg, g_vals, k):
     dev = h.device
-    h, w, b, idx, g_marg, g_vals = check_inputs(h, w, b, k, idx=idx, g_marg=g_marg, g_vals=g_vals)
+    h, w, b, idx, g_marg, g_vals = check_inputs(h, w, b, k, bwd=True, idx=idx, g_marg=g_marg,
+                                                g_vals=g_vals)
     l, n, hd = h.shape
     t = w.shape[1]
     lib = _lib()

@@ -12,10 +12,11 @@
 // The products here are fp32 FMA on the CUDA cores: a 256-thread block
 // computes an (R x 128) output tile, thread (ty, tx) holding rows
 // ty*RPT + i and columns tx + 16*j, with the right operand staged through
-// shared memory in 32-deep chunks. K8 and the hidden layers of K10 and K11
-// run them, fp32 whatever matmul precision the model names (the TPU kernels
+// shared memory in 32-deep chunks. The hidden layers of K10 and K11 run
+// them, fp32 whatever matmul precision the model names (the TPU kernels
 // pass no precision to their dots); the head's products of K9, K10 and K11
-// run as 3xTF32 on the tensor cores instead (per_row_mma.cuh).
+// run as 3xTF32 on the tensor cores instead (per_row_mma.cuh), and K8's
+// logits as fp32 FMA of its own (hpd_tail.cu: fma_logits).
 #pragma once
 
 #include <float.h>
@@ -166,28 +167,6 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, size_t 
   for (int e = threadIdx.x; e < R * width; e += THREADS) {
     const int r = e / width, k = e - r * width;
     dst[r * ld + k] = r < rows ? src[(base + r) * width + k] : 0.f;
-  }
-}
-
-// Logits A @ w + b of the tile into cache (R x (T + 1)); w is H x T.
-template <int RPT>
-__device__ __forceinline__ void tile_logits(const float* __restrict__ A, int lda, int H,
-                                            const float* __restrict__ w,
-                                            const float* __restrict__ b, int T,
-                                            float* __restrict__ b_s, float* __restrict__ cache) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ldc = T + 1;
-  for (int c0 = 0; c0 < T; c0 += TT) {
-    float acc[RPT][8];
-    tile_mm<RPT, false>(A, lda, H, w, T, c0, b_s, acc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c >= T) continue;
-      const float bc = b[c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) cache[(ty * RPT + i) * ldc + c] = acc[i][j] + bc;
-    }
   }
 }
 

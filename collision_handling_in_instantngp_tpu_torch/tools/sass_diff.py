@@ -1,13 +1,14 @@
 """Compare the SASS of the per-row kernels' narrow instances (heads up to
-128) between a parent checkout and this one, on the card.
+128) between a parent checkout and this one, on the card: K9, K10 and K11
+(K8's forward has no instance of that form).
 
     python3 -m collision_handling_in_instantngp_tpu_torch.tools.sass_diff \\
         --parent _archive/parent
 
 Builds ``hpd_full.cu`` and ``hpd_tail.cu`` from both checkouts with the
 port's nvcc flags (into ``--out``), disassembles them with ``cuobjdump
--sass`` and, for every narrow instance (the parent's ``kernel<RPT>``
-against this checkout's ``kernel<RPT, false>``), prints the instruction
+-sass`` and, for every narrow instance (``kernel<RPT, false>`` in both),
+prints the instruction
 count, ptxas's register and spill lines, and whether the two listings are
 identical once addresses and constants are normalised (the kernels'
 parameter offsets differ); the first differing lines otherwise. Exits 1
@@ -24,8 +25,7 @@ import subprocess
 
 from ..ops.cuda import build
 
-LIBS = {"hpd_full": ("full_fwd_kernel", "full_bwd_kernel"),
-        "hpd_tail": ("tail_fwd_kernel", "tail_bwd_kernel")}
+LIBS = {"hpd_full": ("full_fwd_kernel", "full_bwd_kernel"), "hpd_tail": ("tail_bwd_kernel",)}
 
 
 def disassemble(src_dir: str, lib: str, out: str):
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
         cr, cf = disassemble(build.HERE, lib, os.path.join(args.out, f"change_{lib}.so"))
         for kern in kernels:
             for rpt in (4, 2, 1):
-                pk = [k for k in pf if f"{kern}ILi{rpt}EE" in k]
+                pk = [k for k in pf if f"{kern}ILi{rpt}ELb0EE" in k]
                 ck = [k for k in cf if f"{kern}ILi{rpt}ELb0EE" in k]
                 if not pk or not ck:
                     print(f"{kern}<{rpt}>: instance missing (parent {pk}, this {ck})")
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
                     continue
                 a, b = pf[pk[0]], cf[ck[0]]
                 diff = list(difflib.unified_diff(a, b, lineterm="", n=0))
-                print(f"{kern}<{rpt}> (parent) / <{rpt}, false>: {len(a)} / {len(b)} instructions, "
+                print(f"{kern}<{rpt}, false>: {len(a)} / {len(b)} instructions (parent / this), "
                       f"identical: {not diff}; ptxas {pr.get(pk[0])} / {cr.get(ck[0])}")
                 if diff:
                     differ = 1

@@ -371,13 +371,11 @@ def test_per_row_kernels_select_on_p(dev):
     assert (idx[..., 0] == lo).all() and (idx[..., 1] == hi).all()
 
 
-def test_full_fwd_guard_hands_near_ties_to_the_redo(dev):
-    """K10 on a planted [2 -> 128 -> 256] network (as
+def _planted_network(dev):
+    """A planted [2 -> 128 -> 256] network on 1,024 rows (as
     tests/test_torch_tf32_per_row.py plants it): an exact tie at the top,
-    a near-tie at the 4th place in both orders, and on every 8th row a
-    cluster of 8 columns within 1.4e-4 at the top. Top-K identical to the
-    plain version on every row, exactly the cluster rows redone in fp32,
-    bitwise equal run to run."""
+    a near-tie at the 4th place in both orders, and on every 8th row (lift)
+    a cluster of 8 columns within 1.4e-4 at the top. (verts, layers, lift)."""
     rng = np.random.default_rng(65535)
     n, hd, t = 1024, 128, 256
     v = rng.uniform(0.0, 0.75, size=n)
@@ -394,8 +392,14 @@ def test_full_fwd_guard_hands_near_ties_to_the_redo(dev):
     for j, col in enumerate((200, 6, 99, 123, 77, 160, 41, 101)):
         w[:, col], w[1, col], b[col] = base, 10.0, (j * 37 % 8) * 2e-5
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    verts = f32(np.stack([v, lift], axis=-1)[None])
-    layers = [(f32(w0), f32(b0)), (f32(w), f32(b))]
+    return f32(np.stack([v, lift], axis=-1)[None]), [(f32(w0), f32(b0)), (f32(w), f32(b))], lift
+
+
+def test_full_fwd_guard_hands_near_ties_to_the_redo(dev):
+    """K10 on the planted network (_planted_network): top-K identical to
+    the plain version on every row, exactly the cluster rows redone in
+    fp32, bitwise equal run to run."""
+    verts, layers, lift = _planted_network(dev)
     ref = hpd_full.hpd_full_fwd_plain(verts, layers, 4)
     assert set(ref[2][0, lift == 0, 3].tolist()) == {120, 45}
     out = hpd_full.hpd_full_fwd(verts, layers, 4)
@@ -404,6 +408,25 @@ def test_full_fwd_guard_hands_near_ties_to_the_redo(dev):
     _close(out[0], ref[0], 1e-5, "marg")
     _close(out[1], ref[1], 1e-5, "vals")
     assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_full.hpd_full_fwd(verts, layers, 4)))
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_tail_fwd_planted_near_ties(dev, k):
+    """K8 on the planted network's head input (its hidden layer's ReLU
+    output): at K = 4 the near-tie at the 4th place in both orders, at K = 8
+    the clusters of 8 within 1.4e-4; top-K identical to the plain version
+    on every row, bitwise equal run to run."""
+    verts, layers, lift = _planted_network(dev)
+    h = torch.relu(verts @ layers[0][0] + layers[0][1]).contiguous()
+    w, b = layers[1]
+    ref = hpd_tail.hpd_tail_fwd_plain(h, w, b, k)
+    if k == 4:
+        assert set(ref[2][0, lift == 0, 3].tolist()) == {120, 45}
+    out = hpd_tail.hpd_tail_fwd(h, w, b, k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_tail.hpd_tail_fwd(h, w, b, k)))
 
 
 def test_per_row_wrappers_refuse_shapes(dev):
@@ -558,7 +581,8 @@ def test_tail_bwd_on_tensor_cores_matches_plain(dev, u, t, l, k, hd, precision):
 # (through K6's launches), K4, K5 and K6, at the JAX kernels' widths
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("u,t,l,k,hd", [(300, 2048, 3, 4, 256), (200, 4096, 16, 16, 512),
-                                        (77, 256, 2, 1, 136)])
+                                        (77, 256, 2, 1, 136), (300, 2048, 3, 4, 640),
+                                        (100, 2048, 2, 4, 1000)])
 def test_stream_kernels_match_plain_wide(dev, u, t, l, k, hd, precision):
     x = _tail_inputs(dev, u, t, l, k, hd=hd)
     h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
@@ -605,6 +629,127 @@ def test_per_row_tail_kernels_match_plain_wide(dev, l, n, t, k, hd):
     for name, a, r in zip(("dh", "dw", "db"), got, want):
         _close(a, r, 1e-4, name)
     assert all(torch.equal(a, b) for a, b in zip(got, hpd_tail.hpd_tail_bwd(*bargs)))
+
+
+@pytest.mark.parametrize("t", [256, 2048])
+@pytest.mark.parametrize("k", [4, 32, 128])
+@pytest.mark.parametrize("hd", [128, 256, 640, 1000])
+def test_per_row_tail_fwd_matches_plain_any_width(dev, hd, k, t):
+    """K8 at head inputs to 1000 (past 512: h through the tile in chunks
+    where the whole tile does not fit), K up to 128, T = 256 and 2048:
+    identical indices, normwise 1e-5, bitwise equal run to run. h, w and b
+    are multiples of 1/8, 1/64 and 1/512, so every logit is exact in fp32
+    whatever the summation order: two columns differ by 1/512 or tie
+    exactly, and the kernel's fma chains and the plain version's cuBLAS
+    sums (whose rounding differs at 1000 terms) rank them alike."""
+    rng = np.random.default_rng(hd + k + t)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    h = f32(rng.integers(0, 8, size=(2, 333, hd)) / 8)
+    w = f32(rng.integers(-8, 9, size=(hd, t)) / 64 * (1 if hd < 512 else 0.5))
+    b = f32(rng.integers(-64, 65, size=t) / 512)
+    out = hpd_tail.hpd_tail_fwd(h, w, b, k)
+    ref = hpd_tail.hpd_tail_fwd_plain(h, w, b, k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_tail.hpd_tail_fwd(h, w, b, k)))
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_per_row_tail_fwd_random_data_in_chunks(dev, k):
+    """K8 where h goes through the tile in chunks (H = 1000, T = 2048) on
+    random data, where the summation order moves the logits: marg and vals
+    normwise 1e-5, bitwise equal run to run, and the indices held to the
+    float64 top-K on every row whose top K + 1 float64 logits are apart by
+    more than any two fp32 sums of H + 1 terms can err (gamma_{H+1} times
+    each logit's sum of |terms|); at least half the rows are."""
+    hd, t = 1000, 2048
+    rng = np.random.default_rng(hd + k + t + 1)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    h = f32(rng.random((2, 500, hd)) * 0.2)
+    w = f32(rng.standard_normal((hd, t)) * 0.3 * math.sqrt(128 / hd))
+    b = f32(rng.standard_normal(t) * 0.1)
+    out = hpd_tail.hpd_tail_fwd(h, w, b, k)
+    ref = hpd_tail.hpd_tail_fwd_plain(h, w, b, k)
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b_) for a, b_ in zip(out, hpd_tail.hpd_tail_fwd(h, w, b, k)))
+    top = (h.double() @ w.double() + b.double()).topk(k + 1, dim=-1)
+    terms = (h.double() @ w.double().abs() + b.double().abs()).gather(-1, top.indices)
+    u = (hd + 1) * 2.0**-24
+    clear = ((top.values[..., :-1] - top.values[..., 1:]) >
+             u / (1 - u) * (terms[..., :-1] + terms[..., 1:])).all(dim=-1)
+    assert clear.float().mean().item() >= 0.5
+    want = top.indices[..., :k][clear]
+    assert torch.equal(ref[2].long()[clear], want)
+    assert torch.equal(out[2].long()[clear], want)
+
+
+@pytest.mark.parametrize("t", [256, 2048])
+def test_tail_bwd_up_to_its_tile_limit(dev, t):
+    """K9 at the widest head input its 16-row tile holds (3,040 at T = 256,
+    1,152 at T = 2048) against its plain version; one past it the wrapper
+    raises naming the figure and the kernels' own check refuses it too."""
+    hd = hpd_tail.bwd_max_h(t)
+    x = _per_row_tail_inputs(dev, 1, 100, t, 4, hd=hd)
+    x["w"] *= math.sqrt(128 / hd)
+    ref = hpd_tail.hpd_tail_fwd_plain(x["h"], x["w"], x["b"], 4)
+    bargs = (x["h"], x["w"], x["b"], ref[2], x["g_marg"], x["g_vals"], 4)
+    for name, a, r in zip(("dh", "dw", "db"), hpd_tail.hpd_tail_bwd(*bargs), hpd_tail.hpd_tail_bwd_plain(*bargs)):
+        _close(a, r, 1e-4, name)
+    lib = hpd_tail._lib()
+    assert lib.hpd_tail_blocks(1, 100, hd, t, 4, 1) > 0 and lib.hpd_tail_blocks(1, 100, hd + 1, t, 4, 1) == 0
+    wide = torch.zeros(1, 100, hd + 1, device=dev)
+    before = hpd_tail.hpd_tail_bwd.launches
+    with pytest.raises(ValueError, match=f"H <= {hd} at T={t}"):
+        hpd_tail.hpd_tail_bwd(wide, torch.zeros(hd + 1, t, device=dev), x["b"], ref[2], x["g_marg"],
+                              x["g_vals"], 4)
+    assert hpd_tail.hpd_tail_bwd.launches == before
+
+
+FULL_GATE_STACKS = [(2, 32, 64, 128, 256), (2, 256, 512, 256, 256), (2, 512, 512, 512, 512, 2048),
+                    (2, 512, 2048), (2, 512, 512, 2048), (2, 512, 512, 512, 256),
+                    (2, 512, 512, 512, 512, 256), (2, 128, 128, 128, 128, 128, 128, 2048),
+                    (3, 384, 384, 1024), (2, 512, 512, 512, 1024), (2, 64, 512, 64, 2048), (2, 2048),
+                    (8, 256, 256, 256, 256, 512)]
+
+
+def test_full_gate_matches_the_kernels(dev):
+    """hpd_full.supports (models/hpd.py's gate, decided from the shapes) says
+    of every stack what hpd_full.cu's own plan says (hpd_full_blocks)."""
+    import ctypes
+    lib = hpd_full._lib()
+    for widths in FULL_GATE_STACKS:
+        cw = (ctypes.c_int * len(widths))(*widths)
+        assert (lib.hpd_full_blocks(len(widths) - 1, cw, 2, 100, 4) > 0) == hpd_full.supports(widths, 4), widths
+
+
+def test_auto_routes_overflowing_stack_to_the_tail(dev):
+    """[2 -> 512 -> 512 -> 512 -> 512 -> 2048] on "auto": a plain stack and
+    K8/K9 on the card (one launch each, K10/K11 none), against the chunked
+    PyTorch tail on the card (the same plain stack, then K8/K9's plain
+    versions): identical indices, 1e-5 forward, 1e-4 gradients."""
+    import dataclasses
+    from collision_handling_in_instantngp_tpu_torch.models import hpd as port_hpd
+    from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP
+    cfg = ModelConfig(hpd_hidden=(512,) * 4, hash_table_size=2048, topk_k=4)
+    verts = torch.randint(0, 33, (200, 2, 4, 2), generator=torch.Generator().manual_seed(3)).float().to(dev)
+    wrappers = (hpd_tail.hpd_tail_fwd, hpd_tail.hpd_tail_bwd, hpd_full.hpd_full_fwd, hpd_full.hpd_full_bwd)
+    outs, grads = [], []
+    for backend in ("auto", "jax"):
+        net = MLP((2, *cfg.hpd_hidden, 2048), generator=torch.Generator().manual_seed(3), device=dev)
+        counts = [f.launches for f in wrappers]
+        marg, vals, idx = port_hpd.apply_hpd_fused(net, verts, dataclasses.replace(cfg, hpd_backend=backend))
+        (marg.sum() * 3 + (vals * torch.arange(4.0, device=dev)).sum()).backward()
+        launched = [f.launches - c for f, c in zip(wrappers, counts)]
+        assert launched == ([1, 1, 0, 0] if backend == "auto" else [0, 0, 0, 0])
+        outs.append((marg.detach(), vals.detach(), idx))
+        grads.append([p.grad for p in net.parameters()])
+    assert torch.equal(outs[0][2], outs[1][2])
+    _close(outs[0][0], outs[1][0], 1e-5, "marg")
+    _close(outs[0][1], outs[1][1], 1e-5, "vals")
+    for i, (a, r) in enumerate(zip(*grads)):
+        _close(a, r, 1e-4, f"grad{i}")
 
 
 @pytest.mark.parametrize("widths,k,n", [((2, 256, 512, 256, 256), 4, 700),

@@ -199,12 +199,13 @@ def test_hidden_bwd_relu_mask_is_pre_ge_zero():
 
 def test_kernel_shape_checks_raise():
     """Shapes the kernels do not take raise before any launch: a head past
-    the JAX kernels' 512, T not a multiple of the column tile, and a K3
-    width that is not a multiple of 8 (or past 512) given to the wrapper."""
+    the streamed tail's grid limit, T not a multiple of the column tile,
+    and a K3 width that is not a multiple of 8 (or past 512) given to the
+    wrapper."""
     h, w, b, c = torch.zeros(4, 520), torch.zeros(520, 2048), torch.zeros(2048), torch.zeros(2, 4)
+    hpd_stream._check_inputs(h, w, b, c, 4)                 # H = 520 is taken (any H to MAX_H)
     with pytest.raises(ValueError):
-        hpd_stream._check_inputs(h, w, b, c, 4)            # H > 512
-    hpd_stream._check_inputs(h[:, :512], w[:512], b, c, 4)  # H = 512 is taken
+        hpd_stream._check_inputs(torch.zeros(1, hpd_stream.MAX_H + 1), w[:1], b, torch.zeros(2, 1), 4)
     with pytest.raises(ValueError):
         hpd_stream._check_inputs(torch.zeros(4, 128), torch.zeros(128, 2000), torch.zeros(2000), c, 4)
     with pytest.raises(ValueError):                        # a hidden width of 36

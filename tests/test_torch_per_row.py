@@ -340,9 +340,10 @@ def test_per_row_routing(monkeypatch, kw, route):
 def test_per_row_kernels_refuse_shapes():
     """Shapes past the kernels' limits raise ValueError naming them, before
     any launch."""
-    h, w, b = torch.zeros(1, 4, 520), torch.zeros(520, 64), torch.zeros(64)
-    with pytest.raises(ValueError, match="H <= 512"):
-        hpd_tail.check_inputs(h, w, b, 4)
+    h, w, b = torch.zeros(1, 4, 3265), torch.zeros(3265, 64), torch.zeros(64)
+    hpd_tail.check_inputs(h, w, b, 4)                     # the forward takes any H
+    with pytest.raises(ValueError, match="H <= 3264"):     # the backward's tile
+        hpd_tail.check_inputs(h, w, b, 4, bwd=True)
     with pytest.raises(ValueError, match="T <= 2048"):
         hpd_tail.check_inputs(torch.zeros(1, 4, 8), torch.zeros(8, 4096), torch.zeros(4096), 4)
     with pytest.raises(ValueError, match="K <= min"):

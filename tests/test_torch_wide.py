@@ -209,12 +209,18 @@ def test_per_row_full_wide_matches_pallas(rng):
 
 
 def test_wrappers_refuse_past_the_contract():
-    """Past the widths the kernels take, the wrappers raise before any
-    launch, naming the limit."""
-    with pytest.raises(ValueError, match="512"):
-        hpd_stream._check_inputs(torch.zeros(4, 520), torch.zeros(520, 2048), torch.zeros(2048),
-                                 torch.zeros(2, 4), 4)
-    with pytest.raises(ValueError, match="512"):
-        hpd_tail.check_inputs(torch.zeros(1, 4, 520), torch.zeros(520, 256), torch.zeros(256), 4)
+    """The wrappers' width limits, checked before any launch: the streamed
+    tail takes a head input of 520 (any width to its grid limit), the
+    per-row tail too, its backward raising only past its tile, naming the
+    figure; K3 still refuses a hidden width past the JAX kernel's 512."""
+    hpd_stream._check_inputs(torch.zeros(4, 520), torch.zeros(520, 2048), torch.zeros(2048),
+                             torch.zeros(2, 4), 4)
+    with pytest.raises(ValueError, match=f"H <= {hpd_stream.MAX_H}"):
+        hpd_stream._check_inputs(torch.zeros(4, hpd_stream.MAX_H + 1), torch.zeros(1, 2048),
+                                 torch.zeros(2048), torch.zeros(2, 4), 4)
+    hpd_tail.check_inputs(torch.zeros(1, 4, 520), torch.zeros(520, 256), torch.zeros(256), 4, bwd=True)
+    with pytest.raises(ValueError, match="H <= 3040 at T=256"):
+        hpd_tail.check_inputs(torch.zeros(1, 4, 3041), torch.zeros(3041, 256), torch.zeros(256), 4,
+                              bwd=True)
     with pytest.raises(ValueError, match="512"):
         hidden.hidden_stack_fwd(torch.zeros(4, 2), [(torch.zeros(2, 520), torch.zeros(520))])
