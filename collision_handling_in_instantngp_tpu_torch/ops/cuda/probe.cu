@@ -8,76 +8,165 @@
 //   copier (K15): y = 2 x into a new array.
 //
 // K13 on this card. Each block takes a row tile and sweeps every column
-// tile, as the streamed tail's rows pass does; a row's sum is taken per
-// tile first, then over the tiles in order, and comes from one block: no
+// tile; each (row, column) is one chain over k ascending from zero, a row's
+// sum is taken over a thread's columns and the tiles in order, then over the
+// row's threads by a fixed shuffle tree: it comes from one block, no
 // cross-block reduction, bitwise stable run to run.
-//   regime 0 'highest': fp32 FMA on the CUDA cores, the tail's own tiling
-//     (stream_tile.cuh: 64 x 128 tiles, pfma<0>), what K1-K7 run today.
-//   regime 1 'default': the same tiling with pfma<2> (one bf16-rounded
-//     product per term, fp32 sums), the port's 'default' contract.
-//   regime 2 'bf16': bf16 operands on the tensor cores, fp32 accumulate
-//     (mma.sync m16n8k16), 128 x 128 tiles, 8 warps of 32 x 64.
+//   regime 0 'highest': fp32 FMA on the CUDA cores, an SGEMM main loop
+//     (rowsum_sgemm_kernel): 128 x 128 block tiles, an 8 x 8 register tile
+//     a thread fed by four float4 shared loads a k, the block's h tile
+//     stored k-major once, w streamed in 16-deep slabs through a 4-stage
+//     16-byte cp.async ring with one barrier a slab; two blocks an SM.
+//     Bound: operations at the fp32 CUDA-core peak.
+//   regimes 1 'default' and 2 'bf16': one function (a bf16 product is exact
+//     in fp32, the sums are fp32), so one kernel: bf16 operands on the
+//     tensor cores, fp32 accumulate (mma.sync m16n8k16), 256-row tiles,
+//     8 warps of 64 rows x 64 columns.
 //   regime 3 'bf16x3': hi(h)hi(w) + hi(h)lo(w) + lo(h)hi(w) on the tensor
-//     cores into one fp32 accumulator (the bf16 hi/lo split of 'high').
-// Regimes 1 and 2 compute one function: bf16 products are exact in fp32.
-// Bound: operations (2 U H T), at the fp32 CUDA-core peak for regimes 0/1
-// and the bf16 tensor peak (x3 for regime 3) for 2/3. Each tensor-core
-// block converts its own copy of every w tile to bf16 in shared memory:
-// simple, and the first thing a faster version (wgmma, TMA, a bf16 w made
-// once) would change.
+//     cores into one fp32 accumulator (the bf16 hi/lo split of 'high'),
+//     128-row tiles, 8 warps of 32 x 64.
+//   For 1-3 a prep kernel writes w^T (T, H) in bf16 (hi, and lo for 3)
+//   once a call into the wrapper's scratch, k contiguous as the B fragments
+//   want; the main kernel splits its h tile once, streams 128-column tiles
+//   of w^T through a cp.async ring (one barrier a tile) and reads both
+//   operands with ldmatrix. Bound: operations at the bf16 tensor peak (x3
+//   for 3). Next step: wgmma.
 //
-// K14 / K15: grid-stride loops of 16-byte (float4) stores / loads, one pass;
-// bound: bytes.
+// K14: a grid-stride loop of 16-byte stores; bound: bytes.
+// K15: each thread keeps four independent 16-byte streaming loads (__ldcs)
+// in flight before their stores (__stcs), on a grid of whole waves at full
+// occupancy; scalar accesses where an address is not 16-byte aligned.
+// Bound: bytes.
 #include <stdint.h>
 
-#include "stream_tile.cuh"
+#include "common.cuh"
 
 namespace {
 
-// ------------------------- K13, CUDA-core regimes -------------------------- //
+constexpr int THREADS = 256;
+constexpr int HMAX = 128;   // widest h the K13 kernels take
+constexpr int TN = 128;     // columns per tile (T must be a multiple)
 
-size_t rowsum_fp32_smem() { return sizeof(float) * (R * HP + BK * TT + R * NSUB); }
+template <typename F>
+void set_smem(F* kernel, size_t bytes) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-rowsum_fp32_kernel(const float* __restrict__ h, const float* __restrict__ w, int u, int H, int T,
-                   float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* ps = w_s + BK * TT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * R;
-  load_rows(h, u, H, r0, h_s);
-  float run[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    float acc[4][8];
-    tile_dot<P>(h_s, w, H, T, t0, w_s, acc);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// --------------------- K13 'highest': the CUDA cores ---------------------- //
+
+constexpr int SG_M = 128;   // rows per block
+constexpr int SG_BK = 16;   // k per w slab
+constexpr int SG_NS = 4;    // slabs in the ring
+
+size_t rowsum_sgemm_smem(int H) { return sizeof(float) * ((size_t)H * SG_M + SG_NS * SG_BK * TN); }
+
+// Thread (tx, ty) = (tid % 16, tid / 16) holds rows ty*4 + i and 64 + ty*4 + i
+// and columns tx*4 + j and 64 + tx*4 + j (i, j < 4) of each 128 x 128 tile.
+__global__ void __launch_bounds__(THREADS, 2)
+rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, int u, int H,
+                    int T, float* __restrict__ out) {
+  extern __shared__ float4 smem_f4[];
+  float* a_s = reinterpret_cast<float*>(smem_f4);  // H x SG_M, k-major
+  float* b_s = a_s + (size_t)H * SG_M;              // SG_NS x SG_BK x TN
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int r0 = blockIdx.x * SG_M;
+  const int ks = H / SG_BK, slabs = (T / TN) * ks;
+
+  // slab s: columns [(s / ks) TN, + TN), k [(s % ks) SG_BK, + SG_BK); one
+  // commit group per call, empty past the last slab
+  auto issue = [&](int s) {
+    if (s < slabs) {
+      const int t0 = (s / ks) * TN, k0 = (s % ks) * SG_BK;
+      float* dst = b_s + (s % SG_NS) * SG_BK * TN;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float sum = 0.f;
+      for (int c = tid; c < SG_BK * TN / 4; c += THREADS) {
+        const int kk = c >> 5, q = c & 31;
+        cp_async16(dst + kk * TN + 4 * q, w + (size_t)(k0 + kk) * T + t0 + 4 * q);
+      }
+    }
+    cp_commit();
+  };
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sum += acc[i][j];
-      run[i] += sum;
+  for (int s = 0; s < SG_NS - 1; ++s) issue(s);
+
+  // the h tile once, k-major (a warp stores 32 rows of one k: no conflicts)
+  for (int c = tid; c < SG_M * (H / 4); c += THREADS) {
+    const int r = c & (SG_M - 1), k = 4 * (c >> 7);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < u) v = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + k);
+    a_s[(k + 0) * SG_M + r] = v.x;
+    a_s[(k + 1) * SG_M + r] = v.y;
+    a_s[(k + 2) * SG_M + r] = v.z;
+    a_s[(k + 3) * SG_M + r] = v.w;
+  }
+
+  float acc[8][8], run[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    run[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_wait<SG_NS - 2>();
+    __syncthreads();        // slab s landed for all; slab s - 1's stage is free
+    issue(s + SG_NS - 1);
+    const float* as = a_s + (s % ks) * SG_BK * SG_M + ty * 4;
+    const float* bs = b_s + (s % SG_NS) * SG_BK * TN + tx * 4;
+#pragma unroll
+    for (int kk = 0; kk < SG_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * SG_M);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * SG_M + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * TN);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * TN + 64);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (s % ks == ks - 1) {   // the column tile is complete
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sum += acc[i][j];
+          acc[i][j] = 0.f;
+        }
+        run[i] += sum;
+      }
     }
   }
+  // a row's 16 threads (tx, lanes of one half-warp) by a fixed butterfly
 #pragma unroll
-  for (int i = 0; i < 4; ++i) ps[(ty * 4 + i) * NSUB + tx] = run[i];
-  __syncthreads();
-  if (threadIdx.x < R && r0 + threadIdx.x < u) {
-    const int r = threadIdx.x;
-    float s = 0.f;
-    for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub];
-    out[r0 + r] = s;
+  for (int i = 0; i < 8; ++i) {
+    float v = run[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    const int r = r0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (tx == 0 && r < u) out[r] = v;
   }
 }
 
-// ------------------------ K13, tensor-core regimes ------------------------- //
+// -------------------- K13 'default' / 'bf16' / 'bf16x3' -------------------- //
 
-constexpr int TBM = 128;        // rows per block
-constexpr int TBN = 128;        // columns per tile
-constexpr int SK = HMAX + 8;    // bf16 row stride of the operand tiles (conflict-free fragments)
-constexpr int SKW = SK / 2;     // the same in 32-bit words
+constexpr int SK = HMAX + 8;    // bf16 row stride of the operand tiles (272 bytes:
+                                // the 8 rows of an ldmatrix phase on distinct banks)
 
 __device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(first)) |
@@ -91,102 +180,154 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
 }
 
 // d += a b: A 16 x 16 row-major, B 16 x 8 column-major, bf16, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Shared memory: A (TBM x SK) and B (TBN x SK, k contiguous per column) in
-// bf16, hi and (X3) lo, then 2 x TBM fp32 row partials.
-template <bool X3>
-size_t rowsum_tc_smem() {
-  return (X3 ? 2 : 1) * (size_t)(TBM + TBN) * SK * 2 + sizeof(float) * 2 * TBM;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
 }
 
+// w (H, T) -> w^T (T, H) in bf16: hi, and lo = bf16(w - hi) where X3. A
+// block takes 32 columns of w through shared memory; reads and writes are
+// whole rows.
 template <bool X3>
 __global__ void __launch_bounds__(THREADS)
-rowsum_tc_kernel(const float* __restrict__ h, const float* __restrict__ w, int u, int H, int T,
+rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restrict__ w_hi,
+                   uint32_t* __restrict__ w_lo) {
+  __shared__ float s[HMAX][33];
+  const int t0 = blockIdx.x * 32, hw = H / 2;
+  for (int i = threadIdx.x; i < H * 32; i += THREADS) {
+    const int k = i >> 5, c = i & 31;
+    s[k][c] = w[(size_t)k * T + t0 + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * hw; i += THREADS) {
+    const int c = i / hw, kp = i - c * hw;
+    uint32_t hi, lo;
+    split_pair(s[2 * kp][c], s[2 * kp + 1][c], hi, lo);
+    w_hi[(size_t)(t0 + c) * hw + kp] = hi;
+    if (X3) w_lo[(size_t)(t0 + c) * hw + kp] = lo;
+  }
+}
+
+// A block: 4 x 2 warps, warp (wr, wc) rows wr * 16 MI + [0, 16 MI), columns
+// wc * 64 + [0, 64) of each 128-column tile. NP operand parts (hi; hi and
+// lo), NS stages of the w^T ring.
+template <bool X3>
+struct TcPlan {
+  static constexpr int MI = X3 ? 2 : 4;       // m16 tiles a warp
+  static constexpr int M = 64 * MI;           // rows a block
+  static constexpr int NP = X3 ? 2 : 1;
+  static constexpr int NS = X3 ? 2 : 3;
+  static constexpr size_t A_ELEMS = (size_t)NP * M * SK;
+  static constexpr size_t STAGE_ELEMS = (size_t)NP * TN * SK;
+  static constexpr size_t SMEM = 2 * (A_ELEMS + NS * STAGE_ELEMS) + sizeof(float) * 2 * M;
+};
+
+template <bool X3>
+__global__ void __launch_bounds__(THREADS, 1)
+rowsum_tc_kernel(const float* __restrict__ h, const uint32_t* __restrict__ w_hi,
+                 const uint32_t* __restrict__ w_lo, int u, int H, int T,
                  float* __restrict__ out) {
-  extern __shared__ uint32_t smem_u32[];
-  constexpr int NP = X3 ? 2 : 1;
-  uint32_t* a_hi = smem_u32;
-  uint32_t* a_lo = a_hi + TBM * SKW;                  // used when X3
-  uint32_t* b_hi = a_hi + NP * TBM * SKW;
-  uint32_t* b_lo = b_hi + TBN * SKW;                  // used when X3
-  float* part = (float*)(b_hi + NP * TBN * SKW);
+  using P = TcPlan<X3>;
+  constexpr int MI = P::MI, M = P::M, NP = P::NP, NS = P::NS;
+  extern __shared__ float4 smem_f4[];
+  uint16_t* a_s = reinterpret_cast<uint16_t*>(smem_f4);   // part p at p * M * SK
+  uint16_t* b_s = a_s + P::A_ELEMS;                        // stage, then part
+  float* part = reinterpret_cast<float*>(b_s + NS * P::STAGE_ELEMS);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
-  const int wr = warp & 3, wc = warp >> 2;           // warp tile: rows wr*32, columns wc*64
-  const int r0 = blockIdx.x * TBM;
-  const int hw = H / 2;                              // k pairs
+  const int wr = warp & 3, wc = warp >> 2;
+  const int r0 = blockIdx.x * M;
+  const int hw = H / 2, chunks = H / 8;   // u32 pairs and 16-byte chunks of a w^T row
 
-  for (int i = threadIdx.x; i < TBM * hw; i += THREADS) {
-    const int r = i / hw, kp = i - r * hw;
-    float2 x = make_float2(0.f, 0.f);
-    if (r0 + r < u) x = *reinterpret_cast<const float2*>(h + (size_t)(r0 + r) * H + 2 * kp);
-    uint32_t hi, lo;
-    split_pair(x.x, x.y, hi, lo);
-    a_hi[r * SKW + kp] = hi;
-    if (X3) a_lo[r * SKW + kp] = lo;
+  // column tile j of w^T (hi, lo) into its stage; one commit group a call
+  auto issue = [&](int j) {
+    if (j * TN < T) {
+      uint16_t* dst = b_s + (j % NS) * P::STAGE_ELEMS;
+      for (int c = threadIdx.x; c < NP * TN * chunks; c += THREADS) {
+        const int p = c / (TN * chunks), e = c - p * TN * chunks;
+        const int n = e / chunks, q = e - n * chunks;
+        const uint32_t* src = (p ? w_lo : w_hi) + (size_t)(j * TN + n) * hw + 4 * q;
+        cp_async16(dst + p * TN * SK + n * SK + 8 * q, src);
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) issue(j);
+
+  // the h tile, split once (zero past u)
+  for (int c = threadIdx.x; c < M * (H / 4); c += THREADS) {
+    const int r = c / (H / 4), k = 4 * (c - r * (H / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < u) v = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + k);
+    uint2 hi, lo;
+    split_pair(v.x, v.y, hi.x, lo.x);
+    split_pair(v.z, v.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(a_s + r * SK + k) = hi;
+    if (X3) *reinterpret_cast<uint2*>(a_s + M * SK + r * SK + k) = lo;
   }
 
-  float run[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int t0 = 0; t0 < T; t0 += TBN) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < TBN * hw; i += THREADS) {
-      const int n = i & (TBN - 1), kp = i / TBN;
-      const float x0 = w[(size_t)(2 * kp) * T + t0 + n];
-      const float x1 = w[(size_t)(2 * kp + 1) * T + t0 + n];
-      uint32_t hi, lo;
-      split_pair(x0, x1, hi, lo);
-      b_hi[n * SKW + kp] = hi;
-      if (X3) b_lo[n * SKW + kp] = lo;
-    }
-    __syncthreads();
-    float acc[2][8][4];
+  // ldmatrix row addresses: A rows (lane % 16), k + 8 (lane / 16); B columns
+  // 8 (lane / 16) + lane % 8, k + 8 ((lane / 8) % 2)
+  const uint16_t* a_lane = a_s + (wr * 16 * MI + (lane & 15)) * SK + (lane >> 4) * 8;
+  const int b_lane = (wc * 64 + ((lane >> 4) << 3) + (lane & 7)) * SK + ((lane >> 3) & 1) * 8;
+  float run[MI][2];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MI; ++mi) run[mi][0] = run[mi][1] = 0.f;
+
+  for (int j = 0; j * TN < T; ++j) {
+    cp_wait<NS - 2>();
+    __syncthreads();        // tile j landed for all; tile j - 1's stage is free
+    issue(j + NS - 1);
+    const uint16_t* b_hi = b_s + (j % NS) * P::STAGE_ELEMS + b_lane;
+    const uint16_t* b_lo = b_hi + TN * SK;
+    float acc[MI][8][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.f;
-    for (int kw = 0; kw < hw; kw += 8) {             // 16 k per step
-      uint32_t ah[2][4], al[2][4];
+    for (int k = 0; k < H; k += 16) {
+      uint32_t ah[MI][4], al[MI][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int row = wr * 32 + mi * 16 + g;
-        const int e[4] = {row * SKW + kw + tg, (row + 8) * SKW + kw + tg,
-                          row * SKW + kw + 4 + tg, (row + 8) * SKW + kw + 4 + tg};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          ah[mi][q] = a_hi[e[q]];
-          if (X3) al[mi][q] = a_lo[e[q]];
-        }
+      for (int mi = 0; mi < MI; ++mi) {
+        ldmatrix_x4(ah[mi], a_lane + mi * 16 * SK + k);
+        if (X3) ldmatrix_x4(al[mi], a_lane + M * SK + mi * 16 * SK + k);
       }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = wc * 64 + nt * 8 + g;
-        const uint32_t bh[2] = {b_hi[col * SKW + kw + tg], b_hi[col * SKW + kw + 4 + tg]};
+      for (int np = 0; np < 4; ++np) {           // n8 tiles 2 np and 2 np + 1
+        uint32_t bh[4], bl[4];
+        ldmatrix_x4(bh, b_hi + np * 16 * SK + k);
+        if (X3) ldmatrix_x4(bl, b_lo + np * 16 * SK + k);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][nt], ah[mi], bh);
-        if (X3) {
-          const uint32_t bl[2] = {b_lo[col * SKW + kw + tg], b_lo[col * SKW + kw + 4 + tg]};
+        for (int half = 0; half < 2; ++half) {
+          const int nt = 2 * np + half;
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][nt], ah[mi], bl);
-            mma_bf16(acc[mi][nt], al[mi], bh);
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_bf16(acc[mi][nt], ah[mi], bh[2 * half], bh[2 * half + 1]);
+            if (X3) {
+              mma_bf16(acc[mi][nt], ah[mi], bl[2 * half], bl[2 * half + 1]);
+              mma_bf16(acc[mi][nt], al[mi], bh[2 * half], bh[2 * half + 1]);
+            }
           }
         }
       }
     }
-    // the tile's partial of rows g and g + 8 (per sub-tile mi), over this
+    // the tile's partial of rows g and g + 8 (per m16 tile), over this
     // thread's columns, then into the running sums
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < MI; ++mi) {
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
@@ -199,17 +340,30 @@ rowsum_tc_kernel(const float* __restrict__ h, const float* __restrict__ w, int u
   }
   // the four lanes of a row group hold its columns; then the two column warps
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float v = run[mi][half];
       v += __shfl_xor_sync(0xffffffffu, v, 1);
       v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (tg == 0) part[wc * TBM + wr * 32 + mi * 16 + half * 8 + g] = v;
+      if (tg == 0) part[wc * M + wr * 16 * MI + mi * 16 + half * 8 + g] = v;
     }
   __syncthreads();
-  for (int r = threadIdx.x; r < TBM; r += THREADS)
-    if (r0 + r < u) out[r0 + r] = part[r] + part[TBM + r];
+  for (int r = threadIdx.x; r < M; r += THREADS)
+    if (r0 + r < u) out[r0 + r] = part[r] + part[M + r];
+}
+
+template <bool X3>
+int launch_rowsum_tc(const float* h, const float* w, int u, int H, int T, float* out,
+                     void* scratch, cudaStream_t st) {
+  using P = TcPlan<X3>;
+  uint32_t* w_hi = (uint32_t*)scratch;
+  uint32_t* w_lo = w_hi + (size_t)T * H / 2;
+  rowsum_prep_kernel<X3><<<T / 32, THREADS, 0, st>>>(w, H, T, w_hi, w_lo);
+  set_smem(rowsum_tc_kernel<X3>, P::SMEM);
+  rowsum_tc_kernel<X3><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(h, w_hi, w_lo, u, H, T,
+                                                                       out);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------- K14 / K15 --------------------------------- //
@@ -232,6 +386,12 @@ __global__ void __launch_bounds__(THREADS) hbm_write_kernel(float* __restrict__ 
   for (size_t i = 4 * n4 + i0; i < n; i += stride) out[i] = 1.f;
 }
 
+constexpr int COPY_UNROLL = 4;   // 16-byte loads in flight a thread
+
+__device__ __forceinline__ float4 twice(float4 v) {
+  return make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
+}
+
 __global__ void __launch_bounds__(THREADS) hbm_scale_copy_kernel(const float* __restrict__ x,
                                                                  float* __restrict__ y, size_t n,
                                                                  size_t n4) {
@@ -239,11 +399,28 @@ __global__ void __launch_bounds__(THREADS) hbm_scale_copy_kernel(const float* __
   const size_t i0 = (size_t)blockIdx.x * THREADS + threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  for (size_t i = i0; i < n4; i += stride) {
-    const float4 v = x4[i];
-    y4[i] = make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
+  size_t i = i0;
+  for (; i + (COPY_UNROLL - 1) * stride < n4; i += COPY_UNROLL * stride) {
+    float4 v[COPY_UNROLL];
+#pragma unroll
+    for (int q = 0; q < COPY_UNROLL; ++q) v[q] = __ldcs(x4 + i + q * stride);
+#pragma unroll
+    for (int q = 0; q < COPY_UNROLL; ++q) __stcs(y4 + i + q * stride, twice(v[q]));
   }
-  for (size_t i = 4 * n4 + i0; i < n; i += stride) y[i] = 2.f * x[i];
+  for (; i < n4; i += stride) __stcs(y4 + i, twice(__ldcs(x4 + i)));
+  for (size_t e = 4 * n4 + i0; e < n; e += stride) y[e] = 2.f * x[e];
+}
+
+// K15's grid: the blocks the card holds at once (whole waves), fewer where
+// the data has fewer threads' worth of work.
+unsigned copy_blocks(size_t units) {
+  int dev = 0, sms = 132, per_sm = 8;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hbm_scale_copy_kernel, THREADS, 0);
+  const size_t want = (units + THREADS - 1) / THREADS;
+  const size_t full = (size_t)sms * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(want < 1 ? 1 : (want < full ? want : full));
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -256,34 +433,22 @@ const char* probe_error_string(int code) { return port_error_string(code); }
 
 // K13: h (u, H), w (H, T) -> out (u) = row sums of h w. regime: 0 'highest',
 // 1 'default', 2 'bf16', 3 'bf16x3'. Takes H a multiple of 16 up to 128 and
-// T a multiple of 128.
+// T a multiple of 128; h, w 16-byte aligned. scratch: T H bf16 for regimes
+// 1 and 2, 2 T H for 3 (w^T hi, lo), 16-byte aligned; unused by regime 0.
 int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, float* out,
-               void* stream) {
-  if (u < 0 || H < 16 || H > HMAX || H % 16 != 0 || T < TT || T % TT != 0) return ERR_SHAPE;
+               void* scratch, void* stream) {
+  if (u < 0 || H < 16 || H > HMAX || H % 16 != 0 || T < TN || T % TN != 0) return ERR_SHAPE;
   if (regime < 0 || regime > 3) return ERR_PRECISION;
   if (u == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (regime == 0 || regime == 1) {
-    const int blocks = (u + R - 1) / R;
-    if (regime == 0) {
-      set_smem(rowsum_fp32_kernel<0>, rowsum_fp32_smem());
-      rowsum_fp32_kernel<0><<<blocks, THREADS, rowsum_fp32_smem(), st>>>(h, w, u, H, T, out);
-    } else {
-      set_smem(rowsum_fp32_kernel<2>, rowsum_fp32_smem());
-      rowsum_fp32_kernel<2><<<blocks, THREADS, rowsum_fp32_smem(), st>>>(h, w, u, H, T, out);
-    }
-  } else {
-    const int blocks = (u + TBM - 1) / TBM;
-    if (regime == 2) {
-      set_smem(rowsum_tc_kernel<false>, rowsum_tc_smem<false>());
-      rowsum_tc_kernel<false><<<blocks, THREADS, rowsum_tc_smem<false>(), st>>>(h, w, u, H, T,
-                                                                               out);
-    } else {
-      set_smem(rowsum_tc_kernel<true>, rowsum_tc_smem<true>());
-      rowsum_tc_kernel<true><<<blocks, THREADS, rowsum_tc_smem<true>(), st>>>(h, w, u, H, T, out);
-    }
+  if (regime == 0) {
+    const size_t smem = rowsum_sgemm_smem(H);
+    set_smem(rowsum_sgemm_kernel, smem);
+    rowsum_sgemm_kernel<<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T, out);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (regime == 3) return launch_rowsum_tc<true>(h, w, u, H, T, out, scratch, st);
+  return launch_rowsum_tc<false>(h, w, u, H, T, out, scratch, st);
 }
 
 // K14: out (n) = 1.
@@ -301,8 +466,8 @@ int hbm_scale_copy(const float* x, float* y, long long n, void* stream) {
   if (n < 0) return ERR_SHAPE;
   if (n == 0) return 0;
   const size_t n4 = aligned16(x) && aligned16(y) ? (size_t)n / 4 : 0;
-  hbm_scale_copy_kernel<<<stream_blocks(n4 ? n4 : (size_t)n), THREADS, 0,
-                          (cudaStream_t)stream>>>(x, y, (size_t)n, n4);
+  hbm_scale_copy_kernel<<<copy_blocks(n4 ? n4 : (size_t)n), THREADS, 0, (cudaStream_t)stream>>>(
+      x, y, (size_t)n, n4);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,8 @@ package (closures inside its ``main``):
 
   K13 ``rowsum_dot(h, w, regime)``: (U, 1) = sum_t (h w)[:, t], the (U, T)
       product never written; regimes 'highest' (fp32 on the CUDA cores),
-      'default' (one bf16-rounded product per term, CUDA cores), 'bf16'
-      (bf16 operands on the tensor cores) and 'bf16x3' (the hi/lo split of
+      'default' and 'bf16' (one function: bf16 operands, products exact in
+      fp32, one tensor-core kernel) and 'bf16x3' (the hi/lo split of
       'high' on the tensor cores); all accumulate in fp32.
   K14 ``hbm_write(shape)``: a new fp32 tensor of ones.
   K15 ``hbm_scale_copy(x)``: 2 x into a new tensor.
@@ -67,7 +67,7 @@ def hbm_scale_copy_plain(x: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = build.library("probe")
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rowsum_dot.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp]
+    lib.rowsum_dot.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
     lib.hbm_write.argtypes = [vp, cll, vp]
     lib.hbm_scale_copy.argtypes = [vp, vp, cll, vp]
     for fn in (lib.rowsum_dot, lib.hbm_write, lib.hbm_scale_copy):
@@ -80,7 +80,7 @@ def _stream(dev) -> int:
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as K13's paired loads need (K14/K15
+    """Contiguous and 16-byte aligned, as K13's 16-byte loads need (K14/K15
     take any address: they fall back to scalar accesses)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
@@ -96,10 +96,15 @@ def _launch_rowsum(h, w, regime):
     h, w = _aligned(h), _aligned(w)
     u, hd = h.shape
     out = torch.empty(u, 1, device=dev, dtype=torch.float32)
+    # the tensor-core regimes' w^T in bf16 (hi; hi and lo for bf16x3),
+    # made by the call itself
+    parts = {"highest": 0, "bf16x3": 2}.get(regime, 1)
+    scratch = torch.empty(parts * w.numel(), device=dev, dtype=torch.bfloat16)
     lib = _lib()
     with torch.cuda.device(dev):
         code = lib.rowsum_dot(h.data_ptr(), w.data_ptr(), u, hd, w.shape[1],
-                              REGIMES.index(regime), out.data_ptr(), _stream(dev))
+                              REGIMES.index(regime), out.data_ptr(),
+                              scratch.data_ptr(), _stream(dev))
     build.check(code, lib, "probe_error_string", f"rowsum_dot[{regime}]")
     rowsum_dot.launches += 1
     rowsum_dot.regime_launches[regime] += 1

@@ -10,7 +10,9 @@ the serial scatter K12, one slot, a 100,000-row slot, empty slots, C = 2
 and 32, short and long slots of narrow rows; for the rows pass's guard,
 planted ties and near-tie clusters (its fp32 fix-up); for the encoding,
 its fixed-order table gradients; for the probes K7 and K13, ragged U and
-T from 128;
+T from 128 (K13 also U ragged against its 128- and 256-row tiles, H from
+16 to 128, exact integer inputs held bit for bit to float64, 'default'
+bit for bit 'bf16');
 K14/K15 at sizes not a multiple of 4 and from an unaligned address), plus
 training on the card against the CPU on the dedup route (fused and split)
 and the per-row routes.
@@ -900,6 +902,64 @@ def test_hbm_probes_exact(dev, n):
         y = probe.hbm_scale_copy(x)
         assert torch.equal(y, x * 2) and y.data_ptr() != x.data_ptr()
     assert (probe.hbm_write.launches, probe.hbm_scale_copy.launches) == (before[0] + 2, before[1] + 2)
+
+
+def _rowsum_inputs(dev, u, hd, t, seed=5, ints=False):
+    rng = np.random.default_rng(seed)
+    if ints:
+        h, w = rng.integers(-3, 4, size=(u, hd)), rng.integers(-3, 4, size=(hd, t))
+    else:
+        h, w = rng.standard_normal((u, hd)) * 0.3, rng.standard_normal((hd, t)) * 0.1
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return f32(h), f32(w)
+
+
+@pytest.mark.parametrize("regime", probe.REGIMES)
+@pytest.mark.parametrize("hd,t", [(hd, t) for hd in (16, 64, 128) for t in (128, 384, 2048)])
+@pytest.mark.parametrize("u", [1, 127, 129, 257, 333, 1001])
+def test_rowsum_tilings_match_plain(dev, u, hd, t, regime):
+    """K13's tilings (128-row blocks for 'highest' and 'bf16x3', 256 for
+    'default' / 'bf16'; 128-column tiles) on U ragged against both, one to
+    16 column tiles and the narrowest to the widest h, against the plain
+    version, bitwise equal run to run."""
+    h, w = _rowsum_inputs(dev, u, hd, t)
+    got = probe.rowsum_dot(h, w, regime)
+    assert got.shape == (u, 1)
+    _close(got, probe.rowsum_dot_plain(h, w, regime), 1e-4 if regime == "bf16x3" else 1e-5, regime)
+    assert torch.equal(got, probe.rowsum_dot(h, w, regime))
+
+
+@pytest.mark.parametrize("regime", probe.REGIMES)
+@pytest.mark.parametrize("u,hd,t", [(333, 128, 2048), (129, 16, 384), (1, 64, 128)])
+def test_rowsum_exact_on_small_integers(dev, u, hd, t, regime):
+    """h, w integers in [-3, 3]: every product, every partial sum and every
+    row sum is an integer below 2^24 (at most 9 * 128 * 2048), exact in fp32
+    and in bf16 operands (lo = 0), so each regime must equal the float64
+    result bit for bit, whatever its order of summation."""
+    h, w = _rowsum_inputs(dev, u, hd, t, ints=True)
+    got = probe.rowsum_dot(h, w, regime)
+    assert torch.equal(got.double()[:, 0], (h.double() @ w.double()).sum(1))
+
+
+@pytest.mark.parametrize("u,hd,t", [(1001, 64, 384), (333, 128, 2048), (129, 16, 128)])
+def test_rowsum_default_is_bf16(dev, u, hd, t):
+    """'default' and 'bf16' compute one function (bf16 products are exact in
+    fp32) and run one kernel: equal bit for bit."""
+    h, w = _rowsum_inputs(dev, u, hd, t)
+    assert torch.equal(probe.rowsum_dot(h, w, "default"), probe.rowsum_dot(h, w, "bf16"))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 7, 1_000_003, 4 * 4 * 256 * 1056 + 9])
+def test_scale_copy_edges(dev, n, offset):
+    """K15 exactly 2 x at sizes below one float4, not a multiple of 4, and
+    past one round of its unrolled loop over a full grid (132 SMs x 8
+    blocks), from 16-byte aligned and unaligned addresses (the scalar path)."""
+    base = torch.randn(n + 3, device=dev)
+    x = base[offset:offset + n]
+    before = probe.hbm_scale_copy.launches
+    y = probe.hbm_scale_copy(x)
+    assert torch.equal(y, x * 2) and probe.hbm_scale_copy.launches == before + 1
 
 
 def _planted_select_inputs(dev, u=1024, t=2048):
