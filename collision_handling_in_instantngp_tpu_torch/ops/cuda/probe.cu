@@ -179,14 +179,24 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
   lo = pack_bf16(x0 - bf16r(x0), x1 - bf16r(x1));
 }
 
-// d += a b: A 16 x 16 row-major, B 16 x 8 column-major, bf16, fp32 accumulate.
+// d = a b + (ZERO ? 0 : d): A 16 x 16 row-major, B 16 x 8 column-major,
+// bf16, fp32 accumulate.
+template <bool ZERO = false>
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if (ZERO) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p) {
@@ -195,13 +205,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p)
                : "r"((unsigned)__cvta_generic_to_shared(p)));
 }
 
-// w (H, T) -> w^T (T, H) in bf16: hi, and lo = bf16(w - hi) where X3. A
-// block takes 32 columns of w through shared memory; reads and writes are
+// w^T in bf16 as the ring's stages hold it: column tile j is one image of
+// NP parts (hi, then lo) x TN columns x SK (k contiguous, H used), so that a
+// stage is one contiguous copy.
+template <bool X3>
+constexpr size_t tile_image() { return (size_t)(X3 ? 2 : 1) * TN * SK; }
+
+// w (H, T) -> the images of w^T: hi = bf16(w), lo = bf16(w - hi) where X3.
+// A block takes 32 columns of w through shared memory; reads and writes are
 // whole rows.
 template <bool X3>
 __global__ void __launch_bounds__(THREADS)
-rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restrict__ w_hi,
-                   uint32_t* __restrict__ w_lo) {
+rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restrict__ img) {
   __shared__ float s[HMAX][33];
   const int t0 = blockIdx.x * 32, hw = H / 2;
   for (int i = threadIdx.x; i < H * 32; i += THREADS) {
@@ -209,56 +224,81 @@ rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restri
     s[k][c] = w[(size_t)k * T + t0 + c];
   }
   __syncthreads();
+  uint32_t* dst = img + (t0 / TN) * tile_image<X3>() / 2 + (t0 % TN) * (SK / 2);
   for (int i = threadIdx.x; i < 32 * hw; i += THREADS) {
     const int c = i / hw, kp = i - c * hw;
     uint32_t hi, lo;
     split_pair(s[2 * kp][c], s[2 * kp + 1][c], hi, lo);
-    w_hi[(size_t)(t0 + c) * hw + kp] = hi;
-    if (X3) w_lo[(size_t)(t0 + c) * hw + kp] = lo;
+    dst[c * (SK / 2) + kp] = hi;
+    if (X3) dst[(TN + c) * (SK / 2) + kp] = lo;
   }
 }
 
 // A block: 4 x 2 warps, warp (wr, wc) rows wr * 16 MI + [0, 16 MI), columns
-// wc * 64 + [0, 64) of each 128-column tile. NP operand parts (hi; hi and
-// lo), NS stages of the w^T ring.
-template <bool X3>
+// wc * 64 + [0, 64) of each 128-column tile; NS stages of the w^T ring.
+template <bool X3, int MI, int NS>
 struct TcPlan {
-  static constexpr int MI = X3 ? 2 : 4;       // m16 tiles a warp
   static constexpr int M = 64 * MI;           // rows a block
-  static constexpr int NP = X3 ? 2 : 1;
-  static constexpr int NS = X3 ? 2 : 3;
+  static constexpr int NP = X3 ? 2 : 1;       // operand parts: hi (, lo)
   static constexpr size_t A_ELEMS = (size_t)NP * M * SK;
-  static constexpr size_t STAGE_ELEMS = (size_t)NP * TN * SK;
-  static constexpr size_t SMEM = 2 * (A_ELEMS + NS * STAGE_ELEMS) + sizeof(float) * 2 * M;
+  static constexpr size_t STAGE = tile_image<X3>();
+  static constexpr int CHUNKS = (int)(STAGE / 8);   // 16-byte copies a stage
+  static constexpr size_t SMEM = 2 * (A_ELEMS + NS * STAGE) + sizeof(float) * 2 * M;
 };
 
-template <bool X3>
-__global__ void __launch_bounds__(THREADS, 1)
-rowsum_tc_kernel(const float* __restrict__ h, const uint32_t* __restrict__ w_hi,
-                 const uint32_t* __restrict__ w_lo, int u, int H, int T,
-                 float* __restrict__ out) {
-  using P = TcPlan<X3>;
-  constexpr int MI = P::MI, M = P::M, NP = P::NP, NS = P::NS;
+// One k step (16 deep) of a warp's tile: A from the split h tile, B from the
+// stage, both by ldmatrix; FIRST starts every chain from zero.
+template <bool X3, int MI, bool FIRST>
+__device__ __forceinline__ void tc_kstep(float (&acc)[MI][8][4], const uint16_t* a_lane,
+                                         const uint16_t* b_lane, int a_lo, int k) {
+  uint32_t ah[MI][4], al[MI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    ldmatrix_x4(ah[mi], a_lane + mi * 16 * SK + k);
+    if (X3) ldmatrix_x4(al[mi], a_lane + a_lo + mi * 16 * SK + k);
+  }
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {           // n8 tiles 2 np and 2 np + 1
+    uint32_t bh[4], bl[4];
+    ldmatrix_x4(bh, b_lane + np * 16 * SK + k);
+    if (X3) ldmatrix_x4(bl, b_lane + TN * SK + np * 16 * SK + k);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int nt = 2 * np + half;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        mma_bf16<FIRST>(acc[mi][nt], ah[mi], bh[2 * half], bh[2 * half + 1]);
+        if (X3) {
+          mma_bf16(acc[mi][nt], ah[mi], bl[2 * half], bl[2 * half + 1]);
+          mma_bf16(acc[mi][nt], al[mi], bh[2 * half], bh[2 * half + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <bool X3, int MI, int NS>
+__global__ void __launch_bounds__(THREADS, MI == 4 || X3 ? 1 : 2)
+rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, int u, int H,
+                 int T, float* __restrict__ out) {
+  using P = TcPlan<X3, MI, NS>;
+  constexpr int M = P::M;
   extern __shared__ float4 smem_f4[];
-  uint16_t* a_s = reinterpret_cast<uint16_t*>(smem_f4);   // part p at p * M * SK
-  uint16_t* b_s = a_s + P::A_ELEMS;                        // stage, then part
-  float* part = reinterpret_cast<float*>(b_s + NS * P::STAGE_ELEMS);
+  uint16_t* a_s = reinterpret_cast<uint16_t*>(smem_f4);   // hi, then lo at M * SK
+  uint16_t* b_s = a_s + P::A_ELEMS;                        // NS stage images
+  float* part = reinterpret_cast<float*>(b_s + NS * P::STAGE);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
   const int wr = warp & 3, wc = warp >> 2;
   const int r0 = blockIdx.x * M;
-  const int hw = H / 2, chunks = H / 8;   // u32 pairs and 16-byte chunks of a w^T row
 
-  // column tile j of w^T (hi, lo) into its stage; one commit group a call
+  // column tile j's image into its stage; one commit group a call
   auto issue = [&](int j) {
     if (j * TN < T) {
-      uint16_t* dst = b_s + (j % NS) * P::STAGE_ELEMS;
-      for (int c = threadIdx.x; c < NP * TN * chunks; c += THREADS) {
-        const int p = c / (TN * chunks), e = c - p * TN * chunks;
-        const int n = e / chunks, q = e - n * chunks;
-        const uint32_t* src = (p ? w_lo : w_hi) + (size_t)(j * TN + n) * hw + 4 * q;
-        cp_async16(dst + p * TN * SK + n * SK + 8 * q, src);
-      }
+      const float4* src = reinterpret_cast<const float4*>(img + j * P::STAGE);
+      float4* dst = reinterpret_cast<float4*>(b_s + (j % NS) * P::STAGE);
+#pragma unroll
+      for (int c = threadIdx.x; c < P::CHUNKS; c += THREADS) cp_async16(dst + c, src + c);
     }
     cp_commit();
   };
@@ -289,41 +329,10 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint32_t* __restrict__ w_hi,
     cp_wait<NS - 2>();
     __syncthreads();        // tile j landed for all; tile j - 1's stage is free
     issue(j + NS - 1);
-    const uint16_t* b_hi = b_s + (j % NS) * P::STAGE_ELEMS + b_lane;
-    const uint16_t* b_lo = b_hi + TN * SK;
+    const uint16_t* b = b_s + (j % NS) * P::STAGE + b_lane;
     float acc[MI][8][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.f;
-    for (int k = 0; k < H; k += 16) {
-      uint32_t ah[MI][4], al[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        ldmatrix_x4(ah[mi], a_lane + mi * 16 * SK + k);
-        if (X3) ldmatrix_x4(al[mi], a_lane + M * SK + mi * 16 * SK + k);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {           // n8 tiles 2 np and 2 np + 1
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4(bh, b_hi + np * 16 * SK + k);
-        if (X3) ldmatrix_x4(bl, b_lo + np * 16 * SK + k);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int nt = 2 * np + half;
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi) {
-            mma_bf16(acc[mi][nt], ah[mi], bh[2 * half], bh[2 * half + 1]);
-            if (X3) {
-              mma_bf16(acc[mi][nt], ah[mi], bl[2 * half], bl[2 * half + 1]);
-              mma_bf16(acc[mi][nt], al[mi], bh[2 * half], bh[2 * half + 1]);
-            }
-          }
-        }
-      }
-    }
+    tc_kstep<X3, MI, true>(acc, a_lane, b, M * SK, 0);
+    for (int k = 16; k < H; k += 16) tc_kstep<X3, MI, false>(acc, a_lane, b, M * SK, k);
     // the tile's partial of rows g and g + 8 (per m16 tile), over this
     // thread's columns, then into the running sums
 #pragma unroll
@@ -353,16 +362,14 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint32_t* __restrict__ w_hi,
     if (r0 + r < u) out[r0 + r] = part[r] + part[M + r];
 }
 
-template <bool X3>
+template <bool X3, int MI, int NS>
 int launch_rowsum_tc(const float* h, const float* w, int u, int H, int T, float* out,
                      void* scratch, cudaStream_t st) {
-  using P = TcPlan<X3>;
-  uint32_t* w_hi = (uint32_t*)scratch;
-  uint32_t* w_lo = w_hi + (size_t)T * H / 2;
-  rowsum_prep_kernel<X3><<<T / 32, THREADS, 0, st>>>(w, H, T, w_hi, w_lo);
-  set_smem(rowsum_tc_kernel<X3>, P::SMEM);
-  rowsum_tc_kernel<X3><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(h, w_hi, w_lo, u, H, T,
-                                                                       out);
+  using P = TcPlan<X3, MI, NS>;
+  rowsum_prep_kernel<X3><<<T / 32, THREADS, 0, st>>>(w, H, T, (uint32_t*)scratch);
+  set_smem(rowsum_tc_kernel<X3, MI, NS>, P::SMEM);
+  rowsum_tc_kernel<X3, MI, NS><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(
+      h, (const uint16_t*)scratch, u, H, T, out);
   return (int)cudaGetLastError();
 }
 
@@ -386,42 +393,80 @@ __global__ void __launch_bounds__(THREADS) hbm_write_kernel(float* __restrict__ 
   for (size_t i = 4 * n4 + i0; i < n; i += stride) out[i] = 1.f;
 }
 
-constexpr int COPY_UNROLL = 4;   // 16-byte loads in flight a thread
-
 __device__ __forceinline__ float4 twice(float4 v) {
   return make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
 }
 
+template <bool STREAM>
+__device__ __forceinline__ float4 ld4(const float4* p) { return STREAM ? __ldcs(p) : *p; }
+template <bool STREAM>
+__device__ __forceinline__ void st4(float4* p, float4 v) {
+  if (STREAM) __stcs(p, v); else *p = v;
+}
+
+// PERSIST: a grid-stride loop, UNROLL loads in flight a thread; else each
+// block takes THREADS * UNROLL float4 once.
+template <int UNROLL, bool STREAM, bool PERSIST>
 __global__ void __launch_bounds__(THREADS) hbm_scale_copy_kernel(const float* __restrict__ x,
                                                                  float* __restrict__ y, size_t n,
                                                                  size_t n4) {
-  const size_t stride = (size_t)gridDim.x * THREADS;
-  const size_t i0 = (size_t)blockIdx.x * THREADS + threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  size_t i = i0;
-  for (; i + (COPY_UNROLL - 1) * stride < n4; i += COPY_UNROLL * stride) {
-    float4 v[COPY_UNROLL];
+  if (PERSIST) {
+    const size_t stride = (size_t)gridDim.x * THREADS;
+    const size_t i0 = (size_t)blockIdx.x * THREADS + threadIdx.x;
+    size_t i = i0;
+    for (; i + (UNROLL - 1) * stride < n4; i += UNROLL * stride) {
+      float4 v[UNROLL];
 #pragma unroll
-    for (int q = 0; q < COPY_UNROLL; ++q) v[q] = __ldcs(x4 + i + q * stride);
+      for (int q = 0; q < UNROLL; ++q) v[q] = ld4<STREAM>(x4 + i + q * stride);
 #pragma unroll
-    for (int q = 0; q < COPY_UNROLL; ++q) __stcs(y4 + i + q * stride, twice(v[q]));
+      for (int q = 0; q < UNROLL; ++q) st4<STREAM>(y4 + i + q * stride, twice(v[q]));
+    }
+    for (; i < n4; i += stride) st4<STREAM>(y4 + i, twice(ld4<STREAM>(x4 + i)));
+    for (size_t e = 4 * n4 + i0; e < n; e += stride) y[e] = 2.f * x[e];
+  } else {
+    const size_t base = (size_t)blockIdx.x * THREADS * UNROLL + threadIdx.x;
+    if (n4) {
+      float4 v[UNROLL];
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q)
+        if (base + q * THREADS < n4) v[q] = ld4<STREAM>(x4 + base + q * THREADS);
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q)
+        if (base + q * THREADS < n4) st4<STREAM>(y4 + base + q * THREADS, twice(v[q]));
+      if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) y[4 * n4 + threadIdx.x] = 2.f * x[4 * n4 + threadIdx.x];
+    } else {
+#pragma unroll
+      for (int q = 0; q < UNROLL; ++q)
+        if (base + q * THREADS < n) y[base + q * THREADS] = 2.f * x[base + q * THREADS];
+    }
   }
-  for (; i < n4; i += stride) __stcs(y4 + i, twice(__ldcs(x4 + i)));
-  for (size_t e = 4 * n4 + i0; e < n; e += stride) y[e] = 2.f * x[e];
 }
 
 // K15's grid: the blocks the card holds at once (whole waves), fewer where
 // the data has fewer threads' worth of work.
-unsigned copy_blocks(size_t units) {
+template <typename K>
+unsigned copy_blocks(K kernel, size_t units) {
   int dev = 0, sms = 132, per_sm = 8;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hbm_scale_copy_kernel, THREADS, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
   const size_t want = (units + THREADS - 1) / THREADS;
   const size_t full = (size_t)sms * (per_sm > 0 ? per_sm : 1);
   return (unsigned)(want < 1 ? 1 : (want < full ? want : full));
 }
+
+template <int UNROLL, bool STREAM, bool PERSIST>
+void launch_copy(const float* x, float* y, size_t n, size_t n4, cudaStream_t st) {
+  auto k = hbm_scale_copy_kernel<UNROLL, STREAM, PERSIST>;
+  const size_t units = n4 ? n4 : n;
+  const unsigned blocks = PERSIST ? copy_blocks(k, units)
+                                  : (unsigned)((units + THREADS * UNROLL - 1) / (THREADS * UNROLL));
+  k<<<blocks, THREADS, 0, st>>>(x, y, n, n4);
+}
+
+int g_variant = 0;   // interim: the design under test
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -430,6 +475,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 extern "C" {
 
 const char* probe_error_string(int code) { return port_error_string(code); }
+
+void probe_set_variant(int v) { g_variant = v; }
 
 // K13: h (u, H), w (H, T) -> out (u) = row sums of h w. regime: 0 'highest',
 // 1 'default', 2 'bf16', 3 'bf16x3'. Takes H a multiple of 16 up to 128 and
@@ -447,8 +494,9 @@ int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, 
     rowsum_sgemm_kernel<<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T, out);
     return (int)cudaGetLastError();
   }
-  if (regime == 3) return launch_rowsum_tc<true>(h, w, u, H, T, out, scratch, st);
-  return launch_rowsum_tc<false>(h, w, u, H, T, out, scratch, st);
+  if (regime == 3) return launch_rowsum_tc<true, 2, 2>(h, w, u, H, T, out, scratch, st);
+  if (g_variant == 1) return launch_rowsum_tc<false, 2, 2>(h, w, u, H, T, out, scratch, st);
+  return launch_rowsum_tc<false, 4, 3>(h, w, u, H, T, out, scratch, st);
 }
 
 // K14: out (n) = 1.
@@ -466,8 +514,14 @@ int hbm_scale_copy(const float* x, float* y, long long n, void* stream) {
   if (n < 0) return ERR_SHAPE;
   if (n == 0) return 0;
   const size_t n4 = aligned16(x) && aligned16(y) ? (size_t)n / 4 : 0;
-  hbm_scale_copy_kernel<<<copy_blocks(n4 ? n4 : (size_t)n), THREADS, 0, (cudaStream_t)stream>>>(
-      x, y, (size_t)n, n4);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (g_variant) {
+    case 1: launch_copy<8, true, true>(x, y, (size_t)n, n4, st); break;
+    case 2: launch_copy<4, true, false>(x, y, (size_t)n, n4, st); break;
+    case 3: launch_copy<4, false, false>(x, y, (size_t)n, n4, st); break;
+    case 4: launch_copy<4, false, true>(x, y, (size_t)n, n4, st); break;
+    default: launch_copy<4, true, true>(x, y, (size_t)n, n4, st);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,7 @@ Prints the card's name and power limit; writes everything to
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 
@@ -57,7 +58,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--hd", type=int, default=mxu_probe.H)
     ap.add_argument("--t", type=int, default=mxu_probe.T)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "probe_phases.json"))
+    ap.add_argument("--variant", type=int, default=0, help="interim: probe.cu's design under test")
     args = ap.parse_args(argv)
+    lib = probe._lib()
+    lib.probe_set_variant.argtypes = [ctypes.c_int]
+    lib.probe_set_variant(args.variant)
+    print(f"variant {args.variant}", flush=True)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = profiling.gpu_name_and_power_limit()
@@ -66,7 +72,7 @@ def main(argv=None) -> dict:
     h, w, _, _ = mxu_probe.make_inputs(u, hd, t, mxu_probe.L, dev)
     flops = 2.0 * u * hd * t
     nbytes = 4.0 * (u * hd + hd * t + u)
-    res = dict(gpu=gpu, shape=[u, hd, t], reps=args.reps, rowsum={})
+    res = dict(gpu=gpu, shape=[u, hd, t], reps=args.reps, variant=args.variant, rowsum={})
     for regime in probe.REGIMES:
         got = probe.rowsum_dot(h, w, regime)
         ref = probe.rowsum_dot_plain(h, w, regime)
@@ -100,12 +106,12 @@ def main(argv=None) -> dict:
     y = torch.empty_like(x)
     copy_ok = torch.equal(probe.hbm_scale_copy(x), x * 2)
     ones_ok = torch.equal(probe.hbm_write(shape, dev), torch.ones(shape, device=dev))
-    for name, fn, lib, moved, ok in (
+    for name, fn, lib_fn, moved, ok in (
             ("hbm_write", lambda: probe.hbm_write(shape, dev), lambda: y.fill_(1.0), mem, ones_ok),
             ("hbm_scale_copy", lambda: probe.hbm_scale_copy(x), lambda: torch.mul(x, 2.0, out=y),
              2 * mem, copy_ok)):
         ms = profiling.cuda_ms(fn, 10)
-        lib_ms = profiling.cuda_ms(lib, 10)
+        lib_ms = profiling.cuda_ms(lib_fn, 10)
         bound = 1e3 * moved / PEAK["bytes"]
         res[name] = dict(ms=ms, gbps=moved / ms / 1e6, bound_ms=bound, library_ms=lib_ms, exact=ok)
         print(f"{name:15s} {ms:9.3f} ms  {moved / ms / 1e6:7.1f} GB/s  bound {bound:.3f} ms "

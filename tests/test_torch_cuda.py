@@ -921,11 +921,17 @@ def test_rowsum_tilings_match_plain(dev, u, hd, t, regime):
     """K13's tilings (128-row blocks for 'highest' and 'bf16x3', 256 for
     'default' / 'bf16'; 128-column tiles) on U ragged against both, one to
     16 column tiles and the narrowest to the widest h, against the plain
-    version, bitwise equal run to run."""
+    version, bitwise equal run to run. Each row is held to 1e-5 (bf16x3
+    1e-4) of the sum of its products' magnitudes, sum_k,t |h| |w|: a row
+    sum of H T mixed-sign products can cancel far below them (a single
+    row's normwise scale), and only the order of the fp32 sums differs."""
     h, w = _rowsum_inputs(dev, u, hd, t)
     got = probe.rowsum_dot(h, w, regime)
-    assert got.shape == (u, 1)
-    _close(got, probe.rowsum_dot_plain(h, w, regime), 1e-4 if regime == "bf16x3" else 1e-5, regime)
+    assert got.shape == (u, 1) and torch.isfinite(got).all()
+    err = (got.double() - probe.rowsum_dot_plain(h, w, regime).double()).abs()
+    mag = h.double().abs() @ w.double().abs().sum(1, keepdim=True)
+    tol = 1e-4 if regime == "bf16x3" else 1e-5
+    assert (err <= tol * mag).all(), f"{regime}: {(err / mag).max().item()} > {tol}"
     assert torch.equal(got, probe.rowsum_dot(h, w, regime))
 
 
