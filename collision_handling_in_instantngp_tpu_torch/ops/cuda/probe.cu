@@ -209,7 +209,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p)
 // NP parts (hi, then lo) x TN columns x SK (k contiguous, H used), so that a
 // stage is one contiguous copy.
 template <bool X3>
-constexpr size_t tile_image() { return (size_t)(X3 ? 2 : 1) * TN * SK; }
+__host__ __device__ constexpr size_t tile_image() { return (size_t)(X3 ? 2 : 1) * TN * SK; }
 
 // w (H, T) -> the images of w^T: hi = bf16(w), lo = bf16(w - hi) where X3.
 // A block takes 32 columns of w through shared memory; reads and writes are
