@@ -66,13 +66,13 @@ __device__ __forceinline__ void cp_wait() {
 // --------------------- K13 'highest': the CUDA cores ---------------------- //
 
 constexpr int SG_M = 128;   // rows per block
-constexpr int SG_BK = 16;   // k per w slab
-constexpr int SG_NS = 4;    // slabs in the ring
 
+template <int SG_BK, int SG_NS>
 size_t rowsum_sgemm_smem(int H) { return sizeof(float) * ((size_t)H * SG_M + SG_NS * SG_BK * TN); }
 
 // Thread (tx, ty) = (tid % 16, tid / 16) holds rows ty*4 + i and 64 + ty*4 + i
 // and columns tx*4 + j and 64 + tx*4 + j (i, j < 4) of each 128 x 128 tile.
+template <int SG_BK, int SG_NS>
 __global__ void __launch_bounds__(THREADS, 2)
 rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, int u, int H,
                     int T, float* __restrict__ out) {
@@ -163,6 +163,17 @@ rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, in
   }
 }
 
+template <int SG_BK, int SG_NS>
+int launch_sgemm(const float* h, const float* w, int u, int H, int T, float* out,
+                 cudaStream_t st) {
+  if (H % SG_BK) return launch_sgemm<16, 4>(h, w, u, H, T, out, st);
+  const size_t smem = rowsum_sgemm_smem<SG_BK, SG_NS>(H);
+  set_smem(rowsum_sgemm_kernel<SG_BK, SG_NS>, smem);
+  rowsum_sgemm_kernel<SG_BK, SG_NS><<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T,
+                                                                                  out);
+  return (int)cudaGetLastError();
+}
+
 // -------------------- K13 'default' / 'bf16' / 'bf16x3' -------------------- //
 
 constexpr int SK = HMAX + 8;    // bf16 row stride of the operand tiles (272 bytes:
@@ -236,13 +247,13 @@ rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restri
 
 // A block: 4 x 2 warps, warp (wr, wc) rows wr * 16 MI + [0, 16 MI), columns
 // wc * 64 + [0, 64) of each 128-column tile; NS stages of the w^T ring.
-template <bool X3, int MI, int NS>
+template <bool X3, int MI, int NS, int S>
 struct TcPlan {
   static constexpr int M = 64 * MI;           // rows a block
   static constexpr int NP = X3 ? 2 : 1;       // operand parts: hi (, lo)
   static constexpr size_t A_ELEMS = (size_t)NP * M * SK;
-  static constexpr size_t STAGE = tile_image<X3>();
-  static constexpr int CHUNKS = (int)(STAGE / 8);   // 16-byte copies a stage
+  static constexpr size_t STAGE = S * tile_image<X3>();   // S column tiles a stage
+  static constexpr int CHUNKS = (int)(tile_image<X3>() / 8);   // 16-byte copies a tile
   static constexpr size_t SMEM = 2 * (A_ELEMS + NS * STAGE) + sizeof(float) * 2 * M;
 };
 
@@ -277,11 +288,11 @@ __device__ __forceinline__ void tc_kstep(float (&acc)[MI][8][4], const uint16_t*
   }
 }
 
-template <bool X3, int MI, int NS>
+template <bool X3, int MI, int NS, int S>
 __global__ void __launch_bounds__(THREADS, MI == 4 || X3 ? 1 : 2)
 rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, int u, int H,
                  int T, float* __restrict__ out) {
-  using P = TcPlan<X3, MI, NS>;
+  using P = TcPlan<X3, MI, NS, S>;
   constexpr int M = P::M;
   extern __shared__ float4 smem_f4[];
   uint16_t* a_s = reinterpret_cast<uint16_t*>(smem_f4);   // hi, then lo at M * SK
@@ -292,13 +303,16 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
   const int wr = warp & 3, wc = warp >> 2;
   const int r0 = blockIdx.x * M;
 
-  // column tile j's image into its stage; one commit group a call
+  const int tiles = T / TN, stages = (tiles + S - 1) / S;
+  // stage j's column tiles' images into its slot; one commit group a call
   auto issue = [&](int j) {
-    if (j * TN < T) {
+    if (j < stages) {
+      const int n = (tiles - j * S < S ? tiles - j * S : S) * P::CHUNKS;
       const float4* src = reinterpret_cast<const float4*>(img + j * P::STAGE);
       float4* dst = reinterpret_cast<float4*>(b_s + (j % NS) * P::STAGE);
 #pragma unroll
-      for (int c = threadIdx.x; c < P::CHUNKS; c += THREADS) cp_async16(dst + c, src + c);
+      for (int c = threadIdx.x; c < S * P::CHUNKS; c += THREADS)
+        if (c < n) cp_async16(dst + c, src + c);
     }
     cp_commit();
   };
@@ -325,11 +339,13 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) run[mi][0] = run[mi][1] = 0.f;
 
-  for (int j = 0; j * TN < T; ++j) {
+  for (int j = 0; j < stages; ++j) {
     cp_wait<NS - 2>();
-    __syncthreads();        // tile j landed for all; tile j - 1's stage is free
+    __syncthreads();        // stage j landed for all; stage j - 1's slot is free
     issue(j + NS - 1);
-    const uint16_t* b = b_s + (j % NS) * P::STAGE + b_lane;
+#pragma unroll 1
+    for (int sub = 0; sub < S && j * S + sub < tiles; ++sub) {
+    const uint16_t* b = b_s + (j % NS) * P::STAGE + sub * tile_image<X3>() + b_lane;
     float acc[MI][8][4];
     tc_kstep<X3, MI, true>(acc, a_lane, b, M * SK, 0);
     for (int k = 16; k < H; k += 16) tc_kstep<X3, MI, false>(acc, a_lane, b, M * SK, k);
@@ -345,6 +361,7 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
       }
       run[mi][0] += s0;
       run[mi][1] += s1;
+    }
     }
   }
   // the four lanes of a row group hold its columns; then the two column warps
@@ -362,13 +379,13 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
     if (r0 + r < u) out[r0 + r] = part[r] + part[M + r];
 }
 
-template <bool X3, int MI, int NS>
+template <bool X3, int MI, int NS, int S = 1>
 int launch_rowsum_tc(const float* h, const float* w, int u, int H, int T, float* out,
                      void* scratch, cudaStream_t st) {
-  using P = TcPlan<X3, MI, NS>;
+  using P = TcPlan<X3, MI, NS, S>;
   rowsum_prep_kernel<X3><<<T / 32, THREADS, 0, st>>>(w, H, T, (uint32_t*)scratch);
-  set_smem(rowsum_tc_kernel<X3, MI, NS>, P::SMEM);
-  rowsum_tc_kernel<X3, MI, NS><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(
+  set_smem(rowsum_tc_kernel<X3, MI, NS, S>, P::SMEM);
+  rowsum_tc_kernel<X3, MI, NS, S><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(
       h, (const uint16_t*)scratch, u, H, T, out);
   return (int)cudaGetLastError();
 }
@@ -397,73 +414,44 @@ __device__ __forceinline__ float4 twice(float4 v) {
   return make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
 }
 
-template <bool STREAM>
-__device__ __forceinline__ float4 ld4(const float4* p) { return STREAM ? __ldcs(p) : *p; }
-template <bool STREAM>
+template <bool CS>
+__device__ __forceinline__ float4 ld4(const float4* p) { return CS ? __ldcs(p) : *p; }
+template <bool CS>
 __device__ __forceinline__ void st4(float4* p, float4 v) {
-  if (STREAM) __stcs(p, v); else *p = v;
+  if (CS) __stcs(p, v); else *p = v;
 }
 
-// PERSIST: a grid-stride loop, UNROLL loads in flight a thread; else each
-// block takes THREADS * UNROLL float4 once.
-template <int UNROLL, bool STREAM, bool PERSIST>
-__global__ void __launch_bounds__(THREADS) hbm_scale_copy_kernel(const float* __restrict__ x,
-                                                                 float* __restrict__ y, size_t n,
-                                                                 size_t n4) {
+// Each block takes BT * UNROLL float4 once: UNROLL independent loads a
+// thread in flight, then their stores.
+template <int UNROLL, bool LCS, bool SCS, int BT>
+__global__ void __launch_bounds__(BT) hbm_scale_copy_kernel(const float* __restrict__ x,
+                                                            float* __restrict__ y, size_t n,
+                                                            size_t n4) {
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  if (PERSIST) {
-    const size_t stride = (size_t)gridDim.x * THREADS;
-    const size_t i0 = (size_t)blockIdx.x * THREADS + threadIdx.x;
-    size_t i = i0;
-    for (; i + (UNROLL - 1) * stride < n4; i += UNROLL * stride) {
-      float4 v[UNROLL];
+  const size_t base = (size_t)blockIdx.x * BT * UNROLL + threadIdx.x;
+  if (n4) {
+    float4 v[UNROLL];
 #pragma unroll
-      for (int q = 0; q < UNROLL; ++q) v[q] = ld4<STREAM>(x4 + i + q * stride);
+    for (int q = 0; q < UNROLL; ++q)
+      if (base + q * BT < n4) v[q] = ld4<LCS>(x4 + base + q * BT);
 #pragma unroll
-      for (int q = 0; q < UNROLL; ++q) st4<STREAM>(y4 + i + q * stride, twice(v[q]));
-    }
-    for (; i < n4; i += stride) st4<STREAM>(y4 + i, twice(ld4<STREAM>(x4 + i)));
-    for (size_t e = 4 * n4 + i0; e < n; e += stride) y[e] = 2.f * x[e];
+    for (int q = 0; q < UNROLL; ++q)
+      if (base + q * BT < n4) st4<SCS>(y4 + base + q * BT, twice(v[q]));
+    if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4)
+      y[4 * n4 + threadIdx.x] = 2.f * x[4 * n4 + threadIdx.x];
   } else {
-    const size_t base = (size_t)blockIdx.x * THREADS * UNROLL + threadIdx.x;
-    if (n4) {
-      float4 v[UNROLL];
 #pragma unroll
-      for (int q = 0; q < UNROLL; ++q)
-        if (base + q * THREADS < n4) v[q] = ld4<STREAM>(x4 + base + q * THREADS);
-#pragma unroll
-      for (int q = 0; q < UNROLL; ++q)
-        if (base + q * THREADS < n4) st4<STREAM>(y4 + base + q * THREADS, twice(v[q]));
-      if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) y[4 * n4 + threadIdx.x] = 2.f * x[4 * n4 + threadIdx.x];
-    } else {
-#pragma unroll
-      for (int q = 0; q < UNROLL; ++q)
-        if (base + q * THREADS < n) y[base + q * THREADS] = 2.f * x[base + q * THREADS];
-    }
+    for (int q = 0; q < UNROLL; ++q)
+      if (base + q * BT < n) y[base + q * BT] = 2.f * x[base + q * BT];
   }
 }
 
-// K15's grid: the blocks the card holds at once (whole waves), fewer where
-// the data has fewer threads' worth of work.
-template <typename K>
-unsigned copy_blocks(K kernel, size_t units) {
-  int dev = 0, sms = 132, per_sm = 8;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
-  const size_t want = (units + THREADS - 1) / THREADS;
-  const size_t full = (size_t)sms * (per_sm > 0 ? per_sm : 1);
-  return (unsigned)(want < 1 ? 1 : (want < full ? want : full));
-}
-
-template <int UNROLL, bool STREAM, bool PERSIST>
+template <int UNROLL, bool LCS, bool SCS, int BT = THREADS>
 void launch_copy(const float* x, float* y, size_t n, size_t n4, cudaStream_t st) {
-  auto k = hbm_scale_copy_kernel<UNROLL, STREAM, PERSIST>;
-  const size_t units = n4 ? n4 : n;
-  const unsigned blocks = PERSIST ? copy_blocks(k, units)
-                                  : (unsigned)((units + THREADS * UNROLL - 1) / (THREADS * UNROLL));
-  k<<<blocks, THREADS, 0, st>>>(x, y, n, n4);
+  const size_t units = n4 ? n4 : n, per_block = (size_t)BT * UNROLL;
+  hbm_scale_copy_kernel<UNROLL, LCS, SCS, BT><<<(unsigned)((units + per_block - 1) / per_block), BT,
+                                                0, st>>>(x, y, n, n4);
 }
 
 int g_variant = 0;   // interim: the design under test
@@ -489,13 +477,11 @@ int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, 
   if (u == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (regime == 0) {
-    const size_t smem = rowsum_sgemm_smem(H);
-    set_smem(rowsum_sgemm_kernel, smem);
-    rowsum_sgemm_kernel<<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T, out);
-    return (int)cudaGetLastError();
+    if (g_variant == 1) return launch_sgemm<32, 3>(h, w, u, H, T, out, st);
+    return launch_sgemm<16, 4>(h, w, u, H, T, out, st);
   }
   if (regime == 3) return launch_rowsum_tc<true, 2, 2>(h, w, u, H, T, out, scratch, st);
-  if (g_variant == 1) return launch_rowsum_tc<false, 2, 2>(h, w, u, H, T, out, scratch, st);
+  if (g_variant == 1) return launch_rowsum_tc<false, 4, 2, 2>(h, w, u, H, T, out, scratch, st);
   return launch_rowsum_tc<false, 4, 3>(h, w, u, H, T, out, scratch, st);
 }
 
@@ -516,11 +502,11 @@ int hbm_scale_copy(const float* x, float* y, long long n, void* stream) {
   const size_t n4 = aligned16(x) && aligned16(y) ? (size_t)n / 4 : 0;
   cudaStream_t st = (cudaStream_t)stream;
   switch (g_variant) {
-    case 1: launch_copy<8, true, true>(x, y, (size_t)n, n4, st); break;
-    case 2: launch_copy<4, true, false>(x, y, (size_t)n, n4, st); break;
-    case 3: launch_copy<4, false, false>(x, y, (size_t)n, n4, st); break;
-    case 4: launch_copy<4, false, true>(x, y, (size_t)n, n4, st); break;
-    default: launch_copy<4, true, true>(x, y, (size_t)n, n4, st);
+    case 1: launch_copy<2, false, false>(x, y, (size_t)n, n4, st); break;
+    case 2: launch_copy<8, false, false>(x, y, (size_t)n, n4, st); break;
+    case 3: launch_copy<4, true, false>(x, y, (size_t)n, n4, st); break;
+    case 4: launch_copy<4, false, false, 128>(x, y, (size_t)n, n4, st); break;
+    default: launch_copy<4, false, false>(x, y, (size_t)n, n4, st);
   }
   return (int)cudaGetLastError();
 }

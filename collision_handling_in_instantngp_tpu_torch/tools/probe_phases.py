@@ -9,10 +9,12 @@ bound (operations at the card's peak for the regime's type), and with
 ``--library`` one PyTorch call of the same function (``matmul(h, w).sum(-1)``,
 which writes the (U, T) product). For K14 and K15: time, GB/s, share of the
 bytes bound, exactness, and the library call (``fill_``, ``mul(out=)``).
-Prints the card's name and power limit; writes everything to
+With ``--clocks``, the SM clock and board power that ``nvidia-smi`` reads
+while each regime runs back to back (the rate a kernel can reach scales
+with the clock the card holds under it). Prints the card's name and power limit; writes everything to
 ``chiprun_out/probe_phases.json``.
 
-    python3 -m collision_handling_in_instantngp_tpu_torch.tools.probe_phases [--reps N] [--library]
+    python3 -m collision_handling_in_instantngp_tpu_torch.tools.probe_phases [--reps N] [--library] [--clocks]
 """
 
 from __future__ import annotations
@@ -50,10 +52,35 @@ def kernel_ms(fn, reps: int) -> dict:
     return {r["name"]: r["ms"] / reps for r in rows}
 
 
+def clocks_during(fn, seconds: float = 1.5) -> dict:
+    """The SM clock (MHz) and board power (W) that ``nvidia-smi`` samples
+    every 50 ms while ``fn`` runs back to back for about ``seconds``; the
+    samples of the middle half."""
+    import subprocess
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    out, _ = smi.communicate(timeout=30)
+    rows = [[float(v) for v in line.split(",")] for line in out.strip().splitlines() if line.strip()]
+    mid = rows[len(rows) // 4: max(len(rows) // 4 + 1, 3 * len(rows) // 4)]
+    return dict(sm_mhz=[r[0] for r in mid], power_w=[r[1] for r in mid])
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--library", action="store_true", help="also time the PyTorch calls")
+    ap.add_argument("--clocks", action="store_true",
+                    help="sample the SM clock and power while each regime runs")
     ap.add_argument("--u", type=int, default=mxu_probe.U)
     ap.add_argument("--hd", type=int, default=mxu_probe.H)
     ap.add_argument("--t", type=int, default=mxu_probe.T)
@@ -91,6 +118,11 @@ def main(argv=None) -> dict:
             row["library_ms"] = profiling.cuda_ms(lambda: torch.matmul(a, c).sum(-1), 3)
             del a, c
             torch.cuda.empty_cache()
+        if args.clocks and regime != "default":
+            row["clocks"] = clocks_during(lambda: probe.rowsum_dot(h, w, regime))
+            c = row["clocks"]
+            print(f"    SM clock {min(c['sm_mhz']):.0f}-{max(c['sm_mhz']):.0f} MHz, power "
+                  f"{min(c['power_w']):.0f}-{max(c['power_w']):.0f} W while it runs", flush=True)
         res["rowsum"][regime] = row
         ok = err <= TOL.get(regime, 1e-5) and same
         print(f"K13 [{regime:7s}] {ms:9.3f} ms  {row['tflops']:7.2f} TF/s  bound {bound:.3f} ms "
