@@ -15,8 +15,10 @@
    ``tail_fwd_kernel`` (redesigned in fp32 on the CUDA cores: its
    tensor-core design lost to it), that of ``hidden.cu``
    HMMA in every instance (precision x row tile x weight staging) of K3a's
-   and K3b's kernels and in K3b's dW kernel, and that of the wide passes
-   of ``hpd_stream.cu`` (heads past 128) no tensor-core instruction;
+   and K3b's kernels and in K3b's dW kernel, that of the wide passes
+   of ``hpd_stream.cu`` (heads past 128) no tensor-core instruction, and
+   that of ``probe.cu`` HMMA in both instances of K13's tensor-core kernel
+   (which 'default' runs too) and none in its fp32 SGEMM ('highest');
 2. holds every kernel of the dedup route against its plain PyTorch
    version on the same inputs at the path's shapes (scaled grid-4061
    geometry on the strawberry image: H=128, T=16384, L=16, K=4, the full
@@ -113,7 +115,9 @@
 14. the measurement path, part 2, at ``tools/mxu_probe.py``'s shapes
    (U = 162,304, H = 128, T = 16,384): holds K13 in its four regimes
    against their plain versions and K14, K15 exactly, bitwise run to run,
-   each timed beside one PyTorch call that computes the same function;
+   each timed beside one PyTorch call that computes the same function
+   (K13 and K15, redesigned, with their TF/s or GB/s and their times
+   before the redesign);
    then, with their counts set to 0 just before, runs the tool's ``main``
    (its TF/s and GB/s lines; the calibration goes to
    ``chiprun_out/roofline_calibration.json``) and fails unless each
@@ -123,7 +127,7 @@
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
    (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7,
-   K8-K11, K12's ring) their time before the redesign
+   K8-K11, K12's ring, K13, K15) their time before the redesign
    (``before_redesign_ms``, the records' figures in BEFORE_REDESIGN_MS)
    beside this run's; the tensor-core kernels' ``bound_ms`` is that of
    3xTF32 at the TF32 peak (K9-K11: their head's products so, the rest at
@@ -182,7 +186,10 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "hpd_stream_select": 117.44, "hpd_stream_marginal": 171.63,
                       "hpd_stream_fused_probe[dots]": 25.63,
                       "hpd_stream_fused_probe[softmax]": 26.50, "hpd_full_bwd": 24.82,
-                      "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861, "hpd_tail_fwd": 6.777}
+                      "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861, "hpd_tail_fwd": 6.777,
+                      "rowsum_dot[highest]": 25.38, "rowsum_dot[default]": 40.20,
+                      "rowsum_dot[bf16]": 3.674, "rowsum_dot[bf16x3]": 8.649,
+                      "hbm_scale_copy": 1.905}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -780,8 +787,8 @@ def mxu_probe_phase(dev):
         bitwise_same("rowsum", [got], [probe.rowsum_dot(h, w, regime)])
         if regime == "highest":
             bound = bound_ms(flops, 4.0 * (U * H + H * T + U))
-        else:   # bf16 products (on the CUDA cores for 'default', the same
-            # function as 'bf16'); bf16x3 runs three products per term
+        else:   # bf16 products ('default' and 'bf16' run one tensor-core
+            # kernel); bf16x3 runs three products per term
             bound = bound_ms((3 if regime == "bf16x3" else 1) * flops, 4.0 * (U * H + H * T + U),
                              PEAK_BF16_TENSOR_FLOPS)
         library = None
@@ -792,10 +799,12 @@ def mxu_probe_phase(dev):
             library = cuda_ms(lambda: torch.matmul(a, c).sum(-1), 3)
             del a, c
             torch.cuda.empty_cache()
-        entries[f"rowsum_dot[{regime}]"] = kernel_entry(
+        entry = entries[f"rowsum_dot[{regime}]"] = kernel_entry(
             f"rowsum_dot[{regime}]", SRC + "probe.cu", "tools/mxu_probe.py:119", err,
             cuda_ms(lambda: probe.rowsum_dot(h, w, regime), 5),
             cuda_ms(lambda: probe.rowsum_dot_plain(h, w, regime), 2), bound, library)
+        log(f"  {flops / entry['ms'] / 1e9:.2f} TF/s (2 U H T over the kernel's time)")
+        redesigned(entry)
 
     shape = (U, T // 4)
     nbytes = 4.0 * U * (T // 4)
@@ -821,11 +830,13 @@ def mxu_probe_phase(dev):
     log("  2x: exactly equal to the plain version, bitwise run to run")
     del got
     y = torch.empty_like(x)
-    entries["hbm_scale_copy"] = kernel_entry(
+    entry = entries["hbm_scale_copy"] = kernel_entry(
         "hbm_scale_copy", SRC + "probe.cu", "tools/mxu_probe.py:183", 0.0,
         cuda_ms(lambda: probe.hbm_scale_copy(x), 10),
         cuda_ms(lambda: probe.hbm_scale_copy_plain(x), 10), bound_ms(0.0, 2 * nbytes),
         cuda_ms(lambda: torch.mul(x, 2.0, out=y), 10))
+    log(f"  {2 * nbytes / entry['ms'] / 1e6:.1f} GB/s (read + write over the kernel's time)")
+    redesigned(entry)
     del x, y, h, w
     torch.cuda.empty_cache()
 
@@ -1447,6 +1458,39 @@ def tensor_core_sass(build) -> dict:
                 if k3[n]["HMMA"] == 0:
                     raise RuntimeError(f"{n}: no HMMA in the SASS")
     counts.update(k3)
+    counts.update(probe_sass(build))
+    return counts
+
+
+def probe_sass(build) -> dict:
+    """HMMA per kernel of the built probe library (K13): raises unless every
+    instance of ``rowsum_tc_kernel`` (the tensor-core regimes, 'default'
+    among them) holds HMMA and ``rowsum_sgemm_kernel`` ('highest', fp32 on
+    the CUDA cores) none."""
+    import re
+    import subprocess
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build._library_path("probe")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"\d+(rowsum_\w+?_kernel)(I(?:L[a-z]+\d+E)+E)?", line)
+            name = None
+            if found:
+                args = ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2) or ""))
+                name = f"{found.group(1)}<{args}>"
+                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+        elif name and "HMMA" in line:
+            counts[name]["HMMA"] += 1
+    log("  SASS tensor-core instructions (probe.cu):")
+    for k_, c in sorted(counts.items()):
+        log(f"    {k_:34s} HMMA {c['HMMA']:4d}")
+    tc = [n for n in counts if n.startswith("rowsum_tc_kernel<")]
+    if len(tc) < 2 or any(counts[n]["HMMA"] == 0 for n in tc):
+        raise RuntimeError(f"K13's tensor-core kernels: {tc}, each must hold HMMA")
+    if counts.get("rowsum_sgemm_kernel<>", {"HMMA": 1})["HMMA"]:
+        raise RuntimeError("rowsum_sgemm_kernel: missing, or tensor-core instructions in K13 'highest'")
     return counts
 
 

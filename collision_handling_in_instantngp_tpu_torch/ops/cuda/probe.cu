@@ -15,28 +15,28 @@
 //   regime 0 'highest': fp32 FMA on the CUDA cores, an SGEMM main loop
 //     (rowsum_sgemm_kernel): 128 x 128 block tiles, an 8 x 8 register tile
 //     a thread fed by four float4 shared loads a k, the block's h tile
-//     stored k-major once, w streamed in 16-deep slabs through a 4-stage
+//     stored k-major once, w streamed in 32-deep slabs through a 3-stage
 //     16-byte cp.async ring with one barrier a slab; two blocks an SM.
 //     Bound: operations at the fp32 CUDA-core peak.
 //   regimes 1 'default' and 2 'bf16': one function (a bf16 product is exact
 //     in fp32, the sums are fp32), so one kernel: bf16 operands on the
 //     tensor cores, fp32 accumulate (mma.sync m16n8k16), 256-row tiles,
-//     8 warps of 64 rows x 64 columns.
+//     8 warps of 64 rows x 64 columns, a 3-stage ring.
 //   regime 3 'bf16x3': hi(h)hi(w) + hi(h)lo(w) + lo(h)hi(w) on the tensor
 //     cores into one fp32 accumulator (the bf16 hi/lo split of 'high'),
-//     128-row tiles, 8 warps of 32 x 64.
-//   For 1-3 a prep kernel writes w^T (T, H) in bf16 (hi, and lo for 3)
-//   once a call into the wrapper's scratch, k contiguous as the B fragments
-//   want; the main kernel splits its h tile once, streams 128-column tiles
-//   of w^T through a cp.async ring (one barrier a tile) and reads both
-//   operands with ldmatrix. Bound: operations at the bf16 tensor peak (x3
-//   for 3). Next step: wgmma.
+//     128-row tiles, 8 warps of 32 x 64, a 2-stage ring.
+//   For 1-3 a prep kernel writes w^T in bf16 (hi, and lo for 3) once a call
+//   into the wrapper's scratch, each 128-column tile as the image its ring
+//   stage holds (k contiguous, as the B fragments want); the main kernel
+//   splits its h tile once, copies each image with 16-byte cp.async (one
+//   barrier a tile) and reads both operands with ldmatrix. Bound:
+//   operations at the bf16 tensor peak (x3 for 3). Next step: wgmma.
 //
 // K14: a grid-stride loop of 16-byte stores; bound: bytes.
-// K15: each thread keeps four independent 16-byte streaming loads (__ldcs)
-// in flight before their stores (__stcs), on a grid of whole waves at full
-// occupancy; scalar accesses where an address is not 16-byte aligned.
-// Bound: bytes.
+// K15: each thread issues four independent 16-byte loads before their
+// stores, each block once over its own 16 KB (a grid-stride loop over a
+// grid of whole waves, and streaming cache hints, measured slower); scalar
+// accesses where an address is not 16-byte aligned. Bound: bytes.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -57,6 +57,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src));
 }
+// the same, zero-filled (nothing read) where !valid
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_wait() {
@@ -66,25 +72,31 @@ __device__ __forceinline__ void cp_wait() {
 // --------------------- K13 'highest': the CUDA cores ---------------------- //
 
 constexpr int SG_M = 128;   // rows per block
+constexpr int SG_BK = 32;   // k per w slab
+constexpr int SG_NS = 3;    // slabs in the ring
 
-template <int SG_BK, int SG_NS>
-size_t rowsum_sgemm_smem(int H) { return sizeof(float) * ((size_t)H * SG_M + SG_NS * SG_BK * TN); }
+// k rounded up to whole slabs: the h tile and the slabs are zero past H
+__host__ __device__ constexpr int sgemm_kp(int H) { return (H + SG_BK - 1) / SG_BK * SG_BK; }
+
+size_t rowsum_sgemm_smem(int H) {
+  return sizeof(float) * ((size_t)sgemm_kp(H) * SG_M + SG_NS * SG_BK * TN);
+}
 
 // Thread (tx, ty) = (tid % 16, tid / 16) holds rows ty*4 + i and 64 + ty*4 + i
 // and columns tx*4 + j and 64 + tx*4 + j (i, j < 4) of each 128 x 128 tile.
-template <int SG_BK, int SG_NS>
 __global__ void __launch_bounds__(THREADS, 2)
 rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, int u, int H,
                     int T, float* __restrict__ out) {
   extern __shared__ float4 smem_f4[];
-  float* a_s = reinterpret_cast<float*>(smem_f4);  // H x SG_M, k-major
-  float* b_s = a_s + (size_t)H * SG_M;              // SG_NS x SG_BK x TN
+  const int kp = sgemm_kp(H);
+  float* a_s = reinterpret_cast<float*>(smem_f4);  // kp x SG_M, k-major
+  float* b_s = a_s + (size_t)kp * SG_M;             // SG_NS x SG_BK x TN
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int r0 = blockIdx.x * SG_M;
-  const int ks = H / SG_BK, slabs = (T / TN) * ks;
+  const int ks = kp / SG_BK, slabs = (T / TN) * ks;
 
-  // slab s: columns [(s / ks) TN, + TN), k [(s % ks) SG_BK, + SG_BK); one
-  // commit group per call, empty past the last slab
+  // slab s: columns [(s / ks) TN, + TN), k [(s % ks) SG_BK, + SG_BK), rows
+  // past H zero-filled; one commit group a call, empty past the last slab
   auto issue = [&](int s) {
     if (s < slabs) {
       const int t0 = (s / ks) * TN, k0 = (s % ks) * SG_BK;
@@ -92,7 +104,8 @@ rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, in
 #pragma unroll
       for (int c = tid; c < SG_BK * TN / 4; c += THREADS) {
         const int kk = c >> 5, q = c & 31;
-        cp_async16(dst + kk * TN + 4 * q, w + (size_t)(k0 + kk) * T + t0 + 4 * q);
+        const bool in = k0 + kk < H;
+        cp_async16z(dst + kk * TN + 4 * q, in ? w + (size_t)(k0 + kk) * T + t0 + 4 * q : w, in);
       }
     }
     cp_commit();
@@ -101,10 +114,10 @@ rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, in
   for (int s = 0; s < SG_NS - 1; ++s) issue(s);
 
   // the h tile once, k-major (a warp stores 32 rows of one k: no conflicts)
-  for (int c = tid; c < SG_M * (H / 4); c += THREADS) {
+  for (int c = tid; c < SG_M * (kp / 4); c += THREADS) {
     const int r = c & (SG_M - 1), k = 4 * (c >> 7);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < u) v = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + k);
+    if (r0 + r < u && k < H) v = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + k);
     a_s[(k + 0) * SG_M + r] = v.x;
     a_s[(k + 1) * SG_M + r] = v.y;
     a_s[(k + 2) * SG_M + r] = v.z;
@@ -161,17 +174,6 @@ rowsum_sgemm_kernel(const float* __restrict__ h, const float* __restrict__ w, in
     const int r = r0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (tx == 0 && r < u) out[r] = v;
   }
-}
-
-template <int SG_BK, int SG_NS>
-int launch_sgemm(const float* h, const float* w, int u, int H, int T, float* out,
-                 cudaStream_t st) {
-  if (H % SG_BK) return launch_sgemm<16, 4>(h, w, u, H, T, out, st);
-  const size_t smem = rowsum_sgemm_smem<SG_BK, SG_NS>(H);
-  set_smem(rowsum_sgemm_kernel<SG_BK, SG_NS>, smem);
-  rowsum_sgemm_kernel<SG_BK, SG_NS><<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T,
-                                                                                  out);
-  return (int)cudaGetLastError();
 }
 
 // -------------------- K13 'default' / 'bf16' / 'bf16x3' -------------------- //
@@ -247,13 +249,13 @@ rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restri
 
 // A block: 4 x 2 warps, warp (wr, wc) rows wr * 16 MI + [0, 16 MI), columns
 // wc * 64 + [0, 64) of each 128-column tile; NS stages of the w^T ring.
-template <bool X3, int MI, int NS, int S>
+template <bool X3, int MI, int NS>
 struct TcPlan {
   static constexpr int M = 64 * MI;           // rows a block
   static constexpr int NP = X3 ? 2 : 1;       // operand parts: hi (, lo)
   static constexpr size_t A_ELEMS = (size_t)NP * M * SK;
-  static constexpr size_t STAGE = S * tile_image<X3>();   // S column tiles a stage
-  static constexpr int CHUNKS = (int)(tile_image<X3>() / 8);   // 16-byte copies a tile
+  static constexpr size_t STAGE = tile_image<X3>();
+  static constexpr int CHUNKS = (int)(STAGE / 8);   // 16-byte copies a stage
   static constexpr size_t SMEM = 2 * (A_ELEMS + NS * STAGE) + sizeof(float) * 2 * M;
 };
 
@@ -288,11 +290,11 @@ __device__ __forceinline__ void tc_kstep(float (&acc)[MI][8][4], const uint16_t*
   }
 }
 
-template <bool X3, int MI, int NS, int S>
-__global__ void __launch_bounds__(THREADS, MI == 4 || X3 ? 1 : 2)
+template <bool X3, int MI, int NS>
+__global__ void __launch_bounds__(THREADS, 1)
 rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, int u, int H,
                  int T, float* __restrict__ out) {
-  using P = TcPlan<X3, MI, NS, S>;
+  using P = TcPlan<X3, MI, NS>;
   constexpr int M = P::M;
   extern __shared__ float4 smem_f4[];
   uint16_t* a_s = reinterpret_cast<uint16_t*>(smem_f4);   // hi, then lo at M * SK
@@ -303,16 +305,13 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
   const int wr = warp & 3, wc = warp >> 2;
   const int r0 = blockIdx.x * M;
 
-  const int tiles = T / TN, stages = (tiles + S - 1) / S;
-  // stage j's column tiles' images into its slot; one commit group a call
+  // column tile j's image into its stage; one commit group a call
   auto issue = [&](int j) {
-    if (j < stages) {
-      const int n = (tiles - j * S < S ? tiles - j * S : S) * P::CHUNKS;
+    if (j * TN < T) {
       const float4* src = reinterpret_cast<const float4*>(img + j * P::STAGE);
       float4* dst = reinterpret_cast<float4*>(b_s + (j % NS) * P::STAGE);
 #pragma unroll
-      for (int c = threadIdx.x; c < S * P::CHUNKS; c += THREADS)
-        if (c < n) cp_async16(dst + c, src + c);
+      for (int c = threadIdx.x; c < P::CHUNKS; c += THREADS) cp_async16(dst + c, src + c);
     }
     cp_commit();
   };
@@ -339,13 +338,11 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) run[mi][0] = run[mi][1] = 0.f;
 
-  for (int j = 0; j < stages; ++j) {
+  for (int j = 0; j * TN < T; ++j) {
     cp_wait<NS - 2>();
-    __syncthreads();        // stage j landed for all; stage j - 1's slot is free
+    __syncthreads();        // tile j landed for all; tile j - 1's stage is free
     issue(j + NS - 1);
-#pragma unroll 1
-    for (int sub = 0; sub < S && j * S + sub < tiles; ++sub) {
-    const uint16_t* b = b_s + (j % NS) * P::STAGE + sub * tile_image<X3>() + b_lane;
+    const uint16_t* b = b_s + (j % NS) * P::STAGE + b_lane;
     float acc[MI][8][4];
     tc_kstep<X3, MI, true>(acc, a_lane, b, M * SK, 0);
     for (int k = 16; k < H; k += 16) tc_kstep<X3, MI, false>(acc, a_lane, b, M * SK, k);
@@ -361,7 +358,6 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
       }
       run[mi][0] += s0;
       run[mi][1] += s1;
-    }
     }
   }
   // the four lanes of a row group hold its columns; then the two column warps
@@ -379,13 +375,13 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
     if (r0 + r < u) out[r0 + r] = part[r] + part[M + r];
 }
 
-template <bool X3, int MI, int NS, int S = 1>
+template <bool X3, int MI, int NS>
 int launch_rowsum_tc(const float* h, const float* w, int u, int H, int T, float* out,
                      void* scratch, cudaStream_t st) {
-  using P = TcPlan<X3, MI, NS, S>;
+  using P = TcPlan<X3, MI, NS>;
   rowsum_prep_kernel<X3><<<T / 32, THREADS, 0, st>>>(w, H, T, (uint32_t*)scratch);
-  set_smem(rowsum_tc_kernel<X3, MI, NS, S>, P::SMEM);
-  rowsum_tc_kernel<X3, MI, NS, S><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(
+  set_smem(rowsum_tc_kernel<X3, MI, NS>, P::SMEM);
+  rowsum_tc_kernel<X3, MI, NS><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(
       h, (const uint16_t*)scratch, u, H, T, out);
   return (int)cudaGetLastError();
 }
@@ -414,47 +410,33 @@ __device__ __forceinline__ float4 twice(float4 v) {
   return make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
 }
 
-template <bool CS>
-__device__ __forceinline__ float4 ld4(const float4* p) { return CS ? __ldcs(p) : *p; }
-template <bool CS>
-__device__ __forceinline__ void st4(float4* p, float4 v) {
-  if (CS) __stcs(p, v); else *p = v;
-}
+constexpr int COPY_UNROLL = 4;   // 16-byte loads in flight a thread
 
-// Each block takes BT * UNROLL float4 once: UNROLL independent loads a
-// thread in flight, then their stores.
-template <int UNROLL, bool LCS, bool SCS, int BT>
-__global__ void __launch_bounds__(BT) hbm_scale_copy_kernel(const float* __restrict__ x,
-                                                            float* __restrict__ y, size_t n,
-                                                            size_t n4) {
+// Each block takes THREADS * COPY_UNROLL float4 once (a grid of about 160,000
+// blocks at the probe's size): each thread's loads are all issued before
+// its stores.
+__global__ void __launch_bounds__(THREADS) hbm_scale_copy_kernel(const float* __restrict__ x,
+                                                                 float* __restrict__ y, size_t n,
+                                                                 size_t n4) {
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  const size_t base = (size_t)blockIdx.x * BT * UNROLL + threadIdx.x;
+  const size_t base = (size_t)blockIdx.x * THREADS * COPY_UNROLL + threadIdx.x;
   if (n4) {
-    float4 v[UNROLL];
+    float4 v[COPY_UNROLL];
 #pragma unroll
-    for (int q = 0; q < UNROLL; ++q)
-      if (base + q * BT < n4) v[q] = ld4<LCS>(x4 + base + q * BT);
+    for (int q = 0; q < COPY_UNROLL; ++q)
+      if (base + q * THREADS < n4) v[q] = x4[base + q * THREADS];
 #pragma unroll
-    for (int q = 0; q < UNROLL; ++q)
-      if (base + q * BT < n4) st4<SCS>(y4 + base + q * BT, twice(v[q]));
+    for (int q = 0; q < COPY_UNROLL; ++q)
+      if (base + q * THREADS < n4) y4[base + q * THREADS] = twice(v[q]);
     if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4)
       y[4 * n4 + threadIdx.x] = 2.f * x[4 * n4 + threadIdx.x];
   } else {
 #pragma unroll
-    for (int q = 0; q < UNROLL; ++q)
-      if (base + q * BT < n) y[base + q * BT] = 2.f * x[base + q * BT];
+    for (int q = 0; q < COPY_UNROLL; ++q)
+      if (base + q * THREADS < n) y[base + q * THREADS] = 2.f * x[base + q * THREADS];
   }
 }
-
-template <int UNROLL, bool LCS, bool SCS, int BT = THREADS>
-void launch_copy(const float* x, float* y, size_t n, size_t n4, cudaStream_t st) {
-  const size_t units = n4 ? n4 : n, per_block = (size_t)BT * UNROLL;
-  hbm_scale_copy_kernel<UNROLL, LCS, SCS, BT><<<(unsigned)((units + per_block - 1) / per_block), BT,
-                                                0, st>>>(x, y, n, n4);
-}
-
-int g_variant = 0;   // interim: the design under test
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -464,12 +446,10 @@ extern "C" {
 
 const char* probe_error_string(int code) { return port_error_string(code); }
 
-void probe_set_variant(int v) { g_variant = v; }
-
 // K13: h (u, H), w (H, T) -> out (u) = row sums of h w. regime: 0 'highest',
 // 1 'default', 2 'bf16', 3 'bf16x3'. Takes H a multiple of 16 up to 128 and
-// T a multiple of 128; h, w 16-byte aligned. scratch: T H bf16 for regimes
-// 1 and 2, 2 T H for 3 (w^T hi, lo), 16-byte aligned; unused by regime 0.
+// T a multiple of 128; h, w 16-byte aligned. scratch: T SK bf16 for regimes
+// 1 and 2, 2 T SK for 3 (the images of w^T), 16-byte aligned; unused by 0.
 int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, float* out,
                void* scratch, void* stream) {
   if (u < 0 || H < 16 || H > HMAX || H % 16 != 0 || T < TN || T % TN != 0) return ERR_SHAPE;
@@ -477,11 +457,12 @@ int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, 
   if (u == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (regime == 0) {
-    if (g_variant == 1) return launch_sgemm<32, 3>(h, w, u, H, T, out, st);
-    return launch_sgemm<16, 4>(h, w, u, H, T, out, st);
+    const size_t smem = rowsum_sgemm_smem(H);
+    set_smem(rowsum_sgemm_kernel, smem);
+    rowsum_sgemm_kernel<<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T, out);
+    return (int)cudaGetLastError();
   }
   if (regime == 3) return launch_rowsum_tc<true, 2, 2>(h, w, u, H, T, out, scratch, st);
-  if (g_variant == 1) return launch_rowsum_tc<false, 4, 2, 2>(h, w, u, H, T, out, scratch, st);
   return launch_rowsum_tc<false, 4, 3>(h, w, u, H, T, out, scratch, st);
 }
 
@@ -500,14 +481,9 @@ int hbm_scale_copy(const float* x, float* y, long long n, void* stream) {
   if (n < 0) return ERR_SHAPE;
   if (n == 0) return 0;
   const size_t n4 = aligned16(x) && aligned16(y) ? (size_t)n / 4 : 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (g_variant) {
-    case 1: launch_copy<2, false, false>(x, y, (size_t)n, n4, st); break;
-    case 2: launch_copy<8, false, false>(x, y, (size_t)n, n4, st); break;
-    case 3: launch_copy<4, true, false>(x, y, (size_t)n, n4, st); break;
-    case 4: launch_copy<4, false, false, 128>(x, y, (size_t)n, n4, st); break;
-    default: launch_copy<4, false, false>(x, y, (size_t)n, n4, st);
-  }
+  const size_t units = n4 ? n4 : (size_t)n, per_block = (size_t)THREADS * COPY_UNROLL;
+  hbm_scale_copy_kernel<<<(unsigned)((units + per_block - 1) / per_block), THREADS, 0,
+                          (cudaStream_t)stream>>>(x, y, (size_t)n, n4);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,8 @@ REGIMES = ("highest", "default", "bf16", "bf16x3")
 # the precision contract (ops/precision.py) each regime computes
 REGIME_PRECISION = {"highest": "highest", "default": "default", "bf16": "default",
                     "bf16x3": "high"}
-# bf16 elements a column of w takes in K13's scratch (probe.cu: SK)
+# bf16 elements a column of w takes in K13's scratch of w^T images
+# (probe.cu: SK, the row stride of its tiles)
 SCRATCH_STRIDE = 136
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB
 PLAIN_CHUNK_ELEMS = 1 << 24
@@ -98,8 +99,8 @@ def _launch_rowsum(h, w, regime):
     h, w = _aligned(h), _aligned(w)
     u, hd = h.shape
     out = torch.empty(u, 1, device=dev, dtype=torch.float32)
-    # the tensor-core regimes' w^T in bf16 (hi; hi and lo for bf16x3),
-    # made by the call itself
+    # the tensor-core regimes' w^T in bf16 (hi; hi and lo for bf16x3), as
+    # the images of the kernel's ring stages, made by the call itself
     parts = {"highest": 0, "bf16x3": 2}.get(regime, 1)
     scratch = torch.empty(parts * w.shape[1] * SCRATCH_STRIDE, device=dev, dtype=torch.bfloat16)
     lib = _lib()

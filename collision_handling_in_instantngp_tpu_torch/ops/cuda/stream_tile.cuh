@@ -1,9 +1,8 @@
-// The streamed logits tiling shared by the exact fp32 rows sweep of
-// hpd_stream.cu (the rows pass's fix-up; its passes otherwise run on the
-// tensor cores) and the CUDA-core regimes of probe.cu (K13): a block of
-// THREADS threads holds R rows of h in shared memory and computes the
-// (R, TT) product tile by tile, fp32 FMA on the CUDA cores under the
-// precision contract of common.cuh.
+// The streamed logits tiling of hpd_stream.cu's CUDA-core sweeps (the rows
+// pass's exact fp32 fix-up and the wide passes, heads past HMAX; its other
+// passes run on the tensor cores): a block of THREADS threads holds R rows
+// of h in shared memory and computes the (R, TT) product tile by tile, fp32
+// FMA on the CUDA cores under the precision contract of common.cuh.
 #pragma once
 
 #include "common.cuh"

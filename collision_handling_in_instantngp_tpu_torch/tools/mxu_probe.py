@@ -3,8 +3,9 @@ of the kernel redesigns.
 
   rowsum_dot (K13)   the (U, H) x (H, T) product tile by tile, only per-row
                      sums written (no (U, T) write), in four regimes: fp32
-                     'highest' and 'default' on the CUDA cores, bf16 and
-                     bf16x3 (hi/lo) operands on the tensor cores
+                     'highest' on the CUDA cores; 'default' and 'bf16' (one
+                     function, one kernel: bf16 operands) and bf16x3
+                     (hi/lo) on the tensor cores
   hbm_write (K14)    a pure write of a (U, T/4) fp32 array (2.66 GB)
   hbm_scale_copy (K15)  read + write of the same array
   K1 / K2            the fused tail forward / backward at the same shapes,
@@ -40,8 +41,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 DEFAULT_OUT = os.path.join(REPO, "chiprun_out", "roofline_calibration.json")
 # 162,304 = 317 x 512: the TPU tool's row padding of U_c = 161,792
 U, H, T, L, K = 162304, 128, 16384, 16, 4
-# regime -> its key in the calibration (the JAX tool's keys; 'default' on
-# the CUDA cores is printed only)
+# regime -> its key in the calibration (the JAX tool's keys; 'default',
+# the same kernel as 'bf16', is printed only)
 REGIME_KEYS = (("highest", "highest"), ("default", None), ("bf16", "default"), ("bf16x3", "high"))
 
 

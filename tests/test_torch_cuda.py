@@ -915,13 +915,15 @@ def _rowsum_inputs(dev, u, hd, t, seed=5, ints=False):
 
 
 @pytest.mark.parametrize("regime", probe.REGIMES)
-@pytest.mark.parametrize("hd,t", [(hd, t) for hd in (16, 64, 128) for t in (128, 384, 2048)])
+@pytest.mark.parametrize("hd,t", [(hd, t) for hd in (16, 64, 128) for t in (128, 384, 2048)]
+                         + [(48, 384)])
 @pytest.mark.parametrize("u", [1, 127, 129, 257, 333, 1001])
 def test_rowsum_tilings_match_plain(dev, u, hd, t, regime):
     """K13's tilings (128-row blocks for 'highest' and 'bf16x3', 256 for
     'default' / 'bf16'; 128-column tiles) on U ragged against both, one to
-    16 column tiles and the narrowest to the widest h, against the plain
-    version, bitwise equal run to run. Each row is held to 1e-5 (bf16x3
+    16 column tiles and the narrowest to the widest h (16 and 48: the fp32
+    SGEMM's 32-deep slabs zero-filled past H), against the plain version,
+    bitwise equal run to run. Each row is held to 1e-5 (bf16x3
     1e-4) of the sum of its products' magnitudes, sum_k,t |h| |w|: a row
     sum of H T mixed-sign products can cancel far below them (a single
     row's normwise scale), and only the order of the fp32 sums differs."""

@@ -22,7 +22,9 @@ import torch
 from collision_handling_in_instantngp_tpu.ops.pallas import hpd_stream as jax_stream
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_stream, probe
 from collision_handling_in_instantngp_tpu_torch.ops.precision import bf16_round
-from collision_handling_in_instantngp_tpu_torch.tools import k11_phases, mxu_probe, profile_epoch, sweep_probe
+from collision_handling_in_instantngp_tpu_torch.tools import (
+    k11_phases, mxu_probe, probe_phases, profile_epoch, sweep_probe,
+)
 from collision_handling_in_instantngp_tpu_torch.utils import memory, profiling
 
 SWEEP_KEYS = {"dots_ms", "softmax_ms", "select_ms", "full_ms", "exp_max_cost_ms",
@@ -206,7 +208,7 @@ def test_profile_epoch_vanilla_not_ported(tmp_path):
         profile_epoch.main(["--device", "cpu", "--mode", "vanilla", "--image", str(tmp_path / "x.npy")])
 
 
-@pytest.mark.parametrize("tool", [sweep_probe, mxu_probe, profile_epoch, k11_phases])
+@pytest.mark.parametrize("tool", [sweep_probe, mxu_probe, profile_epoch, k11_phases, probe_phases])
 def test_tools_default_to_the_card(tool, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal is for machines without it")
