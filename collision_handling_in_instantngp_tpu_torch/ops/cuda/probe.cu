@@ -247,12 +247,11 @@ rowsum_prep_kernel(const float* __restrict__ w, int H, int T, uint32_t* __restri
   }
 }
 
-// A block: WR x 2 warps, warp (wr, wc) rows wr * 16 MI + [0, 16 MI), columns
+// A block: 4 x 2 warps, warp (wr, wc) rows wr * 16 MI + [0, 16 MI), columns
 // wc * 64 + [0, 64) of each 128-column tile; NS stages of the w^T ring.
-template <bool X3, int MI, int NS, int WR = 4>
+template <bool X3, int MI, int NS>
 struct TcPlan {
-  static constexpr int THR = WR * 64;         // threads a block
-  static constexpr int M = 16 * MI * WR;      // rows a block
+  static constexpr int M = 64 * MI;           // rows a block
   static constexpr int NP = X3 ? 2 : 1;       // operand parts: hi (, lo)
   static constexpr size_t A_ELEMS = (size_t)NP * M * SK;
   static constexpr size_t STAGE = tile_image<X3>();
@@ -262,7 +261,7 @@ struct TcPlan {
 
 // One k step (16 deep) of a warp's tile: A from the split h tile, B from the
 // stage, both by ldmatrix; FIRST starts every chain from zero.
-template <bool X3, int MI, bool FIRST, bool PRE>
+template <bool X3, int MI, bool FIRST>
 __device__ __forceinline__ void tc_kstep(float (&acc)[MI][8][4], const uint16_t* a_lane,
                                          const uint16_t* b_lane, int a_lo, int k) {
   uint32_t ah[MI][4], al[MI][4];
@@ -270,38 +269,6 @@ __device__ __forceinline__ void tc_kstep(float (&acc)[MI][8][4], const uint16_t*
   for (int mi = 0; mi < MI; ++mi) {
     ldmatrix_x4(ah[mi], a_lane + mi * 16 * SK + k);
     if (X3) ldmatrix_x4(al[mi], a_lane + a_lo + mi * 16 * SK + k);
-  }
-  if (PRE) {
-    uint32_t bh[4][4], bl[4][4];
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      ldmatrix_x4(bh[np], b_lane + np * 16 * SK + k);
-      if (X3) ldmatrix_x4(bl[np], b_lane + TN * SK + np * 16 * SK + k);
-    }
-#pragma unroll
-    for (int np = 0; np < 4; ++np)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-          mma_bf16<FIRST>(acc[mi][2 * np + half], ah[mi], bh[np][2 * half], bh[np][2 * half + 1]);
-    if (X3) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-            mma_bf16(acc[mi][2 * np + half], ah[mi], bl[np][2 * half], bl[np][2 * half + 1]);
-#pragma unroll
-      for (int np = 0; np < 4; ++np)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-            mma_bf16(acc[mi][2 * np + half], al[mi], bh[np][2 * half], bh[np][2 * half + 1]);
-    }
-    return;
   }
 #pragma unroll
   for (int np = 0; np < 4; ++np) {           // n8 tiles 2 np and 2 np + 1
@@ -323,19 +290,19 @@ __device__ __forceinline__ void tc_kstep(float (&acc)[MI][8][4], const uint16_t*
   }
 }
 
-template <bool X3, int MI, int NS, int WR, bool PRE>
-__global__ void __launch_bounds__(WR * 64, 1)
+template <bool X3, int MI, int NS>
+__global__ void __launch_bounds__(THREADS, 1)
 rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, int u, int H,
                  int T, float* __restrict__ out) {
-  using P = TcPlan<X3, MI, NS, WR>;
-  constexpr int M = P::M, THR = P::THR;
+  using P = TcPlan<X3, MI, NS>;
+  constexpr int M = P::M;
   extern __shared__ float4 smem_f4[];
   uint16_t* a_s = reinterpret_cast<uint16_t*>(smem_f4);   // hi, then lo at M * SK
   uint16_t* b_s = a_s + P::A_ELEMS;                        // NS stage images
   float* part = reinterpret_cast<float*>(b_s + NS * P::STAGE);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tg = lane & 3;
-  const int wr = warp % WR, wc = warp / WR;
+  const int wr = warp & 3, wc = warp >> 2;
   const int r0 = blockIdx.x * M;
 
   // column tile j's image into its stage; one commit group a call
@@ -344,7 +311,7 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
       const float4* src = reinterpret_cast<const float4*>(img + j * P::STAGE);
       float4* dst = reinterpret_cast<float4*>(b_s + (j % NS) * P::STAGE);
 #pragma unroll
-      for (int c = threadIdx.x; c < P::CHUNKS; c += THR) cp_async16(dst + c, src + c);
+      for (int c = threadIdx.x; c < P::CHUNKS; c += THREADS) cp_async16(dst + c, src + c);
     }
     cp_commit();
   };
@@ -352,7 +319,7 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
   for (int j = 0; j < NS - 1; ++j) issue(j);
 
   // the h tile, split once (zero past u)
-  for (int c = threadIdx.x; c < M * (H / 4); c += THR) {
+  for (int c = threadIdx.x; c < M * (H / 4); c += THREADS) {
     const int r = c / (H / 4), k = 4 * (c - r * (H / 4));
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < u) v = *reinterpret_cast<const float4*>(h + (size_t)(r0 + r) * H + k);
@@ -377,8 +344,8 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
     issue(j + NS - 1);
     const uint16_t* b = b_s + (j % NS) * P::STAGE + b_lane;
     float acc[MI][8][4];
-    tc_kstep<X3, MI, true, PRE>(acc, a_lane, b, M * SK, 0);
-    for (int k = 16; k < H; k += 16) tc_kstep<X3, MI, false, PRE>(acc, a_lane, b, M * SK, k);
+    tc_kstep<X3, MI, true>(acc, a_lane, b, M * SK, 0);
+    for (int k = 16; k < H; k += 16) tc_kstep<X3, MI, false>(acc, a_lane, b, M * SK, k);
     // the tile's partial of rows g and g + 8 (per m16 tile), over this
     // thread's columns, then into the running sums
 #pragma unroll
@@ -404,17 +371,17 @@ rowsum_tc_kernel(const float* __restrict__ h, const uint16_t* __restrict__ img, 
       if (tg == 0) part[wc * M + wr * 16 * MI + mi * 16 + half * 8 + g] = v;
     }
   __syncthreads();
-  for (int r = threadIdx.x; r < M; r += THR)
+  for (int r = threadIdx.x; r < M; r += THREADS)
     if (r0 + r < u) out[r0 + r] = part[r] + part[M + r];
 }
 
-template <bool X3, int MI, int NS, int WR = 4, bool PRE = false>
+template <bool X3, int MI, int NS>
 int launch_rowsum_tc(const float* h, const float* w, int u, int H, int T, float* out,
                      void* scratch, cudaStream_t st) {
-  using P = TcPlan<X3, MI, NS, WR>;
+  using P = TcPlan<X3, MI, NS>;
   rowsum_prep_kernel<X3><<<T / 32, THREADS, 0, st>>>(w, H, T, (uint32_t*)scratch);
-  set_smem(rowsum_tc_kernel<X3, MI, NS, WR, PRE>, P::SMEM);
-  rowsum_tc_kernel<X3, MI, NS, WR, PRE><<<(u + P::M - 1) / P::M, P::THR, P::SMEM, st>>>(
+  set_smem(rowsum_tc_kernel<X3, MI, NS>, P::SMEM);
+  rowsum_tc_kernel<X3, MI, NS><<<(u + P::M - 1) / P::M, THREADS, P::SMEM, st>>>(
       h, (const uint16_t*)scratch, u, H, T, out);
   return (int)cudaGetLastError();
 }
@@ -473,15 +440,11 @@ __global__ void __launch_bounds__(THREADS) hbm_scale_copy_kernel(const float* __
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-int g_variant = 0;   // interim: the design under test
-
 }  // namespace
 
 extern "C" {
 
 const char* probe_error_string(int code) { return port_error_string(code); }
-
-void probe_set_variant(int v) { g_variant = v; }
 
 // K13: h (u, H), w (H, T) -> out (u) = row sums of h w. regime: 0 'highest',
 // 1 'default', 2 'bf16', 3 'bf16x3'. Takes H a multiple of 16 up to 128 and
@@ -499,12 +462,7 @@ int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, 
     rowsum_sgemm_kernel<<<(u + SG_M - 1) / SG_M, THREADS, smem, st>>>(h, w, u, H, T, out);
     return (int)cudaGetLastError();
   }
-  if (regime == 3) {
-    if (g_variant) return launch_rowsum_tc<true, 2, 2, 4, true>(h, w, u, H, T, out, scratch, st);
-    return launch_rowsum_tc<true, 2, 2>(h, w, u, H, T, out, scratch, st);
-  }
-  if (g_variant == 1) return launch_rowsum_tc<false, 2, 3, 8>(h, w, u, H, T, out, scratch, st);
-  if (g_variant == 2) return launch_rowsum_tc<false, 4, 3, 4, true>(h, w, u, H, T, out, scratch, st);
+  if (regime == 3) return launch_rowsum_tc<true, 2, 2>(h, w, u, H, T, out, scratch, st);
   return launch_rowsum_tc<false, 4, 3>(h, w, u, H, T, out, scratch, st);
 }
 

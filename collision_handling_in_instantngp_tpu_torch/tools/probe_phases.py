@@ -20,7 +20,6 @@ with the clock the card holds under it). Prints the card's name and power limit;
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 
@@ -85,12 +84,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--hd", type=int, default=mxu_probe.H)
     ap.add_argument("--t", type=int, default=mxu_probe.T)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "probe_phases.json"))
-    ap.add_argument("--variant", type=int, default=0, help="interim: probe.cu's design under test")
     args = ap.parse_args(argv)
-    lib = probe._lib()
-    lib.probe_set_variant.argtypes = [ctypes.c_int]
-    lib.probe_set_variant(args.variant)
-    print(f"variant {args.variant}", flush=True)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = profiling.gpu_name_and_power_limit()
