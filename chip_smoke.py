@@ -1480,7 +1480,7 @@ def probe_sass(build) -> dict:
             if found:
                 args = ",".join(re.findall(r"L[a-z]+(\d+)E", found.group(2) or ""))
                 name = f"{found.group(1)}<{args}>"
-                counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+                counts.setdefault(name, {"HMMA": 0})
         elif name and "HMMA" in line:
             counts[name]["HMMA"] += 1
     log("  SASS tensor-core instructions (probe.cu):")

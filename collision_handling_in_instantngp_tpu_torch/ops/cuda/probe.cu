@@ -448,8 +448,8 @@ const char* probe_error_string(int code) { return port_error_string(code); }
 
 // K13: h (u, H), w (H, T) -> out (u) = row sums of h w. regime: 0 'highest',
 // 1 'default', 2 'bf16', 3 'bf16x3'. Takes H a multiple of 16 up to 128 and
-// T a multiple of 128; h, w 16-byte aligned. scratch: T SK bf16 for regimes
-// 1 and 2, 2 T SK for 3 (the images of w^T), 16-byte aligned; unused by 0.
+// T a multiple of 128; h, w 16-byte aligned. scratch: rowsum_scratch_elems
+// bf16 (the images of w^T), 16-byte aligned.
 int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, float* out,
                void* scratch, void* stream) {
   if (u < 0 || H < 16 || H > HMAX || H % 16 != 0 || T < TN || T % TN != 0) return ERR_SHAPE;
@@ -464,6 +464,14 @@ int rowsum_dot(const float* h, const float* w, int u, int H, int T, int regime, 
   }
   if (regime == 3) return launch_rowsum_tc<true, 2, 2>(h, w, u, H, T, out, scratch, st);
   return launch_rowsum_tc<false, 4, 3>(h, w, u, H, T, out, scratch, st);
+}
+
+// bf16 elements of K13's scratch for a regime at T columns: the images of
+// w^T (tile_image per 128-column tile), none for 'highest'.
+long long rowsum_scratch_elems(int T, int regime) {
+  if (regime == 0) return 0;
+  const long long tiles = (T + TN - 1) / TN;
+  return tiles * (long long)(regime == 3 ? tile_image<true>() : tile_image<false>());
 }
 
 // K14: out (n) = 1.

@@ -31,9 +31,6 @@ REGIMES = ("highest", "default", "bf16", "bf16x3")
 # the precision contract (ops/precision.py) each regime computes
 REGIME_PRECISION = {"highest": "highest", "default": "default", "bf16": "default",
                     "bf16x3": "high"}
-# bf16 elements a column of w takes in K13's scratch of w^T images
-# (probe.cu: SK, the row stride of its tiles)
-SCRATCH_STRIDE = 136
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB
 PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -71,6 +68,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("probe")
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rowsum_dot.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    lib.rowsum_scratch_elems.argtypes = [ci, ci]
+    lib.rowsum_scratch_elems.restype = cll
     lib.hbm_write.argtypes = [vp, cll, vp]
     lib.hbm_scale_copy.argtypes = [vp, vp, cll, vp]
     for fn in (lib.rowsum_dot, lib.hbm_write, lib.hbm_scale_copy):
@@ -99,11 +98,10 @@ def _launch_rowsum(h, w, regime):
     h, w = _aligned(h), _aligned(w)
     u, hd = h.shape
     out = torch.empty(u, 1, device=dev, dtype=torch.float32)
-    # the tensor-core regimes' w^T in bf16 (hi; hi and lo for bf16x3), as
-    # the images of the kernel's ring stages, made by the call itself
-    parts = {"highest": 0, "bf16x3": 2}.get(regime, 1)
-    scratch = torch.empty(parts * w.shape[1] * SCRATCH_STRIDE, device=dev, dtype=torch.bfloat16)
     lib = _lib()
+    # the tensor-core regimes' w^T in bf16, made by the call itself
+    scratch = torch.empty(lib.rowsum_scratch_elems(w.shape[1], REGIMES.index(regime)),
+                          device=dev, dtype=torch.bfloat16)
     with torch.cuda.device(dev):
         code = lib.rowsum_dot(h.data_ptr(), w.data_ptr(), u, hd, w.shape[1],
                               REGIMES.index(regime), out.data_ptr(),

@@ -5,16 +5,17 @@ For each K13 regime: the normwise error against the plain version, bitwise
 equality run to run, the call's time (CUDA events), the device time of each
 of its kernels from the profiler (the tensor-core regimes launch a prep
 kernel, w^T in bf16, then the main kernel), the rate and the share of the
-bound (operations at the card's peak for the regime's type), and with
-``--library`` one PyTorch call of the same function (``matmul(h, w).sum(-1)``,
+bound (operations at the card's peak for the regime's type), and one
+PyTorch call of the same function (``matmul(h, w).sum(-1)``,
 which writes the (U, T) product). For K14 and K15: time, GB/s, share of the
 bytes bound, exactness, and the library call (``fill_``, ``mul(out=)``).
-With ``--clocks``, the SM clock and board power that ``nvidia-smi`` reads
-while each regime runs back to back (the rate a kernel can reach scales
-with the clock the card holds under it). Prints the card's name and power limit; writes everything to
-``chiprun_out/probe_phases.json``.
+Also the SM clock and board power that ``nvidia-smi`` reads while each of
+'highest', 'bf16' and 'bf16x3' runs back to back (the rate a kernel can
+reach scales with the clock the card holds under it). Prints the card's
+name and power limit; writes everything to ``--out``.
 
-    python3 -m collision_handling_in_instantngp_tpu_torch.tools.probe_phases [--reps N] [--library] [--clocks]
+    python3 -m collision_handling_in_instantngp_tpu_torch.tools.probe_phases \\
+        [--out chiprun_out/probe_phases.json]
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from . import mxu_probe
 # dense bf16 on the tensor cores, HBM3
 PEAK = {"fp32": 67e12, "bf16": 989e12, "bytes": 3.35e12}
 TOL = {"bf16x3": 1e-4}   # else 1e-5 (normwise; the smoke's limits)
+REPS = 5
 
 
 def kernel_ms(fn, reps: int) -> dict:
@@ -76,47 +78,37 @@ def clocks_during(fn, seconds: float = 1.5) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--library", action="store_true", help="also time the PyTorch calls")
-    ap.add_argument("--clocks", action="store_true",
-                    help="sample the SM clock and power while each regime runs")
-    ap.add_argument("--u", type=int, default=mxu_probe.U)
-    ap.add_argument("--hd", type=int, default=mxu_probe.H)
-    ap.add_argument("--t", type=int, default=mxu_probe.T)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "probe_phases.json"))
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = profiling.gpu_name_and_power_limit()
     print(gpu, flush=True)
-    u, hd, t = args.u, args.hd, args.t
+    u, hd, t = mxu_probe.U, mxu_probe.H, mxu_probe.T
     h, w, _, _ = mxu_probe.make_inputs(u, hd, t, mxu_probe.L, dev)
     flops = 2.0 * u * hd * t
     nbytes = 4.0 * (u * hd + hd * t + u)
-    res = dict(gpu=gpu, shape=[u, hd, t], reps=args.reps, rowsum={})
+    res = dict(gpu=gpu, shape=[u, hd, t], reps=REPS, rowsum={})
     for regime in probe.REGIMES:
         got = probe.rowsum_dot(h, w, regime)
         ref = probe.rowsum_dot_plain(h, w, regime)
         err = ((got.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
         same = torch.equal(got, probe.rowsum_dot(h, w, regime))
         del got, ref
-        ms = profiling.cuda_ms(lambda: probe.rowsum_dot(h, w, regime), args.reps)
-        parts = kernel_ms(lambda: probe.rowsum_dot(h, w, regime), args.reps)
+        ms = profiling.cuda_ms(lambda: probe.rowsum_dot(h, w, regime), REPS)
+        parts = kernel_ms(lambda: probe.rowsum_dot(h, w, regime), REPS)
         work = (3 if regime == "bf16x3" else 1) * flops
         peak = PEAK["fp32"] if regime == "highest" else PEAK["bf16"]
         bound = 1e3 * max(work / peak, nbytes / PEAK["bytes"])
         row = dict(ms=ms, kernels=parts, normwise_err=err, bitwise_stable=same,
                    tflops=flops / ms / 1e9, bound_ms=bound, share_of_bound=bound / ms)
-        if args.library and regime != "bf16x3":
+        if regime != "bf16x3":
             a, c = (h, w) if regime == "highest" else (bf16_round(h), bf16_round(w))
             row["library_ms"] = profiling.cuda_ms(lambda: torch.matmul(a, c).sum(-1), 3)
             del a, c
             torch.cuda.empty_cache()
-        if args.clocks and regime != "default":
+        if regime != "default":   # 'default' runs the kernel of 'bf16'
             row["clocks"] = clocks_during(lambda: probe.rowsum_dot(h, w, regime))
-            c = row["clocks"]
-            print(f"    SM clock {min(c['sm_mhz']):.0f}-{max(c['sm_mhz']):.0f} MHz, power "
-                  f"{min(c['power_w']):.0f}-{max(c['power_w']):.0f} W while it runs", flush=True)
         res["rowsum"][regime] = row
         ok = err <= TOL.get(regime, 1e-5) and same
         print(f"K13 [{regime:7s}] {ms:9.3f} ms  {row['tflops']:7.2f} TF/s  bound {bound:.3f} ms "
@@ -125,6 +117,10 @@ def main(argv=None) -> dict:
               flush=True)
         for name, k_ms in parts.items():
             print(f"    {k_ms:9.3f} ms  {name[:90]}", flush=True)
+        if "clocks" in row:
+            c = row["clocks"]
+            print(f"    SM clock {min(c['sm_mhz']):.0f}-{max(c['sm_mhz']):.0f} MHz, power "
+                  f"{min(c['power_w']):.0f}-{max(c['power_w']):.0f} W while it runs", flush=True)
 
     shape = (u, t // 4)
     mem = 4.0 * u * (t // 4)

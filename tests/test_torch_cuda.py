@@ -961,8 +961,9 @@ def test_rowsum_default_is_bf16(dev, u, hd, t):
 @pytest.mark.parametrize("n", [1, 7, 1_000_003, 4 * 4 * 256 * 1056 + 9])
 def test_scale_copy_edges(dev, n, offset):
     """K15 exactly 2 x at sizes below one float4, not a multiple of 4, and
-    past one round of its unrolled loop over a full grid (132 SMs x 8
-    blocks), from 16-byte aligned and unaligned addresses (the scalar path)."""
+    of 1,056 whole blocks (1,024 float4 each) plus a partial one and a
+    scalar tail, from 16-byte aligned and unaligned addresses (the scalar
+    path)."""
     base = torch.randn(n + 3, device=dev)
     x = base[offset:offset + n]
     before = probe.hbm_scale_copy.launches
