@@ -29,6 +29,22 @@ def topk_lowest_index(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tens
     return torch.cat(vals, -1), torch.cat(idxs, -1)
 
 
+def topk_keyed(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same selection as ``topk_lowest_index`` in one ``torch.topk``:
+    each column gets an int64 key whose high 32 bits are its value's bits
+    mapped to an order-preserving int32 and whose low 32 bits fall as the
+    column rises, so the keys are distinct and the K largest are lax.top_k's
+    K in its order. (..., N) float32 -> values (..., K), indices (..., K)
+    int64."""
+    n = x.shape[-1]
+    bits = (x + 0.0).view(torch.int32)             # + 0.0: -0.0 ranks as +0.0
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)   # negative floats: reverse their order
+    key = ordered.to(torch.int64) * (1 << 32) + (n - 1 - torch.arange(n, device=x.device))
+    top = torch.topk(key, k, dim=-1, sorted=True).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
+    return x.gather(-1, idx), idx
+
+
 class DifferentiableTopk(torch.autograd.Function):
     """Top-k over the last axis; the backward scatters the value gradients
     into zeros at the selected slots (``noop=True``: drops them)."""

@@ -76,9 +76,22 @@ def clocks_during(fn, seconds: float = 1.5) -> dict:
     return dict(sm_mhz=[r[0] for r in mid], power_w=[r[1] for r in mid])
 
 
+def print_launches(row) -> None:
+    for name, k_ms in row["kernels"].items():
+        print(f"    {k_ms:9.3f} ms  {name[:90]}", flush=True)
+    for key in ("clocks", "library_clocks"):
+        if key in row:
+            c = row[key]
+            print(f"    {'fill_' if key == 'library_clocks' else 'kernel'}: SM clock "
+                  f"{min(c['sm_mhz']):.0f}-{max(c['sm_mhz']):.0f} MHz, power "
+                  f"{min(c['power_w']):.0f}-{max(c['power_w']):.0f} W while it runs", flush=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("chiprun_out", "probe_phases.json"))
+    ap.add_argument("--k14-designs", default="",
+                    help="interim: K14 designs to time in this order, comma-separated")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,6 +151,23 @@ def main(argv=None) -> dict:
         res[name] = dict(ms=ms, gbps=moved / ms / 1e6, bound_ms=bound, library_ms=lib_ms, exact=ok)
         print(f"{name:15s} {ms:9.3f} ms  {moved / ms / 1e6:7.1f} GB/s  bound {bound:.3f} ms "
               f"({bound / ms:.1%})  library {lib_ms:.3f} ms  {'exact' if ok else 'FAIL'}", flush=True)
+        if name == "hbm_write":
+            res[name].update(kernels=kernel_ms(fn, REPS), clocks=clocks_during(fn),
+                             library_clocks=clocks_during(lib_fn))
+            print_launches(res[name])
+    res["hbm_write_designs"] = []
+    for design in filter(None, args.k14_designs.split(",")):
+        probe.HBM_WRITE_DESIGN = design
+        fn = lambda: probe.hbm_write(shape, dev)
+        ok = torch.equal(fn(), torch.ones(shape, device=dev)) and torch.equal(fn(), fn())
+        ms = profiling.cuda_ms(fn, 10)
+        lib_ms = profiling.cuda_ms(lambda: y.fill_(1.0), 10)
+        row = dict(design=design, ms=ms, gbps=mem / ms / 1e6, library_ms=lib_ms, exact=ok,
+                   kernels=kernel_ms(fn, REPS), clocks=clocks_during(fn))
+        res["hbm_write_designs"].append(row)
+        print(f"K14 [{design:8s}] {ms:9.3f} ms  {row['gbps']:7.1f} GB/s  fill_ {lib_ms:.3f} ms  "
+              f"{'exact' if ok else 'FAIL'}", flush=True)
+        print_launches(row)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
