@@ -32,7 +32,11 @@
 //   barrier a tile) and reads both operands with ldmatrix. Bound:
 //   operations at the bf16 tensor peak (x3 for 3). Next step: wgmma.
 //
-// K14: a grid-stride loop of 16-byte stores; bound: bytes.
+// K14: each thread issues four 16-byte stores, each block once over its own
+// 16 KB (measured against the first design's grid-stride loop and against
+// TMA bulk stores of a shared-memory tile of ones over 64 or 256 KB a
+// block, both slower); scalar stores where out is not 16-byte aligned.
+// Bound: bytes.
 // K15: each thread issues four independent 16-byte loads before their
 // stores, each block once over its own 16 KB (a grid-stride loop over a
 // grid of whole waves, and streaming cache hints, measured slower); scalar
@@ -388,29 +392,12 @@ int launch_rowsum_tc(const float* h, const float* w, int u, int H, int T, float*
 
 // ------------------------------- K14 / K15 --------------------------------- //
 
-unsigned stream_blocks(size_t n4) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t want = (n4 + THREADS - 1) / THREADS;
-  const size_t cap = (size_t)sms * 8;
-  return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
-}
-
-__global__ void __launch_bounds__(THREADS) hbm_write_kernel(float* __restrict__ out, size_t n,
-                                                            size_t n4) {
-  const size_t stride = (size_t)gridDim.x * THREADS;
-  const size_t i0 = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (size_t i = i0; i < n4; i += stride) o4[i] = make_float4(1.f, 1.f, 1.f, 1.f);
-  for (size_t i = 4 * n4 + i0; i < n; i += stride) out[i] = 1.f;
-}
-
 constexpr int WRITE_UNROLL = 4;   // 16-byte stores a thread: a block writes 16 KB
 
-// Each block writes THREADS * WRITE_UNROLL float4 once, no loop.
-__global__ void __launch_bounds__(THREADS) hbm_write_blocks_kernel(float* __restrict__ out,
-                                                                   size_t n, size_t n4) {
+// Each block writes THREADS * WRITE_UNROLL float4 once, no loop (a grid of
+// about 160,000 blocks at the probe's size).
+__global__ void __launch_bounds__(THREADS) hbm_write_kernel(float* __restrict__ out, size_t n,
+                                                            size_t n4) {
   float4* o4 = reinterpret_cast<float4*>(out);
   const size_t base = (size_t)blockIdx.x * THREADS * WRITE_UNROLL + threadIdx.x;
   if (n4) {
@@ -423,40 +410,6 @@ __global__ void __launch_bounds__(THREADS) hbm_write_blocks_kernel(float* __rest
     for (int q = 0; q < WRITE_UNROLL; ++q)
       if (base + q * THREADS < n) out[base + q * THREADS] = 1.f;
   }
-}
-
-constexpr int BULK_TILE = THREADS * WRITE_UNROLL * 16;   // bytes of ones in shared memory
-
-// The block fills a 16 KB tile of ones once; one thread then stores it
-// STORES times over the block's span with TMA bulk copies (shared -> global)
-// and waits until they have read the tile. n4 > 0 float4 from a 16-byte
-// aligned out; the n - 4 n4 floats past them by block 0's threads.
-template <int STORES>
-__global__ void __launch_bounds__(THREADS) hbm_write_bulk_kernel(float* __restrict__ out,
-                                                                 size_t n, size_t n4) {
-  __shared__ __align__(128) float4 tile[THREADS * WRITE_UNROLL];
-#pragma unroll
-  for (int q = 0; q < WRITE_UNROLL; ++q)
-    tile[threadIdx.x + q * THREADS] = make_float4(1.f, 1.f, 1.f, 1.f);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned src = (unsigned)__cvta_generic_to_shared(tile);
-    const size_t bytes = 16 * n4;
-    size_t off = (size_t)blockIdx.x * STORES * BULK_TILE;
-#pragma unroll
-    for (int s = 0; s < STORES; ++s, off += BULK_TILE)
-      if (off < bytes) {
-        const unsigned size = (unsigned)(bytes - off < BULK_TILE ? bytes - off : BULK_TILE);
-        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-                         reinterpret_cast<char*>(out) + off),
-                     "r"(src), "r"(size)
-                     : "memory");
-      }
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  }
-  if (blockIdx.x == 0 && threadIdx.x < n - 4 * n4) out[4 * n4 + threadIdx.x] = 1.f;
 }
 
 __device__ __forceinline__ float4 twice(float4 v) {
@@ -527,28 +480,14 @@ long long rowsum_scratch_elems(int T, int regime) {
   return tiles * (long long)(regime == 3 ? tile_image<true>() : tile_image<false>());
 }
 
-// K14: out (n) = 1. design (interim, for timing): 0 the grid-stride loop,
-// 1 one block per 16 KB, 2 / 3 TMA bulk stores of a 16 KB tile over 64 /
-// 256 KB a block.
-int hbm_write_design(float* out, long long n, int design, void* stream) {
-  if (n < 0 || design < 0 || design > 3) return ERR_SHAPE;
+// K14: out (n) = 1.
+int hbm_write(float* out, long long n, void* stream) {
+  if (n < 0) return ERR_SHAPE;
   if (n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
   const size_t n4 = aligned16(out) ? (size_t)n / 4 : 0;
-  if (design == 0) {
-    hbm_write_kernel<<<stream_blocks(n4 ? n4 : (size_t)n), THREADS, 0, st>>>(out, (size_t)n, n4);
-  } else if (design == 1 || n4 == 0) {
-    const size_t units = n4 ? n4 : (size_t)n, per_block = (size_t)THREADS * WRITE_UNROLL;
-    hbm_write_blocks_kernel<<<(unsigned)((units + per_block - 1) / per_block), THREADS, 0, st>>>(
-        out, (size_t)n, n4);
-  } else {
-    const size_t span = (size_t)BULK_TILE / 16 * (design == 2 ? 4 : 16);
-    const unsigned blocks = (unsigned)((n4 + span - 1) / span);
-    if (design == 2)
-      hbm_write_bulk_kernel<4><<<blocks, THREADS, 0, st>>>(out, (size_t)n, n4);
-    else
-      hbm_write_bulk_kernel<16><<<blocks, THREADS, 0, st>>>(out, (size_t)n, n4);
-  }
+  const size_t units = n4 ? n4 : (size_t)n, per_block = (size_t)THREADS * WRITE_UNROLL;
+  hbm_write_kernel<<<(unsigned)((units + per_block - 1) / per_block), THREADS, 0,
+                     (cudaStream_t)stream>>>(out, (size_t)n, n4);
   return (int)cudaGetLastError();
 }
 

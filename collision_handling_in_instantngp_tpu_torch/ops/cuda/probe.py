@@ -31,9 +31,6 @@ REGIMES = ("highest", "default", "bf16", "bf16x3")
 # the precision contract (ops/precision.py) each regime computes
 REGIME_PRECISION = {"highest": "highest", "default": "default", "bf16": "default",
                     "bf16x3": "high"}
-# K14's designs (interim: timed against each other by tools/probe_phases.py)
-HBM_WRITE_DESIGNS = ("stride", "blocks", "bulk64", "bulk256")
-HBM_WRITE_DESIGN = "blocks"
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB
 PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -73,9 +70,9 @@ def _lib() -> ctypes.CDLL:
     lib.rowsum_dot.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
     lib.rowsum_scratch_elems.argtypes = [ci, ci]
     lib.rowsum_scratch_elems.restype = cll
-    lib.hbm_write_design.argtypes = [vp, cll, ci, vp]
+    lib.hbm_write.argtypes = [vp, cll, vp]
     lib.hbm_scale_copy.argtypes = [vp, vp, cll, vp]
-    for fn in (lib.rowsum_dot, lib.hbm_write_design, lib.hbm_scale_copy):
+    for fn in (lib.rowsum_dot, lib.hbm_write, lib.hbm_scale_copy):
         fn.restype = ci
     return lib
 
@@ -134,8 +131,7 @@ def hbm_write(shape, device="cuda") -> torch.Tensor:
     out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(out.device):
-        code = lib.hbm_write_design(out.data_ptr(), out.numel(), HBM_WRITE_DESIGNS.index(HBM_WRITE_DESIGN),
-                                    _stream(out.device))
+        code = lib.hbm_write(out.data_ptr(), out.numel(), _stream(out.device))
     build.check(code, lib, "probe_error_string", "hbm_write")
     hbm_write.launches += 1
     return out

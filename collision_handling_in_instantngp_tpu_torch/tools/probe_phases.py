@@ -8,10 +8,11 @@ kernel, w^T in bf16, then the main kernel), the rate and the share of the
 bound (operations at the card's peak for the regime's type), and one
 PyTorch call of the same function (``matmul(h, w).sum(-1)``,
 which writes the (U, T) product). For K14 and K15: time, GB/s, share of the
-bytes bound, exactness, and the library call (``fill_``, ``mul(out=)``).
-Also the SM clock and board power that ``nvidia-smi`` reads while each of
-'highest', 'bf16' and 'bf16x3' runs back to back (the rate a kernel can
-reach scales with the clock the card holds under it). Prints the card's
+bytes bound, exactness, and the library call (``fill_``, ``mul(out=)``);
+K14 also by launch. Also the SM clock and board power that ``nvidia-smi``
+reads while each of 'highest', 'bf16', 'bf16x3', K14 and ``fill_`` runs
+back to back (the rate a kernel can reach scales with the clock the card
+holds under it). Prints the card's
 name and power limit; writes everything to ``--out``.
 
     python3 -m collision_handling_in_instantngp_tpu_torch.tools.probe_phases \\
@@ -90,8 +91,6 @@ def print_launches(row) -> None:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("chiprun_out", "probe_phases.json"))
-    ap.add_argument("--k14-designs", default="",
-                    help="interim: K14 designs to time in this order, comma-separated")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,19 +154,6 @@ def main(argv=None) -> dict:
             res[name].update(kernels=kernel_ms(fn, REPS), clocks=clocks_during(fn),
                              library_clocks=clocks_during(lib_fn))
             print_launches(res[name])
-    res["hbm_write_designs"] = []
-    for design in filter(None, args.k14_designs.split(",")):
-        probe.HBM_WRITE_DESIGN = design
-        fn = lambda: probe.hbm_write(shape, dev)
-        ok = torch.equal(fn(), torch.ones(shape, device=dev)) and torch.equal(fn(), fn())
-        ms = profiling.cuda_ms(fn, 10)
-        lib_ms = profiling.cuda_ms(lambda: y.fill_(1.0), 10)
-        row = dict(design=design, ms=ms, gbps=mem / ms / 1e6, library_ms=lib_ms, exact=ok,
-                   kernels=kernel_ms(fn, REPS), clocks=clocks_during(fn))
-        res["hbm_write_designs"].append(row)
-        print(f"K14 [{design:8s}] {ms:9.3f} ms  {row['gbps']:7.1f} GB/s  fill_ {lib_ms:.3f} ms  "
-              f"{'exact' if ok else 'FAIL'}", flush=True)
-        print_launches(row)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
