@@ -88,7 +88,17 @@
    variants) launched, K1 and K2 did not, and the loss is finite and
    falls; then profiles one epoch of it (and prints K6's device time by
    launch from that profile);
-12. the wide stack ``hpd_hidden=(256, 512, 256)`` (ROADMAP §3.1): holds
+12. K > 16 and an approximate top-k: trains small streamed geometries at
+   K = 20 (grid 4062) and at K = 4 with a recall target of 0.95 on the
+   card and on the CPU through the chunked PyTorch tail (no kernel of the
+   streamed tail may launch; losses compared), then runs ``fit`` at the
+   scaled geometry for grid 4064 (K = 128) and grid 4062 (K = 20), 3
+   epochs each, the counts set to 0 just before, and fails unless K3a,
+   K3b and K12 (both variants) launched, K1, K2 and K4-K6 did not, and the
+   loss is finite and falls; profiles one epoch at K = 128; fits twice
+   from one start at K = 20 and fails unless the parameters are bitwise
+   equal;
+13. the wide stack ``hpd_hidden=(256, 512, 256)`` (ROADMAP §3.1): holds
    every tail kernel at a head input of 256 against its plain version at
    a small L and T (K1, K2, K4-K6: U = 20,000, T = 4096, L = 4; K8-K11:
    L = 2, N = 20,000, T = 256, the stack at the init's scale), bitwise run
@@ -105,29 +115,29 @@
    whose row tile K10/K11 cannot hold, on the per-row route "auto": it must
    launch K8 and K9 once each and K10/K11 never, and match the chunked
    PyTorch tail in the forward and every layer's gradients;
-13. the measurement path, part 1: holds the probe K7 (both variants)
+14. the measurement path, part 1: holds the probe K7 (both variants)
    against its plain version on all U_c = 161,792 rows of real h from K3a
    at T = 2^14 (the head of ``instantngp_scaled_model()``), bitwise run to
    run and timed; then, with K7's counts set to 0 just before, runs the
    sweep ladder of ``tools/sweep_probe.py`` (dots, softmax, K4, K1) at
    'highest', prints its four rungs and three differences, and fails
    unless both variants launched and the rungs telescope (each within 3 %);
-14. the measurement path, part 2, at ``tools/mxu_probe.py``'s shapes
+15. the measurement path, part 2, at ``tools/mxu_probe.py``'s shapes
    (U = 162,304, H = 128, T = 16,384): holds K13 in its four regimes
    against their plain versions and K14, K15 exactly, bitwise run to run,
    each timed beside one PyTorch call that computes the same function
-   (K13 and K15, redesigned, with their TF/s or GB/s and their times
+   (K13, K14 and K15, redesigned, with their TF/s or GB/s and their times
    before the redesign);
    then, with their counts set to 0 just before, runs the tool's ``main``
    (its TF/s and GB/s lines; the calibration goes to
    ``chiprun_out/roofline_calibration.json``) and fails unless each
    launched;
-15. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+16. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
    (``utils.memory``), and for the redesigned kernels (K1, K2, K4-K7,
-   K8-K11, K12's ring, K13, K15) their time before the redesign
+   K8-K11, K12's ring, K13-K15) their time before the redesign
    (``before_redesign_ms``, the records' figures in BEFORE_REDESIGN_MS)
    beside this run's; the tensor-core kernels' ``bound_ms`` is that of
    3xTF32 at the TF32 peak (K9-K11: their head's products so, the rest at
@@ -189,7 +199,7 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861, "hpd_tail_fwd": 6.777,
                       "rowsum_dot[highest]": 25.38, "rowsum_dot[default]": 40.20,
                       "rowsum_dot[bf16]": 3.674, "rowsum_dot[bf16x3]": 8.649,
-                      "hbm_scale_copy": 1.905}
+                      "hbm_scale_copy": 1.905, "hbm_write": 0.842}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -814,11 +824,13 @@ def mxu_probe_phase(dev):
         raise AssertionError("K14 differs from its plain version")
     log("  ones: exactly equal to the plain version")
     buf = torch.empty(shape, device=dev)
-    entries["hbm_write"] = kernel_entry(
+    entry = entries["hbm_write"] = kernel_entry(
         "hbm_write", SRC + "probe.cu", "tools/mxu_probe.py:157", 0.0,
         cuda_ms(lambda: probe.hbm_write(shape, dev), 10),
         cuda_ms(lambda: probe.hbm_write_plain(shape, dev), 10), bound_ms(0.0, nbytes),
         cuda_ms(lambda: buf.fill_(1.0), 10))
+    log(f"  {nbytes / entry['ms'] / 1e6:.1f} GB/s (writes over the kernel's time)")
+    redesigned(entry)
     del got, buf
     torch.cuda.empty_cache()
 
@@ -1353,6 +1365,88 @@ def two_fits(fit, runs, dev) -> dict:
     return out
 
 
+# grid ids 4062 and 4064: grid 4061 with K = 20 and K = 128
+WIDE_K_GRIDS = {20: 4062, 128: 4064}
+
+
+def wide_k_phase(fit, data, small_data, dev) -> dict:
+    """K > 16 and an approximate top-k on the dedup route: the chunked
+    PyTorch tail (``ops/fused_hpd.py: HpdTailUniqueChunked``, not a kernel)
+    with K3a/K3b for the hidden stack and K12 for the table gradients.
+    Small streamed geometries at K = 20 and at K = 4 with a recall target,
+    card against CPU; then ``fit`` at ``--scaled`` for grid 4064 (K = 128)
+    and 4062 (K = 20), 3 epochs each, the counts set to 0 just before:
+    K3a, K3b and both K12 variants must launch, K1, K2 and K4-K6 never;
+    one profiled epoch at K = 128; two fits from one start at K = 20,
+    bitwise equal."""
+    from collision_handling_in_instantngp_tpu_torch.config import (
+        ModelConfig, experiment_from_grid_id, instantngp_scaled_model,
+    )
+    from collision_handling_in_instantngp_tpu_torch.data import make_shuffle_permutations
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.models.hpd import unique_tail_backend
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_stream, scatter
+    from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
+
+    def chunked_route(exp) -> None:
+        m = exp.model
+        if unique_tail_backend(m, m.hash_table_size, m.topk_k, m.hpd_hidden[-1]) != "jax":
+            raise AssertionError(f"grid {exp.grid_id}: not routed to the chunked tail")
+
+    kernels = (hpd_stream.hpd_stream_fused_fwd, hpd_stream.hpd_stream_fused_bwd,
+               hpd_stream.hpd_stream_select, hpd_stream.hpd_stream_marginal,
+               hpd_stream.hpd_tail_unique_bwd)
+    log("small streamed geometry at K = 20 and at K = 4 with a recall target, 2 epochs, "
+        "card vs CPU (the chunked tail on both):")
+    for what, grid_id, kw in (("K = 20", 4062, {}),
+                              ("K = 4, recall 0.95", 4061, dict(topk_approx_recall=0.95))):
+        small = experiment_from_grid_id(grid_id, base_model=ModelConfig(
+            hash_table_size=2048, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream",
+            **kw))
+        chunked_route(small)
+        start = gngf.init_params(small.model, SEED, "cpu")
+        for fn in kernels:
+            fn.launches = 0
+        r_gpu = fit(small, small_data, epochs=2, device=dev, params=start, verbose=False)
+        if any(fn.launches for fn in kernels):
+            raise AssertionError(f"small geometry, {what}: a kernel of the streamed tail ran")
+        r_cpu = fit(small, small_data, epochs=2, device="cpu", params=start, verbose=False)
+        for hg, hc in zip(r_gpu.history, r_cpu.history):
+            log(f"  {what} epoch {hg['epoch']}: loss card {hg['train_loss']:.7f} "
+                f"cpu {hc['train_loss']:.7f}")
+            if not math.isclose(hg["train_loss"], hc["train_loss"], rel_tol=1e-4):
+                raise AssertionError(f"small geometry, {what}: the card disagrees with the CPU")
+
+    wrappers = {"hidden_stack_fwd": hidden.hidden_stack_fwd,
+                "hidden_stack_bwd": hidden.hidden_stack_bwd,
+                "scatter_add_serial": scatter.scatter_add_serial}
+    out = {}
+    for k, grid_id in sorted(WIDE_K_GRIDS.items(), reverse=True):
+        exp = experiment_from_grid_id(grid_id, base_model=instantngp_scaled_model())
+        if exp.model.topk_k != k:
+            raise AssertionError(f"grid {grid_id} has K = {exp.model.topk_k}, not {k}")
+        chunked_route(exp)
+        log(f"fit: grid {grid_id} (K = {k}), scaled geometry, strawberry, 3 epochs:")
+        launches, history, fit_s = fit_checked(
+            fit, exp, data, dev, wrappers, f"the chunked tail at K = {k}", absent=kernels,
+            variants=("scatter_add_serial[ring]", "scatter_add_serial[narrow]"))
+        out[f"k{k}"] = dict(grid_id=grid_id, history=history, fit_s=fit_s, launches=launches)
+        if k == 128:
+            statics = gngf.make_statics(exp.model)
+            shuffled, _ = make_shuffle_permutations(data.num_pixels, exp.train.seed,
+                                                    exp.train.shuffle_pixels)
+            batches = build_epoch_batches(data.coords, data.targets, exp.train.batch_fraction,
+                                          shuffled, data.image, exp.model, statics, dev)
+            log(f"profile: one epoch at K = {k}, device time by kernel:")
+            out[f"k{k}"]["profile"] = profile_epoch(exp, statics, batches, dev)
+            log_profile(out[f"k{k}"]["profile"])
+            del batches
+            torch.cuda.empty_cache()
+    exp20 = experiment_from_grid_id(WIDE_K_GRIDS[20], base_model=instantngp_scaled_model())
+    out["two_fits"] = two_fits(fit, [("the chunked tail at K = 20", exp20, data, 3)], dev)
+    return out
+
+
 def log_profile(profile) -> None:
     for row in profile["kernels"][:14]:
         log(f"  {row['ms']:10.3f} ms {row['share']:7.2%} x{row['calls']:<4d} {row['name'][:90]}")
@@ -1658,7 +1752,7 @@ def main() -> int:
     log_profile(profile)
     entries["hpd_stream_fused_bwd"]["per_launch_ms"] = per_launch(
         "K2", profile, ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel"))
-    del batches, geom, h_k, h_full, args, out_k       # x, counts_full: step 13
+    del batches, geom, h_k, h_full, args, out_k       # x, counts_full: step 14
     torch.cuda.empty_cache()
     marks = {}
     watermark(marks, "dedup route (steps 2-5)", dev)
@@ -1769,6 +1863,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     watermark(marks, "split route (steps 9-11)", dev)
 
+    # ------- K > 16 and approximate top-k: the chunked tail (step 12) ------- #
+    wide_k = wide_k_phase(fit, data, small_data, dev)
+    torch.cuda.empty_cache()
+    watermark(marks, "K > 16 (step 12)", dev)
+
     # -------- the wide stack [2 -> 256 -> 512 -> 256] (ROADMAP §3.1) -------- #
     entries.update(wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen))
     past_512 = past_512_phase(hpd_stream, hpd_tail, dev, gen)
@@ -1812,7 +1911,7 @@ def main() -> int:
     wide_fit = dict(dedup=dict(history=history_w, fit_s=fit_w_s, launches=launches_w),
                     per_row_auto=dict(history=history_pw, fit_s=fit_pw_s, launches=launches_pw))
     torch.cuda.empty_cache()
-    watermark(marks, "wide stack (step 12)", dev)
+    watermark(marks, "wide stack (step 13)", dev)
 
     # ------ the measurement path: the K7 ladder, then the mxu probe --------- #
     h_c = hidden.hidden_stack_fwd(x, hidden_layers).contiguous()
@@ -1820,10 +1919,10 @@ def main() -> int:
     entries.update(ladder_entries)
     del h_c, x, counts_full
     torch.cuda.empty_cache()
-    watermark(marks, "K7 ladder (step 13)", dev)
+    watermark(marks, "K7 ladder (step 14)", dev)
     mxu_entries, mxu_rates = mxu_probe_phase(dev)
     entries.update(mxu_entries)
-    watermark(marks, "mxu probe (step 14)", dev)
+    watermark(marks, "mxu probe (step 15)", dev)
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
@@ -1833,7 +1932,7 @@ def main() -> int:
                        split_profile=profile16, sweep_ladder_highest=ladder,
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
                        wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
-                       sass_tensor_ops=sass, two_fits=determinism), f, indent=1)
+                       sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -68,7 +68,11 @@ class ModelConfig:
     # "highest" = true fp32 (TF32 off), "high" = 3-term bf16 hi/lo split,
     # "default" = one bf16-rounded product; all accumulate in fp32
     matmul_precision: str = "highest"
-    # approximate top-k (not ported: raises NotImplementedError)
+    # a recall target for lax.approx_max_k in the JAX package, which is
+    # approximate only on a TPU (XLA lowers it to an exact top-k on the CPU
+    # and GPU). Set, it sends the HPD's streamed tails to their chunked
+    # PyTorch route, which takes the exact lowest-index top-k; the kernel
+    # routes ("pallas", "pallas_full") ignore it, as the JAX package's do.
     topk_approx_recall: Optional[float] = None
     # per-row route (dedup off): stream the HPD tail over row chunks instead
     # of materializing the dense (P, L, V, T) probabilities; False = dense

@@ -6,11 +6,13 @@ tables run dense (the (U, T) probabilities fit easily); scaled tables
 stream: the hidden stack is kernel K3 where the JAX package's gate
 ``hidden.supports`` holds (widths <= 512, hidden widths multiples of 8;
 past it the plain stack, as JAX runs its XLA stack) and the head + softmax
-+ top-k + marginal is the streamed tail (ops/fused_hpd.py), routed by the
-JAX package's gate ``fused_supports(T, K, H)``: the fused pair K1/K2 where it
-holds (T = 2^14 at H = 128), the split kernels K4 + K5 / K6 past it
-(T = 2^16). On a CUDA tensor the stream branch launches the kernels; on a
-CPU tensor it runs their plain versions.
++ top-k + marginal is the streamed tail (ops/fused_hpd.py), routed by
+``unique_tail_backend``: for K > 16 or an approximate top-k the chunked
+PyTorch tail (the JAX package's ``lax.scan`` tail, on whichever device the
+tensors are on); else by the JAX package's gate ``fused_supports(T, K, H)``
+the fused pair K1/K2 where it holds (T = 2^14 at H = 128), the split
+kernels K4 + K5 / K6 past it (T = 2^16). On a CUDA tensor the kernel
+routes launch the kernels; on a CPU tensor they run their plain versions.
 
 ``apply_hpd_fused`` evaluates it on every (pixel, level, corner) row (the
 per-row route) without the dense (P, L, V, T) probabilities. The route
@@ -19,7 +21,9 @@ T <= 2048, or "pallas_full", runs the whole network as kernels K10/K11
 where their row tile fits the stack; "pallas", and those two past that
 tile, run a plain hidden stack and the tail kernels K8/K9; anything else
 the chunked PyTorch tail. On a CPU tensor a kernel route runs its plain
-versions.
+versions. A recall target for an approximate top-k is answered with the
+exact lowest-index top-k on every route (lax.approx_max_k is exact off the
+TPU; the JAX package's kernels ignore it).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ..ops.cuda import hidden
 from ..ops.cuda import hpd_full as hpd_full_kernels
 from ..ops.cuda.hpd_full import hpd_full
 from ..ops.cuda.hpd_stream import MAX_K
-from ..ops.fused_hpd import hpd_tail, hpd_tail_unique
+from ..ops.fused_hpd import hpd_tail, hpd_tail_unique, kernel_backend
 from ..ops.precision import pdot
 from ..ops.topk import differentiable_topk
 from .mlp import MLP
@@ -64,6 +68,17 @@ def use_stream(cfg: ModelConfig, u: int) -> bool:
     )
 
 
+def unique_tail_backend(cfg: ModelConfig, t: int, k: int, hd: int) -> str:
+    """The streamed tail's route (JAX ``models/hpd.py:101-117``): "jax", the
+    chunked PyTorch tail, for an approximate top-k or K > MAX_K; else the
+    kernels by the JAX gate, "fused" (K1/K2) or "split" (K4 + K5 / K6). Where
+    ``supports`` fails only on T (not a multiple of 2048), K1/K2, which take
+    any multiple of 128 and compute the same function."""
+    if cfg.topk_approx_recall is not None or k > MAX_K:
+        return "jax"
+    return kernel_backend(t, k, hd)
+
+
 def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=None):
     """HPD on (U, d) unique vertices.
 
@@ -79,16 +94,6 @@ def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=N
             marginal_raw = pdot(counts, probs, "highest")
         return marginal_raw, values, indices
 
-    if cfg.topk_approx_recall is not None:
-        raise NotImplementedError(
-            "approximate top-k on the streamed tail is not ported "
-            "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
-        )
-    if cfg.topk_k > MAX_K:
-        raise NotImplementedError(
-            f"topk_k={cfg.topk_k} > {MAX_K} on the streamed tail is not ported "
-            "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
-        )
     layers = hpd.layers()
     widths = [ucoords.shape[1]] + [w.shape[1] for w, _ in layers[:-1]]
     if len(layers) > 1 and hidden.supports(widths):
@@ -99,9 +104,9 @@ def apply_hpd_unique(hpd: MLP, ucoords: torch.Tensor, cfg: ModelConfig, counts=N
     counts_in = counts if counts is not None else torch.zeros(
         1, u, dtype=torch.float32, device=ucoords.device
     )
-    # K1/K2, or K4 + K5 / K6 past the fused gate (ops/fused_hpd.py)
     marginal_raw, values, indices = hpd_tail_unique(
-        h, w, b, counts_in, cfg.topk_k, cfg.matmul_precision, noop
+        h, w, b, counts_in, cfg.topk_k, cfg.matmul_precision, noop,
+        unique_tail_backend(cfg, w.shape[1], cfg.topk_k, w.shape[0]),
     )
     if counts is None or cfg.keep_topk_only:
         marginal_raw = None
@@ -136,11 +141,6 @@ def fused_backend(cfg: ModelConfig) -> str:
 def apply_hpd_fused(hpd: MLP, vertices: torch.Tensor, cfg: ModelConfig):
     """vertices (P, L, V, d) -> (marginal (L, T), values (P, L, V, K),
     indices (P, L, V, K) int32)."""
-    if cfg.topk_approx_recall is not None:
-        raise NotImplementedError(
-            "approximate top-k on the per-row tail is not ported "
-            "(ROADMAP.md, port queue: 'K > 16 and approximate top-k')"
-        )
     p, l, v, d = vertices.shape
     rows = vertices.permute(1, 0, 2, 3).reshape(l, p * v, d)     # level-major
     layers = hpd.layers()

@@ -15,6 +15,13 @@ from __future__ import annotations
 import torch
 
 
+def mean_as_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The mean over ``dim`` as XLA computes ``jnp.mean``: the sum times the
+    reciprocal of the count in x's type, an ulp from sum / n where n is not
+    a power of two (the mean over K = 20 top-k candidates)."""
+    return x.sum(dim=dim) * torch.tensor(1.0 / x.shape[dim], dtype=x.dtype)
+
+
 def _presence_per_group(flat_indices: torch.Tensor, hash_table_size: int) -> torch.Tensor:
     """(G, N) slot ids -> (G, T) bool presence masks."""
     g = flat_indices.shape[0]
@@ -36,7 +43,7 @@ def hash_collisions_gngf(indices_topk: torch.Tensor, n_ls: torch.Tensor,
     per_kl = indices_topk.permute(3, 1, 0, 2).reshape(k * l, p * v)
     uniques = _unique_counts_per_group(per_kl, hash_table_size).reshape(k, l)
     total_vertices = (n_ls.to(torch.int64) + 1) ** 2
-    coll = (total_vertices[None, :] - uniques).to(torch.float32).mean(dim=0)
+    coll = mean_as_xla((total_vertices[None, :] - uniques).to(torch.float32), 0)
     return torch.clamp(coll, min=0.0)
 
 

@@ -128,7 +128,12 @@ def hbm_write(shape, device="cuda") -> torch.Tensor:
     dev = torch.device(device)
     if dev.type != "cuda":
         return hbm_write_plain(shape, dev)
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    return _write_ones(torch.empty(tuple(shape), dtype=torch.float32, device=dev))
+
+
+def _write_ones(out: torch.Tensor) -> torch.Tensor:
+    """K14's launch: ones into ``out``, contiguous fp32 on a card at any
+    address (16-byte stores where it is aligned, else scalar ones)."""
     lib = _lib()
     with torch.cuda.device(out.device):
         code = lib.hbm_write(out.data_ptr(), out.numel(), _stream(out.device))

@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .collisions import mean_as_xla
+
 
 class DedupGeometry(NamedTuple):
     """Per-batch dedup tables (tensors on the run's device).
@@ -153,5 +155,5 @@ def collisions_from_presence(
     (n_l+1)^2 - #used slots, mean over k, clamp >= 0."""
     uniques = presence.sum(dim=-1).to(torch.float32)
     total_vertices = ((n_ls.to(torch.int64) + 1) ** 2).to(torch.float32)
-    coll = (total_vertices[:, None] - uniques).mean(dim=1)
+    coll = mean_as_xla(total_vertices[:, None] - uniques, 1)
     return torch.clamp(coll, min=0.0)

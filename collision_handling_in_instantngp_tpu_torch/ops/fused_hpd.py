@@ -17,6 +17,16 @@ multiple of 128. On the CPU each runs its plain version. The residuals are
 (h, w, b, counts, idx, vals, m, s): the backward recomputes p from the row
 statistics (m, s) instead of keeping it.
 
+``HpdTailUniqueChunked`` is the same function as the JAX package's
+``lax.scan`` tail over unique vertices (its "jax" backend, ``_unique_fwd_impl``
+and ``_unique_bwd``), in plain PyTorch on whichever device the tensors are
+on: the route for K > 16 and for an approximate top-k
+(``models/hpd.py: unique_tail_backend``), not a fallback from the kernels.
+Row chunks of ``unique_chunk_rows(T)``; the forward takes p =
+nan_to_num(softmax(h w + b)), marg += counts_chunk @ p and the top-K of p
+(``topk_keyed``: lax.top_k's order in one ``torch.topk``); the residuals are
+(h, w, b, counts, idx) and the backward recomputes p.
+
 ``hpd_tail`` is the per-row counterpart, (L, N, H) rows: the per-level
 marginal (already / N), and top-K selected on p. Backend "pallas" runs
 kernels K8/K9 (``ops/cuda/hpd_tail.py``; their plain versions on the CPU);
@@ -29,18 +39,25 @@ from __future__ import annotations
 import torch
 
 from .cuda import hpd_stream
-from .cuda.hpd_tail import hpd_tail_bwd, hpd_tail_bwd_plain, hpd_tail_fwd, hpd_tail_fwd_plain
+from .cuda.hpd_tail import (
+    CHUNK_ROWS, TILE_BUDGET, hpd_tail_bwd, hpd_tail_bwd_plain, hpd_tail_fwd, hpd_tail_fwd_plain,
+    softmax_rows,
+)
+from .precision import pdot
+from .topk import topk_keyed
 
 
-def _split(t: int, k: int, hd: int) -> bool:
-    return hpd_stream.supports(t, k) and not hpd_stream.fused_supports(t, k, hd)
+def kernel_backend(t: int, k: int, hd: int) -> str:
+    """The kernels' route by the JAX gate: "split" (K4 + K5 / K6) where
+    ``supports`` holds and ``fused_supports`` fails, else "fused" (K1/K2)."""
+    return "split" if hpd_stream.supports(t, k) and not hpd_stream.fused_supports(t, k, hd) else "fused"
 
 
 class HpdTailUnique(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, w, b, counts, k: int, precision: str, noop_topk: bool):
-        ctx.split = _split(w.shape[1], k, h.shape[1])
-        if ctx.split:
+    def forward(ctx, h, w, b, counts, k: int, precision: str, noop_topk: bool, split: bool):
+        ctx.split = split
+        if split:
             vals, idx, m, s = hpd_stream.hpd_stream_select(h, w, b, k, precision)
             marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s, precision)
         else:
@@ -62,14 +79,73 @@ class HpdTailUnique(torch.autograd.Function):
             h, w, b, counts, idx, vals, m, s, g_marg.contiguous(), g_vals.contiguous(),
             ctx.k, ctx.precision, ctx.noop_topk,
         )
+        return dh, dw, db, None, None, None, None, None
+
+
+def unique_chunk_rows(t: int) -> int:
+    """Rows a chunk of the chunked unique tail (JAX ``_unique_chunk_rows``):
+    (rows, T) fp32 temporaries near 64 MB."""
+    return int(max(256, min(CHUNK_ROWS, TILE_BUDGET // max(t, 1))))
+
+
+class HpdTailUniqueChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, counts, k: int, precision: str, noop_topk: bool):
+        u, t = h.shape[0], w.shape[1]
+        marg = torch.zeros(counts.shape[0], t, dtype=torch.float32, device=h.device)
+        vals = torch.empty(u, k, dtype=torch.float32, device=h.device)
+        idx = torch.empty(u, k, dtype=torch.int32, device=h.device)
+        step = unique_chunk_rows(t)
+        for r0 in range(0, u, step):
+            r1 = min(u, r0 + step)
+            p = softmax_rows(pdot(h[r0:r1], w, precision) + b)
+            marg += pdot(counts[:, r0:r1], p, precision)
+            v, i = topk_keyed(p, k)
+            vals[r0:r1] = v
+            idx[r0:r1] = i.to(torch.int32)
+        ctx.save_for_backward(h, w, b, counts, idx)
+        ctx.precision, ctx.noop_topk = precision, noop_topk
+        ctx.mark_non_differentiable(idx)
+        return marg, vals, idx
+
+    @staticmethod
+    def backward(ctx, g_marg, g_vals, _g_idx):
+        h, w, b, counts, idx = ctx.saved_tensors
+        precision = ctx.precision
+        u, t = h.shape[0], w.shape[1]
+        dh = torch.empty_like(h)
+        dw = torch.zeros(h.shape[1], t, dtype=torch.float32, device=h.device)
+        db = torch.zeros(t, dtype=torch.float32, device=h.device)
+        step = unique_chunk_rows(t)
+        for r0 in range(0, u, step):
+            r1 = min(u, r0 + step)
+            p = softmax_rows(pdot(h[r0:r1], w, precision) + b)
+            # marginal cotangent: d marg_l / d p_row = counts_l[row] g_marg_l
+            g_p = (torch.zeros_like(p) if g_marg is None
+                   else pdot(counts[:, r0:r1].T, g_marg.contiguous(), precision))
+            if g_vals is not None and not ctx.noop_topk:
+                i = idx[r0:r1].long()       # distinct in a row: one add a column
+                g_p.scatter_(1, i, g_p.gather(1, i) + g_vals[r0:r1])
+            dl = p * (g_p - (g_p * p).sum(dim=1, keepdim=True))
+            dh[r0:r1] = pdot(dl, w.T, precision)
+            dw += pdot(h[r0:r1].T, dl, precision)
+            db += dl.sum(dim=0)
         return dh, dw, db, None, None, None, None
 
 
 def hpd_tail_unique(h, w, b, counts, k: int, precision: str = "highest",
-                    noop_topk: bool = False):
+                    noop_topk: bool = False, backend=None):
     """h (U, H), w (H, T), b (T,), counts (L, U) -> (marginal_raw (L, T)
-    UNNORMALIZED, vals (U, K), idx (U, K) int32)."""
-    return HpdTailUnique.apply(h, w, b, counts, k, precision, noop_topk)
+    UNNORMALIZED, vals (U, K), idx (U, K) int32). backend "fused" (K1/K2),
+    "split" (K4 + K5 / K6), their plain versions on the CPU, or "jax" (the
+    chunked tail); None: ``kernel_backend``."""
+    if backend is None:
+        backend = kernel_backend(w.shape[1], k, h.shape[1])
+    if backend == "jax":
+        return HpdTailUniqueChunked.apply(h, w, b, counts, k, precision, noop_topk)
+    if backend not in ("fused", "split"):
+        raise ValueError(f"unknown unique-tail backend {backend!r}")
+    return HpdTailUnique.apply(h, w, b, counts, k, precision, noop_topk, backend == "split")
 
 
 class HpdTail(torch.autograd.Function):

@@ -13,9 +13,11 @@ its fixed-order table gradients; for the probes K7 and K13, ragged U and
 T from 128 (K13 also U ragged against its 128- and 256-row tiles, H from
 16 to 128, exact integer inputs held bit for bit to float64, 'default'
 bit for bit 'bf16');
-K14/K15 at sizes not a multiple of 4 and from an unaligned address), plus
-training on the card against the CPU on the dedup route (fused and split)
-and the per-row routes.
+K14/K15 at sizes not a multiple of 4 and from an unaligned address, K14
+also at the probe's 2.66 GB; the chunked unique tail of K > 16, no kernel,
+against the same call on the CPU at K = 20 and 128), plus training on the
+card against the CPU on the dedup route (fused and split) and the per-row
+routes.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -42,6 +44,7 @@ from collision_handling_in_instantngp_tpu_torch import cli
 from collision_handling_in_instantngp_tpu_torch.config import ModelConfig, experiment_from_grid_id
 from collision_handling_in_instantngp_tpu_torch.data import image_dataset
 from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
+from collision_handling_in_instantngp_tpu_torch.ops import fused_hpd
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
     hidden, hpd_full, hpd_stream, hpd_tail, probe, scatter,
 )
@@ -902,6 +905,60 @@ def test_hbm_probes_exact(dev, n):
         y = probe.hbm_scale_copy(x)
         assert torch.equal(y, x * 2) and y.data_ptr() != x.data_ptr()
     assert (probe.hbm_write.launches, probe.hbm_scale_copy.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1, 7, 1_000_003, 4 * 4 * 256 * 1056 + 9])
+def test_hbm_write_edges(dev, n, offset):
+    """K14 exactly ones at sizes below one float4, not a multiple of 4, and
+    of 1,056 whole blocks (1,024 float4 each) plus a partial one and a
+    scalar tail, from 16-byte aligned and unaligned addresses (the scalar
+    path), and nothing written outside its span."""
+    base = torch.zeros(n + 4, device=dev)
+    before = probe.hbm_write.launches
+    probe._write_ones(base[offset:offset + n])
+    assert torch.equal(base[offset:offset + n], torch.ones(n, device=dev))
+    assert not base[:offset].any() and not base[offset + n:].any()
+    assert probe.hbm_write.launches == before + 1
+
+
+def test_hbm_write_at_the_probe_shape(dev):
+    """K14 at tools/mxu_probe.py's shape, (162,304, 4,096) fp32 (2.66 GB):
+    every element exactly 1."""
+    out = probe.hbm_write((162_304, 4_096), dev)
+    assert out.shape == (162_304, 4_096) and bool((out == 1.0).all())
+
+
+@pytest.mark.parametrize("k,t,u", [(20, 2048, 5000), (128, 2048, 5000), (128, 16384, 1500)])
+def test_chunked_unique_tail_on_card_matches_cpu(dev, k, t, u):
+    """The chunked unique tail (K > 16, no kernel: PyTorch on whichever
+    device) on the card against the same call on the CPU: top-K identical
+    on every row (dyadic inputs: exact logits, ties or gaps of at least
+    1/64), marg and vals 1e-5, dh / dW / db 1e-4 (normwise), and bitwise
+    equal run to run on the card."""
+    rng = np.random.default_rng(k + t)
+    h = (rng.integers(0, 5, (u, 64)) / 8).astype(np.float32)
+    w = (rng.integers(-4, 5, (64, t)) / 16).astype(np.float32)
+    b = (rng.integers(-8, 9, t) / 64).astype(np.float32)
+    counts = rng.integers(0, 5, (4, u)).astype(np.float32)
+    g_marg = rng.standard_normal((4, t)).astype(np.float32)
+    g_vals = rng.standard_normal((u, k)).astype(np.float32)
+
+    def run(device):
+        x = [torch.tensor(a, device=device, requires_grad=i < 3)
+             for i, a in enumerate((h, w, b, counts))]
+        marg, vals, idx = fused_hpd.hpd_tail_unique(*x, k, "highest", False, "jax")
+        (torch.sum(marg * torch.tensor(g_marg, device=device))
+         + torch.sum(vals * torch.tensor(g_vals, device=device))).backward()
+        return [marg.detach(), vals.detach(), idx] + [a.grad for a in x[:3]]
+
+    card, cpu = run(dev), run("cpu")
+    assert torch.equal(card[2].cpu(), cpu[2])
+    for name, a, r, tol in zip(("marg", "vals", "", "dh", "dw", "db"), card, cpu,
+                               (1e-5, 1e-5, 0, 1e-4, 1e-4, 1e-4)):
+        if name:
+            _close(a.cpu(), r, tol, name)
+    assert all(torch.equal(a, c) for a, c in zip(card, run(dev)))
 
 
 def _rowsum_inputs(dev, u, hd, t, seed=5, ints=False):
