@@ -106,6 +106,9 @@ class HpdTailUniqueChunked(torch.autograd.Function):
         ctx.save_for_backward(h, w, b, counts, idx)
         ctx.precision, ctx.noop_topk = precision, noop_topk
         ctx.mark_non_differentiable(idx)
+        # an output the loss leaves out (marg under keep_topk_only) comes
+        # back as None: its product is skipped, not taken on zeros
+        ctx.set_materialize_grads(False)
         return marg, vals, idx
 
     @staticmethod
