@@ -95,9 +95,12 @@
    scaled geometry for grid 4064 (K = 128) and grid 4062 (K = 20), 3
    epochs each, the counts set to 0 just before, and fails unless K3a,
    K3b and K12 (both variants) launched, K1, K2 and K4-K6 did not, and the
-   loss is finite and falls; profiles one epoch at K = 128; fits twice
-   from one start at K = 20 and fails unless the parameters are bitwise
-   equal;
+   loss is finite and falls; profiles one epoch at K = 128; holds K12
+   at that fit's batch-0 shapes bitwise to its plain version and run to
+   run (the ring on the blend's table gradient, U_c * 128 rows of C = 32
+   with ids from the chunked tail's top-128 of real h, and the hottest
+   slot alone; the narrow variant on ``gather_rows``'); fits twice from
+   one start at K = 20 and fails unless the parameters are bitwise equal;
 13. the wide stack ``hpd_hidden=(256, 512, 256)`` (ROADMAP §3.1): holds
    every tail kernel at a head input of 256 against its plain version at
    a small L and T (K1, K2, K4-K6: U = 20,000, T = 4096, L = 4; K8-K11:
@@ -601,6 +604,18 @@ def scatter_phase(variant, rows, flat, t) -> dict:
     return entry
 
 
+def hot_slot(entry, rows, flat, t) -> None:
+    """The hottest slot's rows alone through K12 (one block's chain: the
+    kernel's floor), timed into ``entry["hot_slot_ms"]``."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import scatter
+
+    hot = torch.bincount(flat.long(), minlength=t).argmax().item()
+    hot_rows = rows[flat == hot].contiguous()
+    hot_prep = scatter.prepare(torch.zeros(hot_rows.shape[0], dtype=torch.int32, device=rows.device), 8)
+    entry["hot_slot_ms"] = cuda_ms(lambda: scatter.scatter_sorted(hot_rows, *hot_prep), 20)
+    log(f"  the hottest slot's {hot_rows.shape[0]} rows alone: kernel {entry['hot_slot_ms']:.3f} ms")
+
+
 def gather_scatter_phase(geom, feature_dim, dev, gen) -> dict:
     """K12's narrow variant on ``gather_rows``' table gradient of one batch
     (flat ids = vertex id + level * U_c, rows of F columns on L * U_c
@@ -622,7 +637,7 @@ def split_kernel_phases(exp, batches, dev, gen):
     (entries, fused-vs-split times)."""
     from collision_handling_in_instantngp_tpu_torch.models import gngf
     from collision_handling_in_instantngp_tpu_torch.ops import dedup
-    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_stream, scatter
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_stream
 
     mcfg = exp.model
     geom = batches.dedup[0]
@@ -713,14 +728,8 @@ def split_kernel_phases(exp, batches, dev, gen):
         f"T={T}:")
     rows = torch.randn(flat.numel(), c, device=dev, generator=gen)
     ring = entries["scatter_add_serial[ring]"] = scatter_phase("ring", rows, flat, T)
-    # the hottest slot's rows alone (one block's chain: the kernel's floor)
-    hot = torch.bincount(flat.long(), minlength=T).argmax().item()
-    hot_rows = rows[flat == hot].contiguous()
-    hot_prep = scatter.prepare(torch.zeros(hot_rows.shape[0], dtype=torch.int32, device=dev), 8)
-    ring["hot_slot_ms"] = cuda_ms(lambda: scatter.scatter_sorted(hot_rows, *hot_prep), 20)
-    log(f"  the hottest slot's {hot_rows.shape[0]} rows alone: kernel {ring['hot_slot_ms']:.3f} ms")
+    hot_slot(ring, rows, flat, T)
     redesigned(ring)
-    del hot_rows, hot_prep
     del h, out_k, vals, idx, m, s, rows
     torch.cuda.empty_cache()
     return entries, fused
@@ -1369,7 +1378,40 @@ def two_fits(fit, runs, dev) -> dict:
 WIDE_K_GRIDS = {20: 4062, 128: 4064}
 
 
-def wide_k_phase(fit, data, small_data, dev) -> dict:
+def wide_k_scatter_phase(mcfg, geom, dev, gen) -> dict:
+    """K12 at the shapes the chunked tail's route gives it on batch 0: the
+    ring variant on the blend's table gradient (flat ids from the chunked
+    tail's top-K of real h from K3a, rows of C = L * F on T slots, as
+    ``models/encoding.py: blend_unique`` forms them), with the hottest
+    slot's time; the narrow variant on ``gather_rows``' table gradient.
+    Returns {variant: entry}."""
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops import dedup
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden
+    from collision_handling_in_instantngp_tpu_torch.ops.fused_hpd import hpd_tail_unique
+
+    x = dedup.active_coords(geom.active, dedup.grid_side(mcfg.n_max))
+    params = gngf.init_params(mcfg, SEED, dev)
+    layers = [(w_.detach(), b_.detach()) for w_, b_ in params.hpd.layers()]
+    k, t = mcfg.topk_k, mcfg.hash_table_size
+    with torch.no_grad():
+        h = hidden.hidden_stack_fwd(x, layers[:-1]).contiguous()
+        w, b = layers[-1]
+        _, _, idx = hpd_tail_unique(h, w, b, geom.counts, k, mcfg.matmul_precision, False, "jax")
+    flat = idx.reshape(-1).long()
+    log(f"K12 scatter_add_serial [ring], the blend's table gradient at K = {k}: idx from the "
+        f"chunked tail's top-{k} of real h, U_c={h.shape[0]}, T={t}:")
+    del h, idx, params, layers
+    rows = torch.randn(flat.numel(), mcfg.num_levels * mcfg.feature_dim, device=dev, generator=gen)
+    ring = scatter_phase("ring", rows, flat, t)
+    hot_slot(ring, rows, flat, t)
+    del rows, flat
+    torch.cuda.empty_cache()
+    narrow = gather_scatter_phase(geom, mcfg.feature_dim, dev, gen)
+    return {"ring": ring, "narrow": narrow}
+
+
+def wide_k_phase(fit, data, small_data, dev, gen) -> dict:
     """K > 16 and an approximate top-k on the dedup route: the chunked
     PyTorch tail (``ops/fused_hpd.py: HpdTailUniqueChunked``, not a kernel)
     with K3a/K3b for the hidden stack and K12 for the table gradients.
@@ -1377,8 +1419,8 @@ def wide_k_phase(fit, data, small_data, dev) -> dict:
     card against CPU; then ``fit`` at ``--scaled`` for grid 4064 (K = 128)
     and 4062 (K = 20), 3 epochs each, the counts set to 0 just before:
     K3a, K3b and both K12 variants must launch, K1, K2 and K4-K6 never;
-    one profiled epoch at K = 128; two fits from one start at K = 20,
-    bitwise equal."""
+    one profiled epoch at K = 128, then K12 at that fit's shapes against
+    its plain version; two fits from one start at K = 20, bitwise equal."""
     from collision_handling_in_instantngp_tpu_torch.config import (
         ModelConfig, experiment_from_grid_id, instantngp_scaled_model,
     )
@@ -1440,6 +1482,7 @@ def wide_k_phase(fit, data, small_data, dev) -> dict:
             log(f"profile: one epoch at K = {k}, device time by kernel:")
             out[f"k{k}"]["profile"] = profile_epoch(exp, statics, batches, dev)
             log_profile(out[f"k{k}"]["profile"])
+            out[f"k{k}"]["scatter"] = wide_k_scatter_phase(exp.model, batches.dedup[0], dev, gen)
             del batches
             torch.cuda.empty_cache()
     exp20 = experiment_from_grid_id(WIDE_K_GRIDS[20], base_model=instantngp_scaled_model())
@@ -1864,7 +1907,7 @@ def main() -> int:
     watermark(marks, "split route (steps 9-11)", dev)
 
     # ------- K > 16 and approximate top-k: the chunked tail (step 12) ------- #
-    wide_k = wide_k_phase(fit, data, small_data, dev)
+    wide_k = wide_k_phase(fit, data, small_data, dev, gen)
     torch.cuda.empty_cache()
     watermark(marks, "K > 16 (step 12)", dev)
 

@@ -136,14 +136,11 @@ class HpdTailUniqueChunked(torch.autograd.Function):
         return dh, dw, db, None, None, None, None
 
 
-def hpd_tail_unique(h, w, b, counts, k: int, precision: str = "highest",
-                    noop_topk: bool = False, backend=None):
+def hpd_tail_unique(h, w, b, counts, k: int, precision: str, noop_topk: bool, backend: str):
     """h (U, H), w (H, T), b (T,), counts (L, U) -> (marginal_raw (L, T)
     UNNORMALIZED, vals (U, K), idx (U, K) int32). backend "fused" (K1/K2),
     "split" (K4 + K5 / K6), their plain versions on the CPU, or "jax" (the
-    chunked tail); None: ``kernel_backend``."""
-    if backend is None:
-        backend = kernel_backend(w.shape[1], k, h.shape[1])
+    chunked tail), as ``models/hpd.py: unique_tail_backend`` picks it."""
     if backend == "jax":
         return HpdTailUniqueChunked.apply(h, w, b, counts, k, precision, noop_topk)
     if backend not in ("fused", "split"):

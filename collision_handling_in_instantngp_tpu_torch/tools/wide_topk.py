@@ -1,12 +1,11 @@
 """The exact lowest-index top-K of the unique "jax" tail, timed on the card at
 the tail's chunk shape (``ops/fused_hpd.py: unique_chunk_rows``: 1,024 rows
-of T = 16,384 at ``--scaled``) for K = 20, 32, 128: ``topk_lowest_index``
-(K passes over the chunk), ``topk_keyed`` (one ``torch.topk`` of int64
-keys), a stable descending ``torch.sort`` sliced to K, and ``torch.topk``
-alone (values and some indices, no tie rule: the library yardstick). Each
-routine's indices are held to ``topk_lowest_index``'s on the same p (a
-softmax of seeded logits, every 16th row with planted ties at its K-th
-value). Prints the card's name and power limit; writes ``--out``.
+of T = 16,384 at ``--scaled``) for K = 20, 32, 128: ``topk_keyed`` (one
+``torch.topk`` of int64 keys, the tail's routine) beside
+``topk_lowest_index`` (K passes over the chunk), whose indices and values
+it must give on the same p (a softmax of seeded logits, every 16th row
+with planted ties at its K-th value). Prints the card's name and power
+limit; writes ``--out``.
 
     python3 -m collision_handling_in_instantngp_tpu_torch.tools.wide_topk \\
         [--rows 1024] [--t 16384] [--out chiprun_out/wide_topk.json]
@@ -25,17 +24,7 @@ from ..ops.topk import topk_keyed, topk_lowest_index
 from ..utils import profiling
 
 
-def stable_sort_topk(x: torch.Tensor, k: int):
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def library_topk(x: torch.Tensor, k: int):
-    return torch.topk(x, k, dim=-1, sorted=True)
-
-
-ROUTINES = {"topk_lowest_index": topk_lowest_index, "topk_keyed": topk_keyed,
-            "stable_sort": stable_sort_topk, "torch.topk": library_topk}
+ROUTINES = {"topk_lowest_index": topk_lowest_index, "topk_keyed": topk_keyed}
 
 
 def planted_p(rows: int, t: int, k: int, dev) -> torch.Tensor:

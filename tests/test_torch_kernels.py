@@ -87,7 +87,7 @@ def test_tail_autograd_matches_jax_vjp(rng):
 
     ref = jax.grad(jax_scalar, argnums=(0, 1, 2))(*map(jnp.asarray, (h, w, b)))
     th, tw, tb = (_t(a).clone().requires_grad_() for a in (h, w, b))
-    marg, vals, _ = hpd_tail_unique(th, tw, tb, _t(counts), k)
+    marg, vals, _ = hpd_tail_unique(th, tw, tb, _t(counts), k, "highest", False, "fused")
     (torch.sum(marg * _t(g_marg)) + torch.sum(vals * _t(g_vals))).backward()
     for name, a, r in zip(("dh", "dw", "db"), (th.grad, tw.grad, tb.grad), ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), err_msg=name, **GRAD)

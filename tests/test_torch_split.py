@@ -26,7 +26,7 @@ from collision_handling_in_instantngp_tpu_torch.models import encoding as enc
 from collision_handling_in_instantngp_tpu_torch.models import gngf
 from collision_handling_in_instantngp_tpu_torch.models.hpd import apply_hpd_unique
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_stream, scatter
-from collision_handling_in_instantngp_tpu_torch.ops.fused_hpd import hpd_tail_unique
+from collision_handling_in_instantngp_tpu_torch.ops.fused_hpd import hpd_tail_unique, kernel_backend
 
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)
@@ -181,7 +181,9 @@ def test_split_autograd_matches_jax_vjp(rng, monkeypatch):
                           "pallas_interpret")
     ref = jax.grad(jax_scalar, argnums=(0, 1, 2))(*map(jnp.asarray, (h, w, b)))
     th, tw, tb = (_t(a).clone().requires_grad_() for a in (h, w, b))
-    marg, vals, idx = hpd_tail_unique(th, tw, tb, _t(counts), k)
+    backend = kernel_backend(w.shape[1], k, h.shape[1])
+    assert backend == "split"
+    marg, vals, idx = hpd_tail_unique(th, tw, tb, _t(counts), k, "highest", False, backend)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
     np.testing.assert_allclose(marg.detach().numpy(), np.asarray(jm), **FWD)
     np.testing.assert_allclose(vals.detach().numpy(), np.asarray(jv), **FWD)
