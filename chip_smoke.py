@@ -38,7 +38,8 @@
 3. trains a small streamed geometry on the card and on the CPU and
    compares the losses (kernels vs plain versions end to end);
 4. runs ``fit`` on grid 4061 at scaled geometry for 3 epochs with the
-   launch counts set to 0 just before, and fails unless every kernel
+   launch counts set to 0 just before (every fit of steps 3-16 writes no
+   checkpoint; each prints its counts epochs' statistics seconds), and fails unless every kernel
    launched (K12 in both variants: the blend's and ``gather_rows``' table
    gradients) and the loss is finite and falls;
 5. profiles one more epoch of that training (device time by kernel, the
@@ -135,7 +136,27 @@
    (its TF/s and GB/s lines; the calibration goes to
    ``chiprun_out/roofline_calibration.json``) and fails unless each
    launched;
-16. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+16. the vanilla hash (``use_hash_function=True``, no HPD): trains a small
+   geometry on the card and on the CPU and compares the losses; runs
+   ``fit`` on grid 4061 for 3 epochs at the default geometry and at
+   ``instantngp_scaled_model()``, the launch counts set to 0 just before,
+   and fails unless K12 launched (its ring at the default geometry, its
+   narrow variant at the scaled one), no HPD kernel did, and the loss is
+   finite and falls; profiles one epoch of each; holds K12 at each fit's
+   batch-0 shapes (the hash ids of 918,464 and 3,673,856 rows of F = 2 on
+   1,024 and 262,144 slots) bitwise to its plain version and run to run,
+   timed beside ``index_add_``, the hottest slot alone; fits twice from one
+   start at each geometry and fails unless the parameters are bitwise
+   equal;
+17. checkpoints, histograms and warm start: ``fit`` at the scaled geometry
+   with ``save_params``, a counts epoch every epoch and a JSONL logger
+   without media, 3 epochs into a scratch directory under chiprun_out/;
+   fails unless the five artifacts and the stamp are written (no
+   ``bn_state.pkl``), each counts epoch's slot counts equal a host
+   ``np.bincount`` of that epoch's ids, and a 1-epoch warm start from the
+   best checkpoint gives a 4-epoch fit's parameters bitwise; prints each
+   epoch's stats and checkpoint seconds;
+18. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -1334,7 +1355,8 @@ def fit_checked(fit, exp, data, dev, wrappers, what, absent=(), variants=()):
                      for v, n in getattr(fn, "variant_launches", {}).items()})
     for row in res.history:
         log(f"  epoch {row['epoch']}: loss {row['train_loss']:.6f} mse {row['mse_loss']:.6f} "
-            f"psnr {row['train_psnr']:.4f} {row['seconds']:.3f} s {row['pixels_per_s']:.0f} px/s")
+            f"psnr {row['train_psnr']:.4f} {row['seconds']:.3f} s {row['pixels_per_s']:.0f} px/s "
+            f"(stats {row['stats_seconds']:.3f} s, best-params copy {row['ckpt_seconds']:.3f} s)")
     log(f"  fit total {fit_s:.2f} s, launches {launches}")
     losses = [row["train_loss"] for row in res.history]
     mses = [row["mse_loss"] for row in res.history]
@@ -1497,6 +1519,200 @@ def log_profile(profile) -> None:
         f"idle share {profile['idle_share']:.2%}")
 
 
+def vanilla_phase(fit, data, small_data, dev, gen) -> dict:
+    """Step 16, the vanilla hash (``use_hash_function=True``: no HPD; the
+    table gradient of ``lookup_vanilla`` on K12): a small geometry card vs
+    CPU; ``fit`` of grid 4061 for 3 epochs at the default geometry (K12's
+    ring) and at ``instantngp_scaled_model()`` (its narrow variant), the
+    counts set to 0 just before, no HPD kernel allowed; a profiled epoch of
+    each; K12 at each fit's batch-0 shapes (flat hash ids of every (pixel,
+    level, corner) row, rows of F = 2 on L * T slots) bitwise to its plain
+    version and run to run, timed beside ``index_add_``, the hottest slot
+    alone; two fits from one start at each geometry, bitwise equal."""
+    from collision_handling_in_instantngp_tpu_torch.config import (
+        ModelConfig, experiment_from_grid_id, instantngp_scaled_model,
+    )
+    from collision_handling_in_instantngp_tpu_torch.data import make_shuffle_permutations
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
+        hidden, hpd_full, hpd_stream, hpd_tail, scatter,
+    )
+    from collision_handling_in_instantngp_tpu_torch.ops.grid import scale_to_grid
+    from collision_handling_in_instantngp_tpu_torch.ops.hashing import fast_hash
+    from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
+
+    hpd_kernels = (hpd_stream.hpd_stream_fused_fwd, hpd_stream.hpd_stream_fused_bwd,
+                   hpd_stream.hpd_stream_select, hpd_stream.hpd_stream_marginal,
+                   hpd_stream.hpd_tail_unique_bwd, hidden.hidden_stack_fwd,
+                   hidden.hidden_stack_bwd, hpd_tail.hpd_tail_fwd, hpd_tail.hpd_tail_bwd,
+                   hpd_full.hpd_full_fwd, hpd_full.hpd_full_bwd)
+    log("small vanilla geometry, 2 epochs, card (K12) vs CPU (its plain version):")
+    small = experiment_from_grid_id(4061, base_model=ModelConfig(use_hash_function=True))
+    start = gngf.init_params(small.model, SEED, "cpu")
+    r_gpu = fit(small, small_data, epochs=2, device=dev, params=start, verbose=False)
+    r_cpu = fit(small, small_data, epochs=2, device="cpu", params=start, verbose=False)
+    for hg, hc in zip(r_gpu.history, r_cpu.history):
+        log(f"  epoch {hg['epoch']}: loss card {hg['train_loss']:.7f} cpu {hc['train_loss']:.7f}")
+        if not math.isclose(hg["train_loss"], hc["train_loss"], rel_tol=1e-4):
+            raise AssertionError("vanilla training on the card disagrees with the CPU")
+
+    out, exps = {}, []
+    for name, base, variant in (("default", ModelConfig(use_hash_function=True), "ring"),
+                                ("scaled", instantngp_scaled_model(use_hash_function=True),
+                                 "narrow")):
+        exp = experiment_from_grid_id(4061, base_model=base)
+        exps.append((f"the vanilla hash, {name} geometry", exp, data, 3))
+        m = exp.model
+        log(f"fit: grid 4061, vanilla hash, {name} geometry (T={m.hash_table_size}, "
+            f"L={m.num_levels}), strawberry, 3 epochs:")
+        launches, history, fit_s = fit_checked(
+            fit, exp, data, dev, {"scatter_add_serial": scatter.scatter_add_serial},
+            f"the vanilla hash ({name})", absent=hpd_kernels,
+            variants=(f"scatter_add_serial[{variant}]",))
+        statics = gngf.make_statics(m)
+        shuffled, _ = make_shuffle_permutations(data.num_pixels, exp.train.seed,
+                                                exp.train.shuffle_pixels)
+        batches = build_epoch_batches(data.coords, data.targets, exp.train.batch_fraction,
+                                      shuffled, data.image, m, statics, dev)
+        log(f"profile: one vanilla epoch ({name}), device time by kernel:")
+        profile = profile_epoch(exp, statics, batches, dev)
+        log_profile(profile)
+        _, corners = scale_to_grid(batches.x[0], torch.as_tensor(statics.n_ls, device=dev),
+                                   torch.as_tensor(statics.offsets, device=dev))
+        ids = fast_hash(corners, m.hash_table_size)
+        level = torch.arange(m.num_levels, device=dev).view(1, -1, 1)
+        flat = (ids.long() + level * m.hash_table_size).reshape(-1)
+        slots = m.num_levels * m.hash_table_size
+        log(f"K12 scatter_add_serial [{variant}], lookup_vanilla's table gradient of batch 0, "
+            f"ids {tuple(ids.shape)}:")
+        rows = torch.randn(flat.numel(), m.feature_dim, device=dev, generator=gen)
+        entry = scatter_phase(variant, rows, flat, slots)
+        hot_slot(entry, rows, flat, slots)
+        out[name] = dict(history=history, fit_s=fit_s, launches=launches, profile=profile,
+                         scatter=entry)
+        del batches, rows, flat, ids, corners
+        torch.cuda.empty_cache()
+    out["two_fits"] = two_fits(fit, exps, dev)
+    return out
+
+
+def host_slot_counts(ids, num_levels, t) -> np.ndarray:
+    """A counts epoch's (L, T) slot counts recounted on the host with
+    ``np.bincount`` from its per-row ids (on the dedup route each batch's
+    ``idx_unique[vertex ids]``, the (B, L, V, K) ids the JAX package
+    materializes)."""
+    per_batch = ([ids.rows] if ids.rows is not None
+                 else [idx_u[vid.long()] for idx_u, _, vid in ids.unique])
+    total = np.zeros(num_levels * t, np.int64)
+    for rows in per_batch:
+        r = rows.cpu().numpy().astype(np.int64)
+        level = np.arange(num_levels).reshape(1, num_levels, *([1] * (r.ndim - 2)))
+        total += np.bincount((r + level * t).reshape(-1), minlength=num_levels * t)
+    return total.reshape(num_levels, t)
+
+
+def checkpoint_phase(fit_with_checkpoints, data, dev) -> dict:
+    """Step 17, checkpoints, histograms and warm start on the card: grid
+    4061 at ``--scaled`` (dedup route, K1-K3, K12) with ``save_params``,
+    ``histograms_rate=1`` and ``JsonlLogger(save_media=False)`` into a
+    scratch ``checkpoint_dir`` under chiprun_out/, 3 epochs. Fails unless
+    the five artifacts and the stamp are written (no ``bn_state.pkl``:
+    no BatchNorm), every counts epoch's slot counts equal a host
+    ``np.bincount`` of that epoch's ids, the log rows carry them, and a
+    1-epoch warm start from the best checkpoint (the last epoch) gives a
+    4-epoch fit's parameters bitwise. Prints the stats and checkpoint-write
+    seconds of each epoch; the scratch directory is removed."""
+    import shutil
+
+    from collision_handling_in_instantngp_tpu_torch.config import (
+        experiment_from_grid_id, instantngp_scaled_model,
+    )
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.train import trainer
+    from collision_handling_in_instantngp_tpu_torch.utils import checkpoint as ckpt
+    from collision_handling_in_instantngp_tpu_torch.utils.logging import JsonlLogger
+
+    ck_dir = os.path.join(OUT_DIR, "step17")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    exp = experiment_from_grid_id(4061, base_model=instantngp_scaled_model())
+    m = exp.model
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, save_params=True, histograms_rate=1, checkpoint_dir=ck_dir))
+    recounts = []
+    make_stats_fn = trainer.make_stats_fn
+
+    def recording(exp_, statics_):
+        stats_fn = make_stats_fn(exp_, statics_)
+
+        def stats(ids, coords):
+            slot_c, cell_c = stats_fn(ids, coords)
+            t0 = time.perf_counter()
+            recounts.append((slot_c.cpu().numpy(), host_slot_counts(ids, m.num_levels,
+                                                                     m.hash_table_size),
+                             time.perf_counter() - t0))
+            return slot_c, cell_c
+        return stats
+
+    log_path = os.path.join(ck_dir, "run.jsonl")
+    log("fit: grid 4061, scaled geometry, checkpoints and a counts epoch every epoch, 3 epochs:")
+    trainer.make_stats_fn = recording
+    try:
+        res = fit_with_checkpoints(exp, data, epochs=3, device=dev, verbose=False,
+                                   logger=JsonlLogger(log_path, save_media=False),
+                                   run_name="smoke")
+    finally:
+        trainer.make_stats_fn = make_stats_fn
+    for row, (*_, recount_s) in zip(res.history, recounts):
+        # stats_seconds holds this smoke's host recount too: taken out
+        row["stats_seconds"] -= recount_s
+        log(f"  epoch {row['epoch']}: loss {row['train_loss']:.6f} psnr {row['train_psnr']:.4f} "
+            f"{row['seconds']:.3f} s; stats {row['stats_seconds']:.3f} s (the host recount "
+            f"{recount_s:.3f} s apart), checkpoint {row['ckpt_seconds']:.3f} s")
+    files = sorted(os.listdir(res.run_dir))
+    want = sorted(["whole_model.pkl", "whole_opt.pkl", "encoding_model.pkl", "HPD_model.pkl",
+                   "MLP_model.pkl", "checkpoint_meta.json"])
+    log(f"  {res.run_dir}: {files}")
+    if files != want:
+        raise AssertionError(f"the run directory holds {files}, not {want}")
+    if len(recounts) != 3:
+        raise AssertionError(f"{len(recounts)} counts epochs, not 3")
+    for ep, (dev_counts, host_counts, _) in enumerate(recounts):
+        if not np.array_equal(dev_counts, host_counts):
+            raise AssertionError(f"epoch {ep}: slot counts differ from the host's np.bincount")
+    log(f"  slot counts of the 3 counts epochs equal the host's np.bincount of their ids "
+        f"({int(recounts[0][1].sum())} entries an epoch)")
+    with open(log_path) as f:
+        rows = [json.loads(line) for line in f]
+    # T = 16,384 counts a level are logged as "<array(16384,)>" (lists up to 4,096)
+    keys = [f"hist_counts_level{l_}_counts" for l_ in range(m.num_levels)] + ["train_image"]
+    if len(rows) != 3 or not all(k in row for row in rows for k in keys):
+        raise AssertionError("the log rows lack the counts epochs' counts or image")
+    psnrs = [row["train_psnr"] for row in res.history]
+    if psnrs[-1] != max(psnrs):
+        raise AssertionError(f"the best epoch is not the last: {psnrs}")
+    tree, _, bn_state = ckpt.load_run_checkpoint(res.run_dir, model_cfg=m)
+    best = gngf.params_to_numpy(res.best_params)
+    if bn_state is not None or not all(np.array_equal(a, b) for a, b in zip(
+            (tree["tables"], *[l_["w"] for l_ in tree["hpd"]]),
+            (best["tables"], *[l_["w"] for l_ in best["hpd"]]))):
+        raise AssertionError("the checkpoint is not the best epoch's parameters")
+    plain = dataclasses.replace(exp, train=dataclasses.replace(exp.train, save_params=False))
+    t0 = time.perf_counter()
+    warm = fit_with_checkpoints(plain, data, epochs=1, device=dev, verbose=False,
+                                warm_start_dir=res.run_dir)
+    warm_s = time.perf_counter() - t0
+    four = fit_with_checkpoints(plain, data, epochs=4, device=dev, verbose=False)
+    sa, sb = warm.params.state_dict(), four.params.state_dict()
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    log(f"warm start from the best checkpoint, 1 epoch ({warm_s:.2f} s with the load) vs a "
+        f"4-epoch fit: {'bitwise equal' if not differ else f'DIFFER in {differ}'}")
+    if differ:
+        raise AssertionError(f"the warm start differs from continuing: {differ}")
+    shutil.rmtree(ck_dir)
+    return dict(history=res.history, files=files, warm_start_s=warm_s,
+                counts_entries=int(recounts[0][1].sum()), warm_bitwise=True)
+
+
 # every instance of these kernels must hold warpgroup MMAs (HGMMA): the
 # tensor-core passes of the dedup route's tail, forward and backward, and
 # K7; the fix-up of the rows pass is the exact fp32 sweep and must hold none
@@ -1648,8 +1864,14 @@ def main() -> int:
         build, hidden, hpd_full, hpd_stream, hpd_tail, scatter,
     )
     from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
-    from collision_handling_in_instantngp_tpu_torch.train.trainer import fit
+    from collision_handling_in_instantngp_tpu_torch.train.trainer import fit as fit_with_checkpoints
     from collision_handling_in_instantngp_tpu_torch.utils import profiling
+
+    def fit(exp, data, **kw):
+        """``fit`` without checkpoint files: steps 3-16 write none (the
+        default config asks for them; step 17 checks them)."""
+        return fit_with_checkpoints(dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, save_params=False)), data, **kw)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1967,6 +2189,13 @@ def main() -> int:
     entries.update(mxu_entries)
     watermark(marks, "mxu probe (step 15)", dev)
 
+    # ------------- the vanilla hash, then checkpoints (steps 16-17) ---------- #
+    vanilla = vanilla_phase(fit, data, small_data, dev, gen)
+    torch.cuda.empty_cache()
+    watermark(marks, "vanilla hash (step 16)", dev)
+    checkpoints = checkpoint_phase(fit_with_checkpoints, data, dev)
+    watermark(marks, "checkpoints (step 17)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -1975,7 +2204,8 @@ def main() -> int:
                        split_profile=profile16, sweep_ladder_highest=ladder,
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
                        wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
-                       sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k), f, indent=1)
+                       sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
+                       vanilla=vanilla, checkpoints=checkpoints), f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

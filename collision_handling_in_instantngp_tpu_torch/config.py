@@ -172,6 +172,77 @@ class ExperimentConfig:
     grid_id: Optional[int] = None
 
 
+def reference_wandb_config(
+    exp: "ExperimentConfig",
+    image_name: str = "strawberry",
+    grid_params: Optional[Dict[str, Any]] = None,
+    bw: bool = False,
+) -> Dict[str, Any]:
+    """The reference's 33-key wandb run config, rebuilt from a resolved
+    ExperimentConfig (the JAX package's schema, so that dashboards keyed on
+    its names read the port's runs too)."""
+    m, lo, op, tr = exp.model, exp.loss, exp.optimizer, exp.train
+    if grid_params is None and exp.grid_id is not None:
+        grid_params = get_grid_search_configs()[exp.grid_id]
+    if lo.epsilon == 0.0:
+        loss_type = "JSDiv"
+    elif lo.gamma == -1.0 and lo.epsilon == 1.0:
+        loss_type = "KLDiv"
+    else:
+        loss_type = "JS+KLDiv"
+    avg_topk = {
+        TopkBlendMode.SOFTMAX_AVG: "softmax_avg",
+        TopkBlendMode.WEIGHTED_AVG: "weighted_avg",
+        TopkBlendMode.RAW_SUM: None,
+    }[m.topk_blend]
+    return {
+        "id_grid_search_params": exp.grid_id,
+        "grid_search_params": grid_params,
+        "random_seed": tr.seed,
+        "HPD_learning_rate": op.hpd_lr,
+        "encoding_learning_rate": op.encoding_lr,
+        "MLP_learning_rate": op.mlp_lr,
+        "encoding_weight_decay": op.encoding_weight_decay,
+        "HPD_weight_decay": op.hpd_weight_decay,
+        "MLP_weight_decay": op.mlp_weight_decay,
+        "batch_size%": tr.batch_fraction,
+        "shuffled_pixels": tr.shuffle_pixels,
+        "normalized_data": True if not m.batchnorm_input else "BatchNorm1d",
+        "architecture": "GeneralNeuralGaugeFields",
+        "dataset": image_name,
+        "epochs": tr.epochs,
+        "color": "RGB" if not bw else "BW",
+        "hash_table_size": m.hash_table_size,
+        "num_levels": m.num_levels,
+        "n_min": m.n_min,
+        "n_max": m.n_max,
+        "MLP_hidden_layers_widths": str(list(m.mlp_hidden)),
+        "HPD_hidden_layers_widths": str(list(m.hpd_hidden)),
+        "HPD_out_features": m.hash_table_size,
+        "feature_dim": m.feature_dim,
+        "topk_k": m.topk_k,
+        "loss_type": loss_type,
+        "loss_lambda_MSE": lo.l_mse,
+        "loss_lambda_JS_KL": lo.l_js_kl,
+        "loss_lambda_collisions": lo.l_collisions,
+        "loss_gamma": lo.gamma,
+        "loss_epsilon": lo.epsilon,
+        "inplace_scatter": (
+            True if m.topk_scatter is TopkScatterMode.SCATTER else None
+        ),
+        "MLP_activations": (
+            "LeakyReLU"
+            if m.hidden_activation is HiddenActivation.LEAKY_RELU
+            else "ReLU"
+        ),
+        "collisions_loss_probs": (
+            "topk_only" if m.keep_topk_only else "hash_table_size"
+        ),
+        "avg_topk_features": avg_topk,
+        "hash_type": "HPD" if not m.use_hash_function else "hash_function",
+    }
+
+
 # Key ORDER matters: ids come from itertools.product over the values in
 # insertion order.
 GRID_SEARCH_AXES: Dict[str, List[Any]] = {

@@ -1,5 +1,5 @@
 """Multi-resolution feature tables: init, top-k blend on unique vertices,
-the per-pixel gather, and the per-row top-k blend.
+the per-pixel gather, the per-row top-k blend and the vanilla hash lookup.
 
 All levels live in one (L, T, F) parameter. ``blend_unique`` gathers the
 K candidate slots of every unique vertex from the (T, L*F) view of the
@@ -117,6 +117,13 @@ def flat_gather(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     level = torch.arange(l, device=indices.device).view(1, l, *([1] * (indices.dim() - 2)))
     flat = (indices.long() + level * t).reshape(-1)
     return GatherSerial.apply(tables.reshape(l * t, f), flat).reshape(*indices.shape, f)
+
+
+def lookup_vanilla(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """The vanilla hash path: (P, L, V) hash ids -> (P, L, V, F). The table
+    gradient sums every (pixel, level, corner) row in row order (K12 on
+    the card)."""
+    return flat_gather(tables, indices)
 
 
 def lookup_topk_blend(

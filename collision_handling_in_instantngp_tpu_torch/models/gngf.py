@@ -3,7 +3,8 @@
   coords (P, d) in [0, 1] (or raw pixel coords under batchnorm_input)
     -> [training-mode BatchNorm over the batch, frozen scale/bias]
     -> scale_to_grid: scaled (P, L, d), corners (P, L, V, d)
-    -> dedup route: HPD on the unique vertices, blend_unique per vertex,
+    -> vanilla: fast_hash of the corners, lookup_vanilla (no HPD)
+     | dedup route: HPD on the unique vertices, blend_unique per vertex,
        gather_rows per pixel
      | per-row route: HPD on every (pixel, level, corner) row
        (apply_hpd_fused, or dense apply_hpd), lookup_topk_blend
@@ -13,10 +14,10 @@ The dedup route runs when ``dedup_vertices`` is on, the input is not
 batch-normalized, and the batch has more rows than the shared vertex grid
 (or its geometry was precomputed); every other GNGF batch goes per row.
 
-Parameters live in :class:`GNGFParams` (``hpd``, ``tables``, ``mlp``, and
-``batchnorm`` with its running statistics as buffers) in the JAX package's
-layout; ``params_from_jax`` / ``params_to_numpy`` carry them across. The
-vanilla-hash path raises NotImplementedError.
+Parameters live in :class:`GNGFParams` (``hpd``, None on the vanilla path,
+``tables``, ``mlp``, and ``batchnorm`` with its running statistics as
+buffers) in the JAX package's layout; ``params_from_jax`` /
+``params_to_numpy`` carry them across.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..config import ModelConfig, TopkScatterMode
 from ..ops import collisions as coll_ops
 from ..ops import dedup as dedup_ops
 from ..ops.grid import resolution_ladder, scale_to_grid, voxel_corner_offsets
+from ..ops.hashing import fast_hash
 from ..ops.interpolate import bilinear_coeffs, interpolate
 from ..ops.precision import pdot
 from . import encoding as enc
@@ -55,7 +57,8 @@ class ForwardOut(NamedTuple):
                                           # on the dedup route); None where probs carry it
     idx_unique: Optional[torch.Tensor] = None  # dedup: (U, K) slots per unique vertex
     counts: Optional[torch.Tensor] = None      # dedup: (L, U) per-level vertex counts
-    indices: Optional[torch.Tensor] = None     # per-row: (P, L, V, K) selected slots
+    indices: Optional[torch.Tensor] = None     # per-row: (P, L, V, K) selected slots;
+                                               # vanilla: (P, L, V) hash ids
     topk_values: Optional[torch.Tensor] = None # per-row: (P, L, V, K)
     probs: Optional[torch.Tensor] = None       # per-row loss probs: dense (P, L, V, T),
                                                # or the top-k values under keep_topk_only
@@ -76,11 +79,12 @@ class BatchNormParams(nn.Module):
 
 
 class GNGFParams(nn.Module):
-    """hpd: the index network [d -> hpd_hidden -> T]; tables: (L, T, F);
-    mlp: the decoder [L*F -> mlp_hidden -> out_channels]; batchnorm: the
-    input BatchNorm, or None."""
+    """hpd: the index network [d -> hpd_hidden -> T], or None on the
+    vanilla path; tables: (L, T, F); mlp: the decoder
+    [L*F -> mlp_hidden -> out_channels]; batchnorm: the input BatchNorm, or
+    None."""
 
-    def __init__(self, hpd: MLP, tables: nn.Parameter, mlp: MLP,
+    def __init__(self, hpd: Optional[MLP], tables: nn.Parameter, mlp: MLP,
                  batchnorm: Optional[BatchNormParams] = None):
         super().__init__()
         self.hpd = hpd
@@ -103,30 +107,34 @@ def make_statics(cfg: ModelConfig) -> GNGFStatics:
 
 def init_params(cfg: ModelConfig, seed: int, device="cpu") -> GNGFParams:
     """Fresh parameters from one CPU ``torch.Generator`` seeded with
-    ``seed`` (same weights on any device)."""
+    ``seed`` (same weights on any device). The vanilla path has no HPD."""
     gen = torch.Generator().manual_seed(int(seed))
-    hpd = MLP((cfg.input_dim, *cfg.hpd_hidden, cfg.hash_table_size), generator=gen, device=device)
+    hpd = None
+    if not cfg.use_hash_function:
+        hpd = MLP((cfg.input_dim, *cfg.hpd_hidden, cfg.hash_table_size), generator=gen,
+                  device=device)
     tables = enc.init_tables(cfg, generator=gen, device=device)
     mlp = MLP((cfg.encoded_dim, *cfg.mlp_hidden, cfg.out_channels), generator=gen, device=device)
     bn = BatchNormParams(cfg.input_dim, device) if cfg.batchnorm_input else None
     return GNGFParams(hpd, tables, mlp, bn)
 
 
+def mlp_from_layers(layers, device="cpu") -> MLP:
+    """[{"w": (in, out), "b": (out,)}, ...] of numpy arrays -> MLP."""
+    widths = [int(np.shape(layers[0]["w"])[0])] + [int(np.shape(l["w"])[1]) for l in layers]
+    mlp = MLP(widths, device=device)
+    with torch.no_grad():
+        for w, b, lay in zip(mlp.weights, mlp.biases, layers):
+            w.copy_(torch.as_tensor(np.array(lay["w"], np.float32)))
+            b.copy_(torch.as_tensor(np.array(lay["b"], np.float32)))
+    return mlp
+
+
 def params_from_jax(tree, device="cpu", bn_state=None) -> GNGFParams:
-    """{"hpd": [{"w", "b"}...], "tables": (L, T, F), "mlp": [...][,
+    """{["hpd": [{"w", "b"}...],] "tables": (L, T, F), "mlp": [...][,
     "batchnorm": {"scale", "bias"}]} of numpy arrays (the JAX package's
-    pytree) -> GNGFParams; ``bn_state`` {"mean", "var"} sets the running
-    statistics (default: fresh ones)."""
-
-    def mlp_of(layers):
-        widths = [int(np.shape(layers[0]["w"])[0])] + [int(np.shape(l["w"])[1]) for l in layers]
-        mlp = MLP(widths, device=device)
-        with torch.no_grad():
-            for w, b, lay in zip(mlp.weights, mlp.biases, layers):
-                w.copy_(torch.as_tensor(np.array(lay["w"], np.float32)))
-                b.copy_(torch.as_tensor(np.array(lay["b"], np.float32)))
-        return mlp
-
+    pytree; no "hpd" on the vanilla path) -> GNGFParams; ``bn_state``
+    {"mean", "var"} sets the running statistics (default: fresh ones)."""
     tables = nn.Parameter(
         torch.as_tensor(np.array(tree["tables"], dtype=np.float32)).to(device)
     )
@@ -136,7 +144,8 @@ def params_from_jax(tree, device="cpu", bn_state=None) -> GNGFParams:
         with torch.no_grad():
             for name, arr in (*tree["batchnorm"].items(), *(bn_state or {}).items()):
                 getattr(bn, name).copy_(torch.as_tensor(np.array(arr, np.float32)))
-    return GNGFParams(mlp_of(tree["hpd"]), tables, mlp_of(tree["mlp"]), bn)
+    hpd = mlp_from_layers(tree["hpd"], device) if "hpd" in tree else None
+    return GNGFParams(hpd, tables, mlp_from_layers(tree["mlp"], device), bn)
 
 
 def bn_state_to_numpy(params: GNGFParams) -> Optional[dict]:
@@ -157,10 +166,11 @@ def params_to_numpy(params: GNGFParams) -> dict:
         ]
 
     out = {
-        "hpd": layers_of(params.hpd),
         "tables": params.tables.detach().cpu().numpy(),
         "mlp": layers_of(params.mlp),
     }
+    if params.hpd is not None:
+        out["hpd"] = layers_of(params.hpd)
     if params.batchnorm is not None:
         out["batchnorm"] = {k: getattr(params.batchnorm, k).detach().cpu().numpy()
                             for k in ("scale", "bias")}
@@ -198,15 +208,6 @@ def use_dedup(cfg: ModelConfig, statics: GNGFStatics, batch_rows: int, has_geome
     )
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a model whose path the port does not
-    have yet: the vanilla hash."""
-    if cfg.use_hash_function:
-        raise NotImplementedError(
-            "the vanilla-hash path is not ported (ROADMAP.md, port queue: 'Vanilla hash')"
-        )
-
-
 def forward(
     params: GNGFParams,
     x: torch.Tensor,
@@ -221,7 +222,6 @@ def forward(
     device where the dedup route runs. ``bn_state``: running statistics
     {"mean", "var"} (default: the params' buffers); they are not modified,
     the updated ones come back in ``ForwardOut.bn_state``."""
-    check_ported(cfg)
     dev = x.device
     n_ls = torch.as_tensor(statics.n_ls, device=dev)
     offsets = torch.as_tensor(statics.offsets, device=dev)
@@ -234,6 +234,12 @@ def forward(
     with torch.no_grad():
         scaled, corners = scale_to_grid(x, n_ls, offsets)
 
+    if cfg.use_hash_function:
+        indices = fast_hash(corners, cfg.hash_table_size)              # (P, L, V)
+        feats = enc.lookup_vanilla(params.tables, indices)
+        h = interpolate(feats, bilinear_coeffs(scaled, offsets))
+        rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
+        return ForwardOut(rgb=rgb, marginal=None, indices=indices, bn_state=new_bn_state)
     if not use_dedup(cfg, statics, x.shape[0], dedup is not None):
         return _forward_per_row(params, cfg, scaled, corners, offsets, new_bn_state)
 
@@ -286,8 +292,21 @@ def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state) -> Forward
 
 def calc_hash_collisions(indices: torch.Tensor, cfg: ModelConfig, statics: GNGFStatics):
     """(collisions, min_possible_collisions), both (L,) float32, from the
-    per-row (P, L, V, K) selected slots."""
+    per-row (P, L, V, K) selected slots, or the vanilla (P, L, V) hash ids
+    (unclamped)."""
     n_ls = torch.as_tensor(statics.n_ls, device=indices.device)
-    coll = coll_ops.hash_collisions_gngf(indices, n_ls, cfg.hash_table_size)
+    if cfg.use_hash_function:
+        coll = coll_ops.hash_collisions_vanilla(indices, n_ls, cfg.hash_table_size)
+    else:
+        coll = coll_ops.hash_collisions_gngf(indices, n_ls, cfg.hash_table_size)
     min_poss = coll_ops.min_possible_collisions(n_ls, cfg.hash_table_size).to(torch.float32)
     return coll, min_poss
+
+
+def calc_counts_per_level(indices: torch.Tensor, corners: torch.Tensor, cfg: ModelConfig,
+                          statics: GNGFStatics) -> torch.Tensor:
+    """(L, T) int32 slot counts over one pixel per grid cell; GNGF callers
+    pass every candidate (P, L, V, K) and the best (k = 0) one is counted,
+    vanilla callers the (P, L, V) hash ids."""
+    best = indices if cfg.use_hash_function else indices[..., 0]
+    return coll_ops.unique_cell_slot_counts(best, corners, statics.n_ls, cfg.hash_table_size)

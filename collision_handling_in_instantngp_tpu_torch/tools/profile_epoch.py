@@ -5,10 +5,10 @@
         [--mode gngf|gngf-dense|scaled] [--device cuda] [--image images/strawberry.npy]
 
 Modes: ``gngf`` the default geometry (T = 2^8, 4 levels), ``gngf-dense``
-the same with the dense HPD branch (``fused_hpd=False``), ``scaled``
-``instantngp_scaled_model()`` (T = 2^14, 16 levels: K1-K3). ``vanilla``
-(the vanilla hash) is not ported and raises NotImplementedError. After two
-warm-up epochs, ``--epochs`` epochs of ``run_epoch`` are traced, each timed
+the same with the dense HPD branch (``fused_hpd=False``), ``vanilla`` the
+default geometry with the vanilla hash (``use_hash_function=True``: no HPD,
+the table gradient on K12), ``scaled`` ``instantngp_scaled_model()``
+(T = 2^14, 16 levels: K1-K3). After two warm-up epochs, ``--epochs`` epochs of ``run_epoch`` are traced, each timed
 on the host clock up to a host copy of the tables (``StepTimer``); the tool
 prints px/s, device time by kernel and the device-memory watermark, and
 writes ``<logdir>/trace.json`` (Chrome / Perfetto).
@@ -56,7 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     exp = experiment(args.mode)
-    gngf.check_ported(exp.model)
     dev = resolve_device(args.device)
     data = load_image_dataset(args.image)
     statics = gngf.make_statics(exp.model)

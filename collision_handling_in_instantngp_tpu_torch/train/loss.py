@@ -14,6 +14,8 @@
   with m = (p + q) / 2, and ``js_kl = -(gamma + epsilon) js + epsilon kl``.
 * The collision term ``collisions / (min_possible + delta)`` uses the
   previous epoch's counts and carries no gradient.
+* The vanilla hash path has neither marginals nor probs: the loss is
+  ``l_mse * MSE``, with zero JS/KL and collision terms.
 """
 
 from __future__ import annotations
@@ -64,14 +66,18 @@ def compute_loss(
     probs: Optional[torch.Tensor] = None,
 ) -> LossAux:
     """pred/target (P, C) in [0, 1]; marginals (L, N), or None with dense
-    ``probs`` (P, L, V, N) instead; prev_* (L,) from the previous epoch
-    (zeros at epoch 0). Rows >= valid_rows are the padded tail of the last
-    batch and are masked out of the MSE."""
+    ``probs`` (P, L, V, N) instead, or neither (the vanilla path); prev_*
+    (L,) from the previous epoch (zeros at epoch 0). Rows >= valid_rows are
+    the padded tail of the last batch and are masked out of the MSE."""
     if valid_rows is None:
         mse = torch.mean((pred - target) ** 2)
     else:
         mask = (torch.arange(pred.shape[0], device=pred.device) < valid_rows).to(pred.dtype)
         mse = torch.sum((pred - target) ** 2 * mask[:, None]) / (valid_rows * pred.shape[-1])
+    if marginals is None and probs is None:
+        zeros = torch.zeros(prev_collisions.shape, dtype=mse.dtype, device=mse.device)
+        return LossAux(total=cfg.l_mse * mse, mse=mse, js_kl_per_level=zeros,
+                       coll_per_level=zeros)
     coll = (prev_collisions / (prev_min_possible + cfg.delta)).detach()
     if marginals is None:
         marginals = marginal_slot_distribution(probs)

@@ -10,7 +10,15 @@ ids, counts, and the active-vertex compaction where it shrinks the grid) is
 built once, on the host, and moved to the device with the batches. On the
 per-row route (dedup off, batch-normalized input, or batches smaller than
 the vertex grid) the BatchNorm running statistics thread through the
-batches and the collisions count the epoch's per-row selected slots.
+batches and the collisions count the epoch's per-row selected slots; the
+vanilla path is a per-row route whose slots are the hash ids.
+
+A counts (histogram) epoch also keeps what its statistics read
+(:class:`EpochIds`, ``collect_ids``): the per-row slot ids, or on the dedup
+route each batch's unique-vertex slots, counts and vertex ids, never the
+(P, L, V, K) per-row ids (5.6 GB at K = 128 and the scaled geometry);
+:func:`make_stats_fn` turns them into the slot counts and the unique-cell
+counts.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ import torch
 
 from ..config import ExperimentConfig, ModelConfig
 from ..models import gngf
+from ..ops import collisions as coll_ops
 from ..ops import dedup as dedup_ops
 from ..ops.collisions import min_possible_collisions
+from ..ops.grid import scale_to_grid
 from .loss import compute_loss
 
 # compaction engages only when the padded touched set is below this share
@@ -44,6 +54,16 @@ class EpochBatches:
 
 
 @dataclasses.dataclass
+class EpochIds:
+    """The slot ids of one epoch, each batch's from its own params. Per-row
+    and vanilla: ``rows`` (P_padded, L, V[, K]). Dedup route: ``unique``,
+    per batch (idx_unique (U_c, K), counts (L, U_c), vertex ids (B, L, V))."""
+
+    rows: Optional[torch.Tensor] = None
+    unique: Optional[List[tuple]] = None
+
+
+@dataclasses.dataclass
 class EpochMetrics:
     loss: float                   # mean over batches
     mse: float
@@ -53,6 +73,8 @@ class EpochMetrics:
     min_possible: np.ndarray      # (L,)
     int_sq_err: float             # MSE of the truncated integer image
     match_count: int              # exactly-equal integer values
+    image: Optional[torch.Tensor] = None   # (P, C) predictions in pixel order, on the device
+    ids: Optional[EpochIds] = None   # counts epochs (collect_ids) only
 
 
 def build_epoch_batches(
@@ -130,17 +152,19 @@ def run_epoch(
     statics: gngf.GNGFStatics,
     prev_collisions: torch.Tensor,
     prev_min_possible: torch.Tensor,
+    collect_ids: bool = False,
 ) -> EpochMetrics:
     """Forward, loss, backward and Adam step for every batch in order, then
     collisions and the integer-image statistics; the epoch's scalars move to
     the host at the end. Collisions: on the dedup route the union of the
-    batches' used-slot presence, on the per-row route the epoch's selected
-    slots of every row. The BatchNorm running statistics move batch by batch
-    in ``params.batchnorm``."""
+    batches' used-slot presence, on the per-row and vanilla routes the
+    epoch's selected slots of every row. The BatchNorm running statistics
+    move batch by batch in ``params.batchnorm``. ``collect_ids`` keeps the
+    epoch's slot ids for :func:`make_stats_fn` (``EpochMetrics.ids``)."""
     mcfg = exp.model
     dev = batches.x.device
     n_ls = torch.as_tensor(statics.n_ls, device=dev)
-    rgbs, losses, mses, js_kls, colls, indices = [], [], [], [], [], []
+    rgbs, losses, mses, js_kls, colls, indices, unique = [], [], [], [], [], [], []
     presence = None
     for bi in range(batches.x.shape[0]):
         out = gngf.forward(params, batches.x[bi], mcfg, statics, dedup=batches.dedup[bi])
@@ -160,6 +184,8 @@ def run_epoch(
             else:
                 used = dedup_ops.used_slot_presence(out.idx_unique, out.counts, mcfg.hash_table_size)
                 presence = used if presence is None else presence | used
+                if collect_ids:
+                    unique.append((out.idx_unique.detach(), out.counts, batches.dedup[bi].ids))
         rgbs.append(out.rgb.detach())
         losses.append(aux.total.detach())
         mses.append(aux.mse.detach())
@@ -187,5 +213,37 @@ def run_epoch(
         loss=float(host[0]), mse=float(host[1]),
         js_kl_per_level=host[2].numpy(), coll_loss_per_level=host[3].numpy(),
         collisions=host[4].numpy(), min_possible=host[5].numpy(),
-        int_sq_err=float(host[6]), match_count=int(host[7]),
+        int_sq_err=float(host[6]), match_count=int(host[7]), image=image,
+        ids=(None if not collect_ids else
+             EpochIds(rows=torch.cat(indices)) if indices else EpochIds(unique=unique)),
     )
+
+
+def make_stats_fn(exp: ExperimentConfig, statics: gngf.GNGFStatics):
+    """The statistics of a counts epoch, as the JAX package's
+    ``make_stats_fn``: ``stats_fn(ids, coords)`` -> (slot counts (L, T),
+    unique-cell counts (L, T)), int32, on the ids' device. ``ids``: an
+    :class:`EpochIds`, or the per-row (P_padded, L, V[, K]) slot ids;
+    ``coords``: the epoch's (P_padded, d) rows in batch order (the rows of
+    ``EpochBatches.x``, not batch-normalized). The cell counts read the best
+    (k = 0) candidate of every row."""
+    mcfg = exp.model
+    t = mcfg.hash_table_size
+
+    def stats_fn(ids, coords: torch.Tensor):
+        if isinstance(ids, torch.Tensor):
+            ids = EpochIds(rows=ids)
+        dev = coords.device
+        if ids.rows is not None:
+            slots, rows = coll_ops.slot_counts(ids.rows, t), ids.rows
+        else:
+            slots = sum(coll_ops.slot_counts_unique(idx_u, counts, t)
+                        for idx_u, counts, _ in ids.unique).to(torch.int32)
+            # the best (k = 0) candidate of every row, as (B, L, V, 1)
+            rows = torch.cat([idx_u[:, :1][vid] for idx_u, _, vid in ids.unique])
+        _, corners = scale_to_grid(coords, torch.as_tensor(statics.n_ls, device=dev),
+                                   torch.as_tensor(statics.offsets, device=dev))
+        cells = gngf.calc_counts_per_level(rows[: corners.shape[0]], corners, mcfg, statics)
+        return slots, cells
+
+    return stats_fn

@@ -41,7 +41,9 @@ import pytest
 import torch
 
 from collision_handling_in_instantngp_tpu_torch import cli
-from collision_handling_in_instantngp_tpu_torch.config import ModelConfig, experiment_from_grid_id
+from collision_handling_in_instantngp_tpu_torch.config import (
+    ModelConfig, TrainConfig, experiment_from_grid_id,
+)
 from collision_handling_in_instantngp_tpu_torch.data import image_dataset
 from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
 from collision_handling_in_instantngp_tpu_torch.ops import fused_hpd
@@ -224,6 +226,7 @@ GEOMETRIES = {
     "stream": dict(hash_table_size=2048, num_levels=4, n_min=8, n_max=48,
                    hpd_backend="unique_stream"),
     "dense": {},
+    "vanilla": dict(use_hash_function=True),     # no HPD: K12 alone
 }
 
 
@@ -231,19 +234,23 @@ GEOMETRIES = {
 def test_training_on_card_matches_cpu(dev, geometry):
     """Two epochs on the card and on the CPU (plain versions), same start;
     losses agree to rtol 1e-4."""
-    exp = experiment_from_grid_id(4061, base_model=ModelConfig(**GEOMETRIES[geometry]))
+    exp = experiment_from_grid_id(4061, base_model=ModelConfig(**GEOMETRIES[geometry]),
+                                  base_train=TrainConfig(save_params=False))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
     data = image_dataset(img, "synthetic")
     start = gngf.init_params(exp.model, 0, "cpu")
     before = hpd_stream.hpd_stream_fused_bwd.launches
     card = fit(exp, data, epochs=2, device=dev, params=start, verbose=False)
     assert (hpd_stream.hpd_stream_fused_bwd.launches > before) == (geometry == "stream")
+    if geometry == "vanilla":
+        assert card.params.hpd is None
     cpu = fit(exp, data, epochs=2, device="cpu", params=start, verbose=False)
     for a, b in zip(card.history, cpu.history):
         assert math.isclose(a["train_loss"], b["train_loss"], rel_tol=1e-4), (a, b)
 
 
-def test_cli_runs_on_card(dev, tmp_path, capsys):
+def test_cli_runs_on_card(dev, tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)           # its logs and checkpoints
     img = np.random.default_rng(0).integers(0, 256, size=(12, 10, 3)).astype(np.uint8)
     np.save(tmp_path / "tiny.npy", img)
     assert cli.main(["-f", "tiny.npy", "--images_dir", str(tmp_path), "-s", "4061",
@@ -459,7 +466,7 @@ def test_per_row_training_on_card_matches_cpu(dev, route):
     default geometry) on the card and on the CPU, same start; the route's
     kernels launched; losses agree to rtol 1e-4."""
     kw, wrapper = PER_ROW[route]
-    exp = experiment_from_grid_id(4061, base_model=ModelConfig(**kw))
+    exp = experiment_from_grid_id(4061, base_model=ModelConfig(**kw), base_train=TrainConfig(save_params=False))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
     data = image_dataset(img, "synthetic", normalize=False)
     start = gngf.init_params(exp.model, 0, "cpu")
@@ -815,7 +822,8 @@ def test_split_training_on_card_matches_cpu(dev, monkeypatch):
     K4, K5, K6 and K12 launched, K1/K2 did not; losses agree to rtol 1e-4."""
     monkeypatch.setattr(hpd_stream, "FUSED_W_MAX_BYTES", 0)
     exp = experiment_from_grid_id(4061, base_model=ModelConfig(
-        hash_table_size=4096, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream"))
+        hash_table_size=4096, num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream"),
+        base_train=TrainConfig(save_params=False))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
     data = image_dataset(img, "synthetic")
     start = gngf.init_params(exp.model, 0, "cpu")

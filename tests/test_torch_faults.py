@@ -1,7 +1,7 @@
 """The port's repaired faults against the reference, on the CPU: the
-grayscale load of a ``.npy`` image, the CLI's omitted ``-e``, the warning
-about config fields ``fit`` does not act on yet, and the fixed-order table
-gradients of the encoding's gathers.
+grayscale load of a ``.npy`` image, the CLI's omitted ``-e``, ``fit``
+acting on ``save_params`` and ``histograms_rate`` (it once only warned),
+and the fixed-order table gradients of the encoding's gathers.
 """
 
 import dataclasses
@@ -16,6 +16,7 @@ from collision_handling_in_instantngp_tpu.data import load_image as jax_load_ima
 from collision_handling_in_instantngp_tpu_torch import cli, config as tcfg
 from collision_handling_in_instantngp_tpu_torch.data import image_dataset, load_image, rgb_to_gray
 from collision_handling_in_instantngp_tpu_torch.train import trainer
+from collision_handling_in_instantngp_tpu_torch.utils.logging import MetricLogger
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,7 +47,7 @@ def _record_fit_ids(monkeypatch):
     ids = []
 
     class Res:
-        best_psnr, epochs_run = 0.0, 0
+        best_psnr, epochs_run, run_dir = 0.0, 0, None
 
     def fake_fit(exp, data, **kw):
         ids.append(exp.grid_id)
@@ -60,6 +61,7 @@ def test_cli_without_end_id_runs_through_the_last_grid_id(tmp_path, monkeypatch)
     """An omitted ``-e`` means the last id of the grid (the JAX CLI passes
     None and its grid driver runs start through 47,999)."""
     np.save(tmp_path / "tiny.npy", np.zeros((4, 4, 3), np.uint8))
+    monkeypatch.chdir(tmp_path)           # each id's JSONL log
     ids = _record_fit_ids(monkeypatch)
     last = len(tcfg.get_grid_search_configs()) - 1
     assert last == 47999
@@ -77,32 +79,40 @@ def test_cli_without_end_id_runs_through_the_last_grid_id(tmp_path, monkeypatch)
     assert ids == []
 
 
-def test_fit_warns_once_about_ignored_fields(monkeypatch):
-    """fit warns once per process that it writes no checkpoint
-    (save_params) and no histogram (histograms_rate > 0); a second fit, and
-    a config that asks for neither, warn nothing."""
-    monkeypatch.setattr(trainer, "_WARNED", set())
+def test_fit_warns_once_about_ignored_fields(monkeypatch, tmp_path):
+    """fit once warned that it ignored save_params and histograms_rate; it
+    now acts on both and warns nothing: the default config writes the
+    best-PSNR checkpoint and logs the slot counts of its counts epochs
+    (epoch 0 and the last), and a config that asks for neither gets
+    neither."""
+    monkeypatch.chdir(tmp_path)           # the default checkpoint_dir, "weights"
     img = np.random.default_rng(0).integers(0, 256, size=(6, 5, 3)).astype(np.uint8)
     data = image_dataset(img)
     exp = tcfg.experiment_from_grid_id(4061)
     assert exp.train.save_params and exp.train.histograms_rate > 0
-    with pytest.warns(UserWarning) as rec:
-        trainer.fit(exp, data, epochs=1, device="cpu", verbose=False)
-    messages = [str(w.message) for w in rec]
-    assert sum("no checkpoint" in m for m in messages) == 1
-    assert sum("no histogram" in m for m in messages) == 1
-    with warnings.catch_warnings(record=True) as again:
+    with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
-        trainer.fit(exp, data, epochs=1, device="cpu", verbose=False)
-    assert not [w for w in again if "no checkpoint" in str(w.message) or "no histogram" in str(w.message)]
+        res = trainer.fit(exp, data, epochs=2, device="cpu", verbose=False)
+    assert not [w for w in rec if issubclass(w.category, UserWarning)], [str(w.message) for w in rec]
+    assert res.run_dir.startswith(os.path.join("weights", "4061_"))
+    assert os.path.exists(os.path.join(res.run_dir, "whole_opt.pkl"))
+    assert not hasattr(trainer, "_warn_ignored_fields")
 
-    monkeypatch.setattr(trainer, "_WARNED", set())
     quiet = dataclasses.replace(exp, train=dataclasses.replace(
         exp.train, save_params=False, histograms_rate=0))
+    rows = []
+
+    class Rows(MetricLogger):
+        def log(self, metrics, step=None):
+            rows.append(metrics)
+
     with warnings.catch_warnings(record=True) as none:
         warnings.simplefilter("always")
-        trainer.fit(quiet, data, epochs=1, device="cpu", verbose=False)
-    assert not [w for w in none if "no checkpoint" in str(w.message) or "no histogram" in str(w.message)]
+        res = trainer.fit(quiet, data, epochs=2, device="cpu", verbose=False, logger=Rows())
+    assert not [w for w in none if issubclass(w.category, UserWarning)]
+    assert res.run_dir is None
+    # without histograms_rate only the last epoch is a counts epoch
+    assert [any(k.startswith("hist_counts_level") for k in r) for r in rows] == [False, True]
 
 
 def _serial_sum(g, flat, slots):

@@ -138,10 +138,10 @@ def test_stream_branch_routes_to_kernel_wrappers(monkeypatch):
     assert sorted(calls) == ["hidden_bwd", "hidden_fwd", "tail_bwd", "tail_fwd"]
 
 
-def test_stream_branch_refuses_unported_options():
+def test_stream_branch_and_vanilla_forward_run():
     """K > 16 and a recall target run on the stream branch (the chunked
-    tail); the vanilla hash, not ported yet, still raises, naming its
-    ROADMAP item."""
+    tail); the vanilla hash's forward runs without an HPD (its hash ids and
+    rgb; ``tests/test_torch_vanilla.py`` holds it to the JAX package)."""
     cfg = tcfg.ModelConfig(hash_table_size=256, num_levels=2, n_min=4, n_max=8,
                            hpd_backend="unique_stream", topk_k=20)
     params = gngf.init_params(cfg, 0)
@@ -153,9 +153,14 @@ def test_stream_branch_refuses_unported_options():
         assert marg.shape == (cfg.num_levels, cfg.hash_table_size)
         assert vals.shape == idx.shape == (x.shape[0], run_cfg.topk_k)
         assert torch.isfinite(marg).all() and torch.isfinite(vals).all()
-    with pytest.raises(NotImplementedError, match="Vanilla hash"):
-        gngf.forward(params, torch.rand(8, 2), dataclasses.replace(cfg, use_hash_function=True),
-                     gngf.make_statics(cfg))
+    vcfg = dataclasses.replace(cfg, use_hash_function=True)
+    vparams = gngf.init_params(vcfg, 0)
+    assert vparams.hpd is None
+    out = gngf.forward(vparams, torch.rand(8, 2), vcfg, gngf.make_statics(vcfg))
+    assert out.rgb.shape == (8, 3) and torch.isfinite(out.rgb).all()
+    assert out.indices.shape == (8, cfg.num_levels, 4) and out.indices.dtype == torch.int32
+    assert out.marginal is None and out.probs is None
+    assert int(out.indices.min()) >= 0 and int(out.indices.max()) < cfg.hash_table_size
 
 
 def test_entry_points_refuse_missing_cuda():
@@ -169,7 +174,8 @@ def test_entry_points_refuse_missing_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_cli_runs_on_cpu(tmp_path, capsys):
+def test_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)           # its logs and checkpoints
     img = np.random.default_rng(0).integers(0, 256, size=(12, 10, 3)).astype(np.uint8)
     np.save(tmp_path / "tiny.npy", img)
     rc = cli.main(["-f", "tiny.npy", "--images_dir", str(tmp_path), "-s", "4061",

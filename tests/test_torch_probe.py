@@ -190,7 +190,7 @@ def test_mxu_probe_main_cpu(tmp_path):
     assert CAL_KEYS <= set(cal["cpu"]) and cal["cpu"]["probe_shape"] == [100, 16, 256]
 
 
-@pytest.mark.parametrize("mode", ["gngf", "gngf-dense", "scaled"])
+@pytest.mark.parametrize("mode", ["gngf", "gngf-dense", "vanilla", "scaled"])
 def test_profile_epoch_main_cpu(tmp_path, capsys, mode):
     img = np.random.default_rng(0).integers(0, 256, size=(12, 10, 3)).astype(np.uint8)
     np.save(tmp_path / "tiny.npy", img)
@@ -201,11 +201,6 @@ def test_profile_epoch_main_cpu(tmp_path, capsys, mode):
     assert res["memory_gb"] == dict(allocated_gb=0.0, peak_gb=0.0, limit_gb=0.0)
     out = capsys.readouterr().out
     assert "px/s" in out and f"[mem] profile_epoch {mode}: allocated 0.00 GB" in out
-
-
-def test_profile_epoch_vanilla_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue: 'Vanilla hash'"):
-        profile_epoch.main(["--device", "cpu", "--mode", "vanilla", "--image", str(tmp_path / "x.npy")])
 
 
 @pytest.mark.parametrize("tool", [sweep_probe, mxu_probe, profile_epoch, k11_phases, probe_phases])

@@ -53,7 +53,8 @@ def _exps(name):
     kw = GEOMETRIES[name]
     jexp = jcfg.experiment_from_grid_id(4061, base_model=jcfg.ModelConfig(**kw))
     jexp = dataclasses.replace(jexp, train=dataclasses.replace(jexp.train, save_params=False))
-    return jexp, tcfg.experiment_from_grid_id(4061, base_model=tcfg.ModelConfig(**kw))
+    return jexp, tcfg.experiment_from_grid_id(4061, base_model=tcfg.ModelConfig(**kw),
+                                              base_train=tcfg.TrainConfig(save_params=False))
 
 
 @pytest.fixture(scope="module", params=sorted(GEOMETRIES))
@@ -90,6 +91,22 @@ def test_slice_params_match_jax(runs):
             for key in ("w", "b"):
                 np.testing.assert_allclose(a[key], b[key], rtol=0, atol=1e-5,
                                            err_msg=f"{group}[{i}].{key}")
+
+
+def test_slice_history_keys_match_jax(runs):
+    """Every scalar key of JAX's history is in the port's rows, with
+    kl_collisions_loss_level{l} = l_js_kl * js_kl + l_collisions * coll
+    beside the JS/KL and collision-loss terms: collisions exactly equal,
+    the rest rtol 1e-5."""
+    _, texp, _, jres, tres = runs
+    for j, t in zip(jres.history, tres.history):
+        assert set(j) <= set(t), set(j) - set(t)
+        assert {f"kl_collisions_loss_level{l}" for l in range(texp.model.num_levels)} <= set(j)
+        for k, v in j.items():
+            if k.startswith(("collisions_level", "min_possible", "train_psnr")):
+                assert t[k] == v, k
+            else:
+                np.testing.assert_allclose(t[k], v, rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_slice_topk_indices_match_except_p_ties(runs):

@@ -48,7 +48,7 @@ def runs(request):
     kw, gid = CASES[request.param]
     jexp = jcfg.experiment_from_grid_id(gid, base_model=jcfg.ModelConfig(**kw))
     jexp = dataclasses.replace(jexp, train=dataclasses.replace(jexp.train, save_params=False))
-    texp = tcfg.experiment_from_grid_id(gid, base_model=tcfg.ModelConfig(**kw))
+    texp = tcfg.experiment_from_grid_id(gid, base_model=tcfg.ModelConfig(**kw), base_train=tcfg.TrainConfig(save_params=False))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
     data = image_dataset(img, "synthetic", normalize=not texp.model.batchnorm_input)
     jdata = JImageData(coords=data.coords, targets=data.targets, height=data.height,

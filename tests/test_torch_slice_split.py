@@ -52,7 +52,8 @@ def runs(request):
     backend = request.param
     jexp = jcfg.experiment_from_grid_id(4061, base_model=jcfg.ModelConfig(**GEOMETRY))
     jexp = dataclasses.replace(jexp, train=dataclasses.replace(jexp.train, save_params=False))
-    texp = tcfg.experiment_from_grid_id(4061, base_model=tcfg.ModelConfig(**GEOMETRY))
+    texp = tcfg.experiment_from_grid_id(4061, base_model=tcfg.ModelConfig(**GEOMETRY),
+                                        base_train=tcfg.TrainConfig(save_params=False))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
     data = image_dataset(img, "synthetic")
     jdata = JImageData(coords=data.coords, targets=data.targets, height=data.height,

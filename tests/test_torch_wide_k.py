@@ -319,7 +319,7 @@ def runs(request):
     kw = {**GEOMETRY, **extra}
     jexp = jcfg.experiment_from_grid_id(grid_id, base_model=jcfg.ModelConfig(**kw))
     jexp = dataclasses.replace(jexp, train=dataclasses.replace(jexp.train, save_params=False))
-    texp = tcfg.experiment_from_grid_id(grid_id, base_model=tcfg.ModelConfig(**kw))
+    texp = tcfg.experiment_from_grid_id(grid_id, base_model=tcfg.ModelConfig(**kw), base_train=tcfg.TrainConfig(save_params=False))
     assert (texp.model.topk_k, texp.model.topk_approx_recall) == (
         20 if grid_id == 4062 else 4, extra.get("topk_approx_recall"))
     img = np.random.default_rng(65535).integers(0, 256, size=(24, 20, 3)).astype(np.uint8)
