@@ -156,7 +156,22 @@
    ``np.bincount`` of that epoch's ids, and a 1-epoch warm start from the
    best checkpoint gives a 4-epoch fit's parameters bitwise; prints each
    epoch's stats and checkpoint seconds;
-18. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+18. the grid driver, render and the CLI at ``instantngp_scaled_model()``:
+   ``run_grid_search`` over ids [4061, 4064], 2 epochs each, with a
+   manifest and checkpoints under chiprun_out/ (K1, K2, K3a, K3b and K12
+   must launch, K4-K6 not), then again (nothing launches, the rows are
+   replayed), 4062 by ``ids=``, and shards 0/2 and 1/2 over [4061, 4062,
+   4064] against that manifest ([4061, 4064] and [4062], replayed);
+   ``render_image`` of 4061's best checkpoint at 508 x 339 (K3a and K1
+   alone must launch; PSNR within 0.3 dB of the fit's best), timed there
+   and 2x supersampled; K1 at render's shapes (the whole vertex grid,
+   U = 264,196, one level of zero counts, trained weights) against its
+   plain version (top-K identical on every row, values normwise 1e-5,
+   bitwise run to run, its fix-up rows printed, timed: the kernels line's
+   ``hpd_stream_fused_fwd[render]``); the CLI with ``--scaled --should_bw
+   -t`` on grid 4061 for 2 epochs (exit 0, a one-channel checkpoint, the
+   render, the figure or the line saying none is written);
+19. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -1336,15 +1351,20 @@ def wide_fits(fit, routes, dev) -> dict:
 
 
 
+def zero_counts(fns) -> None:
+    """Set each wrapper's launch count, and its counts by variant, to 0."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+
+
 def fit_checked(fit, exp, data, dev, wrappers, what, absent=(), variants=()):
     """fit for 3 epochs with the wrappers' counts, by variant too (and those
     of ``absent``), set to 0 just before; fails unless each wrapper and each
     of ``variants`` ("name[variant]") launched, no ``absent`` one did, and
     the loss is finite and falls. Returns (launches, history, seconds)."""
-    for fn in (*wrappers.values(), *absent):
-        fn.launches = 0
-        if hasattr(fn, "variant_launches"):
-            fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+    zero_counts((*wrappers.values(), *absent))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fit(exp, data, epochs=3, device=dev, verbose=False)
@@ -1711,6 +1731,225 @@ def checkpoint_phase(fit_with_checkpoints, data, dev) -> dict:
     shutil.rmtree(ck_dir)
     return dict(history=res.history, files=files, warm_start_s=warm_s,
                 counts_entries=int(recounts[0][1].sum()), warm_bitwise=True)
+
+
+def grid_render_phase(data, dev) -> tuple:
+    """Step 18, the grid driver, render and the CLI on the card, at
+    ``instantngp_scaled_model()`` on the strawberry:
+
+    (a) ``run_grid_search`` over ids [4061, 4064] (K = 4 on K1/K2, K = 128
+        on the chunked tail), 2 epochs each, checkpoints and the manifest in
+        a scratch directory under chiprun_out/: two rows of the nine keys,
+        K1, K2, K3a, K3b and K12 launched, the split kernels not; a second
+        call launches nothing and replays both rows; 4062 by ``ids=``; then
+        shards 0/2 and 1/2 over [4061, 4062, 4064] against that manifest
+        return [4061, 4064] and [4062], the stored rows, and launch nothing;
+    (b) ``render_image`` of 4061's best checkpoint at 508 x 339: K3a and K1
+        launched (three chunks of 65,536 rows), no backward or split kernel;
+        its PSNR within 0.3 dB of that fit's best; K1 at render's shapes
+        (the whole vertex grid, U = 264,196, one level of zero counts) on
+        the trained weights against its plain version: top-K identical on
+        every row, values normwise 1e-5, the marginal zero, bitwise run to
+        run, the fix-up rows printed, timed; the render timed at 508 x 339
+        and 2x supersampled (1016 x 678);
+    (c) the CLI, ``--scaled --should_bw -t -s 4061 -e 4061 --epochs 2`` in a
+        scratch working directory: exit 0, a one-channel checkpoint, the
+        render's line, and the comparison figure or (without matplotlib)
+        the line that says none is written.
+
+    The scratch directory is removed. Returns (the kernels-line entry of K1
+    at render's shapes, the step's numbers)."""
+    import contextlib
+    import io
+    import shutil
+
+    from collision_handling_in_instantngp_tpu_torch import cli, render
+    from collision_handling_in_instantngp_tpu_torch.config import (
+        TrainConfig, experiment_from_grid_id, instantngp_scaled_model,
+    )
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_stream, scatter
+    from collision_handling_in_instantngp_tpu_torch.train.grid_search import (
+        load_manifest, run_grid_search,
+    )
+    from collision_handling_in_instantngp_tpu_torch.utils import checkpoint as ckpt
+    from collision_handling_in_instantngp_tpu_torch.utils.metrics import calc_psnr
+
+    root = os.path.join(OUT_DIR, "step18")
+    shutil.rmtree(root, ignore_errors=True)
+    manifest = os.path.join(root, "grid_manifest.jsonl")
+    model = instantngp_scaled_model()
+    train = TrainConfig(checkpoint_dir=os.path.join(root, "weights"))
+    dedup_kernels = {
+        "hpd_stream_fused_fwd": hpd_stream.hpd_stream_fused_fwd,
+        "hpd_stream_fused_bwd": hpd_stream.hpd_stream_fused_bwd,
+        "hidden_stack_fwd": hidden.hidden_stack_fwd,
+        "hidden_stack_bwd": hidden.hidden_stack_bwd,
+        "scatter_add_serial": scatter.scatter_add_serial,
+    }
+    split_kernels = {
+        "hpd_stream_select": hpd_stream.hpd_stream_select,
+        "hpd_stream_marginal": hpd_stream.hpd_stream_marginal,
+        "hpd_tail_unique_bwd": hpd_stream.hpd_tail_unique_bwd,
+    }
+    every = {**dedup_kernels, **split_kernels}
+
+    def counted(fn, what):
+        zero_counts(every.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in every.items()}
+        log(f"  {what}: {secs:.2f} s, launches {launches}")
+        return out, launches, secs
+
+    def sweep(what, **kw):
+        return counted(lambda: run_grid_search(
+            data, base_model=model, base_train=train, epochs=2, manifest_path=manifest,
+            verbose=False, device=dev, **kw), what)
+
+    keys = ["grid_id", "image", "best_psnr", "final_psnr", "final_loss", "epochs_run",
+            "stopped_early", "zero_collision_abort", "run_dir"]
+    log("grid driver: ids [4061, 4064] at scaled geometry, 2 epochs, manifest and "
+        "checkpoints under chiprun_out/step18/:")
+    rows, launches, sweep_s = sweep("sweep", ids=[4061, 4064])
+    for row in rows:
+        log(f"  {json.dumps(row)}")
+    if [r["grid_id"] for r in rows] != [4061, 4064] or any(list(r) != keys for r in rows):
+        raise AssertionError(f"the sweep's rows are not those of 4061 and 4064: {rows}")
+    if not all(math.isfinite(r["final_loss"]) and r["epochs_run"] == 2 for r in rows):
+        raise AssertionError("a sweep row has a non-finite loss or not 2 epochs")
+    if any(launches[n] == 0 for n in dedup_kernels) or any(launches[n] for n in split_kernels):
+        raise AssertionError(f"the sweep did not run the dedup route's kernels alone: {launches}")
+    again, launches2, _ = sweep("the same sweep again (manifest resume)", ids=[4061, 4064])
+    if again != rows or any(launches2.values()):
+        raise AssertionError("the resumed sweep trained again or did not replay the rows")
+    (row4062,), _, _ = sweep("id 4062 by ids=", ids=[4062])
+    stored = load_manifest(manifest)
+    if sorted(stored) != [4061, 4062, 4064]:
+        raise AssertionError(f"the manifest holds {sorted(stored)}")
+    shards = {}
+    for index, want in ((0, [4061, 4064]), (1, [4062])):
+        got, shard_launches, _ = sweep(f"shard {index}/2 of [4061, 4062, 4064]",
+                                       ids=[4061, 4062, 4064], shard_index=index, shard_count=2)
+        shards[index] = [r["grid_id"] for r in got]
+        if shards[index] != want or got != [stored[i] for i in want] or any(
+                shard_launches.values()):
+            raise AssertionError(f"shard {index}/2 returned {shards[index]}, not {want}")
+    log(f"  shards 0/2 and 1/2: {shards[0]} and {shards[1]}, replayed, no launch")
+
+    best = rows[0]
+    exp = experiment_from_grid_id(4061, base_model=model)
+    tree = ckpt.load_pytree(os.path.join(best["run_dir"], "whole_model.pkl"))
+    params = gngf.params_from_jax(tree, dev)
+    h_img, w_img = data.height, data.width
+    log(f"render: grid 4061's best checkpoint at {h_img} x {w_img}:")
+    img, render_launches, render_s = counted(lambda: render.render_image(
+        params, exp.model, height=h_img, width=w_img, device=dev), "render")
+    if any(render_launches[n] == 0 for n in ("hidden_stack_fwd", "hpd_stream_fused_fwd")) or any(
+            render_launches[n] for n in every if n not in ("hidden_stack_fwd",
+                                                           "hpd_stream_fused_fwd")):
+        raise AssertionError(f"the render did not run K3a and K1 alone: {render_launches}")
+    psnr = calc_psnr(img.astype(np.int64), data.image)
+    log(f"  image {img.shape} {img.dtype}, PSNR {psnr:.4f} dB against the fit's best "
+        f"{best['best_psnr']:.4f}")
+    if img.shape != (h_img, w_img, 3) or abs(psnr - best["best_psnr"]) >= 0.3:
+        raise AssertionError("the rendered image is not the best checkpoint's reconstruction")
+    times = {}
+    for what, kw in (("native", dict(height=h_img, width=w_img)),
+                     ("supersampled", dict(height=2 * h_img, width=2 * w_img,
+                                           train_shape=(h_img, w_img)))):
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render.render_image(params, exp.model, device=dev, **kw)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        if out.shape != (kw["height"], kw["width"], 3):
+            raise AssertionError(f"{what} render: shape {out.shape}")
+        times[what] = secs
+        log(f"  {what} render {kw['height']} x {kw['width']}: s {secs}")
+
+    statics = gngf.make_statics(exp.model)
+    ucoords = torch.as_tensor(statics.unique_coords, device=dev)
+    layers = [(w.detach(), b.detach()) for w, b in params.hpd.layers()]
+    h = hidden.hidden_stack_fwd(ucoords, layers[:-1]).contiguous()
+    w_head, b_head = layers[-1]
+    u, H, T, k = h.shape[0], h.shape[1], w_head.shape[1], exp.model.topk_k
+    counts = torch.zeros(1, u, device=dev)
+    log(f"K1 at render's shapes: U = {u}, H = {H}, T = {T}, K = {k}, one level of zero "
+        "counts, trained weights:")
+    out_k = hpd_stream.hpd_stream_fused_fwd(h, w_head, b_head, counts, k)
+    fix = fixup_rows(hpd_stream.hpd_stream_fused_fwd, "K1 at render's shapes")
+    out_p = hpd_stream.hpd_stream_fused_fwd_plain(h, w_head, b_head, counts, k, "highest")
+    same_idx = (out_k[2] == out_p[2]).all(dim=1).double().mean().item()
+    log(f"  idx: rows with identical top-{k}: {same_idx:.6f}")
+    if same_idx != 1.0:
+        raise AssertionError("K1 at render's shapes: top-K indices differ from the plain version")
+    if out_k[0].abs().max().item() != 0.0:
+        raise AssertionError("K1 at render's shapes: the marginal of zero counts is not zero")
+    err = max(compare(n, a, r, FWD_TOL) for n, a, r in zip(
+        ("vals", "m", "s"), (out_k[1], out_k[3], out_k[4]), (out_p[1], out_p[3], out_p[4])))
+    bitwise_same("marg/vals/idx/m/s", out_k,
+                 hpd_stream.hpd_stream_fused_fwd(h, w_head, b_head, counts, k))
+    del out_p
+    ms = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd(h, w_head, b_head, counts, k), 5)
+    plain = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd_plain(
+        h, w_head, b_head, counts, k, "highest"), 2)
+    flops = 2.0 * u * H * T
+    nbytes = 4.0 * (u * H + H * T + T + u + T + 2 * u * k + 2 * u)
+    b_ms, b_by = tf32x3_bound(flops, nbytes, 2.0 * u * T, counts)
+    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    entry = dict(
+        name="hpd_stream_fused_fwd[render]", route="cuda",
+        source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
+        replaces="collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:570",
+        launches=render_launches["hpd_stream_fused_fwd"], max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_fp32_ms=bound_ms(flops + 2.0 * u * T, nbytes)[0], fixup_rows=fix, rows=u)
+    del h, out_k, params
+
+    cli_dir = os.path.join(root, "cli")
+    cli_manifest = os.path.join(root, "cli_manifest.jsonl")
+    argv = ["-f", "strawberry.npy", "--images_dir", os.path.join(HERE, "images"), "--scaled",
+            "--should_bw", "-t", "-s", "4061", "-e", "4061", "--epochs", "2",
+            "--manifest", cli_manifest]
+    log(f"CLI: {' '.join(argv)} (in a scratch working directory):")
+    os.makedirs(cli_dir)
+    cwd, buf = os.getcwd(), io.StringIO()
+    os.chdir(cli_dir)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, cli_launches, cli_s = counted(lambda: cli.main(argv), "cli")
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    log(f"  exit {rc}, {cli_s:.2f} s, launches {cli_launches}")
+    cli_row = load_manifest(cli_manifest).get(4061)
+    if rc != 0 or cli_row is None:
+        raise AssertionError("the CLI did not exit 0 with a manifest row")
+    mlp = ckpt.load_pytree(os.path.join(cli_dir, cli_row["run_dir"], "whole_model.pkl"))["mlp"]
+    if mlp[-1]["w"].shape[-1] != 1 or f"({h_img}x{w_img}, {data.num_pixels} pixels, 1 channels)" \
+            not in out:
+        raise AssertionError("--should_bw did not train a one-channel model on the gray image")
+    figure = os.path.join(cli_dir, "runs", "strawberry_4061_comparison.png")
+    no_figure = "matplotlib not available; no comparison figure is written"
+    if "rendered grid 4061" not in out or not (
+            os.path.exists(figure) if cli.has_matplotlib() else no_figure in out):
+        raise AssertionError("-t did not render, or neither wrote the figure nor said so")
+    if cli_launches["hpd_stream_fused_fwd"] == 0 or cli_launches["hpd_stream_fused_bwd"] == 0:
+        raise AssertionError(f"the CLI's run did not go through K1/K2: {cli_launches}")
+    shutil.rmtree(root)
+    return entry, dict(rows=rows, sweep_s=sweep_s, sweep_launches=launches, row_4062=row4062,
+                       shards=shards, render_launches=render_launches, render_s=render_s,
+                       render_psnr=psnr, best_psnr=best["best_psnr"], render_times_s=times,
+                       cli_row=cli_row, cli_s=cli_s, cli_launches=cli_launches,
+                       cli_figure=cli.has_matplotlib())
 
 
 # every instance of these kernels must hold warpgroup MMAs (HGMMA): the
@@ -2196,6 +2435,10 @@ def main() -> int:
     checkpoints = checkpoint_phase(fit_with_checkpoints, data, dev)
     watermark(marks, "checkpoints (step 17)", dev)
 
+    # ------------- the grid driver, render and the CLI (step 18) ------------ #
+    entries["hpd_stream_fused_fwd[render]"], grid_render = grid_render_phase(data, dev)
+    watermark(marks, "grid driver, render, CLI (step 18)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -2205,7 +2448,8 @@ def main() -> int:
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
                        wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
-                       vanilla=vanilla, checkpoints=checkpoints), f, indent=1)
+                       vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render),
+                  f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -1,21 +1,30 @@
 """Command-line entry point of the port.
 
   python -m collision_handling_in_instantngp_tpu_torch.cli \
-      -f strawberry.jpeg -s 4061 -e 4061 [--scaled] [--epochs N] [--device cuda] \
-      [-t] [--logger {jsonl,wandb,null}] \
+      -f strawberry.jpeg -s 4061 -e 4061 [--scaled] [--should_bw] [--epochs N] \
+      [--device cuda] [-t] [--logger {jsonl,wandb,null}] \
       [--wandb_entity ... --wandb_project ... --wandb_name ...] \
-      [-hwp HPD_model.pkl] [-ewp encoding_model.pkl] [--log_image_every N]
+      [-hwp HPD_model.pkl] [-ewp encoding_model.pkl] [--log_image_every N] \
+      [--manifest runs/grid_manifest.jsonl] [--shard-index I --shard-count N]
 
 ``-e`` is inclusive; without it the run goes from ``-s`` through the last id
-of the grid, as in the JAX package's CLI. Images load from ``--images_dir``
-(a ``.npy`` uint8 image needs neither cv2 nor PIL). Each grid id logs to
-its own logger: ``runs/{image}_{id}.jsonl`` (``-t``: the media-saving
-``runs/{image}_{id}_test.jsonl``, never wandb; where matplotlib is not
-installed the JSONL logs keep no media), and writes its best-PSNR
-checkpoint to ``weights/{id}_{stamp}/``. ``-hwp`` loads a pretrained HPD
-and freezes it, ``-ewp`` starts from saved tables; both read the JAX
-package's files as well as the port's. Runs on the card unless
-``--device cpu``.
+of the grid, as in the JAX package's CLI. The sweep is the grid driver's
+(``train/grid_search.py``): ids already in ``--manifest`` are skipped and
+their rows replayed (the JAX package's manifest resumes here and the other
+way round), and a shard takes ``ids[index::count]`` (-1: the
+``torch.distributed`` rank and world size, else 0 of 1). Images load from
+``--images_dir`` (a ``.npy`` uint8 image needs neither cv2 nor PIL);
+``--should_bw`` trains a one-channel model on the grayscale image. Each
+grid id logs to its own logger: ``runs/{image}_{id}.jsonl`` (``-t``: the
+media-saving ``runs/{image}_{id}_test.jsonl``, never wandb; where
+matplotlib is not installed the JSONL logs keep no media), and writes its
+best-PSNR checkpoint to ``weights/{id}_{stamp}/``. ``-t`` then renders the
+last id's checkpoint at the image's size and saves the original beside it
+as ``runs/{image}_{id}_comparison.png`` (where matplotlib is installed).
+``-hwp`` loads a pretrained HPD and freezes it, ``-ewp`` starts from saved
+tables; both read the JAX package's files as well as the port's. Runs on
+the card unless ``--device cpu`` (or the JAX CLI's ``--platform cpu``).
+``--epoch_span`` and ``--ensemble`` above 1 raise: ROADMAP.md §1 item 4.
 """
 
 from __future__ import annotations
@@ -26,12 +35,16 @@ import os
 import sys
 import time
 
+import numpy as np
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Run General Neural Gauge Fields (PyTorch/CUDA).")
     p.add_argument("-f", "--filename", type=str, default="strawberry.jpeg",
                    help="Image file name inside --images_dir.")
     p.add_argument("--images_dir", type=str, default="images")
+    p.add_argument("--should_bw", action="store_true",
+                   help="Convert the image to black and white (a one-channel model).")
     p.add_argument("-s", "--start_id_param", type=int, default=0,
                    help="First grid-search config id.")
     p.add_argument("-e", "--end_id_param", type=int, default=None,
@@ -57,7 +70,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "T=2^8 x 4 levels.")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the plain versions of the kernels.")
+    p.add_argument("--platform", type=str, default="auto", choices=["auto", "cpu"],
+                   help="The JAX CLI's flag: 'auto' keeps --device, 'cpu' runs on the CPU.")
+    p.add_argument("--manifest", type=str, default="runs/grid_manifest.jsonl",
+                   help="Completion manifest: ids in it are skipped (resume).")
+    p.add_argument("--shard-index", type=int, default=0,
+                   help="-1 = the torch.distributed rank (0 without a process group).")
+    p.add_argument("--shard-count", type=int, default=1,
+                   help="-1 = the torch.distributed world size (1 without a process group).")
+    p.add_argument("--epoch_span", type=int, default=1,
+                   help="Epochs per call; above 1 not in the port yet (ROADMAP.md §1 item 4).")
+    p.add_argument("--ensemble", type=int, default=1,
+                   help="Configs per ensemble; above 1 not in the port yet (ROADMAP.md §1 "
+                        "item 4).")
     return p
+
+
+def has_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def make_logger_factory(args, image_name: str):
@@ -66,7 +96,7 @@ def make_logger_factory(args, image_name: str):
     from .utils.logging import make_logger
 
     stamp = args.wandb_name or time.strftime("%Y%m%d%H%M%S")
-    media = importlib.util.find_spec("matplotlib") is not None
+    media = has_matplotlib()
     if not media and args.logger != "null":
         print("matplotlib not available; the JSONL logs keep no media")
 
@@ -84,7 +114,8 @@ def make_logger_factory(args, image_name: str):
                 wandb_kwargs=dict(
                     entity=args.wandb_entity, project=args.wandb_project, group=image_name,
                     name=f"{stamp}_{exp.grid_id}",
-                    config=reference_wandb_config(exp, image_name=image_name),
+                    config=reference_wandb_config(exp, image_name=image_name,
+                                                  bw=args.should_bw),
                 ),
             )
         return make_logger("jsonl", path=f"runs/{image_name}_{exp.grid_id}.jsonl",
@@ -99,27 +130,60 @@ def main(argv=None) -> int:
     from .config import instantngp_scaled_model
     from .data import load_image_dataset
     from .device import resolve_device
-    from .train.trainer import fit
+    from .train.grid_search import run_grid_search
 
-    device = resolve_device(args.device)
-    model_cfg = instantngp_scaled_model() if args.scaled else ModelConfig()
+    device = resolve_device("cpu" if args.platform == "cpu" else args.device)
+    channels = 1 if args.should_bw else 3
+    model_cfg = (instantngp_scaled_model(out_channels=channels) if args.scaled
+                 else ModelConfig(out_channels=channels))
     image_path = os.path.join(args.images_dir, args.filename)
-    data = load_image_dataset(image_path, normalize=not model_cfg.batchnorm_input)
+    data = load_image_dataset(image_path, bw=args.should_bw,
+                              normalize=not model_cfg.batchnorm_input)
     print(f"Image: {image_path} ({data.height}x{data.width}, {data.num_pixels} pixels, "
           f"{data.channels} channels) on {device}")
     grid = get_grid_search_configs()
     end = args.end_id_param if args.end_id_param is not None else len(grid) - 1
     if not 0 <= args.start_id_param <= end < len(grid):
         raise ValueError(f"grid ids must satisfy 0 <= start <= end <= {len(grid) - 1}")
-    logger_factory = make_logger_factory(args, os.path.splitext(args.filename)[0])
-    for gid in range(args.start_id_param, end + 1):
-        exp = experiment_from_grid_id(gid, base_model=model_cfg, grid=grid)
-        res = fit(exp, data, epochs=args.epochs, device=device, logger=logger_factory(exp),
-                  hpd_weights_path=args.hpd_weights_path,
-                  encoding_weights_path=args.encoding_weights_path,
-                  log_image_every=args.log_image_every)
-        print(f"grid {gid}: best PSNR {res.best_psnr:.3f} ({res.epochs_run} epochs)"
-              + (f", checkpoint {res.run_dir}" if res.run_dir else ""))
+    image_name = os.path.splitext(args.filename)[0]
+    results = run_grid_search(
+        data, args.start_id_param, end + 1, base_model=model_cfg, epochs=args.epochs,
+        manifest_path=args.manifest, logger_factory=make_logger_factory(args, image_name),
+        hpd_weights_path=args.hpd_weights_path,
+        encoding_weights_path=args.encoding_weights_path,
+        shard_index=None if args.shard_index < 0 else args.shard_index,
+        shard_count=None if args.shard_count < 0 else args.shard_count,
+        progress=sys.stdout.isatty(), epoch_span=args.epoch_span,
+        ensemble_size=args.ensemble, log_image_every=args.log_image_every, device=device,
+    )
+    for row in results:
+        print(f"grid {row['grid_id']}: best PSNR {row['best_psnr']:.3f} "
+              f"({row['epochs_run']} epochs)"
+              + (f", checkpoint {row['run_dir']}" if row["run_dir"] else ""))
+
+    if args.is_test and results and results[-1]["run_dir"]:
+        # the reference's test mode shows the original beside the output;
+        # here the last id's checkpoint is rendered and saved as a figure
+        from .models.gngf import params_from_jax
+        from .render import render_image
+        from .utils.checkpoint import load_pytree
+
+        last = results[-1]
+        exp = experiment_from_grid_id(last["grid_id"], base_model=model_cfg, grid=grid)
+        tree = load_pytree(os.path.join(last["run_dir"], "whole_model.pkl"))
+        recon = render_image(params_from_jax(tree, device), exp.model, height=data.height,
+                             width=data.width, device=device)
+        print(f"rendered grid {last['grid_id']} from {last['run_dir']}: "
+              f"{'x'.join(map(str, recon.shape))} uint8")
+        if has_matplotlib():
+            from .utils.visualize import save_comparison
+
+            out_path = f"runs/{image_name}_{last['grid_id']}_comparison.png"
+            os.makedirs("runs", exist_ok=True)
+            save_comparison(data.image.astype(np.uint8), recon, out_path)
+            print(f"comparison figure: {out_path}")
+        else:
+            print("matplotlib not available; no comparison figure is written")
     return 0
 
 

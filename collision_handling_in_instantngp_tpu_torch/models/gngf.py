@@ -219,7 +219,8 @@ def forward(
 ) -> ForwardOut:
     """Model forward. ``dedup``: the batch's precomputed geometry (the
     trainer builds it once); None derives ids and counts from ``x`` on its
-    device where the dedup route runs. ``bn_state``: running statistics
+    device where the dedup route runs (counts only with ``train``: without
+    them the marginal is None). ``bn_state``: running statistics
     {"mean", "var"} (default: the params' buffers); they are not modified,
     the updated ones come back in ``ForwardOut.bn_state``."""
     dev = x.device
@@ -251,8 +252,10 @@ def forward(
     if dedup is not None:
         ids, counts = dedup.ids, dedup.counts
     else:
+        # inference derives no counts: the tail gets (1, U) zeros and no
+        # marginal comes back, as in the JAX package
         ids = dedup_ops.vertex_ids(corners, side)
-        counts = dedup_ops.counts_torch(ids, cfg.num_levels, ucoords.shape[0])
+        counts = dedup_ops.counts_torch(ids, cfg.num_levels, ucoords.shape[0]) if train else None
 
     marginal_raw, vals_u, idx_u = apply_hpd_unique(params.hpd, ucoords, cfg, counts=counts)
     feats_u = enc.blend_unique(params.tables, idx_u, vals_u, cfg)
@@ -261,7 +264,9 @@ def forward(
     rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
 
     rows = x.shape[0] * cfg.num_corners
-    if cfg.keep_topk_only:
+    if counts is None:
+        marginal = None
+    elif cfg.keep_topk_only:
         marginal = pdot(counts, vals_u, "highest") / rows
     else:
         marginal = marginal_raw / rows

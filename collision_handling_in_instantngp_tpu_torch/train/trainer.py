@@ -15,7 +15,7 @@ are kept on the device; with ``save_params`` they are written to
 ``checkpoint_min_interval_s`` and flushed at the end, in the JAX package's
 format (``utils/checkpoint.py``), so that either package warm-starts from
 the other's run directory. Ensembles and multi-epoch spans are not in this
-port (ROADMAP.md).
+port yet (ROADMAP.md §1 item 4): ``epoch_span`` above 1 raises.
 """
 
 from __future__ import annotations
@@ -58,6 +58,15 @@ class FitResult:
     final_image: Optional[np.ndarray] = None   # (h, w[, 3]) int image of the last epoch
 
 
+def check_span(epoch_span: int) -> None:
+    """Spans of several epochs a call are ROADMAP.md §1 item 4, not yet in
+    this port; a span of 1 or less is one epoch a call, as in JAX."""
+    if epoch_span > 1:
+        raise NotImplementedError(
+            f"epoch_span={epoch_span}: multi-epoch spans are not in the PyTorch port yet "
+            "(ROADMAP.md §1 item 4); use 1")
+
+
 def psnr_from_int_sq_err(og_max: float, int_sq_err: float) -> float:
     return float(20 * np.log10(og_max) - 10 * np.log10(max(int_sq_err, 1e-12)))
 
@@ -97,6 +106,9 @@ def fit(
     encoding_weights_path: Optional[str] = None,
     warm_start_dir: Optional[str] = None,
     log_image_every: Optional[int] = None,
+    collect_history: bool = True,
+    progress: bool = False,
+    epoch_span: int = 1,
 ) -> FitResult:
     """Train one configuration. ``params``: initial weights (default: fresh
     ones from ``exp.train.seed``), moved to ``device``; the caller's copy is
@@ -106,12 +118,17 @@ def fit(
     either package) whose params, optimizer state and BatchNorm statistics
     continue, its config stamp checked. ``log_image_every=N`` also logs
     ``train_image`` every N epochs. ``run_name`` names the checkpoint
-    directory (default: a time stamp).
+    directory (default: a time stamp). ``progress=True`` shows a tqdm bar
+    with the PSNR where tqdm is installed (nothing where it is not);
+    ``collect_history=False`` leaves ``history`` empty and changes nothing
+    else. ``epoch_span`` above 1 raises NotImplementedError: spans of several
+    epochs come with ROADMAP.md §1 item 4.
 
     The history rows hold the logged scalars plus ``epoch``, ``seconds``
     (``run_epoch`` alone), ``pixels_per_s``, ``stats_seconds`` (the counts
     epoch's statistics, image and figures) and ``ckpt_seconds`` (the
     snapshot and checkpoint write)."""
+    check_span(epoch_span)
     dev = resolve_device(device)
     tcfg, mcfg, lcfg = exp.train, exp.model, exp.loss
     logger = logger or NullLogger()
@@ -161,6 +178,15 @@ def fit(
     train_loss = train_psnr = float("nan")
     epochs_run = 0
     image = None
+
+    pbar = None
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            pbar = tqdm(total=epochs)
+        except ImportError:
+            pass
 
     def counts_epoch(ep: int) -> bool:
         return ep == epochs - 1 or (rate > 0 and ep % rate == 0) or early_stopper.early_stop
@@ -239,13 +265,17 @@ def fit(
                     last_ckpt_write = now
         ckpt_seconds = time.perf_counter() - t_ckpt
 
-        row = {"epoch": ep, **{k: v for k, v in log.items() if isinstance(v, (int, float))},
-               "seconds": seconds, "pixels_per_s": data.num_pixels / seconds,
-               "stats_seconds": stats_seconds, "ckpt_seconds": ckpt_seconds}
-        history.append(row)
+        if pbar is not None:
+            pbar.update(1)
+            pbar.set_description(f"Training_psnr: {train_psnr}")
+        if collect_history:
+            history.append({
+                "epoch": ep, **{k: v for k, v in log.items() if isinstance(v, (int, float))},
+                "seconds": seconds, "pixels_per_s": data.num_pixels / seconds,
+                "stats_seconds": stats_seconds, "ckpt_seconds": ckpt_seconds})
         if verbose:
             print(f"epoch {ep}: loss {train_loss:.6f} psnr {train_psnr:.4f} "
-                  f"({seconds:.3f} s, {row['pixels_per_s']:.0f} px/s)")
+                  f"({seconds:.3f} s, {data.num_pixels / seconds:.0f} px/s)")
 
         if early_stopper.early_stop:
             if verbose and not zero_coll_abort:
@@ -254,6 +284,8 @@ def fit(
         if ep != 0:
             early_stopper(train_loss)
 
+    if pbar is not None:
+        pbar.close()
     if best_snapshot is not None and run_dir is not None:
         _write_checkpoint(run_dir, best_snapshot, params, freeze_hpd, mcfg)
     logger.finish()

@@ -46,12 +46,9 @@ def test_gray_formula_equals_cv2_on_every_colour():
 def _record_fit_ids(monkeypatch):
     ids = []
 
-    class Res:
-        best_psnr, epochs_run, run_dir = 0.0, 0, None
-
     def fake_fit(exp, data, **kw):
         ids.append(exp.grid_id)
-        return Res()
+        return trainer.FitResult(0.0, 0.0, 0.0, 0, False, False, None, None, [])
 
     monkeypatch.setattr(trainer, "fit", fake_fit)
     return ids
