@@ -171,7 +171,21 @@
    ``hpd_stream_fused_fwd[render]``); the CLI with ``--scaled --should_bw
    -t`` on grid 4061 for 2 epochs (exit 0, a one-channel checkpoint, the
    render, the figure or the line saying none is written);
-19. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+19. spans and ensembles: ``fit`` on grid 4061 for 6 epochs at
+   ``epoch_span=1`` and at ``epoch_span=3`` from one start, at the scaled
+   geometry (K1, K2, K3a, K3b, K12), per-row with ``batchnorm_input`` (K10,
+   K11, K12) and the vanilla hash (K12), each span under
+   ``torch.cuda.set_sync_debug_mode("error")``; fails unless the kernels
+   launched, equally often, and history, final and best params are bitwise
+   equal; prints the epoch seconds at both spans, the idle share of a
+   profiled epoch against a profiled span of 3 and the best-epoch
+   snapshot's time; then ``fit_ensemble`` of
+   grids [4061, 4051, 3961] at the scaled geometry (4 epochs, span 2,
+   checkpoints under chiprun_out/, removed), each member bitwise its solo
+   fit (best PSNR, final loss, epochs, final image, checkpoint), K1-K3 and
+   K12 launched 3x a solo fit's count; and a vanilla ensemble of four
+   against its solo fits, seconds per member-epoch of each;
+20. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -201,7 +215,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 from collision_handling_in_instantngp_tpu_torch.utils import memory  # noqa: E402
-from collision_handling_in_instantngp_tpu_torch.utils.profiling import cuda_ms  # noqa: E402
+from collision_handling_in_instantngp_tpu_torch.utils.profiling import cuda_ms, host_ms  # noqa: E402
 
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 SEED = 65535
@@ -1952,6 +1966,324 @@ def grid_render_phase(data, dev) -> tuple:
                        cli_figure=cli.has_matplotlib())
 
 
+# history keys that hold times, not results (a span's rows share its time)
+TIMING_KEYS = {"seconds", "pixels_per_s", "stats_seconds", "ckpt_seconds", "span_epochs"}
+
+
+def same_state(a, b) -> list:
+    """The state_dict keys (params and buffers) where two models differ."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return [k for k in sa if not torch.equal(sa[k], sb[k])]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a checkpoint tree (dicts by key, lists, tuples and the
+    optax stand-ins, which are named tuples) as numpy arrays, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [np.asarray(tree)]
+
+
+def same_checkpoint(dir_a, dir_b, model_cfg) -> bool:
+    """Two run directories hold bitwise the same params, optimizer state
+    (Adam's moments and count) and BatchNorm statistics."""
+    from collision_handling_in_instantngp_tpu_torch.utils import checkpoint as ckpt
+
+    la, lb = (tree_leaves(ckpt.load_run_checkpoint(d, model_cfg=model_cfg)) for d in (dir_a, dir_b))
+    return len(la) == len(lb) and all(a.shape == b.shape and np.array_equal(a, b)
+                                      for a, b in zip(la, lb))
+
+
+def profile_single_and_span(exp, data, dev, n) -> tuple:
+    """Device time by kernel of one epoch (``run_epoch``, its scalars to the
+    host) and of one span of ``n`` epochs (``run_span`` and its one
+    transfer), after a warm-up epoch: (single, span), each from
+    ``utils.profiling.device_time_by_kernel``; then the best-epoch snapshot
+    of a checkpointing span (``BestTracker.update`` over the params, buffers
+    and Adam state): {"mb", "ms" (CUDA events over 20 updates), "host_ms"
+    (the host's time to enqueue one)} as a third element."""
+    from torch.profiler import ProfilerActivity, profile
+    from collision_handling_in_instantngp_tpu_torch.data import make_shuffle_permutations
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.train import train_step
+    from collision_handling_in_instantngp_tpu_torch.train.optimizer import make_optimizer
+    from collision_handling_in_instantngp_tpu_torch.utils.profiling import device_time_by_kernel
+
+    statics = gngf.make_statics(exp.model)
+    shuffled, _ = make_shuffle_permutations(data.num_pixels, exp.train.seed,
+                                            exp.train.shuffle_pixels)
+    batches = train_step.build_epoch_batches(data.coords, data.targets, exp.train.batch_fraction,
+                                             shuffled, data.image, exp.model, statics, dev)
+    params = gngf.init_params(exp.model, exp.train.seed, dev)
+    optimizer = make_optimizer(exp.optimizer, params)
+    prev, min_poss = train_step.initial_collision_state(exp, statics, dev)
+    prev = train_step.run_epoch(params, optimizer, batches, exp, statics, prev,
+                                min_poss).collisions_device
+    tracker = train_step.BestTracker(params)
+    out = []
+    for span in (1, n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if span == 1:
+                prev = train_step.run_epoch(params, optimizer, batches, exp, statics, prev,
+                                            min_poss).collisions_device
+            else:
+                tracker.reset()
+                scalars, _ = train_step.run_span(params, optimizer, batches, exp, statics, prev,
+                                                 min_poss, span, tracker)
+                scalars.to_host()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        out.append(device_time_by_kernel(prof, wall_ms))
+    snap = train_step.BestTracker(params, optimizer)
+    err = torch.zeros((), device=dev)
+    snap.update(err, 0)
+    bufs = [*snap.state.values(), *(t for st in snap.opt.values() for t in st.values())]
+    mb = sum(t.numel() * t.element_size() for t in bufs) / 1e6
+    out.append(dict(mb=mb, ms=cuda_ms(lambda: snap.update(err, 1), 20),
+                    host_ms=host_ms(lambda: snap.update(err, 1), 20)))
+    return tuple(out)
+
+
+def timed_ensemble(trainer, exps, data, dev, epochs, span) -> tuple:
+    """(``fit_ensemble``'s results, its seconds on the host clock, the card
+    synchronised on both sides); run names ``ens{id}``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.fit_ensemble(exps, data, epochs=epochs, epoch_span=span, device=dev,
+                               run_names=[f"ens{e.grid_id}" for e in exps])
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def span_ensemble_phase(fit_with_checkpoints, data, dev) -> dict:
+    """Step 19, multi-epoch spans and ensembles on the card.
+
+    (a) Spans on three routes, grid 4061 on the strawberry: the dedup route
+        at ``instantngp_scaled_model()`` (K1, K2, K3a, K3b, K12), the per-row
+        route at the default geometry with ``batchnorm_input`` (K10, K11,
+        K12), the vanilla hash at the default geometry (K12). Each fits 6
+        epochs at ``epoch_span=1`` and the same 6 at ``epoch_span=3`` from
+        one start, ``histograms_rate=4`` (counts epochs 0, 4 and the last;
+        one span of 3, epochs 1-3), the counts set to 0 before each; fails
+        unless every kernel of the route launched, equally often in both,
+        the loss is finite and falls, and the per-epoch history (times
+        aside), the final params (buffers included) and the best params
+        are bitwise equal, and on the dedup route, which writes its best
+        checkpoint (under chiprun_out/, removed), the checkpoints too,
+        Adam's state included. Every span runs under
+        ``torch.cuda.set_sync_debug_mode("error")`` (``trainer.run_span``
+        wrapped; its one transfer to the host comes after), so any op that
+        waits for the device inside it raises. Prints the epoch seconds at
+        span 1 and at span 3, the idle share of a profiled single epoch
+        against a profiled span of 3, and the time of one best-epoch
+        snapshot (params, buffers and Adam state).
+    (b) Ensembles: grids [4061, 4051, 3961] (one shape class) at
+        ``instantngp_scaled_model()``, 4 epochs, ``epoch_span=2``,
+        checkpoints on (under chiprun_out/, removed), against each one's
+        solo ``fit``: best PSNR, final loss, epochs run and final image
+        equal, the checkpoints bitwise equal, and K1, K2, K3a, K3b and K12
+        launched as often as the three solo fits together (3x one). Then
+        the vanilla hash at the default geometry, E = 4 ids of one shape
+        class ([4061, 4051, 3961, 4056]), 10 epochs at span 5, against
+        their 4 solo fits: final losses equal. Seconds per member-epoch: the
+        ensemble's, less its set-up (a 0-epoch call), against the solo
+        fits' epochs (their history's ``seconds``). Peak device memory of
+        each ensemble (``utils.memory``)."""
+    import shutil
+
+    from collision_handling_in_instantngp_tpu_torch.config import (
+        ModelConfig, experiment_from_grid_id, instantngp_scaled_model,
+    )
+    from collision_handling_in_instantngp_tpu_torch.data import load_image_dataset
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
+        hidden, hpd_full, hpd_stream, scatter,
+    )
+    from collision_handling_in_instantngp_tpu_torch.train import trainer
+
+    k12 = {"scatter_add_serial": scatter.scatter_add_serial}
+    dedup_kernels = {"hpd_stream_fused_fwd": hpd_stream.hpd_stream_fused_fwd,
+                     "hpd_stream_fused_bwd": hpd_stream.hpd_stream_fused_bwd,
+                     "hidden_stack_fwd": hidden.hidden_stack_fwd,
+                     "hidden_stack_bwd": hidden.hidden_stack_bwd, **k12}
+    data_raw = load_image_dataset(os.path.join(HERE, "images", "strawberry.npy"), normalize=False)
+    routes = (("dedup --scaled", instantngp_scaled_model(), data, dedup_kernels),
+              ("per-row auto", ModelConfig(batchnorm_input=True), data_raw,
+               {"hpd_full_fwd": hpd_full.hpd_full_fwd, "hpd_full_bwd": hpd_full.hpd_full_bwd,
+                **k12}),
+              ("vanilla default", ModelConfig(use_hash_function=True), data, k12))
+
+    real_run_span, checked_spans = trainer.run_span, []
+
+    def sync_checked_span(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real_run_span(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked_spans.append(args[7])
+        return out
+
+    ck_dir = os.path.join(OUT_DIR, "step19")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    out = {}
+    for what, base, route_data, wrappers in routes:
+        # the dedup route writes its best checkpoint at every new best (the
+        # span's copy of the Adam state, its host-side step too)
+        exp = experiment_from_grid_id(4061, base_model=base)
+        exp = dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, save_params=base.hash_table_size > 256, histograms_rate=4,
+            checkpoint_dir=os.path.join(ck_dir, "spans"), checkpoint_min_interval_s=0.0))
+        start = gngf.init_params(exp.model, SEED, "cpu")
+        fits = {}
+        for span in (1, 3):
+            zero_counts(wrappers.values())
+            checked_spans.clear()
+            trainer.run_span = sync_checked_span
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fit_with_checkpoints(exp, route_data, epochs=6, device=dev, params=start,
+                                           verbose=False, epoch_span=span, run_name=f"span{span}")
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+            finally:
+                trainer.run_span = real_run_span
+            fits[span] = dict(res=res, fit_s=fit_s, spans=list(checked_spans),
+                              launches={n: fn.launches for n, fn in wrappers.items()})
+        one, three = fits[1]["res"], fits[3]["res"]
+        log(f"spans, {what}, grid 4061, 6 epochs at span 1 and at span 3 from one start:")
+        for span, f in fits.items():
+            secs = [round(r["seconds"], 6) for r in f["res"].history]
+            log(f"  span {span}: epoch s {secs}, fit {f['fit_s']:.3f} s, spans run {f['spans']}, "
+                f"launches {f['launches']}")
+        if fits[3]["spans"] != [3] or fits[1]["spans"]:
+            raise AssertionError(f"{what}: spans run {fits[1]['spans']} / {fits[3]['spans']}, "
+                                 "not none / one of 3 (epochs 1-3)")
+        log("  no op inside the span waited for the device (set_sync_debug_mode('error'))")
+        for name in wrappers:
+            if not fits[1]["launches"][name] or fits[1]["launches"][name] != fits[3]["launches"][name]:
+                raise AssertionError(f"{what}: {name} launched {fits[1]['launches'][name]} / "
+                                     f"{fits[3]['launches'][name]} times")
+        losses = [r["train_loss"] for r in one.history]
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[1]:
+            raise AssertionError(f"{what}: loss not finite and falling: {losses}")
+        rows_differ = [r1["epoch"] for r1, r3 in zip(one.history, three.history)
+                       if {k: v for k, v in r1.items() if k not in TIMING_KEYS}
+                       != {k: v for k, v in r3.items() if k not in TIMING_KEYS}]
+        differ = same_state(one.params, three.params) + same_state(one.best_params,
+                                                                   three.best_params)
+        if exp.train.save_params and not same_checkpoint(one.run_dir, three.run_dir, exp.model):
+            differ.append("the best checkpoint")
+        verdict = ("bitwise equal" if not rows_differ and not differ
+                   else f"DIFFER: history rows {rows_differ}, state {differ}")
+        log(f"  span 3 against span 1: history, final and best params"
+            f"{', best checkpoint' if exp.train.save_params else ''} {verdict}")
+        if rows_differ or differ or len(one.history) != 6 or len(three.history) != 6:
+            raise AssertionError(f"{what}: the span-3 fit differs from the span-1 fit")
+        single, spanned, snap = profile_single_and_span(exp, route_data, dev, 3)
+        log(f"  profiled: one epoch {single['wall_ms']:.1f} ms wall, {single['busy_ms']:.1f} busy, "
+            f"idle {single['idle_share']:.2%}; a span of 3 {spanned['wall_ms']:.1f} ms wall "
+            f"({spanned['wall_ms'] / 3:.1f} an epoch), {spanned['busy_ms']:.1f} busy, "
+            f"idle {spanned['idle_share']:.2%}")
+        log(f"  best-epoch snapshot ({snap['mb']:.1f} MB of params, buffers and Adam state): "
+            f"{snap['ms']:.3f} ms an update (CUDA events), {snap['host_ms']:.3f} ms to enqueue")
+        out[what] = dict(
+            epoch_s={s: [r["seconds"] for r in f["res"].history] for s, f in fits.items()},
+            fit_s={s: f["fit_s"] for s, f in fits.items()},
+            launches=fits[1]["launches"], history=three.history,
+            profile_single={k: single[k] for k in ("wall_ms", "busy_ms", "idle_share")},
+            profile_span3={k: spanned[k] for k in ("wall_ms", "busy_ms", "idle_share")},
+            snapshot=snap,
+            kernels_single=single["kernels"][:12], kernels_span3=spanned["kernels"][:12])
+        torch.cuda.empty_cache()
+
+    # ------------------------------ ensembles ------------------------------ #
+    ids = [4061, 4051, 3961]
+    exps = [experiment_from_grid_id(g, base_model=instantngp_scaled_model()) for g in ids]
+    exps = [dataclasses.replace(e, train=dataclasses.replace(
+        e.train, save_params=True, checkpoint_dir=os.path.join(ck_dir, "ensemble")))
+        for e in exps]
+    log(f"ensemble: grids {ids} at the scaled geometry, 4 epochs, span 2, checkpoints on:")
+    setup_s = timed_ensemble(trainer, exps, data, dev, 0, 2)[1]
+    zero_counts(dedup_kernels.values())
+    torch.cuda.reset_peak_memory_stats(dev)
+    ens, ens_s = timed_ensemble(trainer, exps, data, dev, 4, 2)
+    ens_peak = memory.device_memory_stats(dev)["peak_gb"]
+    ens_launches = {n: fn.launches for n, fn in dedup_kernels.items()}
+    solos, solo_launches, solo_s = [], [], 0.0
+    for e in exps:
+        solo_exp = dataclasses.replace(e, train=dataclasses.replace(
+            e.train, checkpoint_dir=os.path.join(ck_dir, "solo")))
+        zero_counts(dedup_kernels.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solos.append(fit_with_checkpoints(solo_exp, data, epochs=4, device=dev, verbose=False,
+                                          run_name="solo"))
+        torch.cuda.synchronize()
+        solo_s += time.perf_counter() - t0
+        solo_launches.append({n: fn.launches for n, fn in dedup_kernels.items()})
+    for g, r, s in zip(ids, ens, solos):
+        same = (r.best_psnr == s.best_psnr and r.final_loss == s.final_loss
+                and r.epochs_run == s.epochs_run and np.array_equal(r.final_image, s.final_image)
+                and same_checkpoint(r.run_dir, s.run_dir, exps[0].model))
+        log(f"  grid {g}: best PSNR {r.best_psnr:.6f} (solo {s.best_psnr:.6f}), final loss "
+            f"{r.final_loss:.7f} (solo {s.final_loss:.7f}), {r.epochs_run} epochs; final image "
+            f"and checkpoint {'bitwise equal to the solo fit' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"ensemble member {g} differs from its solo fit")
+    want = {n: sum(sl[n] for sl in solo_launches) for n in dedup_kernels}
+    log(f"  launches: ensemble {ens_launches}, solo fits {solo_launches}")
+    if ens_launches != want or any(sl != solo_launches[0] for sl in solo_launches) or not all(
+            ens_launches.values()):
+        raise AssertionError("the ensemble's launches are not 3x one solo fit's")
+    solo_epoch_s = [row["seconds"] for r in solos for row in r.history]
+    ens_epoch = (ens_s - setup_s) / 12
+    log(f"  {ens_s:.3f} s the ensemble, {setup_s:.3f} s of it set-up (a 0-epoch call): "
+        f"{ens_epoch:.4f} s a member-epoch; the solo fits' epochs {np.median(solo_epoch_s):.4f} s "
+        f"median ({min(solo_epoch_s):.4f}-{max(solo_epoch_s):.4f}), {solo_s:.3f} s the three "
+        f"fits; peak device memory {ens_peak:.2f} GB")
+    shutil.rmtree(ck_dir)
+
+    vids = [4061, 4051, 3961, 4056]
+    vexps = [experiment_from_grid_id(g, base_model=ModelConfig(use_hash_function=True))
+             for g in vids]
+    vexps = [dataclasses.replace(e, train=dataclasses.replace(e.train, save_params=False))
+             for e in vexps]
+    log(f"ensemble: the vanilla hash at the default geometry, grids {vids}, 10 epochs, span 5:")
+    vsetup_s = timed_ensemble(trainer, vexps, data, dev, 0, 5)[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    vens, vens_s = timed_ensemble(trainer, vexps, data, dev, 10, 5)
+    vens_peak = memory.device_memory_stats(dev)["peak_gb"]
+    vsolo_s, vsolo_epoch_s = 0.0, []
+    for e, r in zip(vexps, vens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = fit_with_checkpoints(e, data, epochs=10, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        vsolo_s += time.perf_counter() - t0
+        vsolo_epoch_s += [row["seconds"] for row in s.history]
+        if r.final_loss != s.final_loss or r.epochs_run != s.epochs_run:
+            raise AssertionError(f"vanilla ensemble member {e.grid_id} differs from its solo fit")
+    vens_epoch = (vens_s - vsetup_s) / 40
+    log(f"  final losses equal the solo fits'; {vens_s:.3f} s the ensemble, {vsetup_s:.3f} s of it "
+        f"set-up: {vens_epoch:.4f} s a member-epoch; the solo fits' epochs "
+        f"{np.median(vsolo_epoch_s):.4f} s median ({min(vsolo_epoch_s):.4f}-"
+        f"{max(vsolo_epoch_s):.4f}), {vsolo_s:.3f} s the four fits; peak device memory "
+        f"{vens_peak:.2f} GB")
+    out["ensemble_scaled"] = dict(ids=ids, seconds=ens_s, setup_s=setup_s,
+                                  member_epoch_s=ens_epoch, solo_seconds=solo_s,
+                                  solo_epoch_s=solo_epoch_s, launches=ens_launches,
+                                  solo_launches=solo_launches, peak_gb=ens_peak)
+    out["ensemble_vanilla"] = dict(ids=vids, seconds=vens_s, setup_s=vsetup_s,
+                                   member_epoch_s=vens_epoch, solo_seconds=vsolo_s,
+                                   solo_epoch_s=vsolo_epoch_s, peak_gb=vens_peak)
+    return out
+
+
 # every instance of these kernels must hold warpgroup MMAs (HGMMA): the
 # tensor-core passes of the dedup route's tail, forward and backward, and
 # K7; the fix-up of the rows pass is the exact fp32 sweep and must hold none
@@ -2439,6 +2771,10 @@ def main() -> int:
     entries["hpd_stream_fused_fwd[render]"], grid_render = grid_render_phase(data, dev)
     watermark(marks, "grid driver, render, CLI (step 18)", dev)
 
+    # --------------------- spans and ensembles (step 19) -------------------- #
+    spans = span_ensemble_phase(fit_with_checkpoints, data, dev)
+    watermark(marks, "spans and ensembles (step 19)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -2448,7 +2784,8 @@ def main() -> int:
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
                        wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
-                       vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render),
+                       vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render,
+                       spans=spans),
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,7 +5,8 @@
       [--device cuda] [-t] [--logger {jsonl,wandb,null}] \
       [--wandb_entity ... --wandb_project ... --wandb_name ...] \
       [-hwp HPD_model.pkl] [-ewp encoding_model.pkl] [--log_image_every N] \
-      [--manifest runs/grid_manifest.jsonl] [--shard-index I --shard-count N]
+      [--manifest runs/grid_manifest.jsonl] [--shard-index I --shard-count N] \
+      [--epoch_span S] [--ensemble E]
 
 ``-e`` is inclusive; without it the run goes from ``-s`` through the last id
 of the grid, as in the JAX package's CLI. The sweep is the grid driver's
@@ -24,7 +25,10 @@ as ``runs/{image}_{id}_comparison.png`` (where matplotlib is installed).
 ``-hwp`` loads a pretrained HPD and freezes it, ``-ewp`` starts from saved
 tables; both read the JAX package's files as well as the port's. Runs on
 the card unless ``--device cpu`` (or the JAX CLI's ``--platform cpu``).
-``--epoch_span`` and ``--ensemble`` above 1 raise: ROADMAP.md §1 item 4.
+``--epoch_span S`` runs up to S epochs a call with nothing read on the host
+between them (``trainer.fit``); ``--ensemble E`` trains E configurations of
+one shape side by side (``trainer.fit_ensemble``, through the grid driver:
+no per-id logs, one best-PSNR checkpoint each, ``weights/{id}_ens{id}/``).
 """
 
 from __future__ import annotations
@@ -79,10 +83,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-count", type=int, default=1,
                    help="-1 = the torch.distributed world size (1 without a process group).")
     p.add_argument("--epoch_span", type=int, default=1,
-                   help="Epochs per call; above 1 not in the port yet (ROADMAP.md §1 item 4).")
+                   help="Epochs per call, with nothing read on the host between them. >1 "
+                        "amortizes the host's per-epoch work; logging/early-stop still "
+                        "evaluate per epoch (see trainer.fit).")
     p.add_argument("--ensemble", type=int, default=1,
-                   help="Configs per ensemble; above 1 not in the port yet (ROADMAP.md §1 "
-                        "item 4).")
+                   help=">1: train that many same-shape configs side by side (scalar "
+                        "metrics only; see trainer.fit_ensemble).")
     return p
 
 

@@ -22,7 +22,7 @@ buffers) in the JAX package's layout; ``params_from_jax`` /
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,6 +49,33 @@ class GNGFStatics(NamedTuple):
     n_ls: np.ndarray            # (L,) int32 resolutions
     offsets: np.ndarray         # (V, d) int32 corner offsets
     unique_coords: np.ndarray   # (U, d) float32 shared vertex grid
+
+
+class DeviceStatics(NamedTuple):
+    """The geometry constants as tensors on one device."""
+
+    n_ls: torch.Tensor            # (L,) int32
+    offsets: torch.Tensor         # (V, d) int32
+    unique_coords: torch.Tensor   # (U, d) float32
+
+
+_DEVICE_STATICS: Dict[tuple, DeviceStatics] = {}
+
+
+def device_statics(statics: GNGFStatics, device) -> DeviceStatics:
+    """``statics`` on ``device``, copied once per (geometry, device), so that
+    no forward or epoch copies a constant from the host (a pageable copy to
+    the card waits for it). Every caller gets the same tensors: read them,
+    never write them. The shared vertex grid is id-ordered
+    ``{0 .. side-1}^d``, so its shape names it."""
+    dev = torch.device(device)
+    key = (statics.n_ls.tobytes(), statics.offsets.tobytes(), statics.unique_coords.shape,
+           str(dev))
+    out = _DEVICE_STATICS.get(key)
+    if out is None:
+        out = DeviceStatics(*(torch.tensor(a, device=dev) for a in statics))
+        _DEVICE_STATICS[key] = out
+    return out
 
 
 class ForwardOut(NamedTuple):
@@ -223,9 +250,8 @@ def forward(
     them the marginal is None). ``bn_state``: running statistics
     {"mean", "var"} (default: the params' buffers); they are not modified,
     the updated ones come back in ``ForwardOut.bn_state``."""
-    dev = x.device
-    n_ls = torch.as_tensor(statics.n_ls, device=dev)
-    offsets = torch.as_tensor(statics.offsets, device=dev)
+    consts = device_statics(statics, x.device)
+    n_ls, offsets = consts.n_ls, consts.offsets
     new_bn_state = None
     if cfg.batchnorm_input:
         bn = params.batchnorm
@@ -248,7 +274,7 @@ def forward(
     if dedup is not None and dedup.active is not None:
         ucoords = dedup_ops.active_coords(dedup.active, side)
     else:
-        ucoords = torch.as_tensor(statics.unique_coords, device=dev)
+        ucoords = consts.unique_coords
     if dedup is not None:
         ids, counts = dedup.ids, dedup.counts
     else:
@@ -299,7 +325,7 @@ def calc_hash_collisions(indices: torch.Tensor, cfg: ModelConfig, statics: GNGFS
     """(collisions, min_possible_collisions), both (L,) float32, from the
     per-row (P, L, V, K) selected slots, or the vanilla (P, L, V) hash ids
     (unclamped)."""
-    n_ls = torch.as_tensor(statics.n_ls, device=indices.device)
+    n_ls = device_statics(statics, indices.device).n_ls
     if cfg.use_hash_function:
         coll = coll_ops.hash_collisions_vanilla(indices, n_ls, cfg.hash_table_size)
     else:

@@ -134,18 +134,17 @@ def used_slot_presence(
     """(L, K, T) bool: does a vertex occupied at level l (count > 0) select
     slot t as its k-th candidate?
 
-    Written as a scatter of True into the (L, K, T) tensor at
-    (l, k, idx[v, k]) for every occupied (l, v); repeated writes store the
-    same value, so the result does not depend on their order."""
-    u, k = idx_unique.shape
-    l_ids, v_ids = torch.nonzero(counts > 0, as_tuple=True)
-    presence = torch.zeros(
-        counts.shape[0], k, hash_table_size, dtype=torch.bool,
-        device=idx_unique.device,
-    )
-    k_ids = torch.arange(k, device=idx_unique.device)
-    presence[l_ids[:, None], k_ids[None, :], idx_unique[v_ids].long()] = True
-    return presence
+    Written as a scatter of True into an (L, K, T + 1) tensor at
+    (l, k, idx[v, k]) for every (l, v), an unoccupied (l, v) sending its
+    writes to the spare column T, which is then dropped; repeated writes
+    store the same value, so the result does not depend on their order. The
+    shapes are fixed, so nothing waits for the device (a ``nonzero`` of the
+    occupied pairs would)."""
+    t = hash_table_size
+    occupied = (counts > 0)[:, None, :]                            # (L, 1, U)
+    slots = torch.where(occupied, idx_unique.t().long()[None], t)  # (L, K, U)
+    presence = torch.zeros(*slots.shape[:2], t + 1, dtype=torch.bool, device=idx_unique.device)
+    return presence.scatter_(2, slots, True)[..., :t]
 
 
 def collisions_from_presence(

@@ -48,6 +48,10 @@ def phases(smoke: dict) -> dict:
     for route, fit in smoke["per_row_fits"].items():
         out[f"per-row {route}"] = dict(epoch_s=[r["seconds"] for r in fit["history"]])
     out["per-row auto"]["idle_share"] = smoke["per_row_profile"]["idle_share"]
+    for geometry, fit in smoke.get("vanilla", {}).items():
+        if "history" in fit:
+            out[f"vanilla {geometry}"] = dict(epoch_s=[r["seconds"] for r in fit["history"]],
+                                              idle_share=fit["profile"]["idle_share"])
     return out
 
 

@@ -7,13 +7,17 @@ resumable and shardable, as the JAX package's driver runs it.
     resumes the other's sweep;
   * sharding: a process owns ``ids[shard_index::shard_count]``; a ``None``
     shard reads the ``torch.distributed`` rank and world size where a
-    process group is initialised (shard 0 of 1 otherwise).
+    process group is initialised (shard 0 of 1 otherwise);
+  * ensembles: ``ensemble_size > 1`` trains the pending ids in groups of
+    one shape, ``ensemble_size`` at a time (``trainer.fit_ensemble``), with
+    the same manifest rows.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..config import (
@@ -86,13 +90,11 @@ def run_grid_search(
 
     ``compile_cache`` is accepted for the JAX package's signature and does
     nothing: eager PyTorch compiles no epoch program to share.
-    ``epoch_span`` and ``ensemble_size`` above 1 raise NotImplementedError
-    (ROADMAP.md §1 item 4)."""
-    trainer.check_span(epoch_span)
-    if ensemble_size > 1:
-        raise NotImplementedError(
-            f"ensemble_size={ensemble_size}: ensembles are not in the PyTorch port yet "
-            "(ROADMAP.md §1 item 4); use 1")
+    ``epoch_span`` goes to ``fit``. ``ensemble_size > 1`` trains the pending
+    ids with ``trainer.fit_ensemble`` (spans of ``max(1, epoch_span)``), as
+    the JAX driver does: that path takes no logger factory, no
+    ``hpd_weights_path`` or ``encoding_weights_path`` and no
+    ``log_image_every``."""
     shard_index, shard_count = resolve_shard(shard_index, shard_count)
     grid = get_grid_search_configs()
     if ids is None:
@@ -112,6 +114,11 @@ def run_grid_search(
 
     done = load_manifest(manifest_path) if manifest_path else {}
     results: List[Dict[str, Any]] = []
+    if ensemble_size > 1:
+        return _run_ensembled(data, ids, grid, done, results, base_model=base_model,
+                              base_train=base_train, epochs=epochs, manifest_path=manifest_path,
+                              verbose=verbose, epoch_span=epoch_span,
+                              ensemble_size=ensemble_size, device=device)
     for grid_id in ids:
         if grid_id in done:
             if verbose:
@@ -130,19 +137,60 @@ def run_grid_search(
             exp, data, epochs=epochs, device=device, verbose=verbose, logger=logger,
             hpd_weights_path=hpd_weights_path, encoding_weights_path=encoding_weights_path,
             log_image_every=log_image_every, collect_history=False, progress=progress,
+            epoch_span=epoch_span,
         )
-        row = {
-            "grid_id": grid_id,
-            "image": data.name,
-            "best_psnr": result.best_psnr,
-            "final_psnr": result.final_psnr,
-            "final_loss": result.final_loss,
-            "epochs_run": result.epochs_run,
-            "stopped_early": result.stopped_early,
-            "zero_collision_abort": result.zero_collision_abort,
-            "run_dir": result.run_dir,
-        }
-        if manifest_path:
-            append_manifest(manifest_path, row)
-        results.append(row)
+        _record(results, manifest_path, grid_id, data, result)
+    return results
+
+
+def _record(results, manifest_path, grid_id, data, result) -> None:
+    """The manifest row of one finished id, appended to the manifest and to
+    ``results``."""
+    row = {
+        "grid_id": grid_id,
+        "image": data.name,
+        "best_psnr": result.best_psnr,
+        "final_psnr": result.final_psnr,
+        "final_loss": result.final_loss,
+        "epochs_run": result.epochs_run,
+        "stopped_early": result.stopped_early,
+        "zero_collision_abort": result.zero_collision_abort,
+        "run_dir": result.run_dir,
+    }
+    if manifest_path:
+        append_manifest(manifest_path, row)
+    results.append(row)
+
+
+def _run_ensembled(data, ids, grid, done, results, *, base_model, base_train, epochs,
+                   manifest_path, verbose, epoch_span, ensemble_size, device):
+    """The ensembled sweep (JAX ``_run_ensembled``): ids in the manifest are
+    skipped and replayed, the pending ones grouped by shape (``model``,
+    ``batch_fraction``) in first-seen order and trained ``ensemble_size``
+    at a time, each member's run named ``ens{id}``."""
+    pending = []
+    for grid_id in ids:
+        if grid_id in done:
+            if verbose:
+                print(f"grid {grid_id}: already complete (manifest), skipping")
+            results.append(done[grid_id])
+            continue
+        pending.append(grid_id)
+
+    groups = defaultdict(list)
+    for grid_id in pending:
+        exp = experiment_from_grid_id(grid_id, base_model=base_model, base_train=base_train,
+                                      grid=grid)
+        groups[(exp.model, exp.train.batch_fraction)].append((grid_id, exp))
+
+    for members in groups.values():
+        for i in range(0, len(members), ensemble_size):
+            chunk = members[i:i + ensemble_size]
+            if verbose:
+                print(f"ensemble ({len(chunk)} configs): {[g for g, _ in chunk]}")
+            fits = trainer.fit_ensemble(
+                [e for _, e in chunk], data, epochs=epochs, epoch_span=max(1, epoch_span),
+                run_names=[f"ens{g}" for g, _ in chunk], verbose=verbose, device=device)
+            for (grid_id, _), result in zip(chunk, fits):
+                _record(results, manifest_path, grid_id, data, result)
     return results

@@ -19,12 +19,20 @@ route each batch's unique-vertex slots, counts and vertex ids, never the
 (P, L, V, K) per-row ids (5.6 GB at K = 128 and the scaled geometry);
 :func:`make_stats_fn` turns them into the slot counts and the unique-cell
 counts.
+
+:func:`epoch_on_device` leaves the epoch's scalars on the device (the
+geometry constants and the previous epoch's collisions live there too, so an
+epoch reads nothing on the host and copies nothing to the card);
+:func:`run_epoch` is that epoch with one transfer to the host at its end,
+and :func:`run_span` runs n epochs back to back, carrying the best epoch's
+state in a :class:`BestTracker`, with the stacked scalars
+(:class:`SpanMetrics`) transferred once by the caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -75,6 +83,143 @@ class EpochMetrics:
     match_count: int              # exactly-equal integer values
     image: Optional[torch.Tensor] = None   # (P, C) predictions in pixel order, on the device
     ids: Optional[EpochIds] = None   # counts epochs (collect_ids) only
+    collisions_device: Optional[torch.Tensor] = None   # ``collisions`` on the device
+
+
+SCALARS = ("loss", "mse", "js_kl_per_level", "coll_loss_per_level", "collisions",
+           "min_possible", "int_sq_err", "match_count")
+
+
+def _host_metrics(h) -> EpochMetrics:
+    """EpochMetrics of one epoch's scalars on the host ({name: numpy})."""
+    return EpochMetrics(
+        loss=float(h["loss"]), mse=float(h["mse"]), js_kl_per_level=h["js_kl_per_level"],
+        coll_loss_per_level=h["coll_loss_per_level"], collisions=h["collisions"],
+        min_possible=h["min_possible"], int_sq_err=float(h["int_sq_err"]),
+        match_count=int(h["match_count"]),
+    )
+
+
+@dataclasses.dataclass
+class EpochTensors:
+    """One epoch's statistics as tensors on the run's device: the fields of
+    :class:`EpochMetrics`, each 0-d or (L,)."""
+
+    loss: torch.Tensor
+    mse: torch.Tensor
+    js_kl_per_level: torch.Tensor
+    coll_loss_per_level: torch.Tensor
+    collisions: torch.Tensor
+    min_possible: torch.Tensor
+    int_sq_err: torch.Tensor
+    match_count: torch.Tensor
+    image: torch.Tensor
+    ids: Optional[EpochIds] = None
+
+    def to_host(self) -> EpochMetrics:
+        """The scalars copied to the host (this waits for the epoch)."""
+        m = _host_metrics({name: getattr(self, name).cpu().numpy() for name in SCALARS})
+        return dataclasses.replace(m, image=self.image, ids=self.ids,
+                                   collisions_device=self.collisions)
+
+
+@dataclasses.dataclass
+class SpanMetrics:
+    """The scalars of n consecutive epochs, each field stacked on a leading
+    (n,) axis (JAX ``train_step.SpanMetrics``); tensors on the device, or
+    numpy arrays after :meth:`to_host`."""
+
+    loss: torch.Tensor                  # (n,)
+    mse: torch.Tensor                   # (n,)
+    js_kl_per_level: torch.Tensor       # (n, L)
+    coll_loss_per_level: torch.Tensor   # (n, L)
+    collisions: torch.Tensor            # (n, L)
+    min_possible: torch.Tensor          # (n, L)
+    int_sq_err: torch.Tensor            # (n,)
+    match_count: torch.Tensor           # (n,)
+
+    @classmethod
+    def stack(cls, epochs: List[EpochTensors]) -> "SpanMetrics":
+        return cls(**{name: torch.stack([getattr(m, name) for m in epochs]) for name in SCALARS})
+
+    def to_host(self) -> "SpanMetrics":
+        return SpanMetrics(**{name: getattr(self, name).cpu().numpy() for name in SCALARS})
+
+    def epoch(self, j: int) -> EpochMetrics:
+        """Epoch j of a host copy, as :class:`EpochMetrics` (no image)."""
+        return _host_metrics({name: getattr(self, name)[j] for name in SCALARS})
+
+
+class BestTracker:
+    """The best epoch's state, kept on the device (JAX ``make_jitted``'s
+    ``track_best``): the params' ``state_dict`` (BatchNorm buffers
+    included) and, with ``optimizer``, its state. :meth:`update` after an
+    epoch selects with ``torch.where`` on ``int_sq_err <= err`` (ties go to
+    the later epoch) into buffers allocated at its first call, so nothing is
+    read on the host. Optimizer state that lives on the host (Adam's
+    ``step``) is recorded per epoch instead and picked by :meth:`settle`
+    once the host has read the best epoch (``epoch``). :meth:`reset`
+    starts a new search (a fit's tracker searches one span at a time, an
+    ensemble member's the whole run)."""
+
+    def __init__(self, params: gngf.GNGFParams, optimizer: Optional[torch.optim.Optimizer] = None):
+        self.params, self.optimizer = params, optimizer
+        self.err: Optional[torch.Tensor] = None     # () float32, inf before any epoch
+        self.epoch: Optional[torch.Tensor] = None   # () int64: the best epoch's number
+        self.state: Optional[Dict[str, torch.Tensor]] = None
+        self.opt: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.host_opt: Dict[int, Dict[int, Dict[str, torch.Tensor]]] = {}   # epoch -> state
+
+    def _allocate(self, err: torch.Tensor) -> None:
+        self.err = torch.full((), float("inf"), dtype=err.dtype, device=err.device)
+        self.epoch = torch.zeros((), dtype=torch.int64, device=err.device)
+        self.state = {k: torch.empty_like(v) for k, v in self.params.state_dict().items()}
+
+    def reset(self) -> None:
+        if self.err is not None:
+            self.err.fill_(float("inf"))
+        self.host_opt.clear()
+
+    def update(self, err: torch.Tensor, epoch: int) -> None:
+        if self.err is None:
+            self._allocate(err)
+        better = err <= self.err
+        torch.where(better, err, self.err, out=self.err)
+        self.epoch.masked_fill_(better, epoch)
+        for k, v in self.params.state_dict().items():
+            torch.where(better, v, self.state[k], out=self.state[k])
+        if self.optimizer is None:
+            return
+        host = {}
+        for p, st in self.optimizer.state.items():
+            bufs = self.opt.setdefault(id(p), {})
+            for name, v in st.items():
+                if v.device != err.device:
+                    host.setdefault(id(p), {})[name] = v.clone()
+                    continue
+                if name not in bufs:
+                    bufs[name] = v.clone()     # its first epoch: nothing to keep yet
+                torch.where(better, v, bufs[name], out=bufs[name])
+        self.host_opt[epoch] = host
+
+    def settle(self, best_epoch: int) -> None:
+        """Keep only the host-side state of ``best_epoch`` (the host's read
+        of :attr:`epoch`)."""
+        keep = self.host_opt.get(best_epoch)
+        self.host_opt.clear()
+        if keep is not None:
+            self.host_opt[best_epoch] = keep
+
+    def snapshot(self, best_epoch: int):
+        """(state_dict, optimizer state {id(param): state} or None): copies
+        of the best epoch's state, the trainer's checkpoint snapshot."""
+        state = {k: v.clone() for k, v in self.state.items()}
+        if self.optimizer is None:
+            return state, None
+        host = self.host_opt.get(best_epoch, {})
+        opt = {pid: {**{k: v.clone() for k, v in bufs.items()}, **host.get(pid, {})}
+               for pid, bufs in self.opt.items()}
+        return state, opt
 
 
 def build_epoch_batches(
@@ -139,12 +284,12 @@ def build_epoch_batches(
 
 def initial_collision_state(exp: ExperimentConfig, statics: gngf.GNGFStatics, device):
     """(prev_collisions zeros (L,), min_possible (L,)) for epoch 0."""
-    n_ls = torch.as_tensor(statics.n_ls, device=device)
+    n_ls = gngf.device_statics(statics, device).n_ls
     min_poss = min_possible_collisions(n_ls, exp.model.hash_table_size).to(torch.float32)
     return torch.zeros(exp.model.num_levels, device=device), min_poss
 
 
-def run_epoch(
+def epoch_on_device(
     params: gngf.GNGFParams,
     optimizer: torch.optim.Optimizer,
     batches: EpochBatches,
@@ -153,17 +298,16 @@ def run_epoch(
     prev_collisions: torch.Tensor,
     prev_min_possible: torch.Tensor,
     collect_ids: bool = False,
-) -> EpochMetrics:
+) -> EpochTensors:
     """Forward, loss, backward and Adam step for every batch in order, then
-    collisions and the integer-image statistics; the epoch's scalars move to
-    the host at the end. Collisions: on the dedup route the union of the
-    batches' used-slot presence, on the per-row and vanilla routes the
-    epoch's selected slots of every row. The BatchNorm running statistics
-    move batch by batch in ``params.batchnorm``. ``collect_ids`` keeps the
-    epoch's slot ids for :func:`make_stats_fn` (``EpochMetrics.ids``)."""
+    collisions and the integer-image statistics, all left on the device.
+    Collisions: on the dedup route the union of the batches' used-slot
+    presence, on the per-row and vanilla routes the epoch's selected slots
+    of every row. The BatchNorm running statistics move batch by batch in
+    ``params.batchnorm``. ``collect_ids`` keeps the epoch's slot ids for
+    :func:`make_stats_fn` (``EpochTensors.ids``)."""
     mcfg = exp.model
-    dev = batches.x.device
-    n_ls = torch.as_tensor(statics.n_ls, device=dev)
+    n_ls = gngf.device_statics(statics, batches.x.device).n_ls
     rgbs, losses, mses, js_kls, colls, indices, unique = [], [], [], [], [], [], []
     presence = None
     for bi in range(batches.x.shape[0]):
@@ -200,23 +344,62 @@ def run_epoch(
         image = torch.cat(rgbs).reshape(-1, rgbs[0].shape[-1])[batches.gather_idx]
         pred_int = (image * 255).to(torch.int32)
         diff = (pred_int - batches.og_image).to(torch.float32)
-        int_sq_err = torch.mean(diff * diff)
-        match_count = torch.sum(pred_int == batches.og_image)
-        host = [
-            t.cpu() for t in (
-                torch.stack(losses).mean(), torch.stack(mses).mean(),
-                torch.stack(js_kls).mean(0), torch.stack(colls).mean(0),
-                collisions, prev_min_possible, int_sq_err, match_count,
-            )
-        ]
-    return EpochMetrics(
-        loss=float(host[0]), mse=float(host[1]),
-        js_kl_per_level=host[2].numpy(), coll_loss_per_level=host[3].numpy(),
-        collisions=host[4].numpy(), min_possible=host[5].numpy(),
-        int_sq_err=float(host[6]), match_count=int(host[7]), image=image,
-        ids=(None if not collect_ids else
-             EpochIds(rows=torch.cat(indices)) if indices else EpochIds(unique=unique)),
-    )
+        return EpochTensors(
+            loss=torch.stack(losses).mean(), mse=torch.stack(mses).mean(),
+            js_kl_per_level=torch.stack(js_kls).mean(0),
+            coll_loss_per_level=torch.stack(colls).mean(0),
+            collisions=collisions, min_possible=prev_min_possible,
+            int_sq_err=torch.mean(diff * diff),
+            match_count=torch.sum(pred_int == batches.og_image), image=image,
+            ids=(None if not collect_ids else
+                 EpochIds(rows=torch.cat(indices)) if indices else EpochIds(unique=unique)),
+        )
+
+
+def run_epoch(
+    params: gngf.GNGFParams,
+    optimizer: torch.optim.Optimizer,
+    batches: EpochBatches,
+    exp: ExperimentConfig,
+    statics: gngf.GNGFStatics,
+    prev_collisions: torch.Tensor,
+    prev_min_possible: torch.Tensor,
+    collect_ids: bool = False,
+) -> EpochMetrics:
+    """:func:`epoch_on_device`, its scalars moved to the host at the end."""
+    return epoch_on_device(params, optimizer, batches, exp, statics, prev_collisions,
+                           prev_min_possible, collect_ids).to_host()
+
+
+def run_span(
+    params: gngf.GNGFParams,
+    optimizer: torch.optim.Optimizer,
+    batches: EpochBatches,
+    exp: ExperimentConfig,
+    statics: gngf.GNGFStatics,
+    prev_collisions: torch.Tensor,
+    prev_min_possible: torch.Tensor,
+    n: int,
+    best: Optional[BestTracker] = None,
+    first_epoch: int = 0,
+):
+    """``n`` epochs back to back (JAX ``make_jitted(span=n)``), each feeding
+    its collisions to the next; nothing is read on the host. ``best``
+    (optional) is updated after every epoch, numbered from
+    ``first_epoch``. No epoch but the last keeps its slot ids (a span's last
+    epoch can be the stop epoch, which the trainer's statistics read; JAX's
+    per-row span returns that epoch's indices too). Returns (the stacked
+    scalars, the last epoch's :class:`EpochTensors`)."""
+    epochs = []
+    last = None
+    for j in range(n):
+        last = epoch_on_device(params, optimizer, batches, exp, statics, prev_collisions,
+                               prev_min_possible, collect_ids=j == n - 1)
+        prev_collisions = last.collisions
+        if best is not None:
+            best.update(last.int_sq_err, first_epoch + j)
+        epochs.append(dataclasses.replace(last, image=None, ids=None))
+    return SpanMetrics.stack(epochs), last
 
 
 def make_stats_fn(exp: ExperimentConfig, statics: gngf.GNGFStatics):
@@ -233,7 +416,7 @@ def make_stats_fn(exp: ExperimentConfig, statics: gngf.GNGFStatics):
     def stats_fn(ids, coords: torch.Tensor):
         if isinstance(ids, torch.Tensor):
             ids = EpochIds(rows=ids)
-        dev = coords.device
+        consts = gngf.device_statics(statics, coords.device)
         if ids.rows is not None:
             slots, rows = coll_ops.slot_counts(ids.rows, t), ids.rows
         else:
@@ -241,8 +424,7 @@ def make_stats_fn(exp: ExperimentConfig, statics: gngf.GNGFStatics):
                         for idx_u, counts, _ in ids.unique).to(torch.int32)
             # the best (k = 0) candidate of every row, as (B, L, V, 1)
             rows = torch.cat([idx_u[:, :1][vid] for idx_u, _, vid in ids.unique])
-        _, corners = scale_to_grid(coords, torch.as_tensor(statics.n_ls, device=dev),
-                                   torch.as_tensor(statics.offsets, device=dev))
+        _, corners = scale_to_grid(coords, consts.n_ls, consts.offsets)
         cells = gngf.calc_counts_per_level(rows[: corners.shape[0]], corners, mcfg, statics)
         return slots, cells
 

@@ -127,16 +127,6 @@ def test_platform_cpu_overrides_the_default_device(tiny, monkeypatch):
         cli.main([*tiny, "-s", "4062", "-e", "4062", "--platform", "auto"])
 
 
-@pytest.mark.parametrize("flag", ["--epoch_span", "--ensemble"])
-def test_span_and_ensemble_flags_raise(tiny, monkeypatch, flag):
-    calls = _record(monkeypatch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 4"):
-        cli.main([*tiny, "-s", "4061", "-e", "4061", "--device", "cpu", flag, "2"])
-    assert calls == []
-    assert cli.main([*tiny, "-s", "4061", "-e", "4061", "--device", "cpu", "--logger", "null",
-                     flag, "1"]) == 0
-
-
 @pytest.mark.parametrize("matplotlib_installed", [True, False])
 def test_test_mode_renders_and_saves_the_comparison(tiny, monkeypatch, capsys,
                                                     matplotlib_installed):

@@ -220,25 +220,14 @@ def test_none_shard_reads_the_process_group(monkeypatch, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("kw", [dict(epoch_span=2), dict(ensemble_size=2)])
-def test_span_and_ensemble_above_one_raise(monkeypatch, kw):
-    data, _ = _data()
-    monkeypatch.setattr(trainer, "fit", _no_fit)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 4"):
-        tgs.run_grid_search(data, ids=[4061], manifest_path=None, verbose=False, device="cpu",
-                            **kw)
-
-
 def _small_exp():
     return tcfg.experiment_from_grid_id(4061, base_model=tcfg.ModelConfig(**SMALL),
                                         base_train=tcfg.TrainConfig(save_params=False))
 
 
-def test_fit_span_above_one_raises():
+def test_fit_span_of_zero_is_one_epoch_a_call():
+    """A span of 1 or less is one epoch a call, as in JAX."""
     data, _ = _data()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 4"):
-        trainer.fit(_small_exp(), data, epochs=2, device="cpu", verbose=False, epoch_span=2)
-    # a span of 1 or less is one epoch a call, as in JAX
     assert len(trainer.fit(_small_exp(), data, epochs=1, device="cpu", verbose=False,
                            epoch_span=0).history) == 1
 
