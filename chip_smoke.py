@@ -185,7 +185,25 @@
    fit (best PSNR, final loss, epochs, final image, checkpoint), K1-K3 and
    K12 launched 3x a solo fit's count; and a vanilla ensemble of four
    against its solo fits, seconds per member-epoch of each;
-20. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+20. data parallelism over pixels and tables sharded by slot on this one
+   card (``parallel/``): every kernel built first, then five cases, each
+   a set of ranks started with the ``spawn`` method on cuda:0 (a timeout
+   a case; a rank that fails, hangs or launches nothing fails the run),
+   each rank training grid 4061 on the strawberry for 3 epochs with
+   ``fit``'s batches and seeds, its launch counts set to 0 just before:
+   ``instantngp_scaled_model()`` over NCCL with a world of one (bitwise
+   the single-process run, or within 1e-6 and said so), over gloo on
+   (data 2, model 1) and (data 1, model 2) (losses rtol 2e-5, params rtol
+   2e-4 / atol 1e-7, collisions equal; K1, K2, K3a, K3b and K12 launched
+   on every rank; under (1, 2) K12 with each rank's slot range, then held
+   bitwise to its plain version at batch 0's blend shapes), the per-row
+   route with ``batchnorm_input`` on (data 2) (K10, K11, K12; the running
+   statistics within 1e-6), the vanilla hash on (data 2, model 2), four
+   ranks (K12 with a slot range); each against the single-process run on
+   the card; prints each case's epoch seconds beside the single-process
+   epoch, the collectives' calls, bytes a step and host seconds, and a
+   profiled epoch's collective host time and NCCL / copy device time;
+21. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -2284,6 +2302,184 @@ def span_ensemble_phase(fit_with_checkpoints, data, dev) -> dict:
     return out
 
 
+# step 20: (case, model, data set, backend, world, model axis, kernels every
+# rank must launch); "scaled" instantngp_scaled_model(), "per_row" the
+# default geometry with batchnorm_input (hpd_backend "auto"), "vanilla" the
+# vanilla hash at the default geometry
+PARALLEL_CASES = (
+    ("nccl, world 1, DP", "scaled", "nccl", 1, 1,
+     ("hpd_stream_fused_fwd", "hpd_stream_fused_bwd", "hidden_stack_fwd", "hidden_stack_bwd",
+      "scatter_add_serial")),
+    ("gloo, (data 2, model 1)", "scaled", "gloo", 2, 1,
+     ("hpd_stream_fused_fwd", "hpd_stream_fused_bwd", "hidden_stack_fwd", "hidden_stack_bwd",
+      "scatter_add_serial")),
+    ("gloo, (data 1, model 2)", "scaled", "gloo", 2, 2,
+     ("hpd_stream_fused_fwd", "hpd_stream_fused_bwd", "hidden_stack_fwd", "hidden_stack_bwd",
+      "scatter_add_serial", "scatter_add_serial[range]")),
+    ("gloo, (data 2, model 1), per-row BatchNorm", "per_row", "gloo", 2, 1,
+     ("hpd_full_fwd", "hpd_full_bwd", "scatter_add_serial")),
+    ("gloo, (data 2, model 2), vanilla", "vanilla", "gloo", 4, 2,
+     ("scatter_add_serial", "scatter_add_serial[range]")),
+)
+PARALLEL_EPOCHS = 3
+RANK_TIMEOUT_S = 420
+
+
+def check_parallel(what, results, ref, bitwise, needs, bn) -> dict:
+    """Every rank of a parallel run against the single-process run: losses
+    rtol 2e-5, every parameter leaf (tables gathered) rtol 2e-4 / atol 1e-7
+    (JAX's own bounds, tests/test_parallel.py), collisions equal, the
+    BatchNorm statistics rtol 1e-6, every kernel of ``needs`` launched on
+    every rank; ``bitwise``: losses and params bit for bit, else 1e-6."""
+    ref_losses = [h["loss"] for h in ref["history"]]
+    ref_leaves = tree_leaves(ref["params"])
+    out = dict(bitwise=True)
+    for r in results:
+        losses = [h["loss"] for h in r["history"]]
+        leaves = tree_leaves(r["params"])
+        same = losses == ref_losses and all(np.array_equal(a, b) for a, b in zip(leaves, ref_leaves))
+        out["bitwise"] &= same
+        rtol, ptol = (1e-6, (1e-6, 0.0)) if bitwise else (2e-5, (2e-4, 1e-7))
+        np.testing.assert_allclose(losses, ref_losses, rtol=rtol, err_msg=f"{what}: rank {r['rank']}")
+        worst = 0.0   # the largest share of its tolerance an element uses
+        for a, b in zip(leaves, ref_leaves):
+            np.testing.assert_allclose(a, b, rtol=ptol[0], atol=ptol[1],
+                                       err_msg=f"{what}: rank {r['rank']} params")
+            if a.size:
+                worst = max(worst, float(np.max(
+                    np.abs(a - b) / np.maximum(ptol[1] + ptol[0] * np.abs(b), 1e-30))))
+        colls = [h["collisions"] for h in r["history"]]
+        if colls != [h["collisions"] for h in ref["history"]]:
+            raise AssertionError(f"{what}: rank {r['rank']} collisions {colls} differ")
+        if bn:
+            for k in ("mean", "var"):
+                np.testing.assert_allclose(r["bn_state"][k], ref["bn_state"][k], rtol=1e-6,
+                                           err_msg=f"{what}: BatchNorm {k}")
+        missing = [k for k in needs if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"{what}: rank {r['rank']} launched no {missing}")
+        out.setdefault("param_tolerance_used", []).append(worst)
+        out.setdefault("loss_rel_diff", []).append(
+            max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)))
+    if bitwise and not out["bitwise"]:
+        log(f"  {what}: NOT bitwise the single-process run (held to 1e-6)")
+    return out
+
+
+def parallel_phase(data, data_raw, dev) -> tuple:
+    """Step 20: data parallelism over pixels, tables sharded by slot, on
+    this one card. Every kernel is built first, in this process, so that no
+    rank runs nvcc. Each case starts its ranks with the ``spawn`` start
+    method on cuda:0 (``parallel.launch.spawn``: a FileStore under
+    chiprun_out/step20/, a timeout per case; a rank that fails, hangs or
+    launches nothing fails the run), each rank training 3 epochs of grid
+    4061 on the strawberry with ``fit``'s batches and seeds
+    (``parallel.train_parallel.rank_worker``), then one more epoch under the
+    profiler; the parent holds each rank against the single-process run on
+    the same card (``train_epochs`` without a mesh: ``fit``'s epochs).
+    NCCL takes the world of one (one card a rank); two to four ranks share
+    the card over gloo, which stages CUDA tensors through host memory, so
+    its times are no forecast of NCCL across cards. Returns (the kernels
+    line's entry for K12 with a slot range, the step's numbers)."""
+    import shutil
+
+    from collision_handling_in_instantngp_tpu_torch.config import (
+        ModelConfig, experiment_from_grid_id, instantngp_scaled_model,
+    )
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import build
+    from collision_handling_in_instantngp_tpu_torch.parallel import launch, train_parallel
+
+    build.build_all()
+    root = os.path.join(OUT_DIR, "step20")
+    exps = {
+        "scaled": (experiment_from_grid_id(4061, base_model=instantngp_scaled_model()), data),
+        "per_row": (experiment_from_grid_id(4061, base_model=ModelConfig(batchnorm_input=True)),
+                    data_raw),
+        "vanilla": (experiment_from_grid_id(4061, base_model=ModelConfig(use_hash_function=True)),
+                    data),
+    }
+    refs = {}
+    for key, (exp, d) in exps.items():
+        refs[key] = train_parallel.train_epochs(exp, d, PARALLEL_EPOCHS, device=dev)
+        log(f"step 20: single-process {key}: epochs "
+            f"{[round(h['seconds'], 4) for h in refs[key]['history']]} s, losses "
+            f"{[h['loss'] for h in refs[key]['history']]}")
+    out, range_check = {}, None
+    for what, key, backend, world, mp, needs in PARALLEL_CASES:
+        exp, d = exps[key]
+        log(f"step 20: {what}: {world} rank(s) on {dev}, {exp.model.hash_table_size} slots, "
+            f"{PARALLEL_EPOCHS} epochs:")
+        spec = dict(exp=exp, data=d, epochs=PARALLEL_EPOCHS, model_parallel=mp,
+                    shard_tables=mp > 1, device=str(dev), profile=True,
+                    scatter_range_check=(mp > 1 and key == "scaled"))
+        store = os.path.join(root, f"case{len(out)}")
+        t0 = time.perf_counter()
+        results = launch.spawn(train_parallel.rank_worker, world, (spec,), store_dir=store,
+                               backend=backend, device=str(dev), timeout=RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        shutil.rmtree(store, ignore_errors=True)
+        if any(r["backend"] != backend for r in results):
+            raise AssertionError(f"{what}: a rank ran {[r['backend'] for r in results]}")
+        verdict = check_parallel(what, results, refs[key], backend == "nccl", needs, key == "per_row")
+        ref_s = [h["seconds"] for h in refs[key]["history"]]
+        r0 = results[0]
+        ep_s = [[h["seconds"] for h in r["history"]] for r in results]
+        steps = int(np.ceil(1.0 / exp.train.batch_fraction))
+        case = dict(
+            model=key, backend=backend, world=world, mesh=r0["mesh"], wall_s=wall,
+            epoch_s=ep_s, single_epoch_s=ref_s,
+            epoch_s_median=float(np.median([s for e in ep_s for s in e[1:]])),
+            single_epoch_s_median=float(np.median(ref_s[1:])),
+            collective_calls_per_epoch=r0["history"][-1]["collective_calls"],
+            collective_bytes_per_step=r0["history"][-1]["collective_bytes"] / steps,
+            collective_host_s_per_epoch=[h["collective_host_s"] for h in r0["history"]],
+            grad_floats_per_step=r0["grad_floats"], grad_bytes_per_step=4 * r0["grad_floats"],
+            profile=[r["profile"] for r in results],
+            launches=[r["launches"] for r in results], **verdict)
+        log(f"  epoch s by rank {[[round(s, 4) for s in e] for e in ep_s]} (median of epochs 1-2 "
+            f"{case['epoch_s_median']:.4f}) vs single-process {[round(s, 4) for s in ref_s]} "
+            f"({case['single_epoch_s_median']:.4f}); bitwise {verdict['bitwise']}, params use "
+            f"{max(verdict['param_tolerance_used']):.3f} of their tolerance, losses differ by "
+            f"{max(verdict['loss_rel_diff']):.3e} (relative)")
+        log(f"  collectives: {case['collective_calls_per_epoch']} calls an epoch, "
+            f"{case['collective_bytes_per_step'] / 1e6:.3f} MB a step on rank 0 "
+            f"(gradients {case['grad_bytes_per_step'] / 1e6:.3f} MB = {r0['grad_floats']} floats), "
+            f"host s in them {[round(s, 4) for s in case['collective_host_s_per_epoch']]}; "
+            f"U_c by batch: single process {refs[key]['vertices']}, ranks "
+            f"{[r['vertices'] for r in results]}")
+        for r, prof in zip(results, case["profile"]):
+            log(f"  rank {r['rank']} profiled epoch: wall {prof['wall_ms']:.1f} ms, collectives' "
+                f"host {prof['collective_host_ms']:.1f} ms, NCCL kernels {prof['nccl_device_ms']:.3f} "
+                f"ms, copies {prof['copy_device_ms']:.3f} ms, device busy {prof['busy_device_ms']:.1f} ms")
+        log(f"  launches by rank: " + "; ".join(
+            ", ".join(f"{k} {r['launches'][k]}" for k in needs) for r in results))
+        if spec["scatter_range_check"]:
+            checks = [r["scatter_range"] for r in results]
+            for c in checks:
+                log(f"  K12 slot range {c['slot_range']}: {c['rows_in_range']} of {c['rows']} rows "
+                    f"x {c['columns']}, bitwise the plain version {c['bitwise']}, rows lo..hi of "
+                    f"the whole {c['whole_rows_bitwise']}; kernel {c['ms']:.3f} ms, plain "
+                    f"{c['plain_ms']:.3f} ms")
+                if not (c["bitwise"] and c["whole_rows_bitwise"]):
+                    raise AssertionError(f"K12 with slot range {c['slot_range']} disagrees")
+            case["scatter_range"] = checks
+            range_check = (checks, r0["launches"]["scatter_add_serial[range]"])
+        out[what] = case
+    shutil.rmtree(root, ignore_errors=True)
+    log("step 20: gloo carried all_reduce, all_gather and broadcast of CUDA tensors; NCCL the "
+        "world of one")
+    checks, n = range_check
+    c = max(checks, key=lambda c: c["ms"])
+    nbytes = 4.0 * (c["rows_in_range"] * c["columns"] + c["rows"] * 2
+                    + (c["slot_range"][1] - c["slot_range"][0]) * c["columns"])
+    b_ms, b_by = bound_ms(0.0, nbytes)
+    entry = dict(name="scatter_add_serial[range]", route="cuda", source=SRC + "scatter.cu",
+                 replaces="collision_handling_in_instantngp_tpu/ops/pallas/scatter_probe.py:42",
+                 launches=n, max_abs_err=max(x["max_abs_err"] for x in checks), ms=c["ms"],
+                 plain_ms=c["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return entry, out
+
+
 # every instance of these kernels must hold warpgroup MMAs (HGMMA): the
 # tensor-core passes of the dedup route's tail, forward and backward, and
 # K7; the fix-up of the rows pass is the exact fp32 sweep and must hold none
@@ -2775,6 +2971,10 @@ def main() -> int:
     spans = span_ensemble_phase(fit_with_checkpoints, data, dev)
     watermark(marks, "spans and ensembles (step 19)", dev)
 
+    # ------ data parallelism, tables sharded by slot, on one card (step 20) ---- #
+    entries["scatter_add_serial[range]"], parallel = parallel_phase(data, data_raw, dev)
+    watermark(marks, "parallel (step 20)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -2785,7 +2985,7 @@ def main() -> int:
                        wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
                        vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render,
-                       spans=spans),
+                       spans=spans, parallel=parallel),
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -18,18 +18,29 @@ parameters bit for bit, as in the JAX package (its gather backward is a
 sequential scan). The port has this one backward; the JAX package's switch
 ``BLEND_SCATTER_BACKEND`` selects nothing here and is only checked, once at
 import, so that a value the JAX package refuses is refused here too.
+
+Tables sharded by slot (``parallel/mesh.py``, a :class:`TableShard`): a
+rank holds slots [lo, hi) of every level. A gather takes the ids in that
+range from the local rows and zeros for the others, then sums the rows
+over the mesh's model group, whose ranks hold the other slots, so every
+rank has every row exactly (``sum_replicated``: the backward is the
+identity); the gradient goes into the local slots alone, in row order, by
+K12 over the slot range (:class:`GatherShard`). The per-row gathers index
+the slot-major (T, L) view there, so that a rank's slots of every level
+are one range.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig, TopkBlendMode
 from ..ops.cuda.scatter import scatter_add_serial
+from ..parallel.collectives import sum_replicated
 
 BLEND_SCATTER_BACKENDS = ("segment_sum", "vmem_serial")
 
@@ -66,6 +77,44 @@ class GatherSerial(torch.autograd.Function):
         return scatter_add_serial(g.contiguous(), flat, ctx.slots, ids_checked=True), None
 
 
+class TableShard(NamedTuple):
+    """Slots [lo, hi) of T that this rank holds; ``group``: the ranks that
+    hold the others (the mesh's model group)."""
+
+    lo: int
+    hi: int
+    t: int
+    group: Any
+
+
+class GatherShard(torch.autograd.Function):
+    """rows (N, C) by ids (N,) in [0, T) from the local rows (hi - lo, C)
+    of a table sharded by slot: the row of id - lo for an id in [lo, hi),
+    zeros for the others. The gradient: K12 over the slot range, each local
+    slot's rows added in ascending n."""
+
+    @staticmethod
+    def forward(ctx, table, ids, lo: int, hi: int, t: int):
+        inside = (ids >= lo) & (ids < hi)
+        rows = table.index_select(0, torch.where(inside, ids - lo, 0))
+        ctx.save_for_backward(ids)
+        ctx.lo, ctx.hi, ctx.t = lo, hi, t
+        return rows.masked_fill_(~inside[:, None], 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        grad = scatter_add_serial(g.contiguous(), ids, ctx.t, ids_checked=True,
+                                  slot_range=(ctx.lo, ctx.hi))
+        return grad, None, None, None, None
+
+
+def gather_sharded(table: torch.Tensor, ids: torch.Tensor, lo: int, hi: int, t: int,
+                   group) -> torch.Tensor:
+    """Every row ``ids`` names, from the shards of the ranks of ``group``."""
+    return sum_replicated(GatherShard.apply(table, ids, lo, hi, t), group)
+
+
 def init_tables(
     cfg: ModelConfig, generator: Optional[torch.Generator] = None, device=None
 ) -> nn.Parameter:
@@ -90,14 +139,21 @@ def blend_unique(
     idx_unique: torch.Tensor,
     vals_unique: torch.Tensor,
     cfg: ModelConfig,
+    shard: Optional[TableShard] = None,
 ) -> torch.Tensor:
-    """(L, T, F) tables, (U, K) slot ids shared by every level, (U, K)
-    selected probabilities -> (L, U, F) blended per-vertex features."""
+    """(L, T, F) tables (a rank's (L, hi - lo, F) under a ``shard``), (U, K)
+    slot ids shared by every level, (U, K) selected probabilities ->
+    (L, U, F) blended per-vertex features."""
     w = blend_weights(vals_unique, cfg)
     l, t, f = tables.shape
     u, k = idx_unique.shape
     tables2 = tables.permute(1, 0, 2).reshape(t, l * f)
-    rows = GatherSerial.apply(tables2, idx_unique.reshape(-1).long()).reshape(u, k, l * f)
+    flat = idx_unique.reshape(-1).long()
+    if shard is None:
+        rows = GatherSerial.apply(tables2, flat)
+    else:
+        rows = gather_sharded(tables2, flat, shard.lo, shard.hi, shard.t, shard.group)
+    rows = rows.reshape(u, k, l * f)
     out = (rows * w[:, :, None]).sum(dim=1)
     return out.reshape(u, l, f).permute(1, 0, 2)
 
@@ -110,20 +166,29 @@ def gather_rows(per_level_table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
     return GatherSerial.apply(per_level_table.reshape(l * u, f), flat).reshape(*ids.shape, f)
 
 
-def flat_gather(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+def flat_gather(tables: torch.Tensor, indices: torch.Tensor,
+                shard: Optional[TableShard] = None) -> torch.Tensor:
     """(L, T, F) tables, (P, L, ...) slot ids -> (P, L, ..., F): one gather
-    from the (L*T, F) view serves every level."""
+    from the (L*T, F) view serves every level. Under a ``shard`` the local
+    (L, hi - lo, F) tables are gathered from as the slot-major
+    ((hi - lo) * L, F) view, by ids slot * L + level."""
     l, t, f = tables.shape
     level = torch.arange(l, device=indices.device).view(1, l, *([1] * (indices.dim() - 2)))
+    if shard is not None:
+        keys = (indices.long() * l + level).reshape(-1)
+        rows = gather_sharded(tables.permute(1, 0, 2).reshape(t * l, f), keys,
+                              shard.lo * l, shard.hi * l, shard.t * l, shard.group)
+        return rows.reshape(*indices.shape, f)
     flat = (indices.long() + level * t).reshape(-1)
     return GatherSerial.apply(tables.reshape(l * t, f), flat).reshape(*indices.shape, f)
 
 
-def lookup_vanilla(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+def lookup_vanilla(tables: torch.Tensor, indices: torch.Tensor,
+                   shard: Optional[TableShard] = None) -> torch.Tensor:
     """The vanilla hash path: (P, L, V) hash ids -> (P, L, V, F). The table
     gradient sums every (pixel, level, corner) row in row order (K12 on
     the card)."""
-    return flat_gather(tables, indices)
+    return flat_gather(tables, indices, shard)
 
 
 def lookup_topk_blend(
@@ -131,10 +196,11 @@ def lookup_topk_blend(
     indices_topk: torch.Tensor,
     probs_topk: torch.Tensor,
     cfg: ModelConfig,
+    shard: Optional[TableShard] = None,
 ) -> torch.Tensor:
     """(P, L, V, K) slot ids and selected probabilities -> (P, L, V, F)
     blended features. The table gradient sums every (pixel, level, corner,
     k) row into the (L*T, F) table in row order (GatherSerial)."""
-    feats = flat_gather(tables, indices_topk)                   # (P, L, V, K, F)
+    feats = flat_gather(tables, indices_topk, shard)            # (P, L, V, K, F)
     w = blend_weights(probs_topk, cfg)
     return torch.sum(feats * w[..., None], dim=-2)

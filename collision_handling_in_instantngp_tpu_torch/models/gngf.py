@@ -18,11 +18,17 @@ Parameters live in :class:`GNGFParams` (``hpd``, None on the vanilla path,
 ``tables``, ``mlp``, and ``batchnorm`` with its running statistics as
 buffers) in the JAX package's layout; ``params_from_jax`` /
 ``params_to_numpy`` carry them across.
+
+``forward(mesh=...)`` runs one rank's rows of a batch under data
+parallelism (``parallel/mesh.py``): the BatchNorm statistics and the loss
+marginal are those of every rank's rows (the marginal divides by the
+whole batch's rows), and tables sharded by slot (``GNGFParams.slot_range``)
+are gathered across the model group. Without a mesh nothing changes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from ..ops.grid import resolution_ladder, scale_to_grid, voxel_corner_offsets
 from ..ops.hashing import fast_hash
 from ..ops.interpolate import bilinear_coeffs, interpolate
 from ..ops.precision import pdot
+from ..parallel.collectives import sum_replicated, sum_shared
 from . import encoding as enc
 from .hpd import apply_hpd, apply_hpd_fused, apply_hpd_unique
 from .mlp import MLP
@@ -109,7 +116,9 @@ class GNGFParams(nn.Module):
     """hpd: the index network [d -> hpd_hidden -> T], or None on the
     vanilla path; tables: (L, T, F); mlp: the decoder
     [L*F -> mlp_hidden -> out_channels]; batchnorm: the input BatchNorm, or
-    None."""
+    None. ``slot_range`` (lo, hi): the tables hold slots [lo, hi) of T
+    alone, (L, hi - lo, F) (sharded by slot, ``parallel/mesh.py``); None:
+    every slot."""
 
     def __init__(self, hpd: Optional[MLP], tables: nn.Parameter, mlp: MLP,
                  batchnorm: Optional[BatchNormParams] = None):
@@ -118,6 +127,7 @@ class GNGFParams(nn.Module):
         self.tables = tables
         self.mlp = mlp
         self.batchnorm = batchnorm
+        self.slot_range: Optional[Tuple[int, int]] = None
 
 
 def dedup_enabled(cfg: ModelConfig) -> bool:
@@ -204,16 +214,24 @@ def params_to_numpy(params: GNGFParams) -> dict:
     return out
 
 
-def batchnorm(bn: BatchNormParams, state: dict, x: torch.Tensor, train: bool):
+def batchnorm(bn: BatchNormParams, state: dict, x: torch.Tensor, train: bool, mesh=None):
     """BatchNorm over (P, d): training mode normalizes with the batch's mean
     and biased variance and moves the running statistics by
     BN_MOMENTUM toward the batch's mean and unbiased variance; eval mode
-    normalizes with the running statistics. Returns (y, new_state)."""
+    normalizes with the running statistics. Returns (y, new_state). With a
+    ``mesh`` the batch is every rank's rows of the data group: each sum is
+    reduced over it (the mean, then the variance around it)."""
     if train:
         n = x.shape[0]
-        mean = x.sum(dim=0) / n
+        total = x.sum(dim=0)
+        if mesh is not None:
+            total, n = sum_shared(total, mesh.data_group), n * mesh.data
+        mean = total / n
         d = x - mean
-        var = (d * d).sum(dim=0) / n
+        sq = (d * d).sum(dim=0)
+        if mesh is not None:
+            sq = sum_shared(sq, mesh.data_group)
+        var = sq / n
         unbiased = var * n / max(n - 1, 1)
         new_state = {
             "mean": (1 - BN_MOMENTUM) * state["mean"] + BN_MOMENTUM * mean,
@@ -243,32 +261,38 @@ def forward(
     dedup: Optional[dedup_ops.DedupGeometry] = None,
     bn_state: Optional[dict] = None,
     train: bool = True,
+    mesh=None,
 ) -> ForwardOut:
     """Model forward. ``dedup``: the batch's precomputed geometry (the
     trainer builds it once); None derives ids and counts from ``x`` on its
     device where the dedup route runs (counts only with ``train``: without
     them the marginal is None). ``bn_state``: running statistics
     {"mean", "var"} (default: the params' buffers); they are not modified,
-    the updated ones come back in ``ForwardOut.bn_state``."""
+    the updated ones come back in ``ForwardOut.bn_state``. ``mesh``: ``x``
+    is this rank's share of the batch's rows (its data group's share), the
+    tables are gathered across its model group where they are sharded."""
     consts = device_statics(statics, x.device)
     n_ls, offsets = consts.n_ls, consts.offsets
+    shard = None
+    if params.slot_range is not None:
+        shard = enc.TableShard(*params.slot_range, cfg.hash_table_size, mesh.model_group)
     new_bn_state = None
     if cfg.batchnorm_input:
         bn = params.batchnorm
         state = bn_state if bn_state is not None else {"mean": bn.mean, "var": bn.var}
-        x, new_bn_state = batchnorm(bn, state, x, train)
+        x, new_bn_state = batchnorm(bn, state, x, train, mesh)
     # geometry is data, not a differentiation path
     with torch.no_grad():
         scaled, corners = scale_to_grid(x, n_ls, offsets)
 
     if cfg.use_hash_function:
         indices = fast_hash(corners, cfg.hash_table_size)              # (P, L, V)
-        feats = enc.lookup_vanilla(params.tables, indices)
+        feats = enc.lookup_vanilla(params.tables, indices, shard)
         h = interpolate(feats, bilinear_coeffs(scaled, offsets))
         rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
         return ForwardOut(rgb=rgb, marginal=None, indices=indices, bn_state=new_bn_state)
     if not use_dedup(cfg, statics, x.shape[0], dedup is not None):
-        return _forward_per_row(params, cfg, scaled, corners, offsets, new_bn_state)
+        return _forward_per_row(params, cfg, scaled, corners, offsets, new_bn_state, mesh, shard)
 
     side = dedup_ops.grid_side(cfg.n_max)
     if dedup is not None and dedup.active is not None:
@@ -284,7 +308,7 @@ def forward(
         counts = dedup_ops.counts_torch(ids, cfg.num_levels, ucoords.shape[0]) if train else None
 
     marginal_raw, vals_u, idx_u = apply_hpd_unique(params.hpd, ucoords, cfg, counts=counts)
-    feats_u = enc.blend_unique(params.tables, idx_u, vals_u, cfg)
+    feats_u = enc.blend_unique(params.tables, idx_u, vals_u, cfg, shard)
     feats = enc.gather_rows(feats_u, ids)                       # (P, L, V, F)
     h = interpolate(feats, bilinear_coeffs(scaled, offsets))    # (P, L*F)
     rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
@@ -292,25 +316,32 @@ def forward(
     rows = x.shape[0] * cfg.num_corners
     if counts is None:
         marginal = None
-    elif cfg.keep_topk_only:
-        marginal = pdot(counts, vals_u, "highest") / rows
     else:
+        if cfg.keep_topk_only:
+            marginal_raw = pdot(counts, vals_u, "highest")
+        if mesh is not None:
+            marginal_raw, rows = sum_replicated(marginal_raw, mesh.data_group), rows * mesh.data
         marginal = marginal_raw / rows
     return ForwardOut(rgb=rgb, marginal=marginal, idx_unique=idx_u, counts=counts)
 
 
-def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state) -> ForwardOut:
+def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state, mesh=None,
+                     shard=None) -> ForwardOut:
     """The HPD on every (pixel, level, corner) row. The fused tail emits the
     marginal; the dense branch (fused_hpd off, or the NOOP top-k, whose
     dropped gradient only the dense branch implements) emits probs. Under
-    keep_topk_only the loss marginalizes the top-k values instead."""
+    keep_topk_only the loss marginalizes the top-k values instead. With a
+    ``mesh`` the fused marginal (a mean over this rank's rows) becomes the
+    mean over the data group's, every rank holding as many rows."""
     if cfg.fused_hpd and cfg.topk_scatter is not TopkScatterMode.NOOP:
         marginal, topk_values, topk_indices = apply_hpd_fused(params.hpd, corners, cfg)
         probs = None
+        if mesh is not None and not cfg.keep_topk_only:
+            marginal = sum_replicated(marginal, mesh.data_group) / mesh.data
     else:
         probs, topk_values, topk_indices = apply_hpd(params.hpd, corners, cfg)
         marginal = None
-    feats = enc.lookup_topk_blend(params.tables, topk_indices, topk_values, cfg)
+    feats = enc.lookup_topk_blend(params.tables, topk_indices, topk_values, cfg, shard)
     h = interpolate(feats, bilinear_coeffs(scaled, offsets))
     rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
     if cfg.keep_topk_only:
@@ -321,15 +352,16 @@ def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state) -> Forward
                       topk_values=topk_values, probs=loss_probs, bn_state=bn_state)
 
 
-def calc_hash_collisions(indices: torch.Tensor, cfg: ModelConfig, statics: GNGFStatics):
+def calc_hash_collisions(indices: torch.Tensor, cfg: ModelConfig, statics: GNGFStatics,
+                         group=None):
     """(collisions, min_possible_collisions), both (L,) float32, from the
     per-row (P, L, V, K) selected slots, or the vanilla (P, L, V) hash ids
-    (unclamped)."""
+    (unclamped); with a process ``group``, from every rank's rows."""
     n_ls = device_statics(statics, indices.device).n_ls
     if cfg.use_hash_function:
-        coll = coll_ops.hash_collisions_vanilla(indices, n_ls, cfg.hash_table_size)
+        coll = coll_ops.hash_collisions_vanilla(indices, n_ls, cfg.hash_table_size, group)
     else:
-        coll = coll_ops.hash_collisions_gngf(indices, n_ls, cfg.hash_table_size)
+        coll = coll_ops.hash_collisions_gngf(indices, n_ls, cfg.hash_table_size, group)
     min_poss = coll_ops.min_possible_collisions(n_ls, cfg.hash_table_size).to(torch.float32)
     return coll, min_poss
 

@@ -11,7 +11,10 @@
   and the same over one representative pixel per grid cell
 
 Presence is a ``scatter_`` of True into a (groups, T) bool tensor: every
-write stores the same value, so the result does not depend on order. The
+write stores the same value, so the result does not depend on order. Under
+data parallelism (``group``: the mesh's data group) each rank's presence
+of its own rows is OR-ed over the group before it is counted, which is the
+count over every rank's rows exactly. The
 counts are integer ``index_add_`` / ``bincount`` sums (exact in any order)
 and an ``amin`` scatter (order-free).
 """
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import union
 
 
 def mean_as_xla(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -36,19 +41,24 @@ def _presence_per_group(flat_indices: torch.Tensor, hash_table_size: int) -> tor
     return presence.scatter_(1, flat_indices.long(), True)
 
 
-def _unique_counts_per_group(flat_indices: torch.Tensor, hash_table_size: int) -> torch.Tensor:
-    """#distinct slot values per group: (G, N) -> (G,) int64."""
-    return _presence_per_group(flat_indices, hash_table_size).sum(dim=1)
+def _unique_counts_per_group(flat_indices: torch.Tensor, hash_table_size: int,
+                             group=None) -> torch.Tensor:
+    """#distinct slot values per group: (G, N) -> (G,) int64; with a
+    process ``group``, over every rank's (G, N)."""
+    presence = _presence_per_group(flat_indices, hash_table_size)
+    if group is not None:
+        presence = union(presence, group)
+    return presence.sum(dim=1)
 
 
 def hash_collisions_gngf(indices_topk: torch.Tensor, n_ls: torch.Tensor,
-                         hash_table_size: int) -> torch.Tensor:
+                         hash_table_size: int, group=None) -> torch.Tensor:
     """(P, L, V, K) slot ids -> (L,) float32: per candidate k and level,
-    (n_l + 1)^2 - #distinct ids over every (pixel, corner); mean over k;
-    clamped at 0."""
+    (n_l + 1)^2 - #distinct ids over every (pixel, corner) (of every rank
+    of ``group``); mean over k; clamped at 0."""
     p, l, v, k = indices_topk.shape
     per_kl = indices_topk.permute(3, 1, 0, 2).reshape(k * l, p * v)
-    uniques = _unique_counts_per_group(per_kl, hash_table_size).reshape(k, l)
+    uniques = _unique_counts_per_group(per_kl, hash_table_size, group).reshape(k, l)
     total_vertices = (n_ls.to(torch.int64) + 1) ** 2
     coll = mean_as_xla((total_vertices[None, :] - uniques).to(torch.float32), 0)
     return torch.clamp(coll, min=0.0)
@@ -62,12 +72,12 @@ def min_possible_collisions(n_ls: torch.Tensor, hash_table_size: int) -> torch.T
 
 
 def hash_collisions_vanilla(indices: torch.Tensor, n_ls: torch.Tensor,
-                            hash_table_size: int) -> torch.Tensor:
+                            hash_table_size: int, group=None) -> torch.Tensor:
     """(P, L, V) hash ids -> (L,) float32 (n_l + 1)^2 - #distinct ids over
-    every (pixel, corner), unclamped."""
+    every (pixel, corner) (of every rank of ``group``), unclamped."""
     l = indices.shape[1]
     per_level = indices.transpose(0, 1).reshape(l, -1)
-    uniques = _unique_counts_per_group(per_level, hash_table_size)
+    uniques = _unique_counts_per_group(per_level, hash_table_size, group)
     total_vertices = (n_ls.to(torch.int64) + 1) ** 2
     return (total_vertices - uniques).to(torch.float32)
 

@@ -19,6 +19,14 @@ runs the plain version, the same serial sum in PyTorch. Both raise
 ValueError on an idx outside [0, T), except where the caller passes
 ``ids_checked`` (ids a gather's forward has already checked): the card
 path then skips the check and its host sync.
+
+A ``slot_range`` (lo, hi) gives rows lo..hi of that (T, C) sum alone: the
+slots a rank holds when the tables are sharded by slot
+(``parallel/mesh.py``). The card path takes the slot offsets over
+[lo, hi] on the same sorted ids, so the kernel visits only the rows of
+those slots (the rows of other slots are sorted past either end and never
+read); no host sync, no compaction, the same kernel. The plain version
+keeps the rows of those slots in their order and sums them.
 """
 
 from __future__ import annotations
@@ -54,17 +62,29 @@ def _out_of_range(t: int) -> ValueError:
     return ValueError(f"scatter_add_serial: idx outside [0, {t})")
 
 
-def scatter_add_serial_plain(rows: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+def _range_of(slot_range, t: int):
+    lo, hi = (0, t) if slot_range is None else (int(slot_range[0]), int(slot_range[1]))
+    if not 0 <= lo <= hi <= t:
+        raise ValueError(f"scatter_add_serial: slot range [{lo}, {hi}) is not within [0, {t})")
+    return lo, hi
+
+
+def scatter_add_serial_plain(rows: torch.Tensor, idx: torch.Tensor, t: int,
+                             slot_range=None) -> torch.Tensor:
     """Each slot's rows added one after another in ascending row order,
     from 0: the TPU kernel's serial sum, bitwise. Round j adds the j-th row
     of every slot that has more than j rows, with the slots ordered longest
     first so that those are a prefix; as many rounds as the longest slot
-    has rows."""
+    has rows. ``slot_range`` (lo, hi): rows lo..hi of the (T, C) sum."""
     _check(rows, idx, t)
     n, c = rows.shape
     idx = idx.long()
     if n and (int(idx.min()) < 0 or int(idx.max()) >= t):
         raise _out_of_range(t)
+    if slot_range is not None:
+        lo, hi = _range_of(slot_range, t)
+        keep = (idx >= lo) & (idx < hi)
+        return scatter_add_serial_plain(rows[keep], idx[keep] - lo, hi - lo)
     count = torch.bincount(idx, minlength=t)
     by_len = torch.argsort(count, descending=True, stable=True)
     place = torch.empty_like(by_len)
@@ -90,12 +110,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def prepare(idx: torch.Tensor, t: int, check: bool = True):
+def prepare(idx: torch.Tensor, t: int, check: bool = True, slot_range=None):
     """(order (N,) int32 row ids sorted stably by slot, offsets (T + 1,)
     int32 each slot's range in it) on idx's device; with ``check``, raises
-    ValueError on an idx outside [0, T) (one host sync)."""
+    ValueError on an idx outside [0, T) (one host sync). ``slot_range``
+    (lo, hi): the offsets (hi - lo + 1,) of the slots lo..hi alone."""
     n = idx.shape[0]
     keys, order = torch.sort(idx, stable=True)
+    if slot_range is not None:
+        lo, hi = _range_of(slot_range, t)
+        offsets = torch.searchsorted(
+            keys, torch.arange(lo, hi + 1, device=idx.device, dtype=keys.dtype), out_int32=True)
+        # the smallest and largest id (one copy to the host) must lie in [0, T)
+        if check and n:
+            first, last = torch.stack((keys[0], keys[-1])).tolist()
+            if first < 0 or last >= t:
+                raise _out_of_range(t)
+        return order.to(torch.int32), offsets
     offsets = torch.searchsorted(keys, torch.arange(t + 1, device=idx.device, dtype=keys.dtype),
                                  out_int32=True)
     # offsets[0] and offsets[T] (a view, one copy to the host) must be 0 and N
@@ -109,10 +140,12 @@ def narrow_path(n: int, c: int, t: int) -> bool:
     return c <= NARROW_COLS and n <= NARROW_ROWS * t
 
 
-def scatter_sorted(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """The kernel alone on :func:`prepare`'s output: (T, C) float32. Counts
-    one launch of ``scatter_add_serial``, in total and by variant
-    (``variant_launches``). Allocates an (N, C) float32
+def scatter_sorted(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
+                   ranged: bool = False) -> torch.Tensor:
+    """The kernel alone on :func:`prepare`'s output: (T, C) float32, T =
+    len(offsets) - 1. Counts one launch of ``scatter_add_serial``, in total,
+    by variant (``variant_launches``) and, for ``ranged`` offsets (a slot
+    range), in ``range_launches``. Allocates an (N, C) float32
     scratch for the rows in slot order, as large as ``rows`` (83 MB at the
     blend's N = 647,168, C = 32), freed on return."""
     dev = rows.device
@@ -131,23 +164,28 @@ def scatter_sorted(rows: torch.Tensor, order: torch.Tensor, offsets: torch.Tenso
     build.check(code, lib, "scatter_error_string", "scatter_add_serial")
     scatter_add_serial.launches += 1
     scatter_add_serial.variant_launches[VARIANTS[narrow]] += 1
+    scatter_add_serial.range_launches += int(ranged)
     return out
 
 
-def _launch(rows: torch.Tensor, idx: torch.Tensor, t: int, check: bool) -> torch.Tensor:
+def _launch(rows: torch.Tensor, idx: torch.Tensor, t: int, check: bool,
+            slot_range=None) -> torch.Tensor:
     _check(rows, idx, t)
-    return scatter_sorted(rows, *prepare(idx, t, check))
+    return scatter_sorted(rows, *prepare(idx, t, check, slot_range),
+                          ranged=slot_range is not None)
 
 
 def scatter_add_serial(rows: torch.Tensor, idx: torch.Tensor, t: int,
-                       ids_checked: bool = False) -> torch.Tensor:
+                       ids_checked: bool = False, slot_range=None) -> torch.Tensor:
     """(T, C) = segment_sum(rows, idx, T), each slot summed in row order
     (K12). ``ids_checked``: idx is known to lie in [0, T), so the card path
-    makes no range check (no host sync); the CPU path always checks."""
+    makes no range check (no host sync); the CPU path always checks.
+    ``slot_range`` (lo, hi): rows lo..hi of that sum, (hi - lo, C)."""
     if _on_card(rows):
-        return _launch(rows, idx, t, not ids_checked)
-    return scatter_add_serial_plain(rows, idx, t)
+        return _launch(rows, idx, t, not ids_checked, slot_range)
+    return scatter_add_serial_plain(rows, idx, t, slot_range)
 
 
 scatter_add_serial.launches = 0
 scatter_add_serial.variant_launches = dict.fromkeys(VARIANTS, 0)
+scatter_add_serial.range_launches = 0

@@ -16,6 +16,12 @@
   previous epoch's counts and carries no gradient.
 * The vanilla hash path has neither marginals nor probs: the loss is
   ``l_mse * MSE``, with zero JS/KL and collision terms.
+* Under data parallelism (``mesh``) a rank holds its share of the batch's
+  rows: the MSE is the sum over the data group's valid rows over their
+  count times C, and dense probs are marginalized over every rank's rows
+  (sums with an identity backward, ``parallel/collectives.py``), so every
+  rank computes the whole batch's loss and, after the gradient all-reduce,
+  each term counts once.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import LossConfig
+from ..parallel.collectives import sum_replicated
 
 
 class LossAux(NamedTuple):
@@ -38,10 +45,14 @@ def _kl_batchmean(log_p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.special.xlogy(q, q) - q * log_p, dim=-1) / q.shape[-1]
 
 
-def marginal_slot_distribution(probs: torch.Tensor) -> torch.Tensor:
-    """(P, L, V, N) -> (L, N): sum over pixels and corners / (P * V)."""
+def marginal_slot_distribution(probs: torch.Tensor, mesh=None) -> torch.Tensor:
+    """(P, L, V, N) -> (L, N): sum over pixels and corners / (P * V); with
+    a ``mesh``, over the P rows of every rank of its data group."""
     p, _, v, _ = probs.shape
-    return torch.sum(probs, dim=(0, 2)) / (p * v)
+    total = torch.sum(probs, dim=(0, 2))
+    if mesh is not None:
+        total, p = sum_replicated(total, mesh.data_group), p * mesh.data
+    return total / (p * v)
 
 
 def js_kl_divergence(p_marginal: torch.Tensor, cfg: LossConfig) -> torch.Tensor:
@@ -64,23 +75,30 @@ def compute_loss(
     cfg: LossConfig,
     valid_rows: Optional[int] = None,
     probs: Optional[torch.Tensor] = None,
+    mesh=None,
+    valid_total: Optional[int] = None,
 ) -> LossAux:
     """pred/target (P, C) in [0, 1]; marginals (L, N), or None with dense
     ``probs`` (P, L, V, N) instead, or neither (the vanilla path); prev_*
     (L,) from the previous epoch (zeros at epoch 0). Rows >= valid_rows are
-    the padded tail of the last batch and are masked out of the MSE."""
+    the padded tail of the last batch and are masked out of the MSE. With a
+    ``mesh`` (this rank's rows of the batch; ``valid_rows`` required)
+    ``valid_total`` is the valid rows of every rank of the data group."""
     if valid_rows is None:
         mse = torch.mean((pred - target) ** 2)
     else:
         mask = (torch.arange(pred.shape[0], device=pred.device) < valid_rows).to(pred.dtype)
-        mse = torch.sum((pred - target) ** 2 * mask[:, None]) / (valid_rows * pred.shape[-1])
+        sse = torch.sum((pred - target) ** 2 * mask[:, None])
+        if mesh is not None:
+            sse, valid_rows = sum_replicated(sse, mesh.data_group), valid_total
+        mse = sse / (valid_rows * pred.shape[-1])
     if marginals is None and probs is None:
         zeros = torch.zeros(prev_collisions.shape, dtype=mse.dtype, device=mse.device)
         return LossAux(total=cfg.l_mse * mse, mse=mse, js_kl_per_level=zeros,
                        coll_per_level=zeros)
     coll = (prev_collisions / (prev_min_possible + cfg.delta)).detach()
     if marginals is None:
-        marginals = marginal_slot_distribution(probs)
+        marginals = marginal_slot_distribution(probs, mesh)
     js_kls = js_kl_divergence(marginals, cfg)
     total = cfg.l_mse * mse + torch.sum(cfg.l_js_kl * js_kls + cfg.l_collisions * coll)
     return LossAux(total=total, mse=mse, js_kl_per_level=js_kls, coll_per_level=coll)

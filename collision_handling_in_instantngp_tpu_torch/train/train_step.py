@@ -20,6 +20,15 @@ route each batch's unique-vertex slots, counts and vertex ids, never the
 :func:`make_stats_fn` turns them into the slot counts and the unique-cell
 counts.
 
+Data parallelism (``parallel/``): :func:`shard_batches` keeps a rank's
+share of every batch's rows, with the dedup geometry of those rows alone
+(so each rank's HPD runs on the vertices its rows touch, and the
+counts-weighted marginals add up across ranks), and
+``epoch_on_device(mesh=...)`` sums the gradients over the mesh's data group
+before each Adam step, ORs the collisions' presence over it and gathers
+the image from it, so every rank ends the epoch with the same parameters
+and scalars.
+
 :func:`epoch_on_device` leaves the epoch's scalars on the device (the
 geometry constants and the previous epoch's collisions live there too, so an
 epoch reads nothing on the host and copies nothing to the card);
@@ -43,6 +52,7 @@ from ..ops import collisions as coll_ops
 from ..ops import dedup as dedup_ops
 from ..ops.collisions import min_possible_collisions
 from ..ops.grid import scale_to_grid
+from ..parallel import collectives
 from .loss import compute_loss
 
 # compaction engages only when the padded touched set is below this share
@@ -59,6 +69,8 @@ class EpochBatches:
     gather_idx: torch.Tensor     # (P,) row of each pixel in the flat batch order
     og_image: torch.Tensor       # (P, C) int32 original image, pixel order
     dedup: List[Optional[dedup_ops.DedupGeometry]]   # None per batch on the per-row route
+    valid_total: Optional[List[int]] = None   # a rank's share (shard_batches): the
+                                              # whole batches' valid rows
 
 
 @dataclasses.dataclass
@@ -257,10 +269,19 @@ def build_epoch_batches(
     )
     if not gngf.use_dedup(model_cfg, statics, b, False):
         return EpochBatches(dedup=[None] * num_batches, **common)
+    return EpochBatches(dedup=_dedup_geometry(x, model_cfg, statics, device), **common)
+
+
+def _dedup_geometry(x: np.ndarray, model_cfg: ModelConfig, statics: gngf.GNGFStatics,
+                    device) -> List[dedup_ops.DedupGeometry]:
+    """The dedup geometry of every batch of (nb, B, d) rows, on ``device``:
+    compacted to the touched vertices where that shrinks the grid enough."""
+    def dev(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype).to(device)
 
     geoms = [
         dedup_ops.build_geometry_np(x[bi], statics.n_ls, statics.offsets, model_cfg.n_max)
-        for bi in range(num_batches)
+        for bi in range(x.shape[0])
     ]
     u = statics.unique_coords.shape[0]
     u_c = max(int(np.unique(ids).size) for ids, _ in geoms)
@@ -278,8 +299,25 @@ def build_epoch_batches(
             ))
         else:
             dedup.append(dedup_ops.DedupGeometry(dev(ids, torch.int64), dev(counts)))
+    return dedup
 
-    return EpochBatches(dedup=dedup, **common)
+
+def shard_batches(batches: EpochBatches, lo: int, hi: int, model_cfg: ModelConfig,
+                  statics: gngf.GNGFStatics) -> EpochBatches:
+    """Rows [lo, hi) of every batch: a rank's share under data parallelism.
+    The route stays the whole batch's (dedup or per-row); the dedup geometry
+    is rebuilt on the host from these rows alone. ``gather_idx`` and
+    ``og_image`` stay whole (every rank assembles the whole image)."""
+    x = batches.x[:, lo:hi].contiguous()
+    dedup = [None] * x.shape[0]
+    if batches.dedup[0] is not None:
+        dedup = _dedup_geometry(x.cpu().numpy(), model_cfg, statics, x.device)
+    return EpochBatches(
+        x=x, y=batches.y[:, lo:hi].contiguous(),
+        valid=[min(max(v - lo, 0), hi - lo) for v in batches.valid],
+        gather_idx=batches.gather_idx, og_image=batches.og_image, dedup=dedup,
+        valid_total=list(batches.valid if batches.valid_total is None else batches.valid_total),
+    )
 
 
 def initial_collision_state(exp: ExperimentConfig, statics: gngf.GNGFStatics, device):
@@ -298,6 +336,7 @@ def epoch_on_device(
     prev_collisions: torch.Tensor,
     prev_min_possible: torch.Tensor,
     collect_ids: bool = False,
+    mesh=None,
 ) -> EpochTensors:
     """Forward, loss, backward and Adam step for every batch in order, then
     collisions and the integer-image statistics, all left on the device.
@@ -305,19 +344,29 @@ def epoch_on_device(
     presence, on the per-row and vanilla routes the epoch's selected slots
     of every row. The BatchNorm running statistics move batch by batch in
     ``params.batchnorm``. ``collect_ids`` keeps the epoch's slot ids for
-    :func:`make_stats_fn` (``EpochTensors.ids``)."""
+    :func:`make_stats_fn` (``EpochTensors.ids``). ``mesh``: ``batches`` is
+    this rank's share (:func:`shard_batches`); the gradients are summed over
+    the data group before each step, and the collisions and the image are
+    those of every rank's rows (no counts epoch: ``collect_ids`` raises)."""
+    if mesh is not None and collect_ids:
+        raise ValueError("collect_ids: a counts epoch runs without a mesh")
     mcfg = exp.model
     n_ls = gngf.device_statics(statics, batches.x.device).n_ls
+    group = None if mesh is None else mesh.data_group
     rgbs, losses, mses, js_kls, colls, indices, unique = [], [], [], [], [], [], []
     presence = None
     for bi in range(batches.x.shape[0]):
-        out = gngf.forward(params, batches.x[bi], mcfg, statics, dedup=batches.dedup[bi])
+        out = gngf.forward(params, batches.x[bi], mcfg, statics, dedup=batches.dedup[bi],
+                           mesh=mesh)
         aux = compute_loss(
             out.rgb, batches.y[bi], out.marginal, prev_collisions, prev_min_possible,
-            exp.loss, valid_rows=batches.valid[bi], probs=out.probs,
+            exp.loss, valid_rows=batches.valid[bi], probs=out.probs, mesh=mesh,
+            valid_total=None if batches.valid_total is None else batches.valid_total[bi],
         )
         optimizer.zero_grad(set_to_none=True)
         aux.total.backward()
+        if mesh is not None:
+            collectives.all_reduce_grads(params.parameters(), group)
         optimizer.step()
         with torch.no_grad():
             if out.bn_state is not None:
@@ -338,10 +387,16 @@ def epoch_on_device(
 
     with torch.no_grad():
         if indices:
-            collisions, _ = gngf.calc_hash_collisions(torch.cat(indices), mcfg, statics)
+            collisions, _ = gngf.calc_hash_collisions(torch.cat(indices), mcfg, statics, group)
         else:
+            if group is not None:
+                presence = collectives.union(presence, group)
             collisions = dedup_ops.collisions_from_presence(presence, n_ls)
-        image = torch.cat(rgbs).reshape(-1, rgbs[0].shape[-1])[batches.gather_idx]
+        if group is None:
+            image = torch.cat(rgbs)
+        else:   # (nb, B / D, C) of every rank, in row order
+            image = torch.cat(collectives.all_gather(torch.stack(rgbs), group), dim=1)
+        image = image.reshape(-1, rgbs[0].shape[-1])[batches.gather_idx]
         pred_int = (image * 255).to(torch.int32)
         diff = (pred_int - batches.og_image).to(torch.float32)
         return EpochTensors(

@@ -7,7 +7,8 @@ to 65536, L from 1 to 32; for the tail backward on the tensor cores (K2,
 K6), T from 2048 to 65536, L 1 to 32, K 1 to 16, all three precisions,
 heads of 37 and 100; for
 the serial scatter K12, one slot, a 100,000-row slot, empty slots, C = 2
-and 32, short and long slots of narrow rows; for the rows pass's guard,
+and 32, short and long slots of narrow rows, one rank's slot range of a
+table sharded by slot; for the rows pass's guard,
 planted ties and near-tie clusters (its fp32 fix-up); for the encoding,
 its fixed-order table gradients; for the probes K7 and K13, ragged U and
 T from 128 (K13 also U ragged against its 128- and 256-row tiles, H from
@@ -541,6 +542,30 @@ def test_scatter_serial_hot_slot_matches_plain(dev, c):
     got = scatter.scatter_add_serial(rows, idx, t)
     assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t))
     assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t))
+
+
+@pytest.mark.parametrize("c, t, rank, ranks", [(32, 16_384, 0, 2), (32, 16_384, 1, 2),
+                                                (2, 1024, 3, 4), (32, 4099, 1, 3)])
+def test_scatter_serial_slot_range_matches_plain(dev, c, t, rank, ranks):
+    """K12 over one rank's slot range of a table sharded by slot (the
+    blend's gradient under TP: 647,168 rows of 32 columns on 16,384 slots;
+    a hot slot in range): bitwise its plain version over that range, rows
+    lo..hi of the whole scatter, and equal run to run; counted as a ranged
+    launch."""
+    rng = np.random.default_rng(13)
+    n = 647_168 if c == 32 and t == 16_384 else 50_000
+    lo, hi = rank * t // ranks, (rank + 1) * t // ranks
+    idx_np = rng.integers(0, t, size=n)
+    idx_np[: n // 10] = (lo + hi) // 2
+    rows = torch.as_tensor(rng.standard_normal((n, c)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(idx_np, device=dev)
+    before = scatter.scatter_add_serial.range_launches
+    got = scatter.scatter_add_serial(rows, idx, t, ids_checked=True, slot_range=(lo, hi))
+    assert scatter.scatter_add_serial.range_launches == before + 1
+    assert got.shape == (hi - lo, c)
+    assert torch.equal(got, scatter.scatter_add_serial(rows, idx, t, slot_range=(lo, hi)))
+    assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t, slot_range=(lo, hi)))
+    assert torch.equal(got, scatter.scatter_add_serial_plain(rows, idx, t)[lo:hi])
 
 
 def test_scatter_serial_long_narrow_slots_match_plain(dev):
