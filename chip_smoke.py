@@ -195,14 +195,19 @@
    the single-process run, or within 1e-6 and said so), over gloo on
    (data 2, model 1) and (data 1, model 2) (losses rtol 2e-5, params rtol
    2e-4 / atol 1e-7, collisions equal; K1, K2, K3a, K3b and K12 launched
-   on every rank; under (1, 2) K12 with each rank's slot range, then held
-   bitwise to its plain version at batch 0's blend shapes), the per-row
-   route with ``batchnorm_input`` on (data 2) (K10, K11, K12; the running
-   statistics within 1e-6), the vanilla hash on (data 2, model 2), four
-   ranks (K12 with a slot range); each against the single-process run on
-   the card; prints each case's epoch seconds beside the single-process
-   epoch, the collectives' calls, bytes a step and host seconds, and a
-   profiled epoch's collective host time and NCCL / copy device time;
+   on every rank; under (1, 2) K12 with each rank's slot range), the
+   per-row route with ``batchnorm_input`` on (data 2) (K10, K11, K12; the
+   running statistics within 1e-6), the vanilla hash on (data 2, model
+   2), four ranks (K12 with a slot range); each against the
+   single-process run on the card; then every rank holds each kernel of
+   its case against its plain version on its own batch-0 inputs, at the
+   shapes the parallel path gives it (top-K identical, values normwise
+   1e-5, gradients 1e-4, K12 bitwise, over the rank's slot range under a
+   shard and then also rows lo..hi of the whole) and profiles one more
+   epoch; prints each case's epoch seconds beside the single-process
+   epoch, the collectives' calls, bytes a step and host seconds, each
+   rank's max_abs_err by kernel, and a profiled epoch's collective host
+   time and NCCL / copy device time;
 21. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
@@ -2325,6 +2330,198 @@ PARALLEL_EPOCHS = 3
 RANK_TIMEOUT_S = 420
 
 
+def profile_collectives(run_epoch, dev: torch.device) -> dict:
+    """One epoch under torch.profiler: the host ms of the collectives'
+    calls, the device ms of NCCL's kernels and of the copies (gloo stages a
+    CUDA tensor through host memory), beside the epoch's wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run_epoch()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    keys = ("all_reduce", "allreduce", "all_gather", "allgather", "broadcast")
+    host_ms_ = nccl_ms = copy_ms = busy_ms = 0.0
+    for e in prof.events():
+        name = e.name.lower()
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):
+                continue
+            ms = e.device_time_total / 1e3
+            busy_ms += ms
+            if "nccl" in name:
+                nccl_ms += ms
+            elif "memcpy" in name:
+                copy_ms += ms
+        elif any(k in name for k in keys) and ("gloo" in name or "nccl" in name or "c10d" in name):
+            host_ms_ += e.cpu_time_total / 1e3
+    return dict(wall_ms=wall_ms, collective_host_ms=host_ms_, nccl_device_ms=nccl_ms,
+                copy_device_ms=copy_ms, busy_device_ms=busy_ms)
+
+
+def flat_gather_keys(indices, t, shard):
+    """The ids that ``models/encoding.py: flat_gather`` gives K12 for (P, L,
+    ...) slot ids on T slots a level: id + level * T on the (L * T, F) view;
+    under a ``TableShard`` slot * L + level on the slot-major view, over
+    the shard's range times L. Returns (ids, slots, slot range or None)."""
+    l = indices.shape[1]
+    level = torch.arange(l, device=indices.device).view(1, l, *([1] * (indices.dim() - 2)))
+    if shard is None:
+        return (indices.long() + level * t).reshape(-1), l * t, None
+    return (indices.long() * l + level).reshape(-1), t * l, (shard.lo * l, shard.hi * l)
+
+
+def k12_check(what, ids, t, c, rng, gen, timed=False) -> dict:
+    """K12 on ``ids`` (T = ``t``; over the slot range ``rng``, or every slot)
+    with random rows of ``c`` columns against its plain version, bitwise;
+    over a range also against rows lo..hi of the whole plain scatter.
+    ``timed``: the kernel and the plain version timed on these inputs."""
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import scatter
+    from collision_handling_in_instantngp_tpu_torch.utils.profiling import time_ms
+
+    rows = torch.randn(ids.shape[0], c, device=ids.device, generator=gen)
+    got = scatter.scatter_add_serial(rows, ids, t, ids_checked=True, slot_range=rng)
+    plain = scatter.scatter_add_serial_plain(rows, ids, t, slot_range=rng)
+    same = torch.equal(got, plain)
+    if rng is not None:
+        same = same and torch.equal(plain, scatter.scatter_add_serial_plain(rows, ids, t)[rng[0]:rng[1]])
+    lo, hi = (0, t) if rng is None else rng
+    out = dict(what=what, rows=int(ids.shape[0]), columns=c, slots=t,
+               slot_range=None if rng is None else list(rng),
+               rows_in_range=int(((ids >= lo) & (ids < hi)).sum()), bitwise=bool(same),
+               max_abs_err=float((got - plain).abs().max()) if got.numel() else 0.0)
+    if not same:
+        raise AssertionError(f"K12 on {what} ({out}) differs from its plain version")
+    if timed:
+        dev = ids.device
+        out["ms"] = time_ms(lambda: scatter.scatter_add_serial(
+            rows, ids, t, ids_checked=True, slot_range=rng), 5, dev)
+        out["plain_ms"] = time_ms(lambda: scatter.scatter_add_serial_plain(
+            rows, ids, t, slot_range=rng), 1, dev)
+    return out
+
+
+def check_top_k(what, idx_k, idx_p, dim) -> None:
+    same = (idx_k == idx_p).all(dim=dim).double().mean().item()
+    if same != 1.0:
+        raise AssertionError(f"{what}: top-K indices differ from the plain version on "
+                             f"{1.0 - same:.3e} of the rows")
+
+
+def parallel_rank_hook(state, needs) -> dict:
+    """Step 20's hook on every rank (``train_epochs(hook=...)``: after the
+    launch counts are read, so its launches count nowhere). Every kernel of
+    ``needs`` on this rank's batch-0 inputs, at the shapes the parallel
+    path gives it (the rank's rows and their dedup geometry, its shard of
+    the tables), against its plain version: the top-K identical, values
+    normwise FWD_TOL, gradients GRAD_TOL, K12 bitwise (with the rank's
+    slot range under a shard, and then also rows lo..hi of the whole); K3a
+    and K3b against the float64 algebra with the kernel's ReLU masks
+    (``hidden_stack_phase(exact=True)``, which also logs the ReLU
+    decisions in which the fp32 plain version differs).
+    The BatchNorm ahead of K10 normalizes by the rank's own rows here. Then
+    one more epoch under the profiler. Returns {"errors": {kernel: max
+    abs error}, "k12": [the K12 checks], "profile": ...}."""
+    from collision_handling_in_instantngp_tpu_torch.config import TopkScatterMode
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.ops import dedup
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_full, hpd_stream
+    from collision_handling_in_instantngp_tpu_torch.ops.grid import scale_to_grid
+    from collision_handling_in_instantngp_tpu_torch.ops.hashing import fast_hash
+    from collision_handling_in_instantngp_tpu_torch.ops.precision import kernel_precision
+
+    mcfg, dev, params = state.exp.model, state.device, state.params
+    tag = f"rank {state.mesh.rank}"
+    gen = torch.Generator(device=dev).manual_seed(SEED + state.mesh.rank)
+    k, L, T, F = mcfg.topk_k, mcfg.num_levels, mcfg.hash_table_size, mcfg.feature_dim
+    consts = gngf.device_statics(state.statics, dev)
+    layers = [] if params.hpd is None else [(w.detach(), b.detach()) for w, b in params.hpd.layers()]
+    errs, k12 = {}, []
+    with torch.no_grad():
+        if "hidden_stack_fwd" in needs:     # the dedup route's streamed tail
+            prec = kernel_precision(mcfg.matmul_precision)
+            geom = state.batches.dedup[0]
+            x = (consts.unique_coords if geom.active is None
+                 else dedup.active_coords(geom.active, dedup.grid_side(mcfg.n_max)))
+            hl, (w_head, b_head) = layers[:-1], layers[-1]
+            u = x.shape[0]
+            # trained weights put pre-activations within rounding of zero,
+            # where the fp32 plain stack's ReLU decisions differ from the
+            # kernel's: held, as step 13 holds the wide stack, to the
+            # float64 algebra with the kernel's own ReLU masks
+            k3 = hidden_stack_phase(hidden, x, hl, gen, f" [{tag}, U_c {u}]", exact=True)
+            for name, e in k3.items():
+                errs[name.split(" ")[0]] = e["max_abs_err"]
+            h = hidden.hidden_stack_fwd(x, hl, prec)
+            counts = geom.counts
+            out_k = hpd_stream.hpd_stream_fused_fwd(h, w_head, b_head, counts, k, prec)
+            out_p = hpd_stream.hpd_stream_fused_fwd_plain(h, w_head, b_head, counts, k, prec)
+            check_top_k(f"{tag} K1", out_k[2], out_p[2], 1)
+            errs["hpd_stream_fused_fwd"] = max(
+                compare(f"{tag} K1 {n}", out_k[i], out_p[i], FWD_TOL)
+                for i, n in ((0, "marg"), (1, "vals"), (3, "m"), (4, "s")))
+            del out_p
+            _, vals, idx, m, s_ = out_k
+            args = (h, w_head, b_head, counts, idx, vals, m, s_,
+                    torch.randn(L, T, device=dev, generator=gen),
+                    torch.randn(u, k, device=dev, generator=gen), k)
+            noop = mcfg.topk_scatter is TopkScatterMode.NOOP
+            got = hpd_stream.hpd_stream_fused_bwd(*args, precision=prec, noop_topk=noop)
+            want = hpd_stream.hpd_stream_fused_bwd_plain(*args, prec, noop)
+            errs["hpd_stream_fused_bwd"] = max(compare(f"{tag} K2 {n}", a, r, GRAD_TOL)
+                                               for n, a, r in zip(("dh", "dw", "db"), got, want))
+            del got, want
+            # the blend's table gradient (U_c * K rows of L * F, over the
+            # rank's slots under a shard) and gather_rows' (every (pixel,
+            # level, corner) row of F on L * U_c slots)
+            shard = params.shard
+            k12.append(k12_check("blend", idx.reshape(-1).long(), T, L * F,
+                                 None if shard is None else (shard.lo, shard.hi), gen,
+                                 timed=shard is not None))
+            k12.append(k12_check("gather_rows", *flat_gather_keys(geom.ids, u, None)[:2], F,
+                                 None, gen))
+        elif "hpd_full_fwd" in needs:       # the per-row route's whole network
+            x = state.batches.x[0]
+            if mcfg.batchnorm_input:
+                bn = params.batchnorm
+                x, _ = gngf.batchnorm(bn, {"mean": bn.mean, "var": bn.var}, x, True)
+            _, corners = scale_to_grid(x, consts.n_ls, consts.offsets)
+            p_b, _, v, d = corners.shape
+            verts = corners.permute(1, 0, 2, 3).reshape(L, p_b * v, d).contiguous()
+            out_k = hpd_full.hpd_full_fwd(verts, layers, k)
+            out_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+            check_top_k(f"{tag} K10", out_k[2], out_p[2], 2)
+            errs["hpd_full_fwd"] = max(compare(f"{tag} K10 {n}", out_k[i], out_p[i], FWD_TOL)
+                                       for i, n in ((0, "marg"), (1, "vals")))
+            bargs = (verts, layers, out_k[2], torch.randn(L, T, device=dev, generator=gen),
+                     torch.randn(L, p_b * v, k, device=dev, generator=gen), k)
+            got, want = hpd_full.hpd_full_bwd(*bargs), hpd_full.hpd_full_bwd_plain(*bargs)
+            errs["hpd_full_bwd"] = max(
+                compare(f"{tag} K11 {n}{i}", a, r, GRAD_TOL)
+                for i, (ka, pa) in enumerate(zip(got, want)) for n, a, r in zip(("dW", "db"), ka, pa))
+            indices = out_k[2].reshape(L, p_b, v, k).permute(1, 0, 2, 3)
+            ids, slots, rng = flat_gather_keys(indices, T, params.shard)
+            k12.append(k12_check("lookup_topk_blend", ids, slots, F, rng, gen))
+        else:                               # the vanilla hash's lookup
+            _, corners = scale_to_grid(state.batches.x[0], consts.n_ls, consts.offsets)
+            ids, slots, rng = flat_gather_keys(fast_hash(corners, T), T, params.shard)
+            k12.append(k12_check("lookup_vanilla", ids, slots, F, rng, gen))
+    errs["scatter_add_serial"] = max(c["max_abs_err"] for c in k12)
+    missing = [n for n in needs if n not in errs and not n.startswith("scatter_add_serial")]
+    if missing:
+        raise AssertionError(f"{tag}: no check for {missing}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(errors=errs, k12=k12, k3=k3 if "hidden_stack_fwd" in needs else None,
+                profile=profile_collectives(lambda: state.next_epoch().to_host(), dev))
+
+
 def check_parallel(what, results, ref, bitwise, needs, bn) -> dict:
     """Every rank of a parallel run against the single-process run: losses
     rtol 2e-5, every parameter leaf (tables gathered) rtol 2e-4 / atol 1e-7
@@ -2374,13 +2571,16 @@ def parallel_phase(data, data_raw, dev) -> tuple:
     chiprun_out/step20/, a timeout per case; a rank that fails, hangs or
     launches nothing fails the run), each rank training 3 epochs of grid
     4061 on the strawberry with ``fit``'s batches and seeds
-    (``parallel.train_parallel.rank_worker``), then one more epoch under the
-    profiler; the parent holds each rank against the single-process run on
-    the same card (``train_epochs`` without a mesh: ``fit``'s epochs).
-    NCCL takes the world of one (one card a rank); two to four ranks share
-    the card over gloo, which stages CUDA tensors through host memory, so
-    its times are no forecast of NCCL across cards. Returns (the kernels
-    line's entry for K12 with a slot range, the step's numbers)."""
+    (``parallel.train_parallel.rank_worker``), then holding each kernel of
+    its case against its plain version on its batch-0 inputs and
+    profiling one more epoch (:func:`parallel_rank_hook`); the parent holds
+    each rank against the single-process run on the same card
+    (``train_epochs`` without a mesh: ``fit``'s epochs). NCCL takes the
+    world of one (one card a rank); two to four ranks share the card over
+    gloo, which stages CUDA tensors through host memory, so its times are
+    no forecast of NCCL across cards. Returns (the kernels line's entry for
+    K12 with a slot range, the step's numbers)."""
+    import functools
     import shutil
 
     from collision_handling_in_instantngp_tpu_torch.config import (
@@ -2410,8 +2610,8 @@ def parallel_phase(data, data_raw, dev) -> tuple:
         log(f"step 20: {what}: {world} rank(s) on {dev}, {exp.model.hash_table_size} slots, "
             f"{PARALLEL_EPOCHS} epochs:")
         spec = dict(exp=exp, data=d, epochs=PARALLEL_EPOCHS, model_parallel=mp,
-                    shard_tables=mp > 1, device=str(dev), profile=True,
-                    scatter_range_check=(mp > 1 and key == "scaled"))
+                    shard_tables=mp > 1, device=str(dev),
+                    hook=functools.partial(parallel_rank_hook, needs=needs))
         store = os.path.join(root, f"case{len(out)}")
         t0 = time.perf_counter()
         results = launch.spawn(train_parallel.rank_worker, world, (spec,), store_dir=store,
@@ -2434,7 +2634,9 @@ def parallel_phase(data, data_raw, dev) -> tuple:
             collective_bytes_per_step=r0["history"][-1]["collective_bytes"] / steps,
             collective_host_s_per_epoch=[h["collective_host_s"] for h in r0["history"]],
             grad_floats_per_step=r0["grad_floats"], grad_bytes_per_step=4 * r0["grad_floats"],
-            profile=[r["profile"] for r in results],
+            profile=[r["hook"]["profile"] for r in results],
+            kernel_errors=[r["hook"]["errors"] for r in results],
+            k12_checks=[r["hook"]["k12"] for r in results],
             launches=[r["launches"] for r in results], **verdict)
         log(f"  epoch s by rank {[[round(s, 4) for s in e] for e in ep_s]} (median of epochs 1-2 "
             f"{case['epoch_s_median']:.4f}) vs single-process {[round(s, 4) for s in ref_s]} "
@@ -2453,17 +2655,19 @@ def parallel_phase(data, data_raw, dev) -> tuple:
                 f"ms, copies {prof['copy_device_ms']:.3f} ms, device busy {prof['busy_device_ms']:.1f} ms")
         log(f"  launches by rank: " + "; ".join(
             ", ".join(f"{k} {r['launches'][k]}" for k in needs) for r in results))
-        if spec["scatter_range_check"]:
-            checks = [r["scatter_range"] for r in results]
-            for c in checks:
-                log(f"  K12 slot range {c['slot_range']}: {c['rows_in_range']} of {c['rows']} rows "
-                    f"x {c['columns']}, bitwise the plain version {c['bitwise']}, rows lo..hi of "
-                    f"the whole {c['whole_rows_bitwise']}; kernel {c['ms']:.3f} ms, plain "
-                    f"{c['plain_ms']:.3f} ms")
-                if not (c["bitwise"] and c["whole_rows_bitwise"]):
-                    raise AssertionError(f"K12 with slot range {c['slot_range']} disagrees")
-            case["scatter_range"] = checks
-            range_check = (checks, r0["launches"]["scatter_add_serial[range]"])
+        for r in results:
+            log(f"  rank {r['rank']} against the plain versions on its batch 0, max_abs_err: "
+                + ", ".join(f"{n} {e:.3e}" for n, e in r["hook"]["errors"].items()))
+            for c in r["hook"]["k12"]:
+                rng = "every slot" if c["slot_range"] is None else f"slot range {c['slot_range']}"
+                timed = ("" if "ms" not in c else
+                         f"; kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms")
+                log(f"    K12 on {c['what']}: {c['rows_in_range']} of {c['rows']} rows x "
+                    f"{c['columns']} on {c['slots']} slots, {rng}, bitwise the plain version"
+                    f"{timed}")
+        if key == "scaled" and mp > 1:
+            range_check = ([c for r in results for c in r["hook"]["k12"] if "ms" in c],
+                           r0["launches"]["scatter_add_serial[range]"])
         out[what] = case
     shutil.rmtree(root, ignore_errors=True)
     log("step 20: gloo carried all_reduce, all_gather and broadcast of CUDA tensors; NCCL the "
@@ -2500,7 +2704,6 @@ HIDDEN_KERNELS = {"hidden_fwd_kernel": [(rt,) for rt in (16, 32, 64)],
 PER_ROW_TENSOR_CORE = {"hpd_full": ("full_fwd_kernel", "full_bwd_kernel"),
                        "hpd_tail": ("tail_bwd_kernel",)}
 PER_ROW_FP32 = {"hpd_tail": ("tail_fwd_kernel",)}
-
 
 def sass_counts(build, lib: str) -> dict:
     """{kernel<template args>: {"HGMMA": n, "HMMA": n}} of a built library,

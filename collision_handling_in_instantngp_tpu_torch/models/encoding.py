@@ -19,8 +19,8 @@ sequential scan). The port has this one backward; the JAX package's switch
 ``BLEND_SCATTER_BACKEND`` selects nothing here and is only checked, once at
 import, so that a value the JAX package refuses is refused here too.
 
-Tables sharded by slot (``parallel/mesh.py``, a :class:`TableShard`): a
-rank holds slots [lo, hi) of every level. A gather takes the ids in that
+Tables sharded by slot (``parallel/mesh.py``; ``GNGFParams.shard``, a
+:class:`TableShard`): a rank holds slots [lo, hi) of every level. A gather takes the ids in that
 range from the local rows and zeros for the others, then sums the rows
 over the mesh's model group, whose ranks hold the other slots, so every
 rank has every row exactly (``sum_replicated``: the backward is the
@@ -40,7 +40,7 @@ from torch import nn
 
 from ..config import ModelConfig, TopkBlendMode
 from ..ops.cuda.scatter import scatter_add_serial
-from ..parallel.collectives import sum_replicated
+from ..ops.collectives import sum_replicated
 
 BLEND_SCATTER_BACKENDS = ("segment_sum", "vmem_serial")
 
@@ -79,12 +79,16 @@ class GatherSerial(torch.autograd.Function):
 
 class TableShard(NamedTuple):
     """Slots [lo, hi) of T that this rank holds; ``group``: the ranks that
-    hold the others (the mesh's model group)."""
+    hold the others (the mesh's model group). A copy of params shares it:
+    a process group is a handle, not data."""
 
     lo: int
     hi: int
     t: int
     group: Any
+
+    def __deepcopy__(self, memo):
+        return self
 
 
 class GatherShard(torch.autograd.Function):

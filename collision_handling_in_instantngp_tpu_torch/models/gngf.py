@@ -19,16 +19,17 @@ Parameters live in :class:`GNGFParams` (``hpd``, None on the vanilla path,
 buffers) in the JAX package's layout; ``params_from_jax`` /
 ``params_to_numpy`` carry them across.
 
-``forward(mesh=...)`` runs one rank's rows of a batch under data
+``forward(data_group=...)`` runs one rank's rows of a batch under data
 parallelism (``parallel/mesh.py``): the BatchNorm statistics and the loss
-marginal are those of every rank's rows (the marginal divides by the
-whole batch's rows), and tables sharded by slot (``GNGFParams.slot_range``)
-are gathered across the model group. Without a mesh nothing changes.
+marginal are those of every rank's rows of the group (the marginal divides
+by the whole batch's rows). Tables sharded by slot (``GNGFParams.shard``, a
+``TableShard`` that holds its group) are gathered across that group.
+Without either nothing changes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,7 +42,7 @@ from ..ops.grid import resolution_ladder, scale_to_grid, voxel_corner_offsets
 from ..ops.hashing import fast_hash
 from ..ops.interpolate import bilinear_coeffs, interpolate
 from ..ops.precision import pdot
-from ..parallel.collectives import sum_replicated, sum_shared
+from ..ops.collectives import group_size, sum_replicated, sum_shared
 from . import encoding as enc
 from .hpd import apply_hpd, apply_hpd_fused, apply_hpd_unique
 from .mlp import MLP
@@ -116,9 +117,9 @@ class GNGFParams(nn.Module):
     """hpd: the index network [d -> hpd_hidden -> T], or None on the
     vanilla path; tables: (L, T, F); mlp: the decoder
     [L*F -> mlp_hidden -> out_channels]; batchnorm: the input BatchNorm, or
-    None. ``slot_range`` (lo, hi): the tables hold slots [lo, hi) of T
-    alone, (L, hi - lo, F) (sharded by slot, ``parallel/mesh.py``); None:
-    every slot."""
+    None. ``shard`` (an ``encoding.TableShard``): the tables hold slots
+    [lo, hi) of T alone, (L, hi - lo, F) (sharded by slot,
+    ``parallel/mesh.py``); None: every slot."""
 
     def __init__(self, hpd: Optional[MLP], tables: nn.Parameter, mlp: MLP,
                  batchnorm: Optional[BatchNormParams] = None):
@@ -127,7 +128,7 @@ class GNGFParams(nn.Module):
         self.tables = tables
         self.mlp = mlp
         self.batchnorm = batchnorm
-        self.slot_range: Optional[Tuple[int, int]] = None
+        self.shard: Optional[enc.TableShard] = None
 
 
 def dedup_enabled(cfg: ModelConfig) -> bool:
@@ -214,23 +215,23 @@ def params_to_numpy(params: GNGFParams) -> dict:
     return out
 
 
-def batchnorm(bn: BatchNormParams, state: dict, x: torch.Tensor, train: bool, mesh=None):
+def batchnorm(bn: BatchNormParams, state: dict, x: torch.Tensor, train: bool, group=None):
     """BatchNorm over (P, d): training mode normalizes with the batch's mean
     and biased variance and moves the running statistics by
     BN_MOMENTUM toward the batch's mean and unbiased variance; eval mode
     normalizes with the running statistics. Returns (y, new_state). With a
-    ``mesh`` the batch is every rank's rows of the data group: each sum is
+    process ``group`` the batch is every rank's rows of it: each sum is
     reduced over it (the mean, then the variance around it)."""
     if train:
         n = x.shape[0]
         total = x.sum(dim=0)
-        if mesh is not None:
-            total, n = sum_shared(total, mesh.data_group), n * mesh.data
+        if group is not None:
+            total, n = sum_shared(total, group), n * group_size(group)
         mean = total / n
         d = x - mean
         sq = (d * d).sum(dim=0)
-        if mesh is not None:
-            sq = sum_shared(sq, mesh.data_group)
+        if group is not None:
+            sq = sum_shared(sq, group)
         var = sq / n
         unbiased = var * n / max(n - 1, 1)
         new_state = {
@@ -261,26 +262,25 @@ def forward(
     dedup: Optional[dedup_ops.DedupGeometry] = None,
     bn_state: Optional[dict] = None,
     train: bool = True,
-    mesh=None,
+    data_group=None,
 ) -> ForwardOut:
     """Model forward. ``dedup``: the batch's precomputed geometry (the
     trainer builds it once); None derives ids and counts from ``x`` on its
     device where the dedup route runs (counts only with ``train``: without
     them the marginal is None). ``bn_state``: running statistics
     {"mean", "var"} (default: the params' buffers); they are not modified,
-    the updated ones come back in ``ForwardOut.bn_state``. ``mesh``: ``x``
-    is this rank's share of the batch's rows (its data group's share), the
-    tables are gathered across its model group where they are sharded."""
+    the updated ones come back in ``ForwardOut.bn_state``. ``data_group``: ``x``
+    is this rank's share of the batch's rows, the group's ranks holding the
+    rest (data parallelism). Tables sharded by slot (``params.shard``) are
+    gathered across the shard's group."""
     consts = device_statics(statics, x.device)
     n_ls, offsets = consts.n_ls, consts.offsets
-    shard = None
-    if params.slot_range is not None:
-        shard = enc.TableShard(*params.slot_range, cfg.hash_table_size, mesh.model_group)
+    shard = params.shard
     new_bn_state = None
     if cfg.batchnorm_input:
         bn = params.batchnorm
         state = bn_state if bn_state is not None else {"mean": bn.mean, "var": bn.var}
-        x, new_bn_state = batchnorm(bn, state, x, train, mesh)
+        x, new_bn_state = batchnorm(bn, state, x, train, data_group)
     # geometry is data, not a differentiation path
     with torch.no_grad():
         scaled, corners = scale_to_grid(x, n_ls, offsets)
@@ -292,7 +292,7 @@ def forward(
         rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
         return ForwardOut(rgb=rgb, marginal=None, indices=indices, bn_state=new_bn_state)
     if not use_dedup(cfg, statics, x.shape[0], dedup is not None):
-        return _forward_per_row(params, cfg, scaled, corners, offsets, new_bn_state, mesh, shard)
+        return _forward_per_row(params, cfg, scaled, corners, offsets, new_bn_state, data_group)
 
     side = dedup_ops.grid_side(cfg.n_max)
     if dedup is not None and dedup.active is not None:
@@ -319,29 +319,30 @@ def forward(
     else:
         if cfg.keep_topk_only:
             marginal_raw = pdot(counts, vals_u, "highest")
-        if mesh is not None:
-            marginal_raw, rows = sum_replicated(marginal_raw, mesh.data_group), rows * mesh.data
+        if data_group is not None:
+            marginal_raw = sum_replicated(marginal_raw, data_group)
+            rows *= group_size(data_group)
         marginal = marginal_raw / rows
     return ForwardOut(rgb=rgb, marginal=marginal, idx_unique=idx_u, counts=counts)
 
 
-def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state, mesh=None,
-                     shard=None) -> ForwardOut:
+def _forward_per_row(params, cfg, scaled, corners, offsets, bn_state,
+                     data_group=None) -> ForwardOut:
     """The HPD on every (pixel, level, corner) row. The fused tail emits the
     marginal; the dense branch (fused_hpd off, or the NOOP top-k, whose
     dropped gradient only the dense branch implements) emits probs. Under
     keep_topk_only the loss marginalizes the top-k values instead. With a
-    ``mesh`` the fused marginal (a mean over this rank's rows) becomes the
-    mean over the data group's, every rank holding as many rows."""
+    ``data_group`` the fused marginal (a mean over this rank's rows) becomes
+    the mean over the group's, every rank holding as many rows."""
     if cfg.fused_hpd and cfg.topk_scatter is not TopkScatterMode.NOOP:
         marginal, topk_values, topk_indices = apply_hpd_fused(params.hpd, corners, cfg)
         probs = None
-        if mesh is not None and not cfg.keep_topk_only:
-            marginal = sum_replicated(marginal, mesh.data_group) / mesh.data
+        if data_group is not None and not cfg.keep_topk_only:
+            marginal = sum_replicated(marginal, data_group) / group_size(data_group)
     else:
         probs, topk_values, topk_indices = apply_hpd(params.hpd, corners, cfg)
         marginal = None
-    feats = enc.lookup_topk_blend(params.tables, topk_indices, topk_values, cfg, shard)
+    feats = enc.lookup_topk_blend(params.tables, topk_indices, topk_values, cfg, params.shard)
     h = interpolate(feats, bilinear_coeffs(scaled, offsets))
     rgb = params.mlp(h, cfg.hidden_activation.value, "sigmoid", cfg.matmul_precision)
     if cfg.keep_topk_only:

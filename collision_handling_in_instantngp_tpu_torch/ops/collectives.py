@@ -1,5 +1,9 @@
 """The collectives of data and table parallelism, with their autograd rules.
 
+The model and the training step call these only where they are given a
+process group (``parallel/`` makes the groups); without one nothing here
+runs.
+
 Only ``all_reduce`` (SUM), ``all_gather`` and ``broadcast`` are used, so
 that gloo (the CPU, and several ranks on one card) and NCCL (a card per
 rank) carry the same code.
@@ -29,6 +33,11 @@ import torch
 import torch.distributed as dist
 
 STATS = {"calls": 0, "bytes": 0, "host_s": 0.0}
+
+
+def group_size(group) -> int:
+    """The ranks of ``group``; 1 for None (no group)."""
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def reset_stats() -> None:

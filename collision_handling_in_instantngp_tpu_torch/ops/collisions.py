@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import union
+from .collectives import union
 
 
 def mean_as_xla(x: torch.Tensor, dim: int) -> torch.Tensor:

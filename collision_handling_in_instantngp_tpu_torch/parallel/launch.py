@@ -7,7 +7,8 @@ and writes what it returns to a file of that directory, which the caller
 gets back in rank order. A rank that raises, exits non-zero or outlives
 ``timeout`` fails the whole call: the others are stopped and
 :func:`spawn` raises with the rank's traceback. ``fn`` must be importable
-by module and name (a function of this package), ``args`` picklable.
+by module and name (a function of a module, or of the ``__main__`` script
+that calls :func:`spawn`), ``args`` picklable.
 """
 
 from __future__ import annotations
@@ -43,12 +44,13 @@ def _entry(fn, rank, world_size, backend, init_method, device, args, out_path, t
 
 
 def spawn(fn: Callable, world_size: int, args: Sequence[Any] = (), *, store_dir: str,
-          backend: str = "gloo", device="cpu", timeout: float = 600.0,
+          backend: str = "gloo", device="cuda", timeout: float = 600.0,
           threads: Optional[int] = None) -> List[Any]:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` new processes
-    joined in one ``backend`` group on ``device`` ("cpu", or a card every
-    rank uses); ``threads`` sets each rank's torch threads. Returns every
-    rank's result, rank 0 first."""
+    joined in one ``backend`` group on ``device`` (a card every rank uses,
+    unless "cpu" is asked for; several ranks on one card need gloo, as NCCL
+    takes one rank a card); ``threads`` sets each rank's torch threads.
+    Returns every rank's result, rank 0 first."""
     os.makedirs(store_dir, exist_ok=True)
     init_method = "file://" + os.path.abspath(os.path.join(store_dir, "store"))
     outs = [os.path.join(store_dir, f"rank{r}.pkl") for r in range(world_size)]

@@ -33,8 +33,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models import gngf
+from ..models.encoding import TableShard
+from ..ops import collectives
 from ..train.train_step import EpochBatches, shard_batches
-from . import collectives
 
 
 def initialize_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
@@ -122,8 +123,8 @@ def shard_params_and_batches(params: gngf.GNGFParams, batches: EpochBatches, mes
     """Place params and batches on the mesh (JAX ``shard_state_and_batches``):
     every rank takes rank 0's params and buffers (replicated); with
     ``shard_tables`` and a model axis past 1 each rank keeps its slot range
-    of the tables (``params.slot_range``) and of ``optimizer``'s state of
-    them, the optimizer then updating the shard; each rank keeps its rows of
+    of the tables (``params.shard``, with the model group) and of
+    ``optimizer``'s state of them, the optimizer then updating the shard; each rank keeps its rows of
     every batch, the dedup geometry rebuilt from them (``model_cfg``,
     ``statics``: the model's). ``params`` and ``optimizer`` change in place.
     Returns (params, batches)."""
@@ -133,7 +134,7 @@ def shard_params_and_batches(params: gngf.GNGFParams, batches: EpochBatches, mes
         lo, hi = slot_range(params.tables.shape[1], mesh)
         old = params.tables
         params.tables = nn.Parameter(old.detach()[:, lo:hi].contiguous())
-        params.slot_range = (lo, hi)
+        params.shard = TableShard(lo, hi, old.shape[1], mesh.model_group)
         if optimizer is not None:
             for group in optimizer.param_groups:
                 group["params"] = [params.tables if p is old else p for p in group["params"]]
@@ -146,13 +147,13 @@ def shard_params_and_batches(params: gngf.GNGFParams, batches: EpochBatches, mes
     return params, shard_batches(batches, lo, hi, model_cfg, statics)
 
 
-def gather_params(params: gngf.GNGFParams, mesh: Mesh) -> gngf.GNGFParams:
-    """A copy of ``params`` with the whole tables, gathered from the model
+def gather_params(params: gngf.GNGFParams) -> gngf.GNGFParams:
+    """A copy of ``params`` with the whole tables, gathered from the shard's
     group where they are sharded (JAX ``device_get`` of a sharded array);
-    every rank gets the same."""
+    every rank of the group gets the same."""
     out = copy.deepcopy(params)
-    if params.slot_range is not None:
-        parts = collectives.all_gather(params.tables.detach(), mesh.model_group)
+    if params.shard is not None:
+        parts = collectives.all_gather(params.tables.detach(), params.shard.group)
         out.tables = nn.Parameter(torch.cat(parts, dim=1))
-        out.slot_range = None
+        out.shard = None
     return out

@@ -5,22 +5,24 @@
 ``init(seed)`` makes the params and the optimizer with ``fit``'s seeds and
 the epoch, and ``place`` puts params, optimizer and batches on the mesh
 (``mesh.shard_params_and_batches``). The epoch is
-``train_step.epoch_on_device`` with the mesh threaded through: there is no
+``train_step.epoch_on_device`` given the mesh's data group: there is no
 second epoch loop.
 
 :func:`train_epochs` runs n epochs the way ``fit`` runs them (its batches,
 its seeds), on a mesh or, without one, as a single process, and returns
 what the tests, ``chip_smoke.py`` and ``tools/multihost_smoke.py`` compare:
 the per-epoch scalars and seconds, the bytes and host seconds of the
-collectives, the kernels' launches and the params gathered whole.
-:func:`rank_worker` is that run as one rank of :func:`launch.spawn`.
+collectives, the kernels' launches and the params gathered whole; a
+caller's ``hook`` then gets the run's state (:class:`RunState`) to check
+or time what it needs on it. :func:`rank_worker` is that run as one rank
+of :func:`launch.spawn`.
 """
 
 from __future__ import annotations
 
 import copy
 import time
-from typing import Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,10 +31,12 @@ from ..config import ExperimentConfig
 from ..data import ImageData, make_shuffle_permutations
 from ..device import resolve_device
 from ..models import gngf
+from ..ops import collectives
 from ..ops.cuda import hidden, hpd_full, hpd_stream, hpd_tail, scatter
 from ..train.optimizer import make_optimizer
-from ..train.train_step import build_epoch_batches, epoch_on_device, initial_collision_state
-from . import collectives
+from ..train.train_step import (
+    EpochBatches, EpochTensors, build_epoch_batches, epoch_on_device, initial_collision_state,
+)
 from .mesh import Mesh, gather_params, make_mesh, shard_params_and_batches
 
 # the kernels' wrappers, whose launch counts a run reports
@@ -72,16 +76,15 @@ def launches() -> dict:
 
 
 def make_parallel_epoch(exp: ExperimentConfig, statics: gngf.GNGFStatics, num_pixels: int,
-                        mesh: Optional[Mesh] = None, shard_tables: bool = False,
-                        freeze_hpd: bool = False):
+                        mesh: Optional[Mesh] = None, shard_tables: bool = False):
     """(init, place, mesh). ``init(seed, params=None)`` -> (params,
     optimizer, epoch): fresh params from ``seed`` (or a copy of
     ``params``) on the mesh's device, the three-group Adam, and
     ``epoch(params, optimizer, batches, prev_collisions, min_possible)`` ->
     ``EpochTensors``. ``place(params, optimizer, batches)`` -> the same three
     on the mesh. ``mesh`` None: ``make_mesh()`` of the process group.
-    ``num_pixels`` is accepted for the JAX package's signature: nothing is
-    compiled for it."""
+    ``num_pixels`` stands where the JAX package's signature has it and is
+    not read: nothing is compiled for it."""
     mesh = mesh if mesh is not None else make_mesh()
 
     def init(seed: int, params: Optional[gngf.GNGFParams] = None):
@@ -89,11 +92,11 @@ def make_parallel_epoch(exp: ExperimentConfig, statics: gngf.GNGFStatics, num_pi
             params = gngf.init_params(exp.model, seed, mesh.device)
         else:
             params = copy.deepcopy(params).to(mesh.device)
-        optimizer = make_optimizer(exp.optimizer, params, freeze_hpd=freeze_hpd)
+        optimizer = make_optimizer(exp.optimizer, params)
 
         def epoch(params, optimizer, batches, prev_collisions, prev_min_possible):
             return epoch_on_device(params, optimizer, batches, exp, statics, prev_collisions,
-                                   prev_min_possible, mesh=mesh)
+                                   prev_min_possible, data_group=mesh.data_group)
 
         return params, optimizer, epoch
 
@@ -111,79 +114,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _profile_collectives(run_epoch, dev: torch.device) -> dict:
-    """One epoch under torch.profiler: the host ms of the collectives'
-    calls, the device ms of NCCL's kernels and of the copies (gloo stages a
-    CUDA tensor through host memory), beside the epoch's wall ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class RunState(NamedTuple):
+    """A run of :func:`train_epochs` after its epochs, as its ``hook`` gets
+    it: this rank's params, optimizer and batches (its share of the rows,
+    its shard of the tables), and ``next_epoch()``, one more epoch of the
+    run from where it stands (an ``EpochTensors``)."""
 
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    _sync(dev)
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        run_epoch()
-        _sync(dev)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    keys = ("all_reduce", "allreduce", "all_gather", "allgather", "broadcast")
-    host_ms = nccl_ms = copy_ms = busy_ms = 0.0
-    for e in prof.events():
-        name = e.name.lower()
-        if e.device_type == DeviceType.CUDA:
-            if getattr(e, "is_user_annotation", False):
-                continue
-            ms = e.device_time_total / 1e3
-            busy_ms += ms
-            if "nccl" in name:
-                nccl_ms += ms
-            elif "memcpy" in name:
-                copy_ms += ms
-        elif any(k in name for k in keys) and ("gloo" in name or "nccl" in name or "c10d" in name):
-            host_ms += e.cpu_time_total / 1e3
-    return dict(wall_ms=wall_ms, collective_host_ms=host_ms, nccl_device_ms=nccl_ms,
-                copy_device_ms=copy_ms, busy_device_ms=busy_ms)
-
-
-def _scatter_range_check(params, batches, exp, statics, dev, seed: int) -> dict:
-    """K12 with this rank's slot range at the blend's shapes of batch 0 (the
-    HPD's top-K slots of the rank's vertices, random rows of L * F
-    columns) against its plain version: bitwise, and rows lo..hi of the
-    whole plain scatter; timed (CUDA events on the card, the host clock on
-    the CPU)."""
-    from ..models.hpd import apply_hpd_unique
-    from ..ops import dedup as dedup_ops
-    from ..utils.profiling import time_ms
-
-    mcfg = exp.model
-    geom = batches.dedup[0]
-    if geom.active is not None:
-        ucoords = dedup_ops.active_coords(geom.active, dedup_ops.grid_side(mcfg.n_max))
-    else:
-        ucoords = gngf.device_statics(statics, dev).unique_coords
-    with torch.no_grad():
-        _, _, idx_u = apply_hpd_unique(params.hpd, ucoords, mcfg, geom.counts)
-    ids = idx_u.reshape(-1).long()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    rows = torch.randn(ids.shape[0], mcfg.num_levels * mcfg.feature_dim, device=dev, generator=gen)
-    t, rng = mcfg.hash_table_size, params.slot_range
-    got = scatter.scatter_add_serial(rows, ids, t, ids_checked=True, slot_range=rng)
-    plain = scatter.scatter_add_serial_plain(rows, ids, t, slot_range=rng)
-    whole = scatter.scatter_add_serial_plain(rows, ids, t)[rng[0]:rng[1]]
-    inside = int(((ids >= rng[0]) & (ids < rng[1])).sum())
-    out = dict(slot_range=list(rng), rows=int(ids.shape[0]), rows_in_range=inside,
-               columns=int(rows.shape[1]), bitwise=bool(torch.equal(got, plain)),
-               whole_rows_bitwise=bool(torch.equal(plain, whole)),
-               max_abs_err=float((got - plain).abs().max()))
-    out["ms"] = time_ms(lambda: scatter.scatter_add_serial(
-        rows, ids, t, ids_checked=True, slot_range=rng), 5, dev)
-    out["plain_ms"] = time_ms(lambda: scatter.scatter_add_serial_plain(
-        rows, ids, t, slot_range=rng), 1, dev)
-    return out
+    exp: ExperimentConfig
+    statics: gngf.GNGFStatics
+    params: gngf.GNGFParams
+    optimizer: torch.optim.Optimizer
+    batches: EpochBatches
+    mesh: Optional[Mesh]
+    device: torch.device
+    next_epoch: Callable[[], EpochTensors]
 
 
 def train_epochs(exp: ExperimentConfig, data: ImageData, epochs: int, mesh: Optional[Mesh] = None,
                  shard_tables: bool = False, params: Optional[gngf.GNGFParams] = None,
-                 device="cuda", profile: bool = False, scatter_range_check: bool = False) -> dict:
+                 device="cuda", hook: Optional[Callable[[RunState], Any]] = None) -> dict:
     """``epochs`` epochs of ``exp`` on ``data`` with ``fit``'s batches and
     seeds (``params``: the start, default ``exp.train.seed``'s init): on
     ``mesh`` (its device) or, without one, as a single process on
@@ -193,10 +142,9 @@ def train_epochs(exp: ExperimentConfig, data: ImageData, epochs: int, mesh: Opti
     launches), "grad_floats" (the floats of this rank's gradients, summed
     over the data group each step), "vertices" (each batch's U_c on the
     dedup route, else None), "params" (numpy, the tables whole),
-    "bn_state"} plus, on
-    request, "profile" (one more epoch under the profiler, after the
-    params are read) and "scatter_range" (K12 with this rank's slot range
-    against its plain version, after the launches are read)."""
+    "bn_state"} and, with a ``hook``, "hook": what ``hook(RunState)``
+    returns, called after everything else is read (on a mesh every rank
+    calls it)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     statics = gngf.make_statics(exp.model)
     shuffled, _ = make_shuffle_permutations(data.num_pixels, exp.train.seed, exp.train.shuffle_pixels)
@@ -232,15 +180,12 @@ def train_epochs(exp: ExperimentConfig, data: ImageData, epochs: int, mesh: Opti
     out = dict(history=history, launches=launches(),
                grad_floats=sum(p.numel() for p in params.parameters() if p.requires_grad),
                vertices=[None if g is None else g.counts.shape[1] for g in batches.dedup])
-    whole = params if mesh is None else gather_params(params, mesh)
+    whole = gather_params(params)
     out["params"] = gngf.params_to_numpy(whole)
     out["bn_state"] = gngf.bn_state_to_numpy(whole)
-    if scatter_range_check:
-        out["scatter_range"] = _scatter_range_check(params, batches, exp, statics, dev,
-                                                    exp.train.seed + (mesh.rank if mesh else 0))
-    if profile:
-        out["profile"] = _profile_collectives(
-            lambda: epoch(params, optimizer, batches, prev, min_poss).to_host(), dev)
+    if hook is not None:
+        out["hook"] = hook(RunState(exp, statics, params, optimizer, batches, mesh, dev,
+                                    lambda: epoch(params, optimizer, batches, prev, min_poss)))
     return out
 
 
@@ -248,8 +193,8 @@ def rank_worker(rank: int, world_size: int, spec: dict) -> dict:
     """:func:`train_epochs` as one rank of ``launch.spawn``: ``spec`` holds
     "exp", "data", "epochs", "model_parallel" (default 1), "shard_tables",
     "device" (default: the card), "params" (a numpy tree in the JAX
-    package's layout, optional, with "bn_state"), "profile" and
-    "scatter_range_check". Adds the rank's place: its mesh coordinates and
+    package's layout, optional, with "bn_state") and "hook" (optional,
+    :func:`train_epochs`'). Adds the rank's place: its mesh coordinates and
     the ranks of its data and model groups."""
     mesh = make_mesh(spec.get("model_parallel", 1), device=spec.get("device", "cuda"))
     params = None
@@ -257,8 +202,7 @@ def rank_worker(rank: int, world_size: int, spec: dict) -> dict:
         params = gngf.params_from_jax(spec["params"], mesh.device, bn_state=spec.get("bn_state"))
     out = train_epochs(spec["exp"], spec["data"], spec["epochs"], mesh,
                        shard_tables=spec.get("shard_tables", False), params=params,
-                       profile=spec.get("profile", False),
-                       scatter_range_check=spec.get("scatter_range_check", False))
+                       hook=spec.get("hook"))
     dist = torch.distributed
     out.update(rank=rank, world_size=world_size, mesh=list(mesh.shape),
                coords=[mesh.data_index, mesh.model_index], backend=dist.get_backend(),

@@ -1,21 +1,24 @@
 """Two processes in one gloo group: a data-parallel run and the grid
 driver's sharding across processes.
 
-    python -m collision_handling_in_instantngp_tpu_torch.tools.multihost_smoke
+    python -m collision_handling_in_instantngp_tpu_torch.tools.multihost_smoke [--device cpu]
 
 The port's counterpart of the JAX package's ``tools/multihost_smoke.py``:
 two processes (``parallel.launch.spawn``, a ``FileStore`` in a temporary
-directory) join one gloo group on the CPU; each trains 2 epochs with the
-pixel rows split over both (``parallel.train_parallel.train_epochs`` on a
-(2, 1) mesh), whose losses must equal a single-process run's within 1e-6,
-and runs ``run_grid_search(shard_index=None, shard_count=None)`` over ids
-4060-4063, which must give [4060, 4062] to rank 0 and [4061, 4063] to
-rank 1 (the ranks read from the group). Prints one "MULTIHOST SMOKE OK"
-line and exits 0; a failure of either rank exits non-zero.
+directory) join one gloo group, both on the card (gloo, as NCCL takes one
+rank a card) or, with ``--device cpu``, on the CPU; each trains 2 epochs
+with the pixel rows split over both (``parallel.train_parallel.train_epochs``
+on a (2, 1) mesh), whose losses must equal a single-process run's on the
+same device within 1e-6, and runs ``run_grid_search(shard_index=None,
+shard_count=None)`` over ids 4060-4063, which must give [4060, 4062] to
+rank 0 and [4061, 4063] to rank 1 (the ranks read from the group). Prints
+one "MULTIHOST SMOKE OK" line and exits 0; a failure of either rank exits
+non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -52,32 +55,36 @@ def tiny_setup():
     return data, exp
 
 
-def rank_main(rank: int, world_size: int, manifest_dir: str) -> dict:
+def rank_main(rank: int, world_size: int, manifest_dir: str, device: str) -> dict:
     from ..parallel.mesh import make_mesh
     from ..parallel.train_parallel import train_epochs
     from ..train.grid_search import run_grid_search
 
     data, exp = tiny_setup()
-    run = train_epochs(exp, data, EPOCHS, make_mesh(device="cpu"))
+    run = train_epochs(exp, data, EPOCHS, make_mesh(device=device))
     rows = run_grid_search(
         data, GRID_IDS[0], GRID_IDS[-1] + 1, base_model=exp.model, base_train=exp.train,
         epochs=EPOCHS, manifest_path=os.path.join(manifest_dir, f"manifest_p{rank}.jsonl"),
-        shard_index=None, shard_count=None, verbose=False, device="cpu",
+        shard_index=None, shard_count=None, verbose=False, device=device,
     )
     return dict(rank=rank, world_size=world_size,
                 losses=[h["loss"] for h in run["history"]],
                 grid_ids_run=sorted(r["grid_id"] for r in rows))
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from ..parallel.launch import spawn
     from ..parallel.train_parallel import train_epochs
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda",
+                    help="where both ranks run: the card (default) or cpu")
+    device = ap.parse_args(argv).device
     with tempfile.TemporaryDirectory() as td:
-        results = spawn(rank_main, NUM_PROCESSES, (td,), store_dir=os.path.join(td, "store"),
-                        timeout=600, threads=1)
+        results = spawn(rank_main, NUM_PROCESSES, (td, device), store_dir=os.path.join(td, "store"),
+                        backend="gloo", device=device, timeout=600, threads=1)
     data, exp = tiny_setup()
-    expected = [h["loss"] for h in train_epochs(exp, data, EPOCHS, device="cpu")["history"]]
+    expected = [h["loss"] for h in train_epochs(exp, data, EPOCHS, device=device)["history"]]
     for r in results:
         assert r["world_size"] == NUM_PROCESSES, r
         for got, want in zip(r["losses"], expected):
@@ -85,7 +92,7 @@ def main() -> int:
     ids0, ids1 = results[0]["grid_ids_run"], results[1]["grid_ids_run"]
     assert ids0 == [GRID_IDS[0], GRID_IDS[2]], ids0
     assert ids1 == [GRID_IDS[1], GRID_IDS[3]], ids1
-    print(f"MULTIHOST SMOKE OK: {NUM_PROCESSES} processes (gloo), DP losses "
+    print(f"MULTIHOST SMOKE OK: {NUM_PROCESSES} processes (gloo, {device}), DP losses "
           f"{results[0]['losses']} == single-process {expected}, grid shards {ids0} | {ids1}")
     return 0
 

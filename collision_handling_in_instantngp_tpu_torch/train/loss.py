@@ -16,10 +16,10 @@
   previous epoch's counts and carries no gradient.
 * The vanilla hash path has neither marginals nor probs: the loss is
   ``l_mse * MSE``, with zero JS/KL and collision terms.
-* Under data parallelism (``mesh``) a rank holds its share of the batch's
-  rows: the MSE is the sum over the data group's valid rows over their
+* Under data parallelism (``data_group``) a rank holds its share of the
+  batch's rows: the MSE is the sum over the group's valid rows over their
   count times C, and dense probs are marginalized over every rank's rows
-  (sums with an identity backward, ``parallel/collectives.py``), so every
+  (sums with an identity backward, ``ops/collectives.py``), so every
   rank computes the whole batch's loss and, after the gradient all-reduce,
   each term counts once.
 """
@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import LossConfig
-from ..parallel.collectives import sum_replicated
+from ..ops.collectives import group_size, sum_replicated
 
 
 class LossAux(NamedTuple):
@@ -45,13 +45,13 @@ def _kl_batchmean(log_p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.special.xlogy(q, q) - q * log_p, dim=-1) / q.shape[-1]
 
 
-def marginal_slot_distribution(probs: torch.Tensor, mesh=None) -> torch.Tensor:
+def marginal_slot_distribution(probs: torch.Tensor, group=None) -> torch.Tensor:
     """(P, L, V, N) -> (L, N): sum over pixels and corners / (P * V); with
-    a ``mesh``, over the P rows of every rank of its data group."""
+    a process ``group``, over the P rows of every rank of it."""
     p, _, v, _ = probs.shape
     total = torch.sum(probs, dim=(0, 2))
-    if mesh is not None:
-        total, p = sum_replicated(total, mesh.data_group), p * mesh.data
+    if group is not None:
+        total, p = sum_replicated(total, group), p * group_size(group)
     return total / (p * v)
 
 
@@ -75,22 +75,22 @@ def compute_loss(
     cfg: LossConfig,
     valid_rows: Optional[int] = None,
     probs: Optional[torch.Tensor] = None,
-    mesh=None,
+    data_group=None,
     valid_total: Optional[int] = None,
 ) -> LossAux:
     """pred/target (P, C) in [0, 1]; marginals (L, N), or None with dense
     ``probs`` (P, L, V, N) instead, or neither (the vanilla path); prev_*
     (L,) from the previous epoch (zeros at epoch 0). Rows >= valid_rows are
     the padded tail of the last batch and are masked out of the MSE. With a
-    ``mesh`` (this rank's rows of the batch; ``valid_rows`` required)
-    ``valid_total`` is the valid rows of every rank of the data group."""
+    ``data_group`` (this rank's rows of the batch; ``valid_rows`` required)
+    ``valid_total`` is the valid rows of every rank of the group."""
     if valid_rows is None:
         mse = torch.mean((pred - target) ** 2)
     else:
         mask = (torch.arange(pred.shape[0], device=pred.device) < valid_rows).to(pred.dtype)
         sse = torch.sum((pred - target) ** 2 * mask[:, None])
-        if mesh is not None:
-            sse, valid_rows = sum_replicated(sse, mesh.data_group), valid_total
+        if data_group is not None:
+            sse, valid_rows = sum_replicated(sse, data_group), valid_total
         mse = sse / (valid_rows * pred.shape[-1])
     if marginals is None and probs is None:
         zeros = torch.zeros(prev_collisions.shape, dtype=mse.dtype, device=mse.device)
@@ -98,7 +98,7 @@ def compute_loss(
                        coll_per_level=zeros)
     coll = (prev_collisions / (prev_min_possible + cfg.delta)).detach()
     if marginals is None:
-        marginals = marginal_slot_distribution(probs, mesh)
+        marginals = marginal_slot_distribution(probs, data_group)
     js_kls = js_kl_divergence(marginals, cfg)
     total = cfg.l_mse * mse + torch.sum(cfg.l_js_kl * js_kls + cfg.l_collisions * coll)
     return LossAux(total=total, mse=mse, js_kl_per_level=js_kls, coll_per_level=coll)

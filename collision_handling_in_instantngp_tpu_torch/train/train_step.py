@@ -24,8 +24,8 @@ Data parallelism (``parallel/``): :func:`shard_batches` keeps a rank's
 share of every batch's rows, with the dedup geometry of those rows alone
 (so each rank's HPD runs on the vertices its rows touch, and the
 counts-weighted marginals add up across ranks), and
-``epoch_on_device(mesh=...)`` sums the gradients over the mesh's data group
-before each Adam step, ORs the collisions' presence over it and gathers
+``epoch_on_device(data_group=...)`` sums the gradients over the mesh's data
+group before each Adam step, ORs the collisions' presence over it and gathers
 the image from it, so every rank ends the epoch with the same parameters
 and scalars.
 
@@ -52,7 +52,7 @@ from ..ops import collisions as coll_ops
 from ..ops import dedup as dedup_ops
 from ..ops.collisions import min_possible_collisions
 from ..ops.grid import scale_to_grid
-from ..parallel import collectives
+from ..ops import collectives
 from .loss import compute_loss
 
 # compaction engages only when the padded touched set is below this share
@@ -336,7 +336,7 @@ def epoch_on_device(
     prev_collisions: torch.Tensor,
     prev_min_possible: torch.Tensor,
     collect_ids: bool = False,
-    mesh=None,
+    data_group=None,
 ) -> EpochTensors:
     """Forward, loss, backward and Adam step for every batch in order, then
     collisions and the integer-image statistics, all left on the device.
@@ -344,29 +344,29 @@ def epoch_on_device(
     presence, on the per-row and vanilla routes the epoch's selected slots
     of every row. The BatchNorm running statistics move batch by batch in
     ``params.batchnorm``. ``collect_ids`` keeps the epoch's slot ids for
-    :func:`make_stats_fn` (``EpochTensors.ids``). ``mesh``: ``batches`` is
-    this rank's share (:func:`shard_batches`); the gradients are summed over
-    the data group before each step, and the collisions and the image are
-    those of every rank's rows (no counts epoch: ``collect_ids`` raises)."""
-    if mesh is not None and collect_ids:
-        raise ValueError("collect_ids: a counts epoch runs without a mesh")
+    :func:`make_stats_fn` (``EpochTensors.ids``). ``data_group``: ``batches``
+    is this rank's share (:func:`shard_batches`) and the group's ranks hold
+    the rest; the gradients are summed over the group before each step, and
+    the collisions and the image are those of every rank's rows (no counts
+    epoch: ``collect_ids`` raises)."""
+    if data_group is not None and collect_ids:
+        raise ValueError("collect_ids: a counts epoch runs without a data group")
     mcfg = exp.model
     n_ls = gngf.device_statics(statics, batches.x.device).n_ls
-    group = None if mesh is None else mesh.data_group
     rgbs, losses, mses, js_kls, colls, indices, unique = [], [], [], [], [], [], []
     presence = None
     for bi in range(batches.x.shape[0]):
         out = gngf.forward(params, batches.x[bi], mcfg, statics, dedup=batches.dedup[bi],
-                           mesh=mesh)
+                           data_group=data_group)
         aux = compute_loss(
             out.rgb, batches.y[bi], out.marginal, prev_collisions, prev_min_possible,
-            exp.loss, valid_rows=batches.valid[bi], probs=out.probs, mesh=mesh,
+            exp.loss, valid_rows=batches.valid[bi], probs=out.probs, data_group=data_group,
             valid_total=None if batches.valid_total is None else batches.valid_total[bi],
         )
         optimizer.zero_grad(set_to_none=True)
         aux.total.backward()
-        if mesh is not None:
-            collectives.all_reduce_grads(params.parameters(), group)
+        if data_group is not None:
+            collectives.all_reduce_grads(params.parameters(), data_group)
         optimizer.step()
         with torch.no_grad():
             if out.bn_state is not None:
@@ -387,15 +387,15 @@ def epoch_on_device(
 
     with torch.no_grad():
         if indices:
-            collisions, _ = gngf.calc_hash_collisions(torch.cat(indices), mcfg, statics, group)
+            collisions, _ = gngf.calc_hash_collisions(torch.cat(indices), mcfg, statics, data_group)
         else:
-            if group is not None:
-                presence = collectives.union(presence, group)
+            if data_group is not None:
+                presence = collectives.union(presence, data_group)
             collisions = dedup_ops.collisions_from_presence(presence, n_ls)
-        if group is None:
+        if data_group is None:
             image = torch.cat(rgbs)
         else:   # (nb, B / D, C) of every rank, in row order
-            image = torch.cat(collectives.all_gather(torch.stack(rgbs), group), dim=1)
+            image = torch.cat(collectives.all_gather(torch.stack(rgbs), data_group), dim=1)
         image = image.reshape(-1, rgbs[0].shape[-1])[batches.gather_idx]
         pred_int = (image * 255).to(torch.int32)
         diff = (pred_int - batches.og_image).to(torch.float32)

@@ -123,7 +123,8 @@ def _spawn(tmp_path, world, model_parallel, texp, coords, img, perm, epochs, sta
                 model_parallel=model_parallel, shard_tables=model_parallel > 1, device="cpu",
                 params=start)
     return launch.spawn(train_parallel.rank_worker, world, (spec,),
-                        store_dir=str(tmp_path / "ranks"), timeout=RANK_TIMEOUT, threads=1)
+                        store_dir=str(tmp_path / "ranks"), device="cpu", timeout=RANK_TIMEOUT,
+                        threads=1)
 
 
 def _leaves(tree, path=()):
@@ -293,7 +294,7 @@ def test_rank_failure_fails_the_spawn(tmp_path):
                 device="cpu")
     with pytest.raises(RuntimeError, match="not divisible by model_parallel=3"):
         launch.spawn(train_parallel.rank_worker, 2, (spec,), store_dir=str(tmp_path / "r"),
-                     timeout=RANK_TIMEOUT, threads=1)
+                     device="cpu", timeout=RANK_TIMEOUT, threads=1)
 
 
 # ------------------------------ K12's range --------------------------------- #
@@ -328,7 +329,8 @@ def test_two_process_smoke():
     equal to the single-process run, and run_grid_search(shard_index=None)
     over 4060-4063 split [4060, 4062] | [4061, 4063]."""
     proc = subprocess.run(
-        [sys.executable, "-m", "collision_handling_in_instantngp_tpu_torch.tools.multihost_smoke"],
+        [sys.executable, "-m", "collision_handling_in_instantngp_tpu_torch.tools.multihost_smoke",
+         "--device", "cpu"],
         capture_output=True, text=True, timeout=600, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
