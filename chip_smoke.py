@@ -15,8 +15,8 @@
    ``tail_fwd_kernel`` (redesigned in fp32 on the CUDA cores: its
    tensor-core design lost to it), that of ``hidden.cu``
    HMMA in every instance (precision x row tile x weight staging) of K3a's
-   and K3b's kernels and in K3b's dW kernel, that of the wide passes
-   of ``hpd_stream.cu`` (heads past 128) no tensor-core instruction, and
+   and K3b's kernels and in K3b's dW kernel, that of the forward's wide
+   passes of ``hpd_stream.cu`` (heads past 128) no tensor-core instruction, and
    that of ``probe.cu`` HMMA in both instances of K13's tensor-core kernel
    (which 'default' runs too) and none in its fp32 SGEMM ('highest');
 2. holds every kernel of the dedup route against its plain PyTorch
@@ -107,13 +107,17 @@
    a small L and T (K1, K2, K4-K6: U = 20,000, T = 4096, L = 4; K8-K11:
    L = 2, N = 20,000, T = 256, the stack at the init's scale), bitwise run
    to run and timed (bounds: 3xTF32 at the TF32 peak, the fp32 bound
-   beside them for the streamed passes); trains the
+   beside them for the forward's wide streamed passes; K2 and K6, on the
+   tensor cores at every width, beside their times before); trains the
    dedup, split, per-row "auto" and per-row "pallas" routes at small
    geometries on the card and on the CPU (losses compared; K4-K6's and
    K8/K9's launches there); then fits 3 epochs each, the counts set to 0
    just before, at the scaled geometry (K3a, K3b, K1, K2, K12) and on the
    per-row route with ``batchnorm_input`` (K10, K11, K12), and fails unless
-   each launched and the loss is finite and falls; then heads past 512
+   each launched and the loss is finite and falls; profiles one epoch of
+   the scaled wide fit (its epoch seconds, the backward's device ms by
+   kernel name, which must show K2's ``hpd_bwd_rows_kernel`` and
+   ``hpd_bwd_cols_kernel``, and K2's share of the epoch); then heads past 512
    (K1, K2, K4-K6, K8, K9 at H = 640 and 1000 against their plain
    versions, bitwise run to run), and the stack [2 -> 512 x 4 -> 2048],
    whose row tile K10/K11 cannot hold, on the per-row route "auto": it must
@@ -275,7 +279,10 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "hpd_tail_bwd": 15.82, "hpd_full_fwd": 7.861, "hpd_tail_fwd": 6.777,
                       "rowsum_dot[highest]": 25.38, "rowsum_dot[default]": 40.20,
                       "rowsum_dot[bf16]": 3.674, "rowsum_dot[bf16x3]": 8.649,
-                      "hbm_scale_copy": 1.905, "hbm_write": 0.842}
+                      "hbm_scale_copy": 1.905, "hbm_write": 0.842,
+                      # the CUDA-core wide backward passes at H = 256 (step 13's shape)
+                      "hpd_stream_fused_bwd[H=256]": 26.40,
+                      "hpd_tail_unique_bwd[H=256]": 26.36}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -1104,10 +1111,12 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     its plain version at a small L and T, bitwise run to run, timed: the
     dedup route's K1, K2 (fused gate holds at T = 2^12), K4, K5, K6, and
     the per-row route's K8, K9, K10, K11 (the stack [2 -> 256 -> 512 ->
-    256]). Bounds as at H = 128: the products of fp32 'highest' as 3xTF32
-    at the TF32 peak (the stream kernels' wide passes run fp32 FMA on the
-    CUDA cores: their fp32 bound beside it as ``bound_fp32_ms``); K8's
-    fp32 head at the fp32 peak, as at H = 128."""
+    256]). K2 and K6 run their own launches on the tensor cores (the
+    contraction over H in two 128-deep chunks), beside their times before
+    (the CUDA-core wide passes). Bounds as at H = 128: the
+    products of fp32 'highest' as 3xTF32 at the TF32 peak (the forward's
+    wide passes run fp32 FMA on the CUDA cores: their fp32 bound beside it
+    as ``bound_fp32_ms``); K8's fp32 head at the fp32 peak, as at H = 128."""
     hd, l, k = WIDE_HIDDEN[-1], 4, 4
     f32 = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=gen) * scale
     h = torch.rand(u, hd, device=dev, generator=gen) * 0.1
@@ -1168,8 +1177,8 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
         bitwise_same(f"{name} dh/dw/db", got, fn(*bargs))
         entry(name, "hpd_stream.cu", lambda: fn(*bargs),
               lambda: hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False), 2,
-              None, None, None, err, tail_bwd_bound(u, hd, t, l, k),
-              tail_bwd_bound(u, hd, t, l, k, False)[0])
+              None, None, None, err, tail_bwd_bound(u, hd, t, l, k))
+        redesigned(out[name + WIDE_H])
     del fwd_k, fwd_p, sel_k, bwd_p, got
 
     lr, tr = 2, 256
@@ -1342,6 +1351,31 @@ def overflow_stack_phase(hpd_tail, hpd_full, dev) -> dict:
     for i, (a, r) in enumerate(zip(gk, gp)):
         errs[f"grad{i}"] = compare(f"grad {i}", a, r, GRAD_TOL)
     return dict(route=route, launches=dict(zip(("K8", "K9", "K10", "K11"), launches)), errors=errs)
+
+
+def wide_scaled_profile(exp, data, shuffled, history, dev) -> dict:
+    """One profiled epoch of the wide stack's ``--scaled`` training (K2 at
+    H = 256, U_c = 161,792, T = 2^14, L = 16): prints the fit's epoch
+    seconds, the backward's device ms by launch and K2's share of the
+    epoch's device time. Returns the profile with ``k2_ms`` and
+    ``k2_share`` (K2's row and columns kernels, the reduce apart)."""
+    from collision_handling_in_instantngp_tpu_torch.models import gngf
+    from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
+
+    statics = gngf.make_statics(exp.model)
+    batches = build_epoch_batches(data.coords, data.targets, exp.train.batch_fraction, shuffled,
+                                  data.image, exp.model, statics, dev)
+    log(f"profile: one epoch of the wide --scaled training, device time by kernel "
+        f"(the fit's epoch s {[round(r['seconds'], 4) for r in history]}):")
+    prof = profile_epoch(exp, statics, batches, dev)
+    log_profile(prof)
+    kernels = ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel")
+    prof["per_launch_ms"] = per_launch("K2 at H=256 in training", prof, kernels)
+    prof["k2_ms"] = sum(r["ms"] for r in prof["kernels"] if any(k in r["name"] for k in kernels))
+    prof["k2_share"] = prof["k2_ms"] / max(prof["busy_ms"], 1e-9)
+    log(f"  K2's launches: {prof['k2_ms']:.2f} ms of the epoch's {prof['busy_ms']:.2f} ms of "
+        f"device time ({prof['k2_share']:.1%}); idle {prof['idle_share']:.2%}")
+    return prof
 
 
 # the JAX kernel each wrapper replaces (JAX_SRC + this)
@@ -2690,9 +2724,9 @@ def parallel_phase(data, data_raw, dev) -> tuple:
 TENSOR_CORE_KERNELS = ("hpd_fwd_rows_kernel", "hpd_fwd_cols_kernel", "hpd_probe_kernel",
                        "hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
                        "hpd_b2_rows_kernel")
-# ... and the wide passes (heads past 128) run fp32 FMA on the CUDA cores
-FP32_KERNELS = ("hpd_fix_rows_kernel", "hpd_wide_cols_kernel", "hpd_wide_g_kernel",
-                "hpd_wide_dh_kernel", "hpd_wide_dw_kernel", "hpd_wide_probe_kernel")
+# ... and the forward's wide passes (heads past 128) run fp32 FMA on the CUDA
+# cores (the backward takes every head width on the tensor cores)
+FP32_KERNELS = ("hpd_fix_rows_kernel", "hpd_wide_cols_kernel", "hpd_wide_probe_kernel")
 # K3a / K3b take every product as mma.sync (HMMA) at every precision, row
 # tile and (K3b's backward kernel) weight staging; so does K3b's dW kernel
 HIDDEN_KERNELS = {"hidden_fwd_kernel": [(rt,) for rt in (16, 32, 64)],
@@ -3129,6 +3163,7 @@ def main() -> int:
                   "hpd_stream_fused_bwd": hpd_stream.hpd_stream_fused_bwd}
     launches_w, history_w, fit_w_s = fit_checked(fit, exp_w, data, dev, {**wide_dedup, **k12},
                                                  "the wide dedup route")
+    profile_w = wide_scaled_profile(exp_w, data, shuffled, history_w, dev)
     pr_exp_w = experiment_from_grid_id(4061, base_model=ModelConfig(batchnorm_input=True,
                                                                     hpd_hidden=WIDE_HIDDEN))
     log(f"fit: grid 4061, default geometry, batchnorm_input, hpd_hidden {WIDE_HIDDEN}, "
@@ -3143,7 +3178,8 @@ def main() -> int:
         if name in entries:
             entries[name]["launches"] = n
             entries[name]["route"] = "cuda"
-    wide_fit = dict(dedup=dict(history=history_w, fit_s=fit_w_s, launches=launches_w),
+    wide_fit = dict(dedup=dict(history=history_w, fit_s=fit_w_s, launches=launches_w,
+                               profile=profile_w),
                     per_row_auto=dict(history=history_pw, fit_s=fit_pw_s, launches=launches_pw))
     torch.cuda.empty_cache()
     watermark(marks, "wide stack (step 13)", dev)

@@ -41,11 +41,14 @@ __device__ __forceinline__ float pfma(float a, float b, float acc) {
 
 // Phase marks of the instrumented builds (tools/k11_phases.py builds
 // hpd_full.cu with -DHPD_FULL_PHASES and hpd_tail.cu with -DHPD_TAIL_PHASES,
-// tools/k3_phases.py hidden.cu with -DHIDDEN_PHASES): thread 0 of a block
+// tools/k3_phases.py hidden.cu with -DHIDDEN_PHASES; tools/k2_phases.py
+// hpd_stream.cu with -DHPD_STREAM_PHASES, which reads only read_phases
+// here and keeps its own marks): thread 0 of a block
 // sums the clock64() ticks of each phase into a __device__ array (a phase
 // that ends at a barrier counts the block's time). In a normal build the
 // marks compile to nothing.
-#if defined(HPD_FULL_PHASES) || defined(HIDDEN_PHASES) || defined(HPD_TAIL_PHASES)
+#if defined(HPD_FULL_PHASES) || defined(HIDDEN_PHASES) || defined(HPD_TAIL_PHASES) || \
+    defined(HPD_STREAM_PHASES)
 // the ticks of src into out, then zeroed if reset
 template <int NP>
 int read_phases(unsigned long long (&src)[NP], unsigned long long* out, int reset) {

@@ -38,6 +38,9 @@
 // Every pass runs its products on the tensor cores as warpgroup MMAs (see
 // "backward, on the tensor cores" and "forward, on the tensor cores"
 // below); the top-K stays that of the fp32 logits by candidate refinement.
+// The backward takes any head width there, its contraction over H in
+// 128-deep chunks; the forward past H = 128 runs the wide passes (fp32 FMA
+// on the CUDA cores) below.
 // Sums across row blocks (marg, dW, db) go to per-segment partials over a
 // fixed number of row segments, summed in segment order by
 // hpd_reduce_segments_kernel: no atomics, bitwise stable run to run. Every
@@ -49,7 +52,8 @@
 // logits product is 2.7 TFLOP against 32 MB of weight: 16 ms as 3xTF32 at
 // the TF32 tensor peak (40 ms at the fp32 CUDA-core peak). K4, K5 and B1
 // each compute the logits once, as the TPU's split kernels do; B2 computes
-// them twice (its row and its column part) where the TPU's runs once.
+// them twice (its row and its column part) where the TPU's runs once; at a
+// head of nc 128-deep chunks each block of dh's or dW's nc recomputes them.
 
 #include <float.h>
 #include <limits.h>
@@ -71,38 +75,32 @@ int rows_per_seg(int u) {
   return ((tiles + SEGS - 1) / SEGS) * R;
 }
 
-// ---------------- wide heads: H past HMAX, on the CUDA cores ---------------- //
+// ------------- wide heads: the forward past HMAX, on the CUDA cores ------------ //
 //
-// A head wider than HMAX (any width up to HWIDE, the grid's limit below)
-// takes the passes of this section instead of the tensor-core passes below,
-// whose shared-memory plans hold a whole R x HMAX tile of h (and its hi /
-// lo split) for the block's life. Each wide pass streams h through the
-// R x HMAX tile of stream_tile.cuh in HMAX-deep chunks, the logits of a
-// column tile accumulating over the chunks as one fma chain over k
-// ascending (the exact fp32 arithmetic of the fix-up's sweep, pfma<P>):
+// A head wider than HMAX takes the forward passes of this section instead
+// of the tensor-core forward passes below, whose shared-memory plans hold a
+// whole R x HMAX tile of h (and its hi / lo split) for the block's life.
+// Each wide pass streams h through the R x HMAX tile of stream_tile.cuh in
+// HMAX-deep chunks, the logits of a column tile accumulating over the
+// chunks as one fma chain over k ascending (the exact fp32 arithmetic of
+// the fix-up's sweep, pfma<P>):
 //   rows pass    the fix-up's exact sweep over every row (no guard needed):
 //                m, s, vals, idx of K1 / K4.
 //   columns pass (hpd_wide_cols_kernel) marg partials per (column tile,
 //                row segment) of K1 / K5.
-//   G pass       (hpd_wide_g_kernel) G = p g_marg^T per row tile: K6's B1,
-//                and K2's at these widths (dot closed between, as K6 does).
-//   dh pass      (hpd_wide_dh_kernel) dl, then dh = dl w^T, one HMAX-wide
-//                chunk of dh per block (grid.y), the logits recomputed for
-//                each chunk.
-//   dW pass      (hpd_wide_dw_kernel) dl, then dW = h^T dl for a 64-row
-//                chunk of dW per block (grid.z), db on the first chunk.
 //   probe        (hpd_wide_probe_kernel) K7's two variants.
 // Sums: two-level (a tile's partial added to the running value), across
-// blocks in the fixed segment partials: bitwise stable run to run. Speed
-// at these widths is not tuned (PERF.md §6).
+// blocks in the fixed segment partials: bitwise stable run to run. The
+// backward takes every head width on the tensor cores (its contraction
+// over H in HMAX-deep chunks: "backward, on the tensor cores" below).
 
-constexpr int TP = TT + 4;   // row stride of the p / dl tiles
-constexpr int DWK = 64;      // rows of dW a block of the dW pass owns
-// The widest head: the dW pass puts its ceil(H / DWK) chunks on grid.z
-// and the dh pass its ceil(H / HMAX) on grid.y, both at most 65,535 blocks;
-// no shared-memory plan of a wide pass grows with H (h streams through the
-// R x HMAX tile).
-constexpr int HWIDE = 65535 * DWK;
+constexpr int TP = TT + 4;   // row stride of the p tile
+// The widest head: the backward puts its ceil(H / HMAX) chunks of dh and
+// dW on grid.y (row kernels) and grid.z (columns kernel), at most 65,535
+// blocks each; no shared-memory plan grows with H (the forward's wide
+// passes stream h through the R x HMAX tile, the backward's chunks go
+// through the tiles of one HMAX-deep chunk).
+constexpr int HWIDE = 65535 * HMAX;
 
 // The logits h w + b of the rows row(r) (r < R; -1: a zero row) x columns
 // [t0, t0 + TT), h streamed through h_s (R x HP) in HMAX-deep chunks; laid
@@ -149,35 +147,6 @@ __device__ __forceinline__ void wide_tile_p(Row row, const float* __restrict__ m
     const float sr = gr >= 0 && s[gr] > 0.f ? s[gr] : 1.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = gr >= 0 ? expf(acc[i][j] - mr) / sr : 0.f;
-  }
-}
-
-// dl = p (g_p - dot) of the tile into dl_s (R x TP), g_p = counts^T g_marg
-// (+ g_vals at the rows' top-K columns): cnt_s (L x R), gm_s (L x TP) the
-// tile's columns, idx_s / gv_s (R x K) the rows' top-K; 0 on rows < 0.
-template <int P, typename Row>
-__device__ __forceinline__ void wide_tile_dl(Row row, const float (&p)[4][8], int t0, int L,
-                                             int K, bool noop, const float* __restrict__ cnt_s,
-                                             const float* __restrict__ gm_s,
-                                             const int* __restrict__ idx_s,
-                                             const float* __restrict__ gv_s,
-                                             const float* __restrict__ dot,
-                                             float* __restrict__ dl_s) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, gr = row(r);
-    const float dr = gr >= 0 ? dot[gr] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tx + 16 * j;
-      float gp = 0.f;
-      for (int l = 0; l < L; ++l) gp = pfma<P>(cnt_s[l * R + r], gm_s[l * TP + c], gp);
-      if (!noop)
-        for (int q = 0; q < K; ++q)
-          if (idx_s[r * K + q] == t0 + c) gp += gv_s[r * K + q];
-      dl_s[r * TP + c] = gr >= 0 ? p[i][j] * (gp - dr) : 0.f;
-    }
   }
 }
 
@@ -234,256 +203,6 @@ hpd_wide_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
     const int e = threadIdx.x + i * THREADS, l = e / TT, c = e - l * TT;
     if (l < L) marg_part[((size_t)seg * L + l) * T + t0 + c] = run[i];
   }
-}
-
-size_t wide_g_smem(int L) {
-  return sizeof(float) * (R * HP + BK * TT + R * (TT + 1) + (size_t)L * TP);
-}
-
-// G pass at a wide head: g_rows[r, l] = <p[r], g_marg[l]> for the block's R
-// rows, column tile by column tile.
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_wide_g_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                  const float* __restrict__ b, const float* __restrict__ m,
-                  const float* __restrict__ s, const float* __restrict__ g_marg, int u, int H,
-                  int T, int L, float* __restrict__ g_rows) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* p_s = w_s + BK * TT;        // stride TT + 1: the sums' lanes run over rows
-  float* gm_s = p_s + R * (TT + 1);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * R;
-  const auto row = [&](int r) { return r0 + r < u ? r0 + r : -1; };
-  float run[R * LMAX / THREADS];
-#pragma unroll
-  for (int i = 0; i < R * LMAX / THREADS; ++i) run[i] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    float acc[4][8];
-    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, acc);
-    wide_tile_p(row, m, s, acc);
-    __syncthreads();  // the previous tile's sums have read p_s, gm_s
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) p_s[(ty * 4 + i) * (TT + 1) + tx + 16 * j] = acc[i][j];
-    for (int e = threadIdx.x; e < L * TT; e += THREADS) {
-      const int l = e / TT, c = e - l * TT;
-      gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R * LMAX / THREADS; ++i) {
-      const int e = threadIdx.x + i * THREADS, l = e / R, r = e - l * R;
-      if (l < L) {
-        float t = 0.f;
-        for (int c = 0; c < TT; ++c) t = pfma<P>(p_s[r * (TT + 1) + c], gm_s[l * TP + c], t);
-        run[i] += t;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R * LMAX / THREADS; ++i) {
-    const int e = threadIdx.x + i * THREADS, l = e / R, r = e - l * R;
-    if (l < L && r0 + r < u) g_rows[(size_t)(r0 + r) * L + l] = run[i];
-  }
-}
-
-// The rows' top-K (idx, g_vals) of a tile into idx_s / gv_s (R x K)
-template <typename Row>
-__device__ __forceinline__ void wide_load_topk(Row row, const int* __restrict__ idx,
-                                               const float* __restrict__ g_vals, int K,
-                                               int* __restrict__ idx_s, float* __restrict__ gv_s) {
-  for (int e = threadIdx.x; e < R * K; e += THREADS) {
-    const int r = e / K, gr = row(r);
-    idx_s[e] = gr >= 0 ? idx[(size_t)gr * K + e - r * K] : -1;
-    gv_s[e] = gr >= 0 ? g_vals[(size_t)gr * K + e - r * K] : 0.f;
-  }
-}
-
-size_t wide_dh_smem(int L, int K) {
-  return sizeof(float) * (R * HP + BK * (TT + 1) + R * TP + (size_t)L * TP + (size_t)L * R +
-                          2 * (size_t)R * K);
-}
-
-// dh pass at a wide head: block (row tile x, dh chunk y) writes dh[rows,
-// HMAX y + [0, HMAX)] = sum over column tiles of dl w^T.
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_wide_dh_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                   const float* __restrict__ b, const float* __restrict__ counts,
-                   const int* __restrict__ idx, const float* __restrict__ m,
-                   const float* __restrict__ s, const float* __restrict__ dot,
-                   const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
-                   int H, int T, int L, int K, int noop, float* __restrict__ dh) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;          // the logits' w chunks; then w^T, stride TT + 1
-  float* dl_s = w_s + BK * (TT + 1);
-  float* gm_s = dl_s + R * TP;
-  float* cnt_s = gm_s + L * TP;
-  int* idx_s = (int*)(cnt_s + L * R);
-  float* gv_s = (float*)(idx_s + R * K);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * R, kc0 = blockIdx.y * HMAX;
-  const auto row = [&](int r) { return r0 + r < u ? r0 + r : -1; };
-  for (int e = threadIdx.x; e < L * R; e += THREADS) {
-    const int l = e / R, r = e - l * R;
-    cnt_s[e] = row(r) >= 0 ? counts[(size_t)l * u + r0 + r] : 0.f;
-  }
-  wide_load_topk(row, idx, g_vals, K, idx_s, gv_s);
-  float run[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) run[i][j] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    float p[4][8];
-    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, p);
-    wide_tile_p(row, m, s, p);
-    __syncthreads();  // the previous tile's dh has read dl_s, gm_s, w_s
-    for (int e = threadIdx.x; e < L * TT; e += THREADS) {
-      const int l = e / TT, c = e - l * TT;
-      gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
-    }
-    __syncthreads();
-    wide_tile_dl<P>(row, p, t0, L, K, noop, cnt_s, gm_s, idx_s, gv_s, dot, dl_s);
-    // dh chunk += dl (R x TT) w[kc0 + k, t0 + c]^T: thread (ty, tx) holds
-    // rows ty*4 + i, k = tx + 16 j; w^T staged BK columns at a time in w_s
-    float part[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
-    for (int cb = 0; cb < TT; cb += BK) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < BK * HMAX; e += THREADS) {
-        const int k = e / BK, cc = e - k * BK;   // consecutive threads on consecutive columns
-        w_s[cc * (TT + 1) + k] = kc0 + k < H ? w[(size_t)(kc0 + k) * T + t0 + cb + cc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < BK; ++cc) {
-        float a[4], bb[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = dl_s[(ty * 4 + i) * TP + cb + cc];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bb[j] = w_s[cc * (TT + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) part[i][j] = pfma<P>(a[i], bb[j], part[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) run[i][j] += part[i][j];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= u) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = kc0 + tx + 16 * j;
-      if (k < H) dh[(size_t)r * H + k] = run[i][j];
-    }
-  }
-}
-
-size_t wide_dw_smem(int L, int K) {
-  return sizeof(float) * (R * HP + BK * TT + R * TP + (size_t)L * TP + (size_t)L * R +
-                          2 * (size_t)R * K + (size_t)R * (DWK + 4));
-}
-
-// dW pass at a wide head: block (column tile x, row segment y, dW chunk z)
-// sums h[:, DWK z + k]^T dl over its segment's rows into dw_part[y], and
-// (z = 0) the rows' dl into db_part[y].
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_wide_dw_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                   const float* __restrict__ b, const float* __restrict__ counts,
-                   const int* __restrict__ idx, const float* __restrict__ m,
-                   const float* __restrict__ s, const float* __restrict__ dot,
-                   const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
-                   int H, int T, int L, int K, int noop, int rows_seg,
-                   float* __restrict__ dw_part, float* __restrict__ db_part) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* dl_s = w_s + BK * TT;
-  float* gm_s = dl_s + R * TP;
-  float* cnt_s = gm_s + L * TP;
-  int* idx_s = (int*)(cnt_s + L * R);
-  float* gv_s = (float*)(idx_s + R * K);
-  float* hk_s = gv_s + R * K;                 // h[rows, kc0 + [0, DWK)], stride DWK + 4
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int t0 = blockIdx.x * TT, seg = blockIdx.y, kc0 = blockIdx.z * DWK;
-  const int rb = seg * rows_seg, re = min(u, rb + rows_seg);
-  for (int e = threadIdx.x; e < L * TT; e += THREADS) {
-    const int l = e / TT, c = e - l * TT;
-    gm_s[l * TP + c] = g_marg[(size_t)l * T + t0 + c];
-  }
-  float run[4][8], brun = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) run[i][j] = 0.f;
-  for (int r0 = rb; r0 < re; r0 += R) {
-    const auto row = [&](int r) { return r0 + r < re ? r0 + r : -1; };
-    float p[4][8];
-    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, p);
-    wide_tile_p(row, m, s, p);
-    __syncthreads();  // the previous tile's sums have read dl_s, hk_s, cnt_s, idx_s
-    for (int e = threadIdx.x; e < L * R; e += THREADS) {
-      const int l = e / R, r = e - l * R;
-      cnt_s[e] = row(r) >= 0 ? counts[(size_t)l * u + r0 + r] : 0.f;
-    }
-    for (int e = threadIdx.x; e < R * DWK; e += THREADS) {
-      const int r = e / DWK, k = e - r * DWK;
-      hk_s[r * (DWK + 4) + k] = row(r) >= 0 && kc0 + k < H ? h[(size_t)(r0 + r) * H + kc0 + k] : 0.f;
-    }
-    wide_load_topk(row, idx, g_vals, K, idx_s, gv_s);
-    __syncthreads();
-    wide_tile_dl<P>(row, p, t0, L, K, noop, cnt_s, gm_s, idx_s, gv_s, dot, dl_s);
-    __syncthreads();
-    float part[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < R; ++r) {
-      float a[4], bb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = hk_s[r * (DWK + 4) + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bb[j] = dl_s[r * TP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) part[i][j] = pfma<P>(a[i], bb[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) run[i][j] += part[i][j];
-    if (blockIdx.z == 0 && threadIdx.x < TT) {
-      float sb = 0.f;
-      for (int r = 0; r < R; ++r) sb += dl_s[r * TP + threadIdx.x];
-      brun += sb;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = kc0 + ty * 4 + i;
-    if (k >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dw_part[((size_t)seg * H + k) * T + t0 + tx + 16 * j] = run[i][j];
-  }
-  if (blockIdx.z == 0 && threadIdx.x < TT) db_part[(size_t)seg * T + t0 + threadIdx.x] = brun;
 }
 
 size_t wide_probe_smem() { return sizeof(float) * (R * HP + BK * TT + 2 * R * NSUB); }
@@ -778,6 +497,33 @@ int reduce_segments(const float* part, float* out, size_t n, cudaStream_t st) {
 // next g_marg tile in registers while the current one is used; the columns
 // kernel double-buffers the row tiles with cp.async. One 8-warp block per SM
 // (225 KB / 217 KB of shared memory).
+// Any head width: the contraction over H runs in nc = ceil(H / HMAX) chunks
+// of HMAX (the last zero-filled past H), each split_k's halves of one chunk
+// from zeroed chains, the chunks' partials summed in fp32 in load order. At
+// nc = 1 (H <= HMAX) the passes are the ones above, in instances of their
+// own (CH = false: one chunk, a constant, so the main path's kernels carry
+// no chunk loop and hold no more registers). Past it the tiles of one
+// chunk take the place of the whole-h tiles, so no shared-memory plan grows
+// with H, and nothing that a block accumulates does either:
+//   row kernels    the w ring carries (column tile, chunk) loads; the h hi /
+//                  lo B tile is restaged for every chunk, split from the
+//                  fp32 chunk that cp.async brought into dl's tiles while the
+//                  chunk before was used; dh's chunks go on grid.y (block y
+//                  owns dh columns HMAX y + [0, HMAX)),
+//                  its own chunk loaded last in every tile so that its w
+//                  chunk is still resident for dh^T = w dl^T; K2's row kernel
+//                  runs in two launches, G and dot once per row tile, then
+//                  dh's chunks from that dot (K6's B1 / B2 split, in K2's
+//                  own kernel).
+//   columns kernel the ring carries (row tile, chunk) loads of h, the row
+//                  tile's counts, top-K, m, s and dot with its last; the
+//                  w^T hi / lo B tile is restaged for every chunk in the same
+//                  way (its fp32 chunk staged in dl^T's tiles); dW's
+//                  chunks go on grid.z, the block's own chunk last (its h
+//                  chunk resident for dW = h^T dl); db in block z = 0.
+// So a head of nc chunks computes the logits nc times in each pass that
+// holds dh or dW, and restages a B tile per chunk: the cost of keeping one
+// HMAX-deep chunk of dh or dW per block.
 
 constexpr int BT = 64;   // columns per backward tile
 constexpr int LP = 32;   // level slots of the g_marg and counts tiles (= LMAX)
@@ -793,6 +539,53 @@ constexpr int BWD_SMEM_COLS =
 // + 1 KB: the swizzled tiles start on a 1024-byte boundary
 size_t bwd_rows_smem() { return sizeof(float) * BWD_SMEM_ROWS + 1024; }
 size_t bwd_cols_smem() { return sizeof(float) * BWD_SMEM_COLS + 1024; }
+
+// HMAX-deep chunks of the contraction over H: the backward's grid.y (row
+// kernels) or grid.z (columns kernel).
+__host__ __device__ __forceinline__ int h_chunks(int H) { return (H + HMAX - 1) / HMAX; }
+
+// The backward kernels' instances: CH = true past HMAX (the chunk loops),
+// CH = false else (one chunk, a constant: the code of a single h tile).
+#define DISPATCH_CHUNKED(H, ...)   \
+  if ((H) > HMAX) {                \
+    constexpr bool CH = true;      \
+    __VA_ARGS__;                   \
+  } else {                         \
+    constexpr bool CH = false;     \
+    __VA_ARGS__;                   \
+  }
+
+// Built with -DHPD_STREAM_PHASES (tools/k2_phases.py), thread 0 of each
+// backward block sums the clock64() ticks of its phases into bwd_phase
+// (kernel PK_*, phase PH_*); every mark is a block barrier, so the ticks are
+// the block's. Otherwise the marks compile to nothing.
+enum { PH_WAIT, PH_RESTAGE, PH_LOGITS, PH_G, PH_DL, PH_PRODUCT, PH_REST, NPH };
+enum { PK_ROWS, PK_B1, PK_B2, PK_COLS, NPK };
+#ifdef HPD_STREAM_PHASES
+__device__ unsigned long long bwd_phase[NPK * NPH];
+struct Clock {
+  unsigned long long ph[NPH], t0;
+  __device__ Clock() {
+    for (int i = 0; i < NPH; ++i) ph[i] = 0ull;
+    t0 = clock64();
+  }
+  __device__ void mark(int i) {
+    __syncthreads();
+    const unsigned long long t = clock64();
+    ph[i] += t - t0;
+    t0 = t;
+  }
+  __device__ void end(int k) {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < NPH; ++i) atomicAdd(&bwd_phase[k * NPH + i], ph[i]);
+  }
+};
+#else
+struct Clock {
+  __device__ void mark(int) {}
+  __device__ void end(int) {}
+};
+#endif
 
 __device__ __forceinline__ float* align1024(float* smem) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
@@ -1013,13 +806,11 @@ __device__ __forceinline__ void chain(float (&d)[N / 2], int s0, int s1, FA a_of
   }
 }
 
-// run = sum over k8 steps [s0, s1) of A(s) B(s) in chains of KCH steps, each
-// from zero and added to run in fp32 in order (run = 0 for an empty range).
+// run += sum over k8 steps [s0, s1) of A(s) B(s) in chains of KCH steps,
+// each from zero and added to run in fp32 in order.
 template <int P, int N, bool LO_APART = false, typename FA, typename FH, typename FL>
-__device__ __forceinline__ void chains(float (&run)[N / 2], int s0, int s1, FA a_of, FH b_hi,
-                                       FL b_lo) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) run[i] = 0.f;
+__device__ __forceinline__ void chains_add(float (&run)[N / 2], int s0, int s1, FA a_of,
+                                           FH b_hi, FL b_lo) {
   for (int c0 = s0; c0 < s1; c0 += KCH) {
     float d[N / 2];
     chain<P, N, KCH, LO_APART>(d, c0, min(s1, c0 + KCH), a_of, b_hi, b_lo);
@@ -1028,18 +819,23 @@ __device__ __forceinline__ void chains(float (&run)[N / 2], int s0, int s1, FA a
   }
 }
 
-// The logits of a 64 x 64 tile (M = 64 x N = 64, K = nk8 k8 steps <= 16)
-// with K split between the warpgroups: warpgroup wg sums steps [8 wg,
-// 8 wg + 8) with m64n64 MMAs, so each loads half of A and no A fragment twice;
-// the two partial sums meet through xbuf (4096 floats, free on entry and on
-// return): warpgroup wg keeps elements [16 wg, 16 wg + 16) of the m64n64
-// accumulator, N = 32 wg + [0, 32), as l (the m64n32 layout at n0 = 32 wg).
-template <int P, bool LO_APART = false, typename FA, typename FH, typename FL>
-__device__ __forceinline__ void split_k(float (&l)[16], int nk8, FA a_of, FH b_hi, FL b_lo,
-                                        float* __restrict__ xbuf) {
+// The same from run = 0 (run = 0 for an empty range).
+template <int P, int N, bool LO_APART = false, typename FA, typename FH, typename FL>
+__device__ __forceinline__ void chains(float (&run)[N / 2], int s0, int s1, FA a_of, FH b_hi,
+                                       FL b_lo) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) run[i] = 0.f;
+  chains_add<P, N, LO_APART>(run, s0, s1, a_of, b_hi, b_lo);
+}
+
+// split_k's exchange: warpgroup wg's m64n64 partial `part` of a 64 x 64 tile
+// whose contraction the two warpgroups split meets the other's through xbuf
+// (4096 floats, free on entry and on return): warpgroup wg keeps elements
+// [16 wg, 16 wg + 16) of the sum, N = 32 wg + [0, 32), as l (the m64n32
+// layout at n0 = 32 wg).
+__device__ __forceinline__ void meet(const float (&part)[32], float (&l)[16],
+                                     float* __restrict__ xbuf) {
   const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
-  float part[32];
-  chains<P, 64, LO_APART>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, b_hi, b_lo);
   // constant indices in each branch: the partial stays in registers
   if (wg == 0) {
 #pragma unroll
@@ -1057,6 +853,19 @@ __device__ __forceinline__ void split_k(float (&l)[16], int nk8, FA a_of, FH b_h
     for (int e = 0; e < 16; ++e) l[e] = part[16 + e] + xbuf[e * 128 + tw];
   }
   __syncthreads();
+}
+
+// The logits of a 64 x 64 tile (M = 64 x N = 64, K = nk8 k8 steps <= 16)
+// with K split between the warpgroups: warpgroup wg sums steps [8 wg,
+// 8 wg + 8) with m64n64 MMAs, so each loads half of A and no A fragment
+// twice; the two partial sums meet through xbuf (meet).
+template <int P, bool LO_APART = false, typename FA, typename FH, typename FL>
+__device__ __forceinline__ void split_k(float (&l)[16], int nk8, FA a_of, FH b_hi, FL b_lo,
+                                        float* __restrict__ xbuf) {
+  const int wg = threadIdx.x >> 7;
+  float part[32];
+  chains<P, 64, LO_APART>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, b_hi, b_lo);
+  meet(part, l, xbuf);
 }
 
 // Accumulator element i of an m64nN tile: row m0 + 16 (warp % 4) + g +
@@ -1098,6 +907,21 @@ __device__ __forceinline__ void load_w_async(const float* __restrict__ w,
     const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
     cp_async16(w_s + k * BT + swz_b(k, c), w + (size_t)k * T + t0 + c);
   }
+  if (threadIdx.x < BT / 4) cp_async16(b_s + 4 * threadIdx.x, b + t0 + 4 * threadIdx.x);
+}
+
+// The same for rows [c0, c0 + HMAX) of a head wider than HMAX, zero past H
+// (an earlier chunk's rows would remain in the stage).
+__device__ __forceinline__ void load_w_chunk_async(const float* __restrict__ w,
+                                                   const float* __restrict__ b, int H, int T,
+                                                   int t0, int c0, float* __restrict__ w_s,
+                                                   float* __restrict__ b_s) {
+  const int hc = min(H - c0, HMAX);
+  for (int i = threadIdx.x; i < hc * (BT / 4); i += THREADS) {
+    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
+    cp_async16(w_s + k * BT + swz_b(k, c), w + (size_t)(c0 + k) * T + t0 + c);
+  }
+  for (int i = hc * BT + threadIdx.x; i < HMAX * BT; i += THREADS) w_s[i] = 0.f;
   if (threadIdx.x < BT / 4) cp_async16(b_s + 4 * threadIdx.x, b + t0 + 4 * threadIdx.x);
 }
 
@@ -1686,10 +1510,77 @@ __device__ __forceinline__ void store_gm(const float (&v)[LP * BT / THREADS],
   }
 }
 
-// Row kernels' start: h rows [r0, r0 + R) (zero past u and H) and counts^T
-// as hi / lo tiles, per-row state (1 / s for s), the mask of column tiles
-// that hold a top-K index, zero rows of the w buffers past H.
+// h rows [r0, r0 + R), columns [c0, c0 + HMAX) (zero past u and H), fp32,
+// into hf (R x HMAX: dl's two tiles) by cp.async.
+static_assert(R * HMAX == 2 * R * BT, "h's fp32 chunk fills dl_hi and dl_lo");
+__device__ __forceinline__ void load_h_async(const float* __restrict__ h, int u, int H, int r0,
+                                             int c0, float* __restrict__ hf) {
+  if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
+    for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
+      const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
+      float* dst = hf + r * HMAX + k;
+      if (r0 + r < u && c0 + k < H) {
+        cp_async16(dst, h + (size_t)(r0 + r) * H + c0 + k);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = 0.f;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i % HMAX;
+      if (r0 + r < u && c0 + k < H)
+        cp_async4(hf + i, h + (size_t)(r0 + r) * H + c0 + k);
+      else
+        hf[i] = 0.f;
+    }
+  }
+}
+
+// Four consecutive k of an fp32 operand, split into its hi / lo tiles at o
+// (one 16-byte chunk of the 128-byte swizzle; lo not kept for P = 2).
 template <int P>
+__device__ __forceinline__ void put4(float* __restrict__ hi_t, float* __restrict__ lo_t, int o,
+                                     float4 x) {
+  uint4 hi, lo;
+  split<P>(x.x, hi.x, lo.x);
+  split<P>(x.y, hi.y, lo.y);
+  split<P>(x.z, hi.z, lo.z);
+  split<P>(x.w, hi.w, lo.w);
+  *(uint4*)(hi_t + o) = hi;
+  if (P != 2) *(uint4*)(lo_t + o) = lo;
+}
+
+// hf (R x HMAX, fp32) as the row kernels' hi / lo B tiles (n = row, k = h):
+// a thread takes 4 consecutive k of rows threadIdx.x / 32 + 8 j, 16 bytes
+// a load and a store, each warp's stores on 32 distinct banks.
+template <int P>
+__device__ __forceinline__ void split_h(const RowsSmem& sm, const float* __restrict__ hf) {
+  const int k = (threadIdx.x & 31) * 4;
+#pragma unroll
+  for (int j = 0; j < R * HMAX / (4 * THREADS); ++j) {
+    const int r = (threadIdx.x >> 5) + 8 * j;
+    put4<P>(sm.h_hi, sm.h_lo, sw128(R, r, k), *(const float4*)(hf + r * HMAX + k));
+  }
+}
+
+// h rows [r0, r0 + R), columns [c0, c0 + HMAX) (zero past u and H) as the
+// row kernels' hi / lo B tiles (n = row, k = h).
+template <int P>
+__device__ __forceinline__ void stage_h(const RowsSmem& sm, const float* __restrict__ h, int u,
+                                        int H, int r0, int c0) {
+  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+    const int r = i / HMAX, k = i % HMAX;
+    put<P>(sm.h_hi, sm.h_lo, sw128(R, r, k),
+           (r0 + r < u && c0 + k < H) ? h[(size_t)(r0 + r) * H + c0 + k] : 0.f);
+  }
+}
+
+// Row kernels' start: h rows [r0, r0 + R) as hi / lo tiles where one chunk
+// holds them (past HMAX the sweeps restage every chunk), counts^T as hi / lo
+// tiles, per-row state (1 / s for s), the mask of column tiles that hold a
+// top-K index, zero rows of the w buffers past H.
+template <int P, bool CH>
 __device__ __forceinline__ void rows_prologue(const RowsSmem& sm, const float* __restrict__ h,
                                               const float* __restrict__ counts,
                                               const int* __restrict__ idx,
@@ -1697,11 +1588,7 @@ __device__ __forceinline__ void rows_prologue(const RowsSmem& sm, const float* _
                                               const float* __restrict__ s_in,
                                               const float* __restrict__ g_vals, int u, int H,
                                               int L, int K, int r0) {
-  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
-    const int r = i / HMAX, k = i % HMAX;
-    put<P>(sm.h_hi, sm.h_lo, sw128(R, r, k),
-           (r0 + r < u && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f);
-  }
+  if (!CH) stage_h<P>(sm, h, u, H, r0, 0);
   for (int i = threadIdx.x; i < R * LP; i += THREADS) {
     const int l = i / R, r = i % R;
     put<P>(sm.c_hi, sm.c_lo, sw128(R, r, l),
@@ -1728,62 +1615,174 @@ __device__ __forceinline__ void rows_prologue(const RowsSmem& sm, const float* _
   }
 }
 
-// A sweep's start: g_marg tile 0 into stage 0; w tiles 0 and 1 by cp.async,
-// one commit group each (at tile i's start W(i) is the second most recent).
-template <int P>
-__device__ __forceinline__ void sweep_start(const RowsSmem& sm, const float* __restrict__ w,
+// The w loads of a row kernel's sweep: load n is chunk chunk(n) of column
+// tile n / nc into stage n & 1; `last` is the chunk each tile loads last,
+// which stays resident after the tile's logits. Past HMAX the h chunk of
+// load n comes by cp.async too, into dl's tiles (free while the logits
+// run), in a commit group of its own after w load n: at every chunk's start
+// the groups end with those two (wait<1> takes them) and w load n + 1.
+struct WRing {
+  int nc, last, n_loads;
+  // chunked: H > HMAX (else nc = 1, a constant of the instance)
+  __device__ WRing(int H, int T, int last_, bool chunked)
+      : nc(chunked ? h_chunks(H) : 1), last(last_), n_loads(T / BT * nc) {}
+  __device__ int chunk(int n) const { return (last + 1 + n % nc) % nc; }
+  // load n into its stage (nothing past the last), not committed
+  __device__ void issue(const RowsSmem& sm, const float* __restrict__ w,
+                        const float* __restrict__ b, int H, int T, int n) const {
+    if (n >= n_loads) return;
+    if (nc == 1)
+      load_w_async(w, b, H, T, n * BT, sm.w_s + (n & 1) * HMAX * BT, sm.b_s + (n & 1) * BT);
+    else
+      load_w_chunk_async(w, b, H, T, n / nc * BT, chunk(n) * HMAX,
+                         sm.w_s + (n & 1) * HMAX * BT, sm.b_s + (n & 1) * BT);
+  }
+  // the h chunk of load n into the fp32 staging tile (nothing past the last),
+  // not committed
+  __device__ void issue_h(const RowsSmem& sm, const float* __restrict__ h, int u, int H, int r0,
+                          int n) const {
+    if (n < n_loads) load_h_async(h, u, H, r0, chunk(n) * HMAX, sm.dl_hi);
+  }
+  // the stage of column tile it's last load (w chunk `last`, the tile's bias)
+  __device__ int last_stage(int it) const { return (it * nc + nc - 1) & 1; }
+};
+
+// A sweep's start: g_marg tile 0 into stage 0; w loads 0 and 1 (and, CH,
+// h's chunk of load 0 between them) by cp.async, one commit group each.
+template <int P, bool CH>
+__device__ __forceinline__ void sweep_start(const RowsSmem& sm, const WRing& ring,
+                                            const float* __restrict__ h,
+                                            const float* __restrict__ w,
                                             const float* __restrict__ b,
-                                            const float* __restrict__ g_marg, int H, int T,
-                                            int L) {
+                                            const float* __restrict__ g_marg, int u, int r0,
+                                            int H, int T, int L) {
   float v[LP * BT / THREADS];
   load_gm(g_marg, T, L, 0, v);
   store_gm<P>(v, sm.gm_hi, sm.gm_lo);
-  load_w_async(w, b, H, T, 0, sm.w_s, sm.b_s);
+  ring.issue(sm, w, b, H, T, 0);
   cp_commit();
-  if (BT < T) load_w_async(w, b, H, T, BT, sm.w_s + HMAX * BT, sm.b_s + BT);
+  if (CH) {
+    ring.issue_h(sm, h, u, H, r0, 0);
+    cp_commit();
+  }
+  ring.issue(sm, w, b, H, T, 1);
   cp_commit();
 }
 
-// p^T of the tile: element i of the m64n32 layout is column t0 + c_m(0, i)
-// and row c_n(32 wg, i) of the block (split_k; its exchange uses dl_hi).
-template <int P>
-__device__ __forceinline__ void rows_p(const RowsSmem& sm, const float* __restrict__ w_s,
-                                       const float* __restrict__ b_s, int nk8, float (&l)[16]) {
-  const int n0 = 32 * (threadIdx.x >> 7);
-  tile_logits_t<P, false>(sm.h_hi, sm.h_lo, w_s, b_s, nk8, sm.dl_hi, l);
+// The commit groups that end column tile it: h's chunk (CH) and w of the
+// next tile's first load, then w load + 1.
+template <bool CH>
+__device__ __forceinline__ void sweep_next(const RowsSmem& sm, const WRing& ring,
+                                           const float* __restrict__ h,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ b, int u, int r0, int H,
+                                           int T, int it) {
+  const int n = (it + 1) * ring.nc;  // the next tile's first load, already in flight
+  if (CH) {
+    ring.issue_h(sm, h, u, H, r0, n);
+    cp_commit();
+  }
+  ring.issue(sm, w, b, H, T, n + 1);
+  cp_commit();
+}
+
+// p^T of column tile it: element i of the m64n32 layout is column
+// BT it + c_m(0, i) and row c_n(32 wg, i) of the block. Takes the tile's nc
+// loads from the ring, waiting for each: per chunk (h restaged first where
+// nc > 1) each warpgroup's split_k half, summed over the chunks in load
+// order, then the halves met (xbuf: dl_hi); load n + 2 issued after each
+// load but the tile's last, whose stage the caller still reads. CH: the
+// instance for heads past HMAX (nc = 1 a constant otherwise).
+template <int P, bool CH>
+__device__ __forceinline__ void rows_p(const RowsSmem& sm, const WRing& ring,
+                                       const float* __restrict__ h, const float* __restrict__ w,
+                                       const float* __restrict__ b, int u, int H, int T, int r0,
+                                       int it, Clock& clk, float (&l)[16]) {
+  const int wg = threadIdx.x >> 7;
+  if (!CH) {  // one chunk: the whole h tile stays; split_k as in the forward
+    const int st = it & 1;
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    clk.mark(PH_WAIT);
+    tile_logits_t<P, false>(sm.h_hi, sm.h_lo, sm.w_s + st * HMAX * BT, sm.b_s + st * BT,
+                            (H + 7) / 8, sm.dl_hi, l);
+    clk.mark(PH_LOGITS);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = c_n(32 * wg, i);
+      l[i] = to_p(l[i], sm.m_s[r], sm.inv_s[r]);
+    }
+    return;
+  }
+  float part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[i] = 0.f;
+  const int nc = ring.nc;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int n = it * nc + ci, c0 = ring.chunk(n) * HMAX;
+    const float* w_s = sm.w_s + (n & 1) * HMAX * BT;
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    clk.mark(PH_WAIT);
+    // h's chunk from the staging tile, then the next chunk into it
+    split_h<P>(sm, sm.dl_hi);
+    async_view();
+    __syncthreads();
+    if (ci + 1 < nc) {
+      ring.issue_h(sm, h, u, H, r0, n + 1);
+      cp_commit();
+    }
+    clk.mark(PH_RESTAGE);
+    auto wA = [&](int m, int k) { return w_s[k * BT + swz_b(k, m)]; };
+    auto a_of = [&](int s) { return frag_a<P>(wA, 0, 8 * s); };
+    auto bh = [&](int s) { return desc_k8(sm.h_hi, R, 0, s); };
+    auto bl = [&](int s) { return desc_k8(sm.h_lo, R, 0, s); };
+    const int nk8 = (min(H - c0, HMAX) + 7) / 8;
+    chains_add<P, 64>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
+    clk.mark(PH_LOGITS);
+    if (ci + 1 < nc) {
+      __syncthreads();  // every warp is done with the stage and with h's tiles
+      ring.issue(sm, w, b, H, T, n + 2);
+      cp_commit();
+    }
+  }
+  meet(part, l, sm.dl_hi);
+  clk.mark(PH_LOGITS);
+  const float* b_s = sm.b_s + ring.last_stage(it) * BT;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const int r = c_n(n0, i);
-    l[i] = to_p(l[i], sm.m_s[r], sm.inv_s[r]);
+    const int r = c_n(32 * wg, i);
+    l[i] = to_p(l[i] + b_s[c_m(0, i)], sm.m_s[r], sm.inv_s[r]);
   }
 }
 
 // G[r, l] = <p[r], g_marg[l]>: warpgroup wg sums columns 32 wg + [0, 32) of
 // every tile; element i of the m64n32 accumulator is row c_m(0, i), level
-// c_n(0, i) (the first 8 elements for L <= 16, an m64n16 product).
-template <int P>
-__device__ __forceinline__ void g_sweep(const RowsSmem& sm, const float* __restrict__ w,
+// c_n(0, i) (the first 8 elements for L <= 16, an m64n16 product). The
+// chunks of h in order, so every block of a row tile computes the same G.
+template <int P, bool CH>
+__device__ __forceinline__ void g_sweep(const RowsSmem& sm, const float* __restrict__ h,
+                                        const float* __restrict__ w,
                                         const float* __restrict__ b,
-                                        const float* __restrict__ g_marg, int H, int T, int L,
-                                        float (&gacc)[16]) {
+                                        const float* __restrict__ g_marg, int u, int r0, int H,
+                                        int T, int L, Clock& clk, float (&gacc)[16]) {
   const int wg = threadIdx.x >> 7;
-  const int nk8 = (H + 7) / 8;
+  const WRing ring(H, T, h_chunks(H) - 1, CH);
   auto pA = [&](int m, int k) { return sm.p_s[m * BT + swz_a(m, k)]; };
   auto a_of = [&](int s) { return frag_a<P>(pA, 0, 8 * s); };
 #pragma unroll
   for (int i = 0; i < 16; ++i) gacc[i] = 0.f;
-  sweep_start<P>(sm, w, b, g_marg, H, T, L);
+  sweep_start<P, CH>(sm, ring, h, w, b, g_marg, u, r0, H, T, L);
   for (int t0 = 0, it = 0; t0 < T; t0 += BT, ++it) {
-    const int st = it & 1;
+    const int st = it & 1;  // the g_marg stage
     const float* gm_hi = sm.gm_hi + st * LP * BT;
     const float* gm_lo = sm.gm_lo + st * LP * BT;
     float v[LP * BT / THREADS];
     if (t0 + BT < T) load_gm(g_marg, T, L, t0 + BT, v);
-    cp_wait<1>();
-    async_view();
-    __syncthreads();
     float p[16];
-    rows_p<P>(sm, sm.w_s + st * HMAX * BT, sm.b_s + st * BT, nk8, p);
+    rows_p<P, CH>(sm, ring, h, w, b, u, H, T, r0, it, clk, p);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int r = c_n(32 * wg, i), c = c_m(0, i);
@@ -1806,10 +1805,10 @@ __device__ __forceinline__ void g_sweep(const RowsSmem& sm, const float* __restr
 #pragma unroll
     for (int i = 0; i < 16; ++i) gacc[i] += gt[i];
     __syncthreads();
+    clk.mark(PH_G);
     if (t0 + BT < T) store_gm<P>(v, sm.gm_hi + (st ^ 1) * LP * BT, sm.gm_lo + (st ^ 1) * LP * BT);
-    if (t0 + 2 * BT < T)
-      load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
-    cp_commit();
+    sweep_next<CH>(sm, ring, h, w, b, u, r0, H, T, it);
+    clk.mark(PH_REST);
   }
   cp_wait<0>();
   // G = warpgroup 0's sum + warpgroup 1's, in that order, in warpgroup 0.
@@ -1825,33 +1824,34 @@ __device__ __forceinline__ void g_sweep(const RowsSmem& sm, const float* __restr
   __syncthreads();
 }
 
-// dh[r, :] = sum over column tiles of dl[r, tile] w[:, tile]^T with the
-// block's dot_s, written for rows below u. Warpgroup wg holds dh^T rows
-// (= dh columns) 64 wg + [0, 64) for the block's 64 rows.
-template <int P>
-__device__ __forceinline__ void dh_sweep(const RowsSmem& sm, const float* __restrict__ w,
+// dh[r, HMAX own + [0, HMAX)] = sum over column tiles of dl[r, tile]
+// w[HMAX own + [0, HMAX), tile]^T with the block's dot_s, written for rows
+// below u and columns below H. Warpgroup wg holds dh^T rows (= dh columns)
+// HMAX own + 64 wg + [0, 64) for the block's 64 rows; chunk own of w is
+// every tile's last load, still in its stage for the product.
+template <int P, bool CH>
+__device__ __forceinline__ void dh_sweep(const RowsSmem& sm, const float* __restrict__ h,
+                                         const float* __restrict__ w,
                                          const float* __restrict__ b,
                                          const float* __restrict__ g_marg, int u, int r0, int H,
-                                         int T, int L, int K, int noop,
+                                         int T, int L, int K, int noop, int own, Clock& clk,
                                          float* __restrict__ dh) {
   const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
-  const int nk8 = (H + 7) / 8, nl8 = (L + 7) / 8;
+  const int nl8 = (L + 7) / 8;
+  const WRing ring(H, T, own, CH);
   float dacc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dacc[i] = 0.f;
-  sweep_start<P>(sm, w, b, g_marg, H, T, L);
+  sweep_start<P, CH>(sm, ring, h, w, b, g_marg, u, r0, H, T, L);
   for (int t0 = 0, it = 0; t0 < T; t0 += BT, ++it) {
-    const int st = it & 1;
-    const float* w_s = sm.w_s + st * HMAX * BT;
+    const int st = it & 1;  // the g_marg stage
+    const float* w_s = sm.w_s + ring.last_stage(it) * HMAX * BT;
     const float* gm_hi = sm.gm_hi + st * LP * BT;
     const float* gm_lo = sm.gm_lo + st * LP * BT;
     float v[LP * BT / THREADS];
     if (t0 + BT < T) load_gm(g_marg, T, L, t0 + BT, v);
-    cp_wait<1>();
-    async_view();
-    __syncthreads();
     float q[16];
-    rows_p<P>(sm, w_s, sm.b_s + st * BT, nk8, q);
+    rows_p<P, CH>(sm, ring, h, w, b, u, H, T, r0, it, clk, q);
     // g_p^T = g_marg^T counts: A (m = column, k = level) from the g_marg tile
     float gp[16];
     {
@@ -1886,6 +1886,7 @@ __device__ __forceinline__ void dh_sweep(const RowsSmem& sm, const float* __rest
     }
     async_view();
     __syncthreads();
+    clk.mark(PH_DL);
     // dh^T += w dl^T: A (m = h, k = column) from the w tile
     {
       auto wA = [&](int m, int k) { return w_s[m * BT + swz_b(m, k)]; };
@@ -1898,35 +1899,48 @@ __device__ __forceinline__ void dh_sweep(const RowsSmem& sm, const float* __rest
       for (int i = 0; i < 32; ++i) dacc[i] += dt[i];
     }
     __syncthreads();
+    clk.mark(PH_PRODUCT);
     if (t0 + BT < T) store_gm<P>(v, sm.gm_hi + (st ^ 1) * LP * BT, sm.gm_lo + (st ^ 1) * LP * BT);
-    if (t0 + 2 * BT < T)
-      load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
-    cp_commit();
+    sweep_next<CH>(sm, ring, h, w, b, u, r0, H, T, it);
+    clk.mark(PH_REST);
   }
   cp_wait<0>();
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const int c = c_m(64 * wg, i), r = r0 + c_n(0, i);
+    const int c = own * HMAX + c_m(64 * wg, i), r = r0 + c_n(0, i);
     if (r < u && c < H) dh[(size_t)r * H + c] = dacc[i];
   }
 }
 
-// K2's row kernel: G by g_sweep, dot closed in the block, then dh.
-template <int P>
+// K2's row kernel, block (row tile x, dh chunk y): G by g_sweep, dot closed
+// in the block and written to dot_out, then dh's chunk y. Past HMAX (CH) in
+// two launches, so that G is swept once per row tile and not in each of
+// dh's nc blocks: `part` 1 (grid.y = 1) G and dot, `part` 2 dh's chunks from
+// dot_out.
+template <int P, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ counts,
                     const int* __restrict__ idx, const float* __restrict__ vals,
                     const float* __restrict__ m_in, const float* __restrict__ s_in,
                     const float* __restrict__ g_marg, const float* __restrict__ g_vals, int u,
-                    int H, int T, int L, int K, int noop, float* __restrict__ dh,
+                    int H, int T, int L, int K, int noop, int part, float* __restrict__ dh,
                     float* __restrict__ dot_out) {
   extern __shared__ float smem[];
   const RowsSmem sm(smem);
   const int r0 = blockIdx.x * R;
-  rows_prologue<P>(sm, h, counts, idx, m_in, s_in, g_vals, u, H, L, K, r0);
+  Clock clk;
+  rows_prologue<P, CH>(sm, h, counts, idx, m_in, s_in, g_vals, u, H, L, K, r0);
+  clk.mark(PH_REST);
+  if (CH && part == 2) {
+    for (int r = threadIdx.x; r < R; r += THREADS) sm.dot_s[r] = r0 + r < u ? dot_out[r0 + r] : 0.f;
+    __syncthreads();
+    dh_sweep<P, CH>(sm, h, w, b, g_marg, u, r0, H, T, L, K, noop, blockIdx.y, clk, dh);
+    clk.end(PK_ROWS);
+    return;
+  }
   float gacc[16];
-  g_sweep<P>(sm, w, b, g_marg, H, T, L, gacc);
+  g_sweep<P, CH>(sm, h, w, b, g_marg, u, r0, H, T, L, clk, gacc);
   // counts G into g_s, then dot per row in level order
   if (threadIdx.x < 128) {
 #pragma unroll
@@ -1950,11 +1964,13 @@ hpd_bwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
     if (r0 + r < u) dot_out[r0 + r] = d;
   }
   __syncthreads();
-  dh_sweep<P>(sm, w, b, g_marg, u, r0, H, T, L, K, noop, dh);
+  clk.mark(PH_G);
+  if (!CH) dh_sweep<P, CH>(sm, h, w, b, g_marg, u, r0, H, T, L, K, noop, 0, clk, dh);
+  clk.end(PK_ROWS);
 }
 
 // K6's B1: G[r, l] = <p[r], g_marg[l]> for the block's R rows.
-template <int P>
+template <int P, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_b1_kernel(const float* __restrict__ h, const float* __restrict__ w,
               const float* __restrict__ b, const float* __restrict__ m_in,
@@ -1963,9 +1979,11 @@ hpd_b1_kernel(const float* __restrict__ h, const float* __restrict__ w,
   extern __shared__ float smem[];
   const RowsSmem sm(smem);
   const int r0 = blockIdx.x * R;
-  rows_prologue<P>(sm, h, nullptr, nullptr, m_in, s_in, nullptr, u, H, L, 1, r0);
+  Clock clk;
+  rows_prologue<P, CH>(sm, h, nullptr, nullptr, m_in, s_in, nullptr, u, H, L, 1, r0);
+  clk.mark(PH_REST);
   float gacc[16];
-  g_sweep<P>(sm, w, b, g_marg, H, T, L, gacc);
+  g_sweep<P, CH>(sm, h, w, b, g_marg, u, r0, H, T, L, clk, gacc);
   if (threadIdx.x < 128) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -1973,10 +1991,13 @@ hpd_b1_kernel(const float* __restrict__ h, const float* __restrict__ w,
       if (l < L && r0 + r < u) g_rows[(size_t)(r0 + r) * L + l] = gacc[i];
     }
   }
+  clk.mark(PH_REST);
+  clk.end(PK_B1);
 }
 
-// K6's B2, row-parallel part: dh from the given per-row dot.
-template <int P>
+// K6's B2, row-parallel part, block (row tile x, dh chunk y): dh's chunk y
+// from the given per-row dot.
+template <int P, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_b2_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    const float* __restrict__ b, const float* __restrict__ counts,
@@ -1987,16 +2008,19 @@ hpd_b2_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
   extern __shared__ float smem[];
   const RowsSmem sm(smem);
   const int r0 = blockIdx.x * R;
-  rows_prologue<P>(sm, h, counts, idx, m_in, s_in, g_vals, u, H, L, K, r0);
+  Clock clk;
+  rows_prologue<P, CH>(sm, h, counts, idx, m_in, s_in, g_vals, u, H, L, K, r0);
   for (int r = threadIdx.x; r < R; r += THREADS) sm.dot_s[r] = r0 + r < u ? dot_in[r0 + r] : 0.f;
   __syncthreads();
-  dh_sweep<P>(sm, w, b, g_marg, u, r0, H, T, L, K, noop, dh);
+  clk.mark(PH_REST);
+  dh_sweep<P, CH>(sm, h, w, b, g_marg, u, r0, H, T, L, K, noop, CH ? blockIdx.y : 0, clk, dh);
+  clk.end(PK_B2);
 }
 
 // ---------------------------- columns kernel ------------------------------- //
 
-// The columns kernel's per-row-tile stage (fp32, read by hand): h tile,
-// counts^T, top-K indices and g_vals, m, s, dot.
+// The columns kernel's per-row-tile stage (fp32, read by hand): a chunk of
+// the h tile, counts^T, top-K indices and g_vals, m, s, dot.
 struct ColsStage {
   float *h_s, *cT_s, *kgv_s, *m_s, *s_s, *dot_s;
   int* kidx_s;
@@ -2011,9 +2035,10 @@ struct ColsStage {
   }
 };
 
-// Row tile [r0, r0 + R) of the segment (ending at rend) into a stage:
-// cp.async for rows below rend, neutral values (h = 0, m = inf, counts 0,
-// no top-K) past it.
+// Row tile [r0, r0 + R) of the segment (ending at rend) into a stage: h's
+// columns [c0, c0 + HMAX) and, with `extras` (a row tile's last load),
+// counts^T, the top-K, m, s and dot; cp.async for rows below rend, neutral
+// values (h = 0, m = inf, counts 0, no top-K) past it and past H.
 __device__ __forceinline__ void load_stage_async(ColsStage st, const float* __restrict__ h,
                                                  const float* __restrict__ counts,
                                                  const int* __restrict__ idx,
@@ -2021,14 +2046,15 @@ __device__ __forceinline__ void load_stage_async(ColsStage st, const float* __re
                                                  const float* __restrict__ s_in,
                                                  const float* __restrict__ dot_in,
                                                  const float* __restrict__ g_vals, int u,
-                                                 int rend, int H, int L, int K, int r0) {
+                                                 int rend, int H, int L, int K, int r0, int c0,
+                                                 bool extras) {
   if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
     // 16 bytes a copy: swz_a moves whole 4-float chunks
     for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
       const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
       float* dst = st.h_s + r * HMAX + swz_a(r, k);
-      if (r0 + r < rend && k < H) {
-        cp_async16(dst, h + (size_t)(r0 + r) * H + k);
+      if (r0 + r < rend && c0 + k < H) {
+        cp_async16(dst, h + (size_t)(r0 + r) * H + c0 + k);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[e] = 0.f;
@@ -2038,12 +2064,13 @@ __device__ __forceinline__ void load_stage_async(ColsStage st, const float* __re
     for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
       const int r = i / HMAX, k = i % HMAX;
       float* dst = st.h_s + r * HMAX + swz_a(r, k);
-      if (r0 + r < rend && k < H)
-        cp_async4(dst, h + (size_t)(r0 + r) * H + k);
+      if (r0 + r < rend && c0 + k < H)
+        cp_async4(dst, h + (size_t)(r0 + r) * H + c0 + k);
       else
         *dst = 0.f;
     }
   }
+  if (!extras) return;
   for (int i = threadIdx.x; i < R * LMAX; i += THREADS) {
     const int l = i / R, r = i % R;
     float* dst = st.cT_s + r * LMAX + swz_a(r, l);
@@ -2075,11 +2102,83 @@ __device__ __forceinline__ void load_stage_async(ColsStage st, const float* __re
   }
 }
 
-// Grid (T / BT, SEGS): one block per column tile and row segment sums
-// dW = h^T dl and db over the segment's rows into dw_part / db_part[seg].
-// Logits, p and dl: warpgroup wg holds the tile's 64 rows x columns
-// 32 wg + [0, 32); dW: warpgroup wg holds dW rows 64 wg + [0, 64).
+// Rows [c0, c0 + HMAX) of w (zero past H) at columns [t0, t0 + BT), fp32,
+// into wf (HMAX x BT: dl^T's two tiles) by cp.async.
+static_assert(HMAX * BT == 2 * BT * R, "w's fp32 chunk fills dlt_hi and dlt_lo");
+__device__ __forceinline__ void load_wf_async(const float* __restrict__ w, int H, int T, int t0,
+                                              int c0, float* __restrict__ wf) {
+  for (int i = threadIdx.x; i < HMAX * (BT / 4); i += THREADS) {
+    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
+    float* dst = wf + k * BT + c;
+    if (c0 + k < H) {
+      cp_async16(dst, w + (size_t)(c0 + k) * T + t0 + c);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = 0.f;
+    }
+  }
+}
+
+// The columns kernel's loads: load n is chunk chunk(n) of the segment's row
+// tile n / nc into stage n & 1, the row tile's own data with its last load;
+// the block's own dW chunk is every row tile's last, so its h chunk stays in
+// the stage for dW = h^T dl.
+struct CRing {
+  int nc, own, n_loads, rbeg, rend;
+  const float *h, *counts, *m_in, *s_in, *dot_in, *g_vals, *w;
+  const int* idx;
+  int u, H, L, K, T, t0;
+  float *stage0, *wf;
+  __device__ int chunk(int n) const { return (own + 1 + n % nc) % nc; }
+  __device__ float* stage(int n) const { return stage0 + (n & 1) * COLS_STAGE; }
+  // load n into its stage (nothing past the last), not committed
+  __device__ void issue(int n) const {
+    if (n < n_loads)
+      load_stage_async(ColsStage(stage(n)), h, counts, idx, m_in, s_in, dot_in, g_vals, u, rend,
+                       H, L, K, rbeg + n / nc * R, chunk(n) * HMAX, n % nc == nc - 1);
+  }
+  // past HMAX: w's chunk of load n, fp32, into wf (dl^T's tiles, free while
+  // the logits run) for stage_wt, in a commit group of its own after load n
+  __device__ void issue_w(int n) const {
+    if (n < n_loads) load_wf_async(w, H, T, t0, chunk(n) * HMAX, wf);
+  }
+};
+
+// w^T at columns [t0, t0 + BT), rows [c0, c0 + HMAX) of w (zero past H), as
+// the columns kernel's hi / lo B tiles (n = column, k = h).
 template <int P>
+__device__ __forceinline__ void stage_wt(float* __restrict__ wt_hi, float* __restrict__ wt_lo,
+                                         const float* __restrict__ w, int H, int T, int t0,
+                                         int c0) {
+  for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
+    const int k = i / BT, c = i % BT;
+    put<P>(wt_hi, wt_lo, sw128(BT, c, k), c0 + k < H ? w[(size_t)(c0 + k) * T + t0 + c] : 0.f);
+  }
+}
+
+// The same from a chunk that load_wf_async staged in wf (HMAX x BT): a
+// thread takes column threadIdx.x % BT at 4 consecutive k, 4 (threadIdx.x /
+// BT) + 16 j, storing 16 bytes at once, each warp's stores on 32 banks.
+template <int P>
+__device__ __forceinline__ void split_wt(float* __restrict__ wt_hi, float* __restrict__ wt_lo,
+                                         const float* __restrict__ wf) {
+  const int c = threadIdx.x % BT;
+#pragma unroll
+  for (int j = 0; j < HMAX * BT / (4 * THREADS); ++j) {
+    const int k = 4 * (threadIdx.x / BT) + 16 * j;
+    const float* x = wf + k * BT + c;
+    put4<P>(wt_hi, wt_lo, sw128(BT, c, k), make_float4(x[0], x[BT], x[2 * BT], x[3 * BT]));
+  }
+}
+
+// Grid (T / BT, SEGS, nc): one block per column tile, row segment and dW
+// chunk sums dW[HMAX z + [0, HMAX), tile] = h^T dl and (z = 0) db over the
+// segment's rows into dw_part / db_part[seg]. Logits, p and dl: warpgroup
+// wg holds the tile's 64 rows x columns 32 wg + [0, 32) (the logits summed
+// over h's chunks, each split_k's halves from the w^T tile of its chunk,
+// restaged where nc > 1); dW: warpgroup wg holds its chunk's rows
+// 64 wg + [0, 64).
+template <int P, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ counts,
@@ -2100,50 +2199,98 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float* stage0 = dbp + 4 * BT;
   const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int t0 = blockIdx.x * BT;
-  const int seg = blockIdx.y;
+  const int seg = blockIdx.y, own = blockIdx.z;
   const int rbeg = seg * seg_rows;
   const int rend = min(u, rbeg + seg_rows);
-  const int nk8 = (H + 7) / 8, nl8 = (L + 7) / 8;
-  for (int s = 0; s < 2; ++s) {
-    if (rbeg + s * R < rend)
-      load_stage_async(ColsStage(stage0 + s * COLS_STAGE), h, counts, idx, m_in, s_in, dot_in,
-                       g_vals, u, rend, H, L, K, rbeg + s * R);
+  const int nc = CH ? h_chunks(H) : 1, nl8 = (L + 7) / 8;
+  const int tiles = rend > rbeg ? (rend - rbeg + R - 1) / R : 0;
+  const CRing ring{nc, own, tiles * nc, rbeg, rend, h, counts, m_in, s_in, dot_in, g_vals, w,
+                   idx, u, H, L, K, T, t0, stage0, dlt_hi};
+  Clock clk;
+  ring.issue(0);
+  cp_commit();
+  if (CH) {
+    ring.issue_w(0);
     cp_commit();
   }
-  for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
-    const int k = i / BT, c = i % BT;
-    put<P>(wt_hi, wt_lo, sw128(BT, c, k), k < H ? w[(size_t)k * T + t0 + c] : 0.f);
-  }
+  ring.issue(1);
+  cp_commit();
+  if (!CH) stage_wt<P>(wt_hi, wt_lo, w, H, T, t0, 0);
   for (int i = threadIdx.x; i < LP * BT; i += THREADS) {
     const int l = i / BT, c = i % BT;
     put<P>(gt_hi, gt_lo, sw128(BT, c, l), l < L ? g_marg[(size_t)l * T + t0 + c] : 0.f);
   }
   if (threadIdx.x < BT) b_s[threadIdx.x] = b[t0 + threadIdx.x];
+  clk.mark(PH_REST);
   float wacc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) wacc[i] = 0.f;
   float bacc = 0.f;
-  for (int r0 = rbeg, it = 0; r0 < rend; r0 += R, ++it) {
-    const ColsStage st(stage0 + (it & 1) * COLS_STAGE);
-    cp_wait<1>();
-    async_view();
-    __syncthreads();
-    // does a top-K index of the row tile fall in this column tile?
+  // does a top-K index of the row tile (its stage sv) fall in this column tile?
+  auto hits_of = [&](const ColsStage& sv) {
     bool mine = false;
 #pragma unroll
     for (int j = 0; j < R * KMAX / THREADS; ++j) {
-      const int c = st.kidx_s[threadIdx.x + j * THREADS] - t0;
+      const int c = sv.kidx_s[threadIdx.x + j * THREADS] - t0;
       mine |= c >= 0 && c < BT;
     }
-    const bool hits = __syncthreads_or(mine) && !noop;
+    return __syncthreads_or(mine) && !noop;
+  };
+  for (int it = 0; it < tiles; ++it) {
+    const ColsStage st(ring.stage(it * nc + nc - 1));  // the row tile's last load
+    bool hits;
     // logits: element i is row c_m(0, i), column c_n(32 wg, i)
     float q[16];
-    {
+    if (!CH) {  // one chunk: w^T's tiles stay
+      cp_wait<1>();
+      async_view();
+      __syncthreads();
+      clk.mark(PH_WAIT);
+      hits = hits_of(st);
       auto hA = [&](int m, int k) { return st.h_s[m * HMAX + swz_a(m, k)]; };
       auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
       auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
       auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
-      split_k<P>(q, nk8, a_of, bh, bl, dlt_hi);
+      split_k<P>(q, (H + 7) / 8, a_of, bh, bl, dlt_hi);
+    } else {
+      // the logits' warpgroup partial over h's chunks, in load order
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      for (int ci = 0; ci < nc; ++ci) {
+        const int n = it * nc + ci, c0 = ring.chunk(n) * HMAX;
+        const float* h_s = ring.stage(n);
+        cp_wait<1>();
+        async_view();
+        __syncthreads();
+        clk.mark(PH_WAIT);
+        // w^T's chunk from the staging tile, then the next chunk into it
+        split_wt<P>(wt_hi, wt_lo, dlt_hi);
+        async_view();
+        __syncthreads();
+        if (ci + 1 < nc) {
+          ring.issue_w(n + 1);
+          cp_commit();
+        }
+        clk.mark(PH_RESTAGE);
+        auto hA = [&](int m, int k) { return h_s[m * HMAX + swz_a(m, k)]; };
+        auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
+        auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
+        auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
+        const int nk8 = (min(H - c0, HMAX) + 7) / 8;
+        chains_add<P, 64>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
+        clk.mark(PH_LOGITS);
+        if (ci + 1 < nc) {
+          __syncthreads();  // every warp is done with the stage and with w^T's tiles
+          ring.issue(n + 2);
+          cp_commit();
+        }
+      }
+      hits = hits_of(st);
+      meet(part, q, dlt_hi);
+    }
+    clk.mark(PH_LOGITS);
+    {
       const float inv0 = recip_s(st.s_s[c_m(0, 0)]), inv1 = recip_s(st.s_s[c_m(0, 2)]);
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
@@ -2202,7 +2349,8 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
       const int c = threadIdx.x;
       bacc += ((dbp[c] + dbp[BT + c]) + dbp[2 * BT + c]) + dbp[3 * BT + c];
     }
-    // dW += h^T dl: A (m = h, k = row) from the stage's h tile
+    clk.mark(PH_DL);
+    // dW += h^T dl: A (m = h, k = row) from the stage's chunk own of h
     {
       auto hT = [&](int m, int k) { return st.h_s[k * HMAX + swz_a(k, m)]; };
       auto a_of = [&](int s) { return frag_a<P>(hT, 64 * wg, 8 * s); };
@@ -2214,23 +2362,27 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
       for (int i = 0; i < 32; ++i) wacc[i] += dt[i];
     }
     __syncthreads();
-    if (r0 + 2 * R < rend)
-      load_stage_async(ColsStage(stage0 + (it & 1) * COLS_STAGE), h, counts, idx, m_in, s_in,
-                       dot_in, g_vals, u, rend, H, L, K, r0 + 2 * R);
+    clk.mark(PH_PRODUCT);
+    if (CH) {  // w's chunk of the next row tile's first load (dl^T's tiles are free)
+      ring.issue_w((it + 1) * nc);
+      cp_commit();
+    }
+    ring.issue((it + 1) * nc + 1);  // the row tile's last load + 2
     cp_commit();
   }
   cp_wait<0>();
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const int hh = c_m(64 * wg, i), c = c_n(0, i);
+    const int hh = own * HMAX + c_m(64 * wg, i), c = c_n(0, i);
     if (hh < H) dw_part[((size_t)seg * H + hh) * T + t0 + c] = wacc[i];
   }
-  if (threadIdx.x < BT) db_part[(size_t)seg * T + t0 + threadIdx.x] = bacc;
+  if (own == 0 && threadIdx.x < BT) db_part[(size_t)seg * T + t0 + threadIdx.x] = bacc;
+  clk.mark(PH_REST);
+  clk.end(PK_COLS);
 }
 
-// hmax: HWIDE where the wide passes stand in past HMAX, else HMAX
-int check_shape(int u, int H, int T, int L, int K, int hmax = HWIDE) {
-  if (u < 0 || H < 1 || H > hmax || T < TT || T % TT != 0 || L < 1 || L > LMAX ||
+int check_shape(int u, int H, int T, int L, int K) {
+  if (u < 0 || H < 1 || H > HWIDE || T < TT || T % TT != 0 || L < 1 || L > LMAX ||
       K < 1 || K > KMAX)
     return ERR_SHAPE;
   return 0;
@@ -2314,23 +2466,13 @@ int launch_bwd_cols(const float* h, const float* w, const float* b, const float*
     if (err) return err;
     return (int)cudaMemsetAsync(db, 0, sizeof(float) * T, st);
   }
-  if (H > HMAX) {
-    const dim3 grid(T / TT, SEGS, (H + DWK - 1) / DWK);
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_wide_dw_kernel<P>, wide_dw_smem(L, K));
-      hpd_wide_dw_kernel<P><<<grid, THREADS, wide_dw_smem(L, K), st>>>(
-          h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop,
-          rows_per_seg(u), dw_part, db_part);
-    });
-  } else {
-    const dim3 cols_grid(T / BT, SEGS);
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_bwd_cols_kernel<P>, bwd_cols_smem());
-      hpd_bwd_cols_kernel<P><<<cols_grid, THREADS, bwd_cols_smem(), st>>>(
-          h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop,
-          rows_per_seg(u), dw_part, db_part);
-    });
-  }
+  const dim3 cols_grid(T / BT, SEGS, h_chunks(H));
+  DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+    set_smem(hpd_bwd_cols_kernel<P, CH>, bwd_cols_smem());
+    hpd_bwd_cols_kernel<P, CH><<<cols_grid, THREADS, bwd_cols_smem(), st>>>(
+        h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop,
+        rows_per_seg(u), dw_part, db_part);
+  }));
   int err = (int)cudaGetLastError();
   if (err) return err;
   err = reduce_segments(dw_part, dw, (size_t)H * T, st);
@@ -2338,12 +2480,20 @@ int launch_bwd_cols(const float* h, const float* w, const float* b, const float*
   return reduce_segments(db_part, db, (size_t)T, st);
 }
 
-
 }  // namespace
 
 extern "C" {
 
 const char* hpd_stream_error_string(int code) { return port_error_string(code); }
+
+#ifdef HPD_STREAM_PHASES
+// The backward kernels' clock64() ticks by kernel (PK_*) and phase (PH_*),
+// summed over the blocks of the launches since the last reset, into
+// out[NPK * NPH]; then zeroes them if reset.
+int hpd_stream_bwd_phases(unsigned long long* out, int reset) {
+  return read_phases(bwd_phase, out, reset);
+}
+#endif
 
 int hpd_stream_segments() { return SEGS; }
 
@@ -2413,19 +2563,24 @@ int hpd_fused_bwd(const float* h, const float* w, const float* b, const float* c
                   const float* g_marg, const float* g_vals, int u, int H, int T, int L, int K,
                   int noop, int prec, float* dh, float* dot, float* dw, float* db,
                   float* dw_part, float* db_part, void* stream) {
-  // past HMAX the wrapper runs K6's launches, which compute the same function
-  int err = check_shape(u, H, T, L, K, HMAX);
+  int err = check_shape(u, H, T, L, K);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (u > 0) {
+    // past HMAX two launches: G and dot (one block per row tile), then dh's
+    // chunks on grid.y
     const int row_blocks = (u + R - 1) / R;
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_bwd_rows_kernel<P>, bwd_rows_smem());
-      hpd_bwd_rows_kernel<P><<<row_blocks, THREADS, bwd_rows_smem(), st>>>(
-          h, w, b, counts, idx, vals, m, s, g_marg, g_vals, u, H, T, L, K, noop, dh, dot);
-    });
-    err = (int)cudaGetLastError();
-    if (err) return err;
+    for (int part = H > HMAX ? 1 : 0; part <= (H > HMAX ? 2 : 0); ++part) {
+      const dim3 rows_grid(row_blocks, part == 1 ? 1 : h_chunks(H));
+      DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+        set_smem(hpd_bwd_rows_kernel<P, CH>, bwd_rows_smem());
+        hpd_bwd_rows_kernel<P, CH><<<rows_grid, THREADS, bwd_rows_smem(), st>>>(
+            h, w, b, counts, idx, vals, m, s, g_marg, g_vals, u, H, T, L, K, noop, part, dh,
+            dot);
+      }));
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
   }
   return launch_bwd_cols(h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop,
                          prec, dw, db, dw_part, db_part, st);
@@ -2438,19 +2593,11 @@ int hpd_unique_bwd_g(const float* h, const float* w, const float* b, const float
   const int err = check_shape(u, H, T, L, 1);
   if (err || u == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (H > HMAX) {
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_wide_g_kernel<P>, wide_g_smem(L));
-      hpd_wide_g_kernel<P><<<(u + R - 1) / R, THREADS, wide_g_smem(L), st>>>(
-          h, w, b, m, s, g_marg, u, H, T, L, g_rows);
-    });
-    return (int)cudaGetLastError();
-  }
-  DISPATCH_PREC(prec, {
-    set_smem(hpd_b1_kernel<P>, bwd_rows_smem());
-    hpd_b1_kernel<P><<<(u + R - 1) / R, THREADS, bwd_rows_smem(), st>>>(h, w, b, m, s, g_marg, u, H, T,
-                                                                  L, g_rows);
-  });
+  DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+    set_smem(hpd_b1_kernel<P, CH>, bwd_rows_smem());
+    hpd_b1_kernel<P, CH><<<(u + R - 1) / R, THREADS, bwd_rows_smem(), st>>>(
+        h, w, b, m, s, g_marg, u, H, T, L, g_rows);
+  }));
   return (int)cudaGetLastError();
 }
 
@@ -2464,21 +2611,13 @@ int hpd_unique_bwd_main(const float* h, const float* w, const float* b, const fl
   int err = check_shape(u, H, T, L, K);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (u > 0 && H > HMAX) {
-    const dim3 grid((u + R - 1) / R, (H + HMAX - 1) / HMAX);
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_wide_dh_kernel<P>, wide_dh_smem(L, K));
-      hpd_wide_dh_kernel<P><<<grid, THREADS, wide_dh_smem(L, K), st>>>(
+  if (u > 0) {
+    const dim3 rows_grid((u + R - 1) / R, h_chunks(H));
+    DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+      set_smem(hpd_b2_rows_kernel<P, CH>, bwd_rows_smem());
+      hpd_b2_rows_kernel<P, CH><<<rows_grid, THREADS, bwd_rows_smem(), st>>>(
           h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop, dh);
-    });
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  } else if (u > 0) {
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_b2_rows_kernel<P>, bwd_rows_smem());
-      hpd_b2_rows_kernel<P><<<(u + R - 1) / R, THREADS, bwd_rows_smem(), st>>>(
-          h, w, b, counts, idx, m, s, dot, g_marg, g_vals, u, H, T, L, K, noop, dh);
-    });
+    }));
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -26,11 +26,12 @@ Hopper kernels of both forms stream 64-column tiles at any T.
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_stream.cu`` (K1
 is K4's rows pass then K5's columns pass, counted as K1 alone), every
-product on the tensor cores (3xTF32 at 'highest') for H <= TC_MAX_H. A
-wider head (any width to MAX_H, the launch grid's limit) takes the wide
-passes of ``hpd_stream.cu`` instead: fp32 FMA under the precision
-contract, the exact sweep for the rows pass (every row counts as fixed
-up), and K2 runs K6's launches (the same function). The rows pass takes its
+product on the tensor cores (3xTF32 at 'highest'). The backward (K2, K6)
+takes any head width to MAX_H there, its contraction over H in CHUNK_H-deep
+chunks (dh's and dW's chunks on the launch grid). The
+forward past CHUNK_H takes the wide passes of ``hpd_stream.cu``: fp32 FMA
+under the precision contract, the exact sweep for the rows pass (every row
+counts as fixed up). The rows pass takes its
 top-K from tensor-core logits by candidate refinement: the top K + 4
 candidates of each row are recomputed in fp32 and a per-row guard
 (:func:`select_guard_eps`) decides whether they settle the fp32 top-K; the
@@ -54,13 +55,16 @@ from ..topk import topk_lowest_index
 from . import build
 
 MAX_K = 16
-# The tensor-core passes take heads up to TC_MAX_H wide; past it the
-# CUDA-core wide passes take any width up to MAX_H, where the dW pass's
-# ceil(H / 64) chunks fill the launch grid's z limit (hpd_stream.cu: HWIDE).
-TC_MAX_H = 128
-MAX_H = 65535 * 64
 MAX_L = 32
 COL_TILE = 128
+
+# The backward (hpd_stream.cu) runs the contraction over H in CHUNK_H-deep
+# chunks (HMAX, also the widest head of the forward's tensor-core passes),
+# dh's chunks on its row kernels' grid.y and dW's on its columns kernel's
+# grid.z, so the widest head fills 65,535 of them (hpd_stream.cu: HWIDE);
+# no shared-memory plan grows with H.
+CHUNK_H = 128
+MAX_H = 65535 * CHUNK_H
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB
 PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -250,7 +254,11 @@ def hpd_stream_fused_probe_plain(h, w, b, precision: str, variant: str):
 # --------------------------------- kernels ---------------------------------- #
 
 def _lib() -> ctypes.CDLL:
-    lib = build.library("hpd_stream")
+    return _configure(build.library("hpd_stream"))
+
+
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """lib's launchers typed (also an instrumented build's, tools/k2_phases.py)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.hpd_select.argtypes = [vp] * 3 + [ci] * 5 + [vp] * 8
     lib.hpd_marginal.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 3
@@ -364,11 +372,6 @@ def _launch_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision, 
     h, w, b, counts, idx, vals, m, s, g_marg, g_vals = _check_inputs(
         h, w, b, counts, k, idx=idx, vals=vals, m=m, s=s, g_marg=g_marg, g_vals=g_vals
     )
-    if h.shape[1] > TC_MAX_H:
-        out = _unique_bwd(h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k, precision,
-                          noop_topk, COL_TILE, "hpd_stream_fused_bwd")
-        hpd_stream_fused_bwd.launches += 1
-        return out
     u, hd = h.shape
     t = w.shape[1]
     l = counts.shape[0]

@@ -10,10 +10,17 @@ Each run is ``python3 chip_smoke.py`` in its checkout, a process of its own
 and errors go to ``<out>/<i>_<label>.log``, its ``chiprun_out/chip_smoke.json``
 is copied to ``<out>/<i>_<label>.json``. Then it prints, for every entry of
 the runs' ``{"kernels": [...]}`` lines, the ms of each run in order, and the
-epoch seconds and profiled idle share of each training phase, and writes
-the same to ``<out>/ab.json``. Exits non-zero if any run did (or printed no
-kernels line). Two versions are compared only within one call: the card's
-power limit and clocks differ between machines.
+epoch seconds and profiled idle share of each training phase (the wide
+stack's ``--scaled`` fit where the smoke has one), and writes the same to
+``<out>/ab.json``. With ``--digests``, after each run K2 and K6 of that
+checkout also run on one set of seeded inputs (``tools/k2_phases.py``'s
+AB_SHAPES): timed at each shape, their outputs hashed at H = 128
+(DIGEST_SHAPES: ``--scaled``'s T = 2^14 and T = 2^16 at U_c = 161,792); it
+prints each run's ms and sha256 and fails unless every run's digests at
+H = 128 are equal (the wide shape, ``scaled256``, is timed only). Exits
+non-zero if any run did (or printed no kernels line). Two versions are
+compared only within one call: the card's power limit and clocks differ
+between machines.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import time
 
 # chip_smoke.json: (phase, the key of its fit history, the key of its profile)
 PHASES = (("dedup T=2^14", "fit", "profile"), ("split T=2^16", "split_fit", "split_profile"))
+# the wide stack's --scaled fit (chip_smoke.py step 13), where the smoke has it
+WIDE_PHASE = "wide --scaled H=256"
 
 
 def kernels_line(stdout: str) -> dict:
@@ -48,6 +57,12 @@ def phases(smoke: dict) -> dict:
     for route, fit in smoke["per_row_fits"].items():
         out[f"per-row {route}"] = dict(epoch_s=[r["seconds"] for r in fit["history"]])
     out["per-row auto"]["idle_share"] = smoke["per_row_profile"]["idle_share"]
+    wide = smoke.get("wide_fit", {}).get("dedup")
+    if wide is not None:
+        out[WIDE_PHASE] = dict(epoch_s=[r["seconds"] for r in wide["history"]])
+        if "profile" in wide:
+            out[WIDE_PHASE].update(idle_share=wide["profile"]["idle_share"],
+                                   k2_ms=wide["profile"]["k2_ms"])
     for geometry, fit in smoke.get("vanilla", {}).items():
         if "history" in fit:
             out[f"vanilla {geometry}"] = dict(epoch_s=[r["seconds"] for r in fit["history"]],
@@ -55,7 +70,25 @@ def phases(smoke: dict) -> dict:
     return out
 
 
-def run_one(i: int, label: str, checkout: str, out_dir: str, timeout: float) -> dict:
+def digest_table(runs, compared) -> bool:
+    """Prints each run's K2 / K6 output digests and ms by shape; True where
+    every run's digests are equal at each shape of ``compared``."""
+    same = True
+    for shape in runs[0]["digests"]["shapes"]:
+        for kname in ("K2", "K6"):
+            cells = [r["digests"]["shapes"][shape][kname] for r in runs]
+            verdict = ""
+            if shape in compared:
+                equal = len({c["sha256"] for c in cells}) == 1
+                same &= equal
+                verdict = "  (equal)" if equal else "  (DIFFER)"
+            print(f"{kname} {shape:10s} sha256 " + " ".join(c["sha256"] for c in cells) + verdict)
+            print(f"{'':14s}ms " + " ".join(f"{c['ms']:16.3f}" for c in cells))
+    return same
+
+
+def run_one(i: int, label: str, checkout: str, out_dir: str, timeout: float,
+            inputs: str = "") -> dict:
     tag = f"{i}_{label}"
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout, capture_output=True,
@@ -70,8 +103,14 @@ def run_one(i: int, label: str, checkout: str, out_dir: str, timeout: float) -> 
     shutil.copy(src, os.path.join(out_dir, f"{tag}.json"))
     with open(src) as f:
         smoke = json.load(f)
-    return dict(run=tag, seconds=secs, gpu=smoke["gpu"], kernels=kernels_line(proc.stdout),
-                phases=phases(smoke))
+    run = dict(run=tag, seconds=secs, gpu=smoke["gpu"], kernels=kernels_line(proc.stdout),
+               phases=phases(smoke))
+    if inputs:
+        from . import k2_phases
+
+        run["digests"] = k2_phases.run_worker(f"{tag}_digests", checkout, inputs, out_dir, 3,
+                                              False, timeout)
+    return run
 
 
 def main(argv=None) -> int:
@@ -81,6 +120,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", required=True, help="labels in run order, comma separated")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "ab"))
     ap.add_argument("--timeout", type=float, default=1200.0, help="seconds for each run")
+    ap.add_argument("--digests", action="store_true",
+                    help="hash each run's K2 and K6 outputs at H = 128 on shared inputs")
     args = ap.parse_args(argv)
     checkouts = dict(r.split("=", 1) for r in args.run)
     order = args.order.split(",")
@@ -88,8 +129,18 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"--order names {unknown}, not given by --run")
     os.makedirs(args.out, exist_ok=True)
-    runs = [run_one(i, label, checkouts[label], args.out, args.timeout)
-            for i, label in enumerate(order)]
+    inputs = ""
+    if args.digests:
+        from . import k2_phases
+
+        inputs = os.path.join(os.path.abspath(args.out), "k2_digest_inputs.pt")
+        k2_phases.make_inputs(inputs, k2_phases.AB_SHAPES, seed=65535)
+    try:
+        runs = [run_one(i, label, checkouts[label], args.out, args.timeout, inputs)
+                for i, label in enumerate(order)]
+    finally:
+        if inputs:
+            os.remove(inputs)
 
     print(runs[0]["gpu"])
     names = list(dict.fromkeys(n for r in runs for n in r["kernels"]))
@@ -103,8 +154,15 @@ def main(argv=None) -> int:
             p = r["phases"].get(phase, {})
             idle = "" if "idle_share" not in p else f", idle {p['idle_share']:.2%}"
             print(f"  {r['run']:14s} epoch s {p.get('epoch_s')}{idle}")
+    same = True
+    if inputs:
+        from . import k2_phases
+
+        same = digest_table(runs, k2_phases.DIGEST_SHAPES)
     with open(os.path.join(args.out, "ab.json"), "w") as f:
         json.dump(dict(order=order, checkouts=checkouts, runs=runs), f, indent=1)
+    if not same:
+        raise RuntimeError("K2 / K6 outputs at H = 128 differ between the runs")
     return 0
 
 

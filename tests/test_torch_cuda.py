@@ -613,13 +613,16 @@ def test_tail_bwd_on_tensor_cores_matches_plain(dev, u, t, l, k, hd, precision):
             assert all(torch.equal(a, b_) for a, b_ in zip(got, fn(*bargs)))
 
 
-# heads past the tensor-core passes' 128 (ROADMAP §3.1): the wide passes of
-# hpd_stream.cu (CUDA-core fp32 under the precision contract) for K1, K2
-# (through K6's launches), K4, K5 and K6, at the JAX kernels' widths
+# heads past 128 (ROADMAP §3.1): the forward's wide passes of hpd_stream.cu
+# (CUDA-core fp32 under the precision contract) for K1, K4 and K5, and K2's
+# and K6's own launches on the tensor cores with the contraction over H in
+# 128-deep chunks (136, 200, 1000: a partial last chunk; 384-1000: heads of
+# 3 to 8 chunks on the grid)
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("u,t,l,k,hd", [(300, 2048, 3, 4, 256), (200, 4096, 16, 16, 512),
                                         (77, 256, 2, 1, 136), (300, 2048, 3, 4, 640),
-                                        (100, 2048, 2, 4, 1000)])
+                                        (100, 2048, 2, 4, 1000), (250, 2048, 5, 4, 200),
+                                        (150, 4096, 8, 8, 384)])
 def test_stream_kernels_match_plain_wide(dev, u, t, l, k, hd, precision):
     x = _tail_inputs(dev, u, t, l, k, hd=hd)
     h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
@@ -648,6 +651,32 @@ def test_stream_kernels_match_plain_wide(dev, u, t, l, k, hd, precision):
             for name, a, r in zip(("dh", "dw", "db"), got, want):
                 _close(a, r, grad_tol, f"{fn.__name__} {name} noop={noop}")
             assert all(torch.equal(a, b_) for a, b_ in zip(got, fn(*bargs)))
+
+
+@pytest.mark.parametrize("hd", [128, 256, 1000])
+def test_tail_bwd_runs_its_own_launches_at_every_width(dev, hd):
+    """K2 runs its row and columns kernels, K6 B1, B2's rows kernel and the
+    columns kernel, at every head width (no CUDA-core pass, and K2 never
+    K6's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    u, t, l, k = 300, 2048, 3, 4
+    x = _tail_inputs(dev, u, t, l, k, hd=hd)
+    h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
+    _, vals, idx, m, s = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest")
+    bargs = (h, w, b, counts, idx, vals, m, s, x["g_marg"], x["g_vals"], k)
+    for fn, want in ((hpd_stream.hpd_stream_fused_bwd, {"hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel"}),
+                     (hpd_stream.hpd_tail_unique_bwd,
+                      {"hpd_b1_kernel", "hpd_b2_rows_kernel", "hpd_bwd_cols_kernel"})):
+        fn(*bargs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*bargs)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()}
+        ran = {n for n in ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
+                           "hpd_b2_rows_kernel", "hpd_wide") if any(n in e for e in names)}
+        assert ran == want, (fn.__name__, hd, ran)
 
 
 @pytest.mark.parametrize("l,n,t,k,hd", [(2, 500, 256, 4, 256), (3, 333, 2048, 20, 512),

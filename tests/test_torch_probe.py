@@ -289,3 +289,29 @@ def test_ab_smoke_orders_runs_and_tables_them(tmp_path, capsys):
         ab_smoke.main([*runs, "--order", "a,b,bad", "--out", str(out)])
     with pytest.raises(SystemExit):
         ab_smoke.main([*runs, "--order", "a,c"])
+
+
+def test_ab_smoke_tables_digests_and_the_wide_fit(capsys):
+    """tools/ab_smoke: the wide stack's --scaled fit joins the phases where
+    a smoke has it (epoch s, idle share, K2's ms); the K2 / K6 digest table
+    passes only where every run's sha256 is the same."""
+    from collision_handling_in_instantngp_tpu_torch.tools import ab_smoke
+
+    fit = [dict(seconds=0.5)] * 3
+    smoke = dict(fit=fit, profile=dict(idle_share=0.01), split_fit=fit,
+                 split_profile=dict(idle_share=0.02), per_row_fits=dict(auto=dict(history=fit)),
+                 per_row_profile=dict(idle_share=0.03),
+                 wide_fit=dict(dedup=dict(history=fit, profile=dict(idle_share=0.04, k2_ms=12.5))))
+    assert ab_smoke.phases(smoke)[ab_smoke.WIDE_PHASE] == dict(epoch_s=[0.5] * 3, idle_share=0.04,
+                                                                k2_ms=12.5)
+    del smoke["wide_fit"]
+    assert ab_smoke.WIDE_PHASE not in ab_smoke.phases(smoke)
+    cell = lambda sha, ms: dict(sha256=sha, ms=ms)
+    run = lambda sha: dict(digests=dict(shapes=dict(scaled128=dict(K2=cell(sha, 80.0),
+                                                                   K6=cell("b" * 16, 90.0)))))
+    assert ab_smoke.digest_table([run("a" * 16), run("a" * 16)], ("scaled128",))
+    assert not ab_smoke.digest_table([run("a" * 16), run("c" * 16)], ("scaled128",))
+    assert ab_smoke.digest_table([run("a" * 16), run("c" * 16)], ())   # timed only
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("K2 scaled128") and lines[0].endswith("(equal)")
+    assert any(line.endswith("(DIFFER)") for line in lines)

@@ -75,6 +75,50 @@ def test_tile_plan_constants_match_the_headers():
             "                          (size_t)R * mma_ld(T) + T);") in tail
 
 
+def test_chunked_backward_plan_matches_the_source():
+    """The streamed backward's plan (K2, K6) restated from the shapes and
+    held to hpd_stream.cu and stream_tile.cuh: the tile constants, the
+    shared-memory sums of the row kernels and the columns kernel (one
+    128-deep chunk of h, w, dh and dW whatever H: 225,536 and 216,832 of a
+    block's 232,448 bytes, one 8-warp block per SM), the chunks on the
+    launch grid, and MAX_H, where the chunks fill grid.y / grid.z's
+    65,535."""
+    src = (CUDA / "hpd_stream.cu").read_text()
+    tile = (CUDA / "stream_tile.cuh").read_text()
+    r, hmax = _constant(tile, "R"), _constant(tile, "HMAX")
+    bt, lp, hitw, kmax, lmax = (_constant(src, n) for n in ("BT", "LP", "HITW", "KMAX", "LMAX"))
+    assert (r, hmax, bt, lp, hitw, _constant(src, "SEGS")) == (64, 128, 64, 32, 512, 8)
+    assert (hmax, kmax, lmax) == (hpd_stream.CHUNK_H, hpd_stream.MAX_K, hpd_stream.MAX_L)
+    for line in ("constexpr int BWD_SMEM_ROWS = 2 * R * HMAX + 2 * R * BT + 2 * R * LP + 4 * LP * BT +\n"
+                 "                              2 * HMAX * BT + 2 * BT + 2 * R * KMAX + 3 * R + HITW;",
+                 "constexpr int COLS_STAGE = R * HMAX + R * LMAX + 2 * R * KMAX + 3 * R;",
+                 "constexpr int BWD_SMEM_COLS =\n"
+                 "    2 * BT * HMAX + 2 * BT * LP + 2 * BT * R + BT + 4 * BT + 2 * COLS_STAGE;",
+                 "size_t bwd_rows_smem() { return sizeof(float) * BWD_SMEM_ROWS + 1024; }",
+                 "size_t bwd_cols_smem() { return sizeof(float) * BWD_SMEM_COLS + 1024; }",
+                 "int h_chunks(int H) { return (H + HMAX - 1) / HMAX; }",
+                 "constexpr int HWIDE = 65535 * HMAX;",
+                 "const dim3 rows_grid((u + R - 1) / R, h_chunks(H));",
+                 "const dim3 rows_grid(row_blocks, part == 1 ? 1 : h_chunks(H));",
+                 "const dim3 cols_grid(T / BT, SEGS, h_chunks(H));"):
+        assert line in src, line
+    rows = (2 * r * hmax + 2 * r * bt + 2 * r * lp + 4 * lp * bt + 2 * hmax * bt + 2 * bt
+            + 2 * r * kmax + 3 * r + hitw)
+    cols = (2 * bt * hmax + 2 * bt * lp + 2 * bt * r + bt + 4 * bt
+            + 2 * (r * hmax + r * lmax + 2 * r * kmax + 3 * r))
+    assert (4 * rows + 1024, 4 * cols + 1024) == (225_536, 216_832)
+    assert max(4 * rows, 4 * cols) + 1024 <= 232_448
+    # the fp32 chunk of h (rows) / w (columns) is staged in dl's / dl^T's two tiles
+    assert r * hmax == 2 * r * bt and hmax * bt == 2 * bt * r
+    chunks = lambda h: -(-h // hmax)
+    assert [chunks(h) for h in (37, 128, 129, 136, 200, 256, 384, 640, 1000)] == \
+        [1, 1, 2, 2, 2, 2, 3, 5, 8]
+    assert chunks(hpd_stream.MAX_H) == 65535 and hpd_stream.MAX_H == 65535 * 128
+    # the forward takes every H the backward does: no head that trains raises
+    hpd_stream._check_inputs(torch.zeros(4, 1000), torch.zeros(1000, 2048), torch.zeros(2048),
+                             torch.zeros(2, 4), 4)
+
+
 @pytest.mark.parametrize("widths,rpt", [((2, 32, 64, 128, 256), 4), ((2, 256, 512, 256, 256), 1),
                                         ((2, 128, 128), 4), (DEEP, 0), ((2, 512, 512, 2048), 0),
                                         ((2, 512, 2048), 1), ((2, 512, 512, 512, 512, 256), 1)])
