@@ -280,9 +280,12 @@ BEFORE_REDESIGN_MS = {"hpd_stream_fused_bwd": 340.15, "hpd_tail_unique_bwd": 135
                       "rowsum_dot[highest]": 25.38, "rowsum_dot[default]": 40.20,
                       "rowsum_dot[bf16]": 3.674, "rowsum_dot[bf16x3]": 8.649,
                       "hbm_scale_copy": 1.905, "hbm_write": 0.842,
-                      # the CUDA-core wide backward passes at H = 256 (step 13's shape)
+                      # the CUDA-core wide passes at H = 256 (step 13's shape), the
+                      # backward's and the forward's (PERF.md, heads past 128)
                       "hpd_stream_fused_bwd[H=256]": 26.40,
-                      "hpd_tail_unique_bwd[H=256]": 26.36}
+                      "hpd_tail_unique_bwd[H=256]": 26.36,
+                      "hpd_stream_fused_fwd[H=256]": 5.08, "hpd_stream_select[H=256]": 2.88,
+                      "hpd_stream_marginal[H=256]": 2.20}
 SRC = "collision_handling_in_instantngp_tpu_torch/ops/cuda/"
 VARIANT_OF = {False: "ring", True: "narrow"}     # K12's variant by scatter.narrow_path
 JAX_SRC = "collision_handling_in_instantngp_tpu/ops/pallas/"
@@ -1109,14 +1112,14 @@ def hidden_stack_phase(hidden, x, layers, gen, tag, exact=False) -> dict:
 def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, n=20_000) -> dict:
     """Every tail kernel at a head input of 256 (the wide stack's), against
     its plain version at a small L and T, bitwise run to run, timed: the
-    dedup route's K1, K2 (fused gate holds at T = 2^12), K4, K5, K6, and
-    the per-row route's K8, K9, K10, K11 (the stack [2 -> 256 -> 512 ->
-    256]). K2 and K6 run their own launches on the tensor cores (the
-    contraction over H in two 128-deep chunks), beside their times before
-    (the CUDA-core wide passes). Bounds as at H = 128: the
-    products of fp32 'highest' as 3xTF32 at the TF32 peak (the forward's
-    wide passes run fp32 FMA on the CUDA cores: their fp32 bound beside it
-    as ``bound_fp32_ms``); K8's fp32 head at the fp32 peak, as at H = 128."""
+    dedup route's K1, K2 (fused gate holds at T = 2^12), K4, K5, K6, K7,
+    and the per-row route's K8, K9, K10, K11 (the stack [2 -> 256 -> 512 ->
+    256]). K1, K2 and K4-K7 run their own passes on the tensor cores (the
+    contraction over H in two 128-deep chunks), K1, K2, K4-K6 beside their
+    times before (the CUDA-core wide passes); K1's and K4's fix-up rows
+    printed. Bounds as at H = 128: the products of fp32 'highest' as 3xTF32
+    at the TF32 peak (the fp32 bound of the forward beside it as
+    ``bound_fp32_ms``); K8's fp32 head at the fp32 peak, as at H = 128."""
     hd, l, k = WIDE_HIDDEN[-1], 4, 4
     f32 = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=gen) * scale
     h = torch.rand(u, hd, device=dev, generator=gen) * 0.1
@@ -1132,8 +1135,9 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
         if fp32 is not None:
             out[name + WIDE_H]["bound_fp32_ms"] = fp32
 
-    log(f"K1/K2 and K4-K6 at H={hd}, U={u}, T={t}, L={l}, K={k} (the wide passes):")
+    log(f"K1/K2 and K4-K7 at H={hd}, U={u}, T={t}, L={l}, K={k} (two 128-deep chunks):")
     fwd_k = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k)
+    fixup_rows(hpd_stream.hpd_stream_fused_fwd, "K1")
     fwd_p = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest")
     if not torch.equal(fwd_k[2], fwd_p[2]):
         raise AssertionError("K1 at H = 256: top-K indices differ from the plain version")
@@ -1149,6 +1153,7 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
           None, fb, None, err, tf32x3_bound(2.0 * u * hd * t, fb, 2.0 * l * u * t, counts),
           bound_ms(2.0 * u * hd * t + 2.0 * l * u * t, fb)[0])
     sel_k = hpd_stream.hpd_stream_select(h, w, b, k)
+    fixup_rows(hpd_stream.hpd_stream_select, "K4")
     if not torch.equal(sel_k[1], fwd_p[2]):
         raise AssertionError("K4 at H = 256: top-K indices differ from the plain version")
     err = max(compare(n, a, r, FWD_TOL) for n, a, r in zip(("vals", "m", "s"),
@@ -1168,6 +1173,31 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
           lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 3,
           None, mb, None, err, tf32x3_bound(2.0 * u * hd * t, mb, 2.0 * l * u * t, counts),
           bound_ms(2.0 * u * hd * t + 2.0 * l * u * t, mb)[0])
+    for name in ("hpd_stream_fused_fwd", "hpd_stream_select", "hpd_stream_marginal"):
+        redesigned(out[name + WIDE_H])
+    pb = 4.0 * (u * hd + hd * t + t + 2 * u)
+    for variant, tol in (("dots", DOTS_TOL), ("softmax", FWD_TOL)):
+        got = hpd_stream.hpd_stream_fused_probe(h, w, b, "highest", variant)
+        ref = hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant)
+        err = max(compare(f"K7 [{variant}] {n}", a, r, tol) for n, a, r in zip(("m", "s"), got, ref))
+        bitwise_same(f"K7 [{variant}] m/s", got, hpd_stream.hpd_stream_fused_probe(h, w, b, "highest", variant))
+        name = f"hpd_stream_fused_probe[{variant}]"
+        ms, plain = (cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe(h, w, b, "highest", variant), 3),
+                     cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant), 3))
+        out[name + WIDE_H] = kernel_entry(name + WIDE_H, SRC + "hpd_stream.cu",
+                                          JAX_SRC + REPLACES["hpd_stream_fused_probe"], err, ms, plain,
+                                          tf32x3_bound(2.0 * u * hd * t, pb))
+        out[name + WIDE_H]["bound_fp32_ms"] = bound_ms(2.0 * u * hd * t, pb)[0]
+    # K7's path: the sweep ladder (tools/sweep_probe.py), its counts set to 0 just before
+    from collision_handling_in_instantngp_tpu_torch.tools import sweep_probe
+
+    zero_counts([hpd_stream.hpd_stream_fused_probe])
+    rung = sweep_probe.ladder(h, w, b[None], counts, k, "highest", reps=3)
+    log("  sweep ladder: " + ", ".join(f"{key} {v:.3f} ms" for key, v in rung.items()))
+    for variant, count in hpd_stream.hpd_stream_fused_probe.variant_launches.items():
+        if count == 0:
+            raise AssertionError(f"K7 [{variant}] at H = {hd} never launched in the sweep ladder")
+        out[f"hpd_stream_fused_probe[{variant}]{WIDE_H}"].update(launches=count, route="cuda")
     bargs = (h, w, b, counts, idx, vals, m, s, g_marg, g_vals, k)
     bwd_p = hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False)
     for name, fn in (("hpd_stream_fused_bwd", hpd_stream.hpd_stream_fused_bwd),
@@ -1238,36 +1268,59 @@ def dyadic(gen, shape, lo, hi, scale, dev):
     return torch.randint(lo, hi, shape, device=dev, generator=gen).float() * scale
 
 
-def past_512_phase(hpd_stream, hpd_tail, dev, gen) -> dict:
-    """ROADMAP §3.1's heads past 512: K1, K2, K4, K5, K6 (U = 4,000, T =
-    2048, L = 4, K = 4) and K8, K9 (L = 2, N = 4,000, T = 256, K = 4) at
-    head inputs of 640 and 1000 against their plain versions (identical
-    top-K, 1e-5 forward, 1e-4 gradients), bitwise run to run; K8's and K9's
-    times logged. h, w and b are multiples of 1/8, 1/128 and 1/512: every
-    logit is exact in fp32 whatever the order of its 640-1000 terms, so the
-    kernels' sums and cuBLAS's rank the columns alike (random fp32 data
-    puts near-ties within their rounding differences at these widths).
-    Returns {H: {check: normwise error}}."""
+# marg against its plain version by precision: at 'high' / 'default' its p
+# is rounded to bf16 operands, where one ulp of p can move a rounding
+MARG_TOL = {"highest": FWD_TOL, "high": 1e-3, "default": 1e-2}
+
+
+def wide_heads_phase(hpd_stream, hpd_tail, dev, gen) -> dict:
+    """Heads past 128 (ROADMAP §3.1), on inputs whose logits are exact in
+    fp32 and bf16 (h, w, b multiples of 1/8, 1/128, 1/512), so that the
+    kernels' sums and cuBLAS's rank the columns alike (random fp32 data puts
+    near-ties within their rounding differences at these widths): K1, K4,
+    K5 and K7 (U = 4,000, T = 2048, L = 4, K = 4) at H = 256, 640 and 1000
+    and at each precision against their plain versions (identical top-K;
+    vals, m, s and K7's m, s within 1e-5; marg within MARG_TOL), bitwise
+    run to run, with the rows K1's guard sent to the fix-up (exact ties
+    among the columns) printed; K2 and K6 at 'highest' (1e-4 gradients),
+    bitwise run to run; and K8, K9 (L = 2, N = 4,000, T = 256, K = 4) at
+    640 and 1000, their times logged. Returns {H: {check: normwise error
+    or fix-up rows}}."""
     out = {}
-    for hd in (640, 1000):
+    for hd in (256, 640, 1000):
         u, t, l, k = 4000, 2048, 4, 4
         errs = out[hd] = {}
         h = dyadic(gen, (u, hd), 0, 8, 1 / 8, dev)
         w = dyadic(gen, (hd, t), -8, 9, 1 / 128, dev)
         b = dyadic(gen, (t,), -64, 65, 1 / 512, dev)
         counts = torch.randint(0, 5, (l, u), device=dev, generator=gen).float()
-        log(f"K1/K2, K4-K6 at H={hd}, U={u}, T={t}, L={l}, K={k}:")
-        ref = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest")
-        fwd = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k)
-        sel = hpd_stream.hpd_stream_select(h, w, b, k)
-        if not (torch.equal(fwd[2], ref[2]) and torch.equal(sel[1], ref[2])):
-            raise AssertionError(f"K1/K4 at H = {hd}: top-K indices differ from the plain version")
-        for n_, a, r in zip(("K1 marg", "K1 vals", "K4 vals", "K4 m", "K4 s"),
-                            (fwd[0], fwd[1], sel[0], sel[2], sel[3]), (ref[0], ref[1], ref[1], ref[3], ref[4])):
-            errs[n_] = compare(n_, a, r, FWD_TOL)
-        errs["K5 marg"] = compare("K5 marg", hpd_stream.hpd_stream_marginal(h, w, b, counts, *ref[3:]),
-                                  ref[0], FWD_TOL)
-        bitwise_same(f"K1 at H={hd}", fwd, hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k))
+        log(f"K1/K2, K4-K7 at H={hd}, U={u}, T={t}, L={l}, K={k}:")
+        for prec in ("high", "default", "highest"):   # 'highest' last: its ref feeds K2 / K6
+            ref = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, prec)
+            fwd = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k, prec)
+            errs[f"{prec} K1 fix-up rows"] = fixup_rows(hpd_stream.hpd_stream_fused_fwd, f"K1 '{prec}'")
+            sel = hpd_stream.hpd_stream_select(h, w, b, k, prec)
+            if not (torch.equal(fwd[2], ref[2]) and torch.equal(sel[1], ref[2])):
+                raise AssertionError(f"K1/K4 at H = {hd}, '{prec}': top-K indices differ from the "
+                                     "plain version")
+            for n_, a, r in zip(("K1 vals", "K1 m", "K1 s", "K4 vals", "K4 m", "K4 s"),
+                                (fwd[1], fwd[3], fwd[4], sel[0], sel[2], sel[3]),
+                                (ref[1], ref[3], ref[4], ref[1], ref[3], ref[4])):
+                errs[f"{prec} {n_}"] = compare(f"'{prec}' {n_}", a, r, FWD_TOL)
+            marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, *ref[3:], prec)
+            for n_, a in (("K1 marg", fwd[0]), ("K5 marg", marg)):
+                errs[f"{prec} {n_}"] = compare(f"'{prec}' {n_}", a, ref[0], MARG_TOL[prec])
+            bitwise_same(f"K1 at H={hd} '{prec}'", fwd, hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k, prec))
+            bitwise_same(f"K5 at H={hd} '{prec}'", [marg],
+                         [hpd_stream.hpd_stream_marginal(h, w, b, counts, *ref[3:], prec)])
+            for variant in ("dots", "softmax"):
+                got = hpd_stream.hpd_stream_fused_probe(h, w, b, prec, variant)
+                want = hpd_stream.hpd_stream_fused_probe_plain(h, w, b, prec, variant)
+                for n_, a, r in zip(("m", "s"), got, want):
+                    errs[f"{prec} K7 {variant} {n_}"] = compare(f"'{prec}' K7 [{variant}] {n_}", a, r, FWD_TOL)
+                bitwise_same(f"K7 [{variant}] at H={hd} '{prec}'", got,
+                             hpd_stream.hpd_stream_fused_probe(h, w, b, prec, variant))
+        del fwd, sel, marg, got, want
         bargs = (h, w, b, counts, ref[2], ref[1], ref[3], ref[4],
                  torch.randn(l, t, device=dev, generator=gen), torch.randn(u, k, device=dev, generator=gen), k)
         want = hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False)
@@ -1276,7 +1329,9 @@ def past_512_phase(hpd_stream, hpd_tail, dev, gen) -> dict:
             for n_, a, r in zip(("dh", "dw", "db"), got, want):
                 errs[f"{name} {n_}"] = compare(f"{name} {n_}", a, r, GRAD_TOL)
             bitwise_same(f"{name} at H={hd}", got, fn(*bargs))
-        del ref, fwd, sel, want, got
+        del ref, want, got
+        if hd < 512:
+            continue
         lr, nr, tr = 2, 4000, 256
         log(f"K8/K9 at H={hd}, L={lr}, N={nr}, T={tr}, K={k}:")
         ht = dyadic(gen, (lr, nr, hd), 0, 8, 1 / 8, dev)
@@ -1354,11 +1409,13 @@ def overflow_stack_phase(hpd_tail, hpd_full, dev) -> dict:
 
 
 def wide_scaled_profile(exp, data, shuffled, history, dev) -> dict:
-    """One profiled epoch of the wide stack's ``--scaled`` training (K2 at
-    H = 256, U_c = 161,792, T = 2^14, L = 16): prints the fit's epoch
-    seconds, the backward's device ms by launch and K2's share of the
-    epoch's device time. Returns the profile with ``k2_ms`` and
-    ``k2_share`` (K2's row and columns kernels, the reduce apart)."""
+    """One profiled epoch of the wide stack's ``--scaled`` training (K1 and
+    K2 at H = 256, U_c = 161,792, T = 2^14, L = 16): prints the fit's epoch
+    seconds, the forward's and the backward's device ms by launch and K1's
+    and K2's shares of the epoch's device time. Returns the profile with
+    ``k1_ms``, ``k1_share`` (K1's rows pass, fix-up and columns pass) and
+    ``k2_ms``, ``k2_share`` (K2's row and columns kernels), the reduces
+    apart."""
     from collision_handling_in_instantngp_tpu_torch.models import gngf
     from collision_handling_in_instantngp_tpu_torch.train.train_step import build_epoch_batches
 
@@ -1369,17 +1426,21 @@ def wide_scaled_profile(exp, data, shuffled, history, dev) -> dict:
         f"(the fit's epoch s {[round(r['seconds'], 4) for r in history]}):")
     prof = profile_epoch(exp, statics, batches, dev)
     log_profile(prof)
-    kernels = ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel")
-    prof["per_launch_ms"] = per_launch("K2 at H=256 in training", prof, kernels)
-    prof["k2_ms"] = sum(r["ms"] for r in prof["kernels"] if any(k in r["name"] for k in kernels))
-    prof["k2_share"] = prof["k2_ms"] / max(prof["busy_ms"], 1e-9)
-    log(f"  K2's launches: {prof['k2_ms']:.2f} ms of the epoch's {prof['busy_ms']:.2f} ms of "
-        f"device time ({prof['k2_share']:.1%}); idle {prof['idle_share']:.2%}")
+    for key, what, kernels in (
+            ("k1", "K1", ("hpd_fwd_rows_kernel", "hpd_fix_rows_kernel", "hpd_fwd_cols_kernel")),
+            ("k2", "K2", ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel"))):
+        prof[f"{key}_per_launch_ms"] = per_launch(f"{what} at H=256 in training", prof, kernels)
+        prof[f"{key}_ms"] = sum(r["ms"] for r in prof["kernels"] if any(k in r["name"] for k in kernels))
+        prof[f"{key}_share"] = prof[f"{key}_ms"] / max(prof["busy_ms"], 1e-9)
+        log(f"  {what}'s launches: {prof[f'{key}_ms']:.2f} ms of the epoch's {prof['busy_ms']:.2f} ms "
+            f"of device time ({prof[f'{key}_share']:.1%})")
+    log(f"  idle {prof['idle_share']:.2%}")
     return prof
 
 
 # the JAX kernel each wrapper replaces (JAX_SRC + this)
 REPLACES = {"hpd_stream_fused_fwd": "hpd_stream.py:570", "hpd_stream_fused_bwd": "hpd_stream.py:722",
+            "hpd_stream_fused_probe": "hpd_stream.py:1081",
             "hpd_stream_select": "hpd_stream.py:193", "hpd_stream_marginal": "hpd_stream.py:282",
             "hpd_tail_unique_bwd": "hpd_stream.py:921", "hpd_tail_fwd": "hpd_tail.py:87",
             "hpd_tail_bwd": "hpd_tail.py:182", "hpd_full_fwd": "hpd_full.py:162",
@@ -2720,13 +2781,13 @@ def parallel_phase(data, data_raw, dev) -> tuple:
 
 # every instance of these kernels must hold warpgroup MMAs (HGMMA): the
 # tensor-core passes of the dedup route's tail, forward and backward, and
-# K7; the fix-up of the rows pass is the exact fp32 sweep and must hold none
+# K7, each with a one-chunk instance (last template argument CH = 0, heads
+# up to 128) and a chunked one (CH = 1, past 128) at every precision; the
+# fix-up of the rows pass is the exact fp32 sweep and must hold none
 TENSOR_CORE_KERNELS = ("hpd_fwd_rows_kernel", "hpd_fwd_cols_kernel", "hpd_probe_kernel",
                        "hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
                        "hpd_b2_rows_kernel")
-# ... and the forward's wide passes (heads past 128) run fp32 FMA on the CUDA
-# cores (the backward takes every head width on the tensor cores)
-FP32_KERNELS = ("hpd_fix_rows_kernel", "hpd_wide_cols_kernel", "hpd_wide_probe_kernel")
+FP32_KERNELS = ("hpd_fix_rows_kernel",)
 # K3a / K3b take every product as mma.sync (HMMA) at every precision, row
 # tile and (K3b's backward kernel) weight staging; so does K3b's dW kernel
 HIDDEN_KERNELS = {"hidden_fwd_kernel": [(rt,) for rt in (16, 32, 64)],
@@ -2770,7 +2831,9 @@ def tensor_core_sass(build) -> dict:
     hpd_full and hpd_tail libraries. Raises unless every instance (each
     template argument list) of TENSOR_CORE_KERNELS holds HGMMA, each of them
     has an instance at every precision (<0>, <1>, <2>), and FP32_KERNELS
-    hold none; unless each kernel of PER_ROW_TENSOR_CORE has an instance
+    hold none; unless each of TENSOR_CORE_KERNELS has, at every precision,
+    a one-chunk and a chunked instance (last argument 0 and 1); unless each
+    kernel of PER_ROW_TENSOR_CORE has an instance
     at every tile size and width (<1 / 2 / 4, WIDE 0 / 1>), each holding
     HMMA, and the instances
     of PER_ROW_FP32 hold none; and unless every instance of HIDDEN_KERNELS
@@ -2779,8 +2842,9 @@ def tensor_core_sass(build) -> dict:
     for k_ in TENSOR_CORE_KERNELS:
         for p in range(3):
             inst = [n for n in counts if n.startswith(f"{k_}<{p}")]
-            if not inst:
-                raise RuntimeError(f"{k_}<{p}>: no instance in the SASS")
+            for ch in (0, 1):
+                if not any(n.endswith(f",{ch}>") for n in inst):
+                    raise RuntimeError(f"{k_}<{p}, ..., CH={ch}>: no instance in the SASS")
             for n in inst:
                 if counts[n]["HGMMA"] == 0:
                     raise RuntimeError(f"{n}: no HGMMA in the SASS")
@@ -3139,7 +3203,7 @@ def main() -> int:
 
     # -------- the wide stack [2 -> 256 -> 512 -> 256] (ROADMAP §3.1) -------- #
     entries.update(wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen))
-    past_512 = past_512_phase(hpd_stream, hpd_tail, dev, gen)
+    wide_heads = wide_heads_phase(hpd_stream, hpd_tail, dev, gen)
     overflow = overflow_stack_phase(hpd_tail, hpd_full, dev)
     k3_pair = {"hidden_stack_fwd": hidden.hidden_stack_fwd, "hidden_stack_bwd": hidden.hidden_stack_bwd}
     small_stream = dict(num_levels=4, n_min=8, n_max=48, hpd_backend="unique_stream")
@@ -3221,7 +3285,7 @@ def main() -> int:
                        split_fit=history16, split_fit_s=fit16_s, split_launches=launches16,
                        split_profile=profile16, sweep_ladder_highest=ladder,
                        mxu_probe_rates=mxu_rates, memory_gb=marks, compares=COMPARES,
-                       wide_fit=wide_fit, past_512=past_512, overflow_stack=overflow,
+                       wide_fit=wide_fit, wide_heads=wide_heads, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
                        vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render,
                        spans=spans, parallel=parallel),

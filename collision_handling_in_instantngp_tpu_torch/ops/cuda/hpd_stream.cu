@@ -38,9 +38,9 @@
 // Every pass runs its products on the tensor cores as warpgroup MMAs (see
 // "backward, on the tensor cores" and "forward, on the tensor cores"
 // below); the top-K stays that of the fp32 logits by candidate refinement.
-// The backward takes any head width there, its contraction over H in
-// 128-deep chunks; the forward past H = 128 runs the wide passes (fp32 FMA
-// on the CUDA cores) below.
+// Every pass takes any head width there, its contraction over H in 128-deep
+// chunks past H = 128; only the fix-up of the rows the guard lists runs on
+// the CUDA cores (exact fp32).
 // Sums across row blocks (marg, dW, db) go to per-segment partials over a
 // fixed number of row segments, summed in segment order by
 // hpd_reduce_segments_kernel: no atomics, bitwise stable run to run. Every
@@ -54,6 +54,7 @@
 // each compute the logits once, as the TPU's split kernels do; B2 computes
 // them twice (its row and its column part) where the TPU's runs once; at a
 // head of nc 128-deep chunks each block of dh's or dW's nc recomputes them.
+// (The forward passes sum a head's chunks in one block.)
 
 #include <float.h>
 #include <limits.h>
@@ -75,36 +76,18 @@ int rows_per_seg(int u) {
   return ((tiles + SEGS - 1) / SEGS) * R;
 }
 
-// ------------- wide heads: the forward past HMAX, on the CUDA cores ------------ //
-//
-// A head wider than HMAX takes the forward passes of this section instead
-// of the tensor-core forward passes below, whose shared-memory plans hold a
-// whole R x HMAX tile of h (and its hi / lo split) for the block's life.
-// Each wide pass streams h through the R x HMAX tile of stream_tile.cuh in
-// HMAX-deep chunks, the logits of a column tile accumulating over the
-// chunks as one fma chain over k ascending (the exact fp32 arithmetic of
-// the fix-up's sweep, pfma<P>):
-//   rows pass    the fix-up's exact sweep over every row (no guard needed):
-//                m, s, vals, idx of K1 / K4.
-//   columns pass (hpd_wide_cols_kernel) marg partials per (column tile,
-//                row segment) of K1 / K5.
-//   probe        (hpd_wide_probe_kernel) K7's two variants.
-// Sums: two-level (a tile's partial added to the running value), across
-// blocks in the fixed segment partials: bitwise stable run to run. The
-// backward takes every head width on the tensor cores (its contraction
-// over H in HMAX-deep chunks: "backward, on the tensor cores" below).
-
-constexpr int TP = TT + 4;   // row stride of the p tile
-// The widest head: the backward puts its ceil(H / HMAX) chunks of dh and
-// dW on grid.y (row kernels) and grid.z (columns kernel), at most 65,535
-// blocks each; no shared-memory plan grows with H (the forward's wide
-// passes stream h through the R x HMAX tile, the backward's chunks go
-// through the tiles of one HMAX-deep chunk).
+// The widest head: every pass takes the contraction over H in ceil(H / HMAX)
+// HMAX-deep chunks through the tiles of one chunk, so no shared-memory plan
+// grows with H ("Any head width" below); the backward puts its chunks of dh
+// and dW on grid.y (row kernels) and grid.z (columns kernel), at most 65,535
+// blocks each.
 constexpr int HWIDE = 65535 * HMAX;
 
 // The logits h w + b of the rows row(r) (r < R; -1: a zero row) x columns
-// [t0, t0 + TT), h streamed through h_s (R x HP) in HMAX-deep chunks; laid
-// out as in tile_dot. Starts with a barrier.
+// [t0, t0 + TT), h streamed through h_s (R x HP) in HMAX-deep chunks, each
+// element one fma chain over k ascending across the chunks (tile_dot's
+// arithmetic); laid out as in tile_dot. Starts with a barrier. The fix-up's
+// sweep at a head wider than HMAX.
 template <int P, typename Row>
 __device__ __forceinline__ void wide_tile_logits(const float* __restrict__ h, Row row, int H,
                                                  const float* __restrict__ w,
@@ -134,146 +117,6 @@ __device__ __forceinline__ void wide_tile_logits(const float* __restrict__ h, Ro
   }
 }
 
-// p = exp(l - m) / s of the tile (s <= 0 reads as 1, as the plain version
-// pads it), 0 on rows where row(r) < 0
-template <typename Row>
-__device__ __forceinline__ void wide_tile_p(Row row, const float* __restrict__ m,
-                                            const float* __restrict__ s, float (&acc)[4][8]) {
-  const int ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row(ty * 4 + i);
-    const float mr = gr >= 0 ? m[gr] : 0.f;
-    const float sr = gr >= 0 && s[gr] > 0.f ? s[gr] : 1.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = gr >= 0 ? expf(acc[i][j] - mr) / sr : 0.f;
-  }
-}
-
-size_t wide_cols_smem(int L) {
-  return sizeof(float) * (R * HP + BK * TT + R * TP + (size_t)L * R);
-}
-
-// Columns pass at a wide head: block (column tile x, row segment y) sums
-// counts @ p over its segment's rows into marg_part[y, :, x's columns].
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-hpd_wide_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                     const float* __restrict__ b, const float* __restrict__ counts,
-                     const float* __restrict__ m, const float* __restrict__ s, int u, int H,
-                     int T, int L, int rows_seg, float* __restrict__ marg_part) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* p_s = w_s + BK * TT;
-  float* cnt_s = p_s + R * TP;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int t0 = blockIdx.x * TT, seg = blockIdx.y;
-  const int rb = seg * rows_seg, re = min(u, rb + rows_seg);
-  float run[LMAX * TT / THREADS];
-#pragma unroll
-  for (int i = 0; i < LMAX * TT / THREADS; ++i) run[i] = 0.f;
-  for (int r0 = rb; r0 < re; r0 += R) {
-    const auto row = [&](int r) { return r0 + r < re ? r0 + r : -1; };
-    float acc[4][8];
-    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, acc);
-    wide_tile_p(row, m, s, acc);
-    __syncthreads();  // the previous tile's sums have read p_s, cnt_s
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) p_s[(ty * 4 + i) * TP + tx + 16 * j] = acc[i][j];
-    for (int e = threadIdx.x; e < L * R; e += THREADS) {
-      const int l = e / R, r = e - l * R;
-      cnt_s[e] = row(r) >= 0 ? counts[(size_t)l * u + r0 + r] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < LMAX * TT / THREADS; ++i) {
-      const int e = threadIdx.x + i * THREADS, l = e / TT, c = e - l * TT;
-      if (l < L) {
-        float t = 0.f;
-        for (int r = 0; r < R; ++r) t = pfma<P>(cnt_s[l * R + r], p_s[r * TP + c], t);
-        run[i] += t;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < LMAX * TT / THREADS; ++i) {
-    const int e = threadIdx.x + i * THREADS, l = e / TT, c = e - l * TT;
-    if (l < L) marg_part[((size_t)seg * L + l) * T + t0 + c] = run[i];
-  }
-}
-
-size_t wide_probe_smem() { return sizeof(float) * (R * HP + BK * TT + 2 * R * NSUB); }
-
-// K7 at a wide head: the rows pass with its later phases removed, on the
-// CUDA cores. "softmax": the row max and sum-exp (online per 16-column
-// sub-stream, merged in sub-stream order); DOTS: m = s = the row sum of
-// the logits (per tile first, then over the sub-streams in order).
-template <int P, bool DOTS>
-__global__ void __launch_bounds__(THREADS)
-hpd_wide_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                      const float* __restrict__ b, int u, int H, int T,
-                      float* __restrict__ m_out, float* __restrict__ s_out) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* w_s = h_s + R * HP;
-  float* pm = w_s + BK * TT;
-  float* ps = pm + R * NSUB;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.x * R;
-  const auto row = [&](int r) { return r0 + r < u ? r0 + r : -1; };
-  float mrun[4], srun[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrun[i] = -INFINITY;
-    srun[i] = 0.f;
-  }
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    float acc[4][8];
-    wide_tile_logits<P>(h, row, H, w, b, T, t0, h_s, w_s, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (DOTS) {
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) part += acc[i][j];
-        srun[i] += part;
-      } else {
-        float tmax = acc[i][0];
-#pragma unroll
-        for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, acc[i][j]);
-        const float mnew = fmaxf(mrun[i], tmax);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sum += expf(acc[i][j] - mnew);
-        srun[i] = srun[i] * expf(mrun[i] - mnew) + sum;
-        mrun[i] = mnew;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    pm[(ty * 4 + i) * NSUB + tx] = mrun[i];
-    ps[(ty * 4 + i) * NSUB + tx] = srun[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < R && r0 + threadIdx.x < u) {
-    const int r = threadIdx.x;
-    float m = -INFINITY, s = 0.f;
-    if (DOTS) {
-      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub];
-      m = s;
-    } else {
-      for (int sub = 0; sub < NSUB; ++sub) m = fmaxf(m, pm[r * NSUB + sub]);
-      for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
-    }
-    m_out[r0 + r] = m;
-    s_out[r0 + r] = s;
-  }
-}
-
 // -------------------- exact fp32 rows sweep (the fix-up) -------------------- //
 
 size_t fix_rows_smem(int K) {
@@ -287,13 +130,13 @@ size_t fix_rows_smem(int K) {
 // online max / sum-exp and, per (row, 16-column sub-stream), a sorted top-K
 // list, then merges the NSUB lists of each row by (value desc, index asc)
 // and writes the row's vals, idx, m and s.
-// WIDE (the rows pass of a head wider than HMAX, wide_tile_logits): every
-// one of the u rows, in order; *n_fix is set to u.
+// WIDE (a head wider than HMAX): the listed rows' h streamed through the
+// tile in HMAX-deep chunks for every column tile (wide_tile_logits).
 template <int P, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, int H, int T, int K,
-                    const int* __restrict__ fix_rows, int* __restrict__ n_fix, int u,
+                    const int* __restrict__ fix_rows, const int* __restrict__ n_fix,
                     float* __restrict__ vals, int* __restrict__ idx,
                     float* __restrict__ m_out, float* __restrict__ s_out) {
   extern __shared__ float smem[];
@@ -304,8 +147,7 @@ hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float* lv = ps + R * NSUB;
   int* li = (int*)(lv + R * NSUB * K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n = WIDE ? u : *n_fix;
-  if (WIDE && blockIdx.x == 0 && threadIdx.x == 0) *n_fix = u;
+  const int n = *n_fix;
   for (int base = blockIdx.x * R; base < n; base += gridDim.x * R) {
     __syncthreads();  // the previous rows' merge has read lv / li
     for (int i = threadIdx.x; !WIDE && i < R * HMAX; i += THREADS) {
@@ -327,8 +169,8 @@ hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
     for (int t0 = 0; t0 < T; t0 += TT) {
       float acc[4][8];
       if (WIDE)
-        wide_tile_logits<P>(h, [&](int r) { return base + r < n ? base + r : -1; }, H, w, b, T,
-                            t0, h_s, w_s, acc);
+        wide_tile_logits<P>(h, [&](int r) { return base + r < n ? fix_rows[base + r] : -1; }, H,
+                            w, b, T, t0, h_s, w_s, acc);
       else
         tile_logits<P>(h_s, w, b, H, T, t0, w_s, acc);
 #pragma unroll
@@ -383,7 +225,7 @@ hpd_fix_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
       for (int sub = 0; sub < NSUB; ++sub) s += ps[r * NSUB + sub] * expf(pm[r * NSUB + sub] - m);
       int pos[NSUB];
       for (int sub = 0; sub < NSUB; ++sub) pos[sub] = 0;
-      const size_t row = WIDE ? (size_t)(base + r) : (size_t)fix_rows[base + r];
+      const size_t row = (size_t)fix_rows[base + r];
       for (int q = 0; q < K; ++q) {
         int best = 0;
         float bv = -INFINITY;
@@ -544,8 +386,9 @@ size_t bwd_cols_smem() { return sizeof(float) * BWD_SMEM_COLS + 1024; }
 // kernels) or grid.z (columns kernel).
 __host__ __device__ __forceinline__ int h_chunks(int H) { return (H + HMAX - 1) / HMAX; }
 
-// The backward kernels' instances: CH = true past HMAX (the chunk loops),
-// CH = false else (one chunk, a constant: the code of a single h tile).
+// The instances of every pass (and of the fix-up): CH = true past HMAX (the
+// chunk loops), CH = false else (one chunk, a constant: the code of a
+// single h tile).
 #define DISPATCH_CHUNKED(H, ...)   \
   if ((H) > HMAX) {                \
     constexpr bool CH = true;      \
@@ -556,11 +399,13 @@ __host__ __device__ __forceinline__ int h_chunks(int H) { return (H + HMAX - 1) 
   }
 
 // Built with -DHPD_STREAM_PHASES (tools/k2_phases.py), thread 0 of each
-// backward block sums the clock64() ticks of its phases into bwd_phase
-// (kernel PK_*, phase PH_*); every mark is a block barrier, so the ticks are
-// the block's. Otherwise the marks compile to nothing.
-enum { PH_WAIT, PH_RESTAGE, PH_LOGITS, PH_G, PH_DL, PH_PRODUCT, PH_REST, NPH };
-enum { PK_ROWS, PK_B1, PK_B2, PK_COLS, NPK };
+// block of the backward kernels and of the forward's rows (K1 / K4; not K7)
+// and columns passes sums the clock64() ticks of its phases into bwd_phase
+// (kernel PK_*, phase PH_*; PH_SELECT: the rows pass's selection, the
+// columns pass's p and marginal); every mark is a block barrier, so the
+// ticks are the block's. Otherwise the marks compile to nothing.
+enum { PH_WAIT, PH_RESTAGE, PH_LOGITS, PH_G, PH_DL, PH_PRODUCT, PH_REST, PH_SELECT, NPH };
+enum { PK_ROWS, PK_B1, PK_B2, PK_COLS, PK_FWD_ROWS, PK_FWD_COLS, NPK };
 #ifdef HPD_STREAM_PHASES
 __device__ unsigned long long bwd_phase[NPK * NPH];
 struct Clock {
@@ -925,6 +770,98 @@ __device__ __forceinline__ void load_w_chunk_async(const float* __restrict__ w,
   if (threadIdx.x < BT / 4) cp_async16(b_s + 4 * threadIdx.x, b + t0 + 4 * threadIdx.x);
 }
 
+// Past HMAX, the chunks of the B tiles: fp32 by cp.async, then split in
+// shared memory.
+
+// h rows [r0, r0 + R), columns [c0, c0 + HMAX) (zero past u and H), fp32,
+// into hf (R x HMAX; the backward's row kernels: dl's two tiles) by cp.async.
+static_assert(R * HMAX == 2 * R * BT, "h's fp32 chunk fills dl_hi and dl_lo");
+__device__ __forceinline__ void load_h_async(const float* __restrict__ h, int u, int H, int r0,
+                                             int c0, float* __restrict__ hf) {
+  if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
+    for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
+      const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
+      float* dst = hf + r * HMAX + k;
+      if (r0 + r < u && c0 + k < H) {
+        cp_async16(dst, h + (size_t)(r0 + r) * H + c0 + k);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = 0.f;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i % HMAX;
+      if (r0 + r < u && c0 + k < H)
+        cp_async4(hf + i, h + (size_t)(r0 + r) * H + c0 + k);
+      else
+        hf[i] = 0.f;
+    }
+  }
+}
+
+// Four consecutive k of an fp32 operand, split into its hi / lo tiles at o
+// (one 16-byte chunk of the 128-byte swizzle; lo not kept for P = 2).
+template <int P>
+__device__ __forceinline__ void put4(float* __restrict__ hi_t, float* __restrict__ lo_t, int o,
+                                     float4 x) {
+  uint4 hi, lo;
+  split<P>(x.x, hi.x, lo.x);
+  split<P>(x.y, hi.y, lo.y);
+  split<P>(x.z, hi.z, lo.z);
+  split<P>(x.w, hi.w, lo.w);
+  *(uint4*)(hi_t + o) = hi;
+  if (P != 2) *(uint4*)(lo_t + o) = lo;
+}
+
+// hf (R x HMAX, fp32) as hi / lo B tiles of h^T (n = row, k = h), the row
+// passes' (forward and backward): a thread takes 4 consecutive k of rows
+// threadIdx.x / 32 + 8 j, 16 bytes a load and a store, each warp's stores on
+// 32 distinct banks.
+template <int P>
+__device__ __forceinline__ void split_h(float* __restrict__ h_hi, float* __restrict__ h_lo,
+                                        const float* __restrict__ hf) {
+  const int k = (threadIdx.x & 31) * 4;
+#pragma unroll
+  for (int j = 0; j < R * HMAX / (4 * THREADS); ++j) {
+    const int r = (threadIdx.x >> 5) + 8 * j;
+    put4<P>(h_hi, h_lo, sw128(R, r, k), *(const float4*)(hf + r * HMAX + k));
+  }
+}
+
+// Rows [c0, c0 + HMAX) of w (zero past H) at columns [t0, t0 + BT), fp32,
+// into wf (HMAX x BT; the backward's columns kernel: dl^T's two tiles) by
+// cp.async.
+static_assert(HMAX * BT == 2 * BT * R, "w's fp32 chunk fills dlt_hi and dlt_lo");
+__device__ __forceinline__ void load_wf_async(const float* __restrict__ w, int H, int T, int t0,
+                                              int c0, float* __restrict__ wf) {
+  for (int i = threadIdx.x; i < HMAX * (BT / 4); i += THREADS) {
+    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
+    float* dst = wf + k * BT + c;
+    if (c0 + k < H) {
+      cp_async16(dst, w + (size_t)(c0 + k) * T + t0 + c);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = 0.f;
+    }
+  }
+}
+
+// The same from a chunk that load_wf_async staged in wf (HMAX x BT): a
+// thread takes column threadIdx.x % BT at 4 consecutive k, 4 (threadIdx.x /
+// BT) + 16 j, storing 16 bytes at once, each warp's stores on 32 banks.
+template <int P>
+__device__ __forceinline__ void split_wt(float* __restrict__ wt_hi, float* __restrict__ wt_lo,
+                                         const float* __restrict__ wf) {
+  const int c = threadIdx.x % BT;
+#pragma unroll
+  for (int j = 0; j < HMAX * BT / (4 * THREADS); ++j) {
+    const int k = 4 * (threadIdx.x / BT) + 16 * j;
+    const float* x = wf + k * BT + c;
+    put4<P>(wt_hi, wt_lo, sw128(BT, c, k), make_float4(x[0], x[BT], x[2 * BT], x[3 * BT]));
+  }
+}
+
 // ------------------------ forward, on the tensor cores ---------------------- //
 //
 // Both forward passes take the logits as the backward does (wgmma tf32,
@@ -974,6 +911,26 @@ __device__ __forceinline__ void load_w_chunk_async(const float* __restrict__ w,
 //      the order of the list changes nothing) that hpd_fix_rows_kernel, the
 //      exact fp32 sweep, settles after the rows pass. The count is returned.
 // K7 (hpd_probe_kernel) is the same sweep with its later phases removed.
+// Any head width, as in the backward: the contraction over H in nc =
+// ceil(H / HMAX) chunks (zero past H in the last), each split_k half of a
+// chunk from zeroed chains, the chunks' partials summed in fp32 in chunk
+// order, then the halves met and the bias added. H <= HMAX has instances of
+// its own (CH = false: one chunk, a constant; the whole-h tiles above). Past
+// it the tiles of one chunk take the place of the whole-h tiles, so neither
+// plan grows with H, and the restaged B tile's fp32 chunk has a tile of its
+// own (32 KB), so that every load, across column or row tiles too, overlaps
+// the MMAs of the chunk before:
+//   rows pass    load n = chunk n % nc of column tile n / nc: w's chunk into
+//                stage n & 1 and h's fp32 chunk into hf; per chunk h^T's hi /
+//                lo tile is split from hf (split_h), then hf takes the next
+//                load's chunk. 225,792 of the block's 232,448 bytes.
+//   columns pass load n = chunk n % nc of row tile n / nc: h's chunk (with
+//                the row tile's last, its counts, m and s) into stage n & 1,
+//                and w's fp32 chunk of the block's columns into wf; per chunk
+//                w^T's hi / lo tile is split from wf (split_wt), then wf
+//                takes the next load's chunk. 231,680 bytes.
+// The fp32 recompute of the candidates and the guard read h over all of H
+// from device memory.
 
 constexpr int GSLACK = 4;                // candidates beyond K
 constexpr int KCMAX = KMAX + GSLACK;     // candidate list depth, K <= KMAX
@@ -984,22 +941,38 @@ enum { MODE_DOTS = 0, MODE_SOFTMAX = 1, MODE_SELECT = 2 };
 // eps_r = guard_coef(P, H) * (sum_k |h_rk| max_t |w_kt| + max_t |b_t|) =
 // c 2^-20 S_r bounds |tensor-core logit - fp32 logit| for every column t,
 // since S_r >= sum_k |h_rk w_kt| + |b_t|. With n_f fmas in the fp32 chain
-// (H; 3H at 'high', pfma's three):
+// (H; 3H at 'high', pfma's three) and nc = ceil(H / HMAX) chunks:
 //   fp32 chain: n_f fmas and the bias add, each one rounding of a running
 //     sum <= 1.01 S_r (the 1.01 covers the bf16 terms' growth at 'high' /
-//     'default'): <= (n_f + 1) 1.01 2^-24 S_r <= (n_f / 16 + 1) 2^-20 S_r.
+//     'default'): <= 1.01 (n_f + 1) 2^-24 S_r, which is <= (n_f / 16 + 1)
+//     2^-20 S_r at nc = 1 and, as n_f <= 384 nc, <= (n_f / 16 + 0.07 +
+//     0.24 nc) 2^-20 S_r at any nc.
 //   tensor cores: at 'highest' x = hi + lo + r with |r| <= 2^-22 |x|, and
 //     lo_a lo_b is dropped: <= 3 2^-22 = 0.75 2^-20 of each |term|; at
 //     'high' / 'default' the products are the contract's, exact. An MMA
 //     adds its 8 products to the accumulator with each addend truncated
-//     against the largest (<= 9 2^-23 S_r); a chain holds <= 12 MMAs
-//     (4 on the hi_a hi_b accumulator; this bound counts all 12):
-//     <= 13.5 2^-20 S_r. The fp32 sums of chains, of the two warpgroups and
-//     the bias: 4 roundings, <= 0.25 2^-20 S_r.
-//   Total <= (n_f / 16 + 15.5) 2^-20 S_r; c = n_f / 16 + 16 leaves 0.5 for
-//   S_r's own fp32 rounding (< 2^-16 of it).
+//     against the largest (<= 9 2^-23 S_c, S_c the part of S_r over the
+//     chain's k); a chain holds <= 12 MMAs (4 on the hi_a hi_b accumulator;
+//     this bound counts all 12): <= 13.5 2^-20 S_c. The chains of every
+//     chunk and warpgroup cover disjoint k, so their S_c sum to <= S_r:
+//     <= 13.5 2^-20 S_r at any nc.
+//   fp32 sums: at nc = 1 those of chains, of the two warpgroups and the
+//     bias, 4 roundings: <= 0.25 2^-20 S_r. At nc chunks each warpgroup adds
+//     its 2 nc chains (2 nc - 1 roundings), then the halves and the bias:
+//     4 nc roundings of sums <= 1.01 S_r, and each chain's lo accumulator
+//     added to its hi one (one rounding of the chain, <= 2^-24 S_c):
+//     <= (0.2525 nc + 0.0625) 2^-20 S_r.
+//   nc = 1: total <= (n_f / 16 + 15.5) 2^-20 S_r; c = n_f / 16 + 16 leaves
+//     0.5 for S_r's own fp32 rounding (< 2^-16 of it).
+//   nc > 1: total <= (n_f / 16 + 14.38 + 0.4925 nc) 2^-20 S_r; c = n_f / 16
+//     + 16 + (nc - 1) / 2 (the value at nc = 1) leaves > 1.1. S_r is summed
+//     in double there (its rounding < 2^-40 of it), so what is left covers
+//     the float roundings of c, S_r and eps_r (4 of 2^-24 c) for every c <
+//     4.6e6: every H <= HWIDE.
+template <bool CH>
 __device__ __forceinline__ float guard_coef(int P, int H) {
-  return ((P == 1 ? 3 : 1) * H / 16.f + 16.f) * 0x1p-20f;
+  const float c = (P == 1 ? 3 : 1) * H / 16.f + 16.f;
+  return (CH ? c + 0.5f * (h_chunks(H) - 1) : c) * 0x1p-20f;
 }
 
 // (v, i) before (v2, i2) in the candidate order: value desc, index asc.
@@ -1026,8 +999,9 @@ __device__ __forceinline__ void tile_logits_t(const float* __restrict__ h_hi,
 }
 
 // The rows pass's shared memory; the swizzled tiles first, 1024-byte aligned.
+// hf, past HMAX only: h's fp32 chunk (R x HMAX).
 struct FwdRowsSmem {
-  float *h_hi, *h_lo, *xbuf, *w_s, *b_s, *cv, *lv, *thr, *m_s, *s_s, *ex;
+  float *h_hi, *h_lo, *xbuf, *w_s, *b_s, *cv, *lv, *thr, *m_s, *s_s, *ex, *hf;
   int *ci, *li, *ccnt;
   __device__ explicit FwdRowsSmem(float* smem) {
     h_hi = align1024(smem);
@@ -1043,18 +1017,86 @@ struct FwdRowsSmem {
     ccnt = (int*)(thr + R);
     m_s = (float*)(ccnt + R);
     s_s = m_s + R;
+    hf = s_s + R;
     ex = cv;                    // the candidates' fp32 logits, after the sweep
   }
 };
 constexpr int FWD_ROWS_SMEM =
     2 * R * HMAX + XBUF + 2 * HMAX * BT + 2 * BT + 2 * R * BT + 2 * R * KCMAX + 4 * R;
-size_t fwd_rows_smem() { return sizeof(float) * FWD_ROWS_SMEM + 1024; }
+size_t fwd_rows_smem(bool chunked) {
+  return sizeof(float) * (FWD_ROWS_SMEM + (chunked ? R * HMAX : 0)) + 1024;
+}
+
+// Load n of the rows pass past HMAX: w's chunk n % nc of column tile n / nc
+// and the tile's bias into stage n & 1 (nothing past the last), not
+// committed.
+__device__ __forceinline__ void fwd_rows_issue_w(const FwdRowsSmem& sm,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ b, int H, int T,
+                                                 int nc, int n) {
+  if (n < T / BT * nc)
+    load_w_chunk_async(w, b, H, T, n / nc * BT, n % nc * HMAX, sm.w_s + (n & 1) * HMAX * BT,
+                       sm.b_s + (n & 1) * BT);
+}
+
+// logits^T of column tile it past HMAX, laid out as tile_logits_t's. Per
+// chunk: wait for its loads, split h^T's hi / lo tile from hf, give hf the
+// next load's h chunk, add each warpgroup's split_k half of the chunk to its
+// partial; after the tile's last chunk meet the halves (xbuf) and add the
+// bias; then, every warp done with the stage, issue w load n + 2 into it.
+// The commit groups end, at each chunk's start, with w load n, h's chunk n
+// (wait<1> takes both) and w load n + 1.
+template <int P>
+__device__ __forceinline__ void fwd_rows_chunks(const FwdRowsSmem& sm,
+                                                const float* __restrict__ h,
+                                                const float* __restrict__ w,
+                                                const float* __restrict__ b, int u, int H,
+                                                int T, int r0, int it, Clock& clk,
+                                                float (&l)[16]) {
+  const int wg = threadIdx.x >> 7;
+  const int nc = h_chunks(H), n_loads = T / BT * nc;
+  float part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[i] = 0.f;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int n = it * nc + ci;
+    const float* w_s = sm.w_s + (n & 1) * HMAX * BT;
+    cp_wait<1>();
+    async_view();
+    __syncthreads();
+    clk.mark(PH_WAIT);
+    split_h<P>(sm.h_hi, sm.h_lo, sm.hf);
+    async_view();
+    __syncthreads();
+    if (n + 1 < n_loads) load_h_async(h, u, H, r0, (n + 1) % nc * HMAX, sm.hf);
+    cp_commit();
+    clk.mark(PH_RESTAGE);
+    auto wA = [&](int m, int k) { return w_s[k * BT + swz_b(k, m)]; };
+    auto a_of = [&](int s) { return frag_a<P>(wA, 0, 8 * s); };
+    auto bh = [&](int s) { return desc_k8(sm.h_hi, R, 0, s); };
+    auto bl = [&](int s) { return desc_k8(sm.h_lo, R, 0, s); };
+    const int nk8 = (min(H - ci * HMAX, HMAX) + 7) / 8;
+    chains_add<P, 64, true>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
+    clk.mark(PH_LOGITS);
+    if (ci + 1 == nc) {
+      meet(part, l, sm.xbuf);
+      const float* b_s = sm.b_s + (n & 1) * BT;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) l[i] += b_s[c_m(0, i)];
+      clk.mark(PH_LOGITS);
+    }
+    __syncthreads();  // every warp is done with the stage and its bias
+    fwd_rows_issue_w(sm, w, b, H, T, nc, n + 2);
+    cp_commit();
+  }
+}
 
 // The rows pass of the block's R rows. MODE_SELECT writes vals, idx (u, K),
 // m, s and lists the rows its guard leaves to the fix-up; MODE_SOFTMAX (K7)
 // writes the row max and sum-exp; MODE_DOTS (K7) m = s = the row sum of the
-// logits, per tile first, then over the sub-streams in order.
-template <int P, int MODE>
+// logits, per tile first, then over the sub-streams in order. CH: a head
+// past HMAX (fwd_rows_chunks).
+template <int P, int MODE, bool CH>
 __device__ __forceinline__ void fwd_rows_sweep(
     float* smem, const float* __restrict__ h, const float* __restrict__ w,
     const float* __restrict__ b, int u, int H, int T, int K, const float* __restrict__ absmax,
@@ -1065,16 +1107,19 @@ __device__ __forceinline__ void fwd_rows_sweep(
   const int r0 = blockIdx.x * R;
   const int nk8 = (H + 7) / 8;
   const int kc = K + GSLACK;
-  // h^T (n = row, k = h) as hi / lo B tiles, zero past u and H; w rows past H
-  // zero in both stages
-  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
-    const int r = i / HMAX, k = i % HMAX;
-    put<P>(sm.h_hi, sm.h_lo, sw128(R, r, k),
-           (r0 + r < u && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f);
-  }
-  for (int i = H * BT + threadIdx.x; i < HMAX * BT; i += THREADS) {
-    sm.w_s[i] = 0.f;
-    sm.w_s[HMAX * BT + i] = 0.f;
+  Clock clk;
+  if (!CH) {
+    // h^T (n = row, k = h) as hi / lo B tiles, zero past u and H; w rows past
+    // H zero in both stages
+    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
+      const int r = i / HMAX, k = i % HMAX;
+      put<P>(sm.h_hi, sm.h_lo, sw128(R, r, k),
+             (r0 + r < u && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f);
+    }
+    for (int i = H * BT + threadIdx.x; i < HMAX * BT; i += THREADS) {
+      sm.w_s[i] = 0.f;
+      sm.w_s[HMAX * BT + i] = 0.f;
+    }
   }
   if (MODE == MODE_SELECT) {
     for (int r = threadIdx.x; r < R; r += THREADS) {
@@ -1082,11 +1127,21 @@ __device__ __forceinline__ void fwd_rows_sweep(
       sm.ccnt[r] = 0;
     }
   }
-  // w tiles 0 and 1 by cp.async, one commit group each
-  load_w_async(w, b, H, T, 0, sm.w_s, sm.b_s);
-  cp_commit();
-  if (BT < T) load_w_async(w, b, H, T, BT, sm.w_s + HMAX * BT, sm.b_s + BT);
-  cp_commit();
+  if (CH) {
+    // w load 0, h's chunk of it, w load 1, one commit group each
+    fwd_rows_issue_w(sm, w, b, H, T, h_chunks(H), 0);
+    cp_commit();
+    load_h_async(h, u, H, r0, 0, sm.hf);
+    cp_commit();
+    fwd_rows_issue_w(sm, w, b, H, T, h_chunks(H), 1);
+    cp_commit();
+  } else {
+    // w tiles 0 and 1 by cp.async, one commit group each
+    load_w_async(w, b, H, T, 0, sm.w_s, sm.b_s);
+    cp_commit();
+    if (BT < T) load_w_async(w, b, H, T, BT, sm.w_s + HMAX * BT, sm.b_s + BT);
+    cp_commit();
+  }
   float mrun[8], srun[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -1094,14 +1149,21 @@ __device__ __forceinline__ void fwd_rows_sweep(
     srun[q] = 0.f;
   }
   int len = 0;  // thread r < R: length of row r's candidate list
+  clk.mark(PH_REST);
   for (int t0 = 0, it = 0; t0 < T; t0 += BT, ++it) {
     const int st = it & 1;
-    cp_wait<1>();
-    async_view();
-    __syncthreads();
     float l[16];
-    tile_logits_t<P, true>(sm.h_hi, sm.h_lo, sm.w_s + st * HMAX * BT, sm.b_s + st * BT, nk8,
-                           sm.xbuf, l);
+    if (CH) {
+      fwd_rows_chunks<P>(sm, h, w, b, u, H, T, r0, it, clk, l);
+    } else {
+      cp_wait<1>();
+      async_view();
+      __syncthreads();
+      clk.mark(PH_WAIT);
+      tile_logits_t<P, true>(sm.h_hi, sm.h_lo, sm.w_s + st * HMAX * BT, sm.b_s + st * BT, nk8,
+                             sm.xbuf, l);
+      clk.mark(PH_LOGITS);
+    }
     // row q = 2 j + e of the thread: elements 4 j + e (column c) and
     // 4 j + 2 + e (column c + 8)
 #pragma unroll
@@ -1155,9 +1217,12 @@ __device__ __forceinline__ void fwd_rows_sweep(
       sm.ccnt[r] = 0;
       if (len == kc) sm.thr[r] = lvr[kc - 1];
     }
-    if (t0 + 2 * BT < T)
-      load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
-    cp_commit();
+    if (!CH) {
+      if (t0 + 2 * BT < T)
+        load_w_async(w, b, H, T, t0 + 2 * BT, sm.w_s + st * HMAX * BT, sm.b_s + st * BT);
+      cp_commit();
+    }
+    clk.mark(PH_SELECT);
   }
   cp_wait<0>();
   // the row statistics: sub-stream 8 wq + g of row r, merged in order
@@ -1242,17 +1307,26 @@ __device__ __forceinline__ void fwd_rows_sweep(
     s_out[row] = s;
     const float ek = exr[sel[K - 1]];
     const float* hr = h + row * H;
-    float sr = absmax[H];
-    for (int k = 0; k < H; ++k) sr = fmaf(fabsf(hr[k]), absmax[k], sr);
+    float sr;
+    if (CH) {  // S_r in double past HMAX (guard_coef)
+      double sd = absmax[H];
+      for (int k = 0; k < H; ++k) sd = fma((double)fabsf(hr[k]), (double)absmax[k], sd);
+      sr = (float)sd;
+    } else {
+      sr = absmax[H];
+      for (int k = 0; k < H; ++k) sr = fmaf(fabsf(hr[k]), absmax[k], sr);
+    }
     // NaN anywhere fails the guard and goes to the fix-up as well
-    if (!(ek - sm.lv[r * KCMAX + kc - 1] > 2.f * guard_coef(P, H) * sr))
+    if (!(ek - sm.lv[r * KCMAX + kc - 1] > 2.f * guard_coef<CH>(P, H) * sr))
       fix_rows[atomicAdd(n_fix, 1)] = (int)row;
   }
+  clk.mark(PH_REST);
+  clk.end(PK_FWD_ROWS);
 }
 
 // K4 and K1's first pass: vals, idx, m, s; rows the guard leaves go to
 // fix_rows / n_fix for hpd_fix_rows_kernel.
-template <int P>
+template <int P, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, int u, int H, int T, int K,
@@ -1260,20 +1334,21 @@ hpd_fwd_rows_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     int* __restrict__ idx, float* __restrict__ m_out, float* __restrict__ s_out,
                     int* __restrict__ fix_rows, int* __restrict__ n_fix) {
   extern __shared__ float smem[];
-  fwd_rows_sweep<P, MODE_SELECT>(smem, h, w, b, u, H, T, K, absmax, vals, idx, m_out, s_out,
-                                 fix_rows, n_fix);
+  fwd_rows_sweep<P, MODE_SELECT, CH>(smem, h, w, b, u, H, T, K, absmax, vals, idx, m_out, s_out,
+                                     fix_rows, n_fix);
 }
 
 // K7: the rows pass with its later phases removed (DOTS: m = s = row sum of
 // the logits; else the row max and sum-exp).
-template <int P, bool DOTS>
+template <int P, bool DOTS, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_probe_kernel(const float* __restrict__ h, const float* __restrict__ w,
                  const float* __restrict__ b, int u, int H, int T, float* __restrict__ m_out,
                  float* __restrict__ s_out) {
   extern __shared__ float smem[];
-  fwd_rows_sweep<P, DOTS ? MODE_DOTS : MODE_SOFTMAX>(smem, h, w, b, u, H, T, 1, nullptr, nullptr,
-                                                     nullptr, m_out, s_out, nullptr, nullptr);
+  fwd_rows_sweep<P, DOTS ? MODE_DOTS : MODE_SOFTMAX, CH>(smem, h, w, b, u, H, T, 1, nullptr,
+                                                         nullptr, nullptr, m_out, s_out, nullptr,
+                                                         nullptr);
 }
 
 // The columns pass's per-row-tile stage (fp32): the h tile (read by hand as
@@ -1291,18 +1366,24 @@ constexpr int FWD_COLS_STAGE = R * HMAX + LP * R + 2 * R;
 
 // Row tile [r0, r0 + R) of the segment (ending at rend) into a stage:
 // cp.async below rend, neutral values past it (h = 0, counts 0, m = inf,
-// s = 1: p = 0).
+// s = 1: p = 0). CH (a head past HMAX): h's columns [c0, c0 + HMAX), zero
+// past H, and the counts, m and s only with `extras` (the row tile's last
+// chunk); else c0 = 0 and extras, constants.
+template <bool CH>
 __device__ __forceinline__ void load_fwd_stage_async(FwdColsStage st, const float* __restrict__ h,
                                                      const float* __restrict__ counts,
                                                      const float* __restrict__ m_in,
                                                      const float* __restrict__ s_in, int u,
-                                                     int rend, int H, int L, int r0) {
+                                                     int rend, int H, int L, int r0,
+                                                     int chunk_c0 = 0, bool chunk_extras = true) {
+  const int c0 = CH ? chunk_c0 : 0;
+  const bool extras = CH ? chunk_extras : true;
   if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
     for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
       const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
       float* dst = st.h_s + r * HMAX + swz_a(r, k);
-      if (r0 + r < rend && k < H) {
-        cp_async16(dst, h + (size_t)(r0 + r) * H + k);
+      if (r0 + r < rend && c0 + k < H) {
+        cp_async16(dst, h + (size_t)(r0 + r) * H + c0 + k);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[e] = 0.f;
@@ -1312,12 +1393,13 @@ __device__ __forceinline__ void load_fwd_stage_async(FwdColsStage st, const floa
     for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
       const int r = i / HMAX, k = i % HMAX;
       float* dst = st.h_s + r * HMAX + swz_a(r, k);
-      if (r0 + r < rend && k < H)
-        cp_async4(dst, h + (size_t)(r0 + r) * H + k);
+      if (r0 + r < rend && c0 + k < H)
+        cp_async4(dst, h + (size_t)(r0 + r) * H + c0 + k);
       else
         *dst = 0.f;
     }
   }
+  if (!extras) return;
   for (int i = threadIdx.x; i < LP * R; i += THREADS) {
     const int l = i / R, r = i % R;
     if (l < L && r0 + r < rend)
@@ -1336,16 +1418,20 @@ __device__ __forceinline__ void load_fwd_stage_async(FwdColsStage st, const floa
   }
 }
 
+// + HMAX x BT past HMAX: wf, w's fp32 chunk
 constexpr int FWD_COLS_SMEM =
     2 * BT * HMAX + 2 * LP * R + R * BT + XBUF + BT + 2 * FWD_COLS_STAGE;
-size_t fwd_cols_smem() { return sizeof(float) * FWD_COLS_SMEM + 1024; }
+size_t fwd_cols_smem(bool chunked) {
+  return sizeof(float) * (FWD_COLS_SMEM + (chunked ? HMAX * BT : 0)) + 1024;
+}
 
 // K5 and K1's second pass. Grid (T / BT, SEGS): one block per 64-column
 // tile and row segment sums marg over the segment's rows into
 // marg_part[seg]. Logits and p: warpgroup wg holds the tile's 64 rows x
-// columns 32 wg + [0, 32); marg^T: warpgroup wg sums rows 32 wg + [0, 32)
-// of every tile, and the two sums meet in order at the end.
-template <int P>
+// columns 32 wg + [0, 32) (past HMAX summed over h's chunks, the w^T tile
+// restaged for each); marg^T: warpgroup wg sums rows 32 wg + [0, 32) of
+// every tile, and the two sums meet in order at the end.
+template <int P, bool CH>
 __global__ void __launch_bounds__(THREADS, 1)
 hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ b, const float* __restrict__ counts,
@@ -1360,21 +1446,44 @@ hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float* xbuf = p_s + R * BT;
   float* b_s = xbuf + XBUF;
   float* stage0 = b_s + BT;
+  float* wf = stage0 + 2 * FWD_COLS_STAGE;  // CH: w's fp32 chunk (HMAX x BT)
   const int wg = threadIdx.x >> 7;
   const int t0 = blockIdx.x * BT;
   const int seg = blockIdx.y;
   const int rbeg = seg * seg_rows;
   const int rend = min(u, rbeg + seg_rows);
   const int nk8 = (H + 7) / 8;
-  for (int s = 0; s < 2; ++s) {
-    if (rbeg + s * R < rend)
-      load_fwd_stage_async(FwdColsStage(stage0 + s * FWD_COLS_STAGE), h, counts, m_in, s_in, u,
-                           rend, H, L, rbeg + s * R);
+  Clock clk;
+  // CH: load n is chunk n % nc of row tile n / nc, into stage n & 1, with
+  // the row tile's counts, m and s on its last chunk; w's chunk of load n
+  // goes to wf. The commit groups end, at each chunk's start, with load n,
+  // w's chunk n (wait<1> takes both) and load n + 1.
+  const int nc = CH ? h_chunks(H) : 1;
+  const int n_loads = (rend > rbeg ? (rend - rbeg + R - 1) / R : 0) * nc;
+  auto issue = [&](int n) {  // not committed; nothing past the last
+    if (n < n_loads)
+      load_fwd_stage_async<true>(FwdColsStage(stage0 + (n & 1) * FWD_COLS_STAGE), h, counts,
+                                 m_in, s_in, u, rend, H, L, rbeg + n / nc * R, n % nc * HMAX,
+                                 n % nc == nc - 1);
+  };
+  if (CH) {
+    issue(0);
     cp_commit();
-  }
-  for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
-    const int k = i / BT, c = i % BT;
-    put<P>(wt_hi, wt_lo, sw128(BT, c, k), k < H ? w[(size_t)k * T + t0 + c] : 0.f);
+    if (n_loads > 0) load_wf_async(w, H, T, t0, 0, wf);
+    cp_commit();
+    issue(1);
+    cp_commit();
+  } else {
+    for (int s = 0; s < 2; ++s) {
+      if (rbeg + s * R < rend)
+        load_fwd_stage_async<false>(FwdColsStage(stage0 + s * FWD_COLS_STAGE), h, counts, m_in,
+                                    s_in, u, rend, H, L, rbeg + s * R);
+      cp_commit();
+    }
+    for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
+      const int k = i / BT, c = i % BT;
+      put<P>(wt_hi, wt_lo, sw128(BT, c, k), k < H ? w[(size_t)k * T + t0 + c] : 0.f);
+    }
   }
   if (threadIdx.x < BT) b_s[threadIdx.x] = b[t0 + threadIdx.x];
   // marg^T partial: element i is column c_m(0, i), level c_n(0, i) (the
@@ -1382,11 +1491,52 @@ hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
   float macc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) macc[i] = 0.f;
+  clk.mark(PH_REST);
   for (int r0 = rbeg, it = 0; r0 < rend; r0 += R, ++it) {
-    const FwdColsStage st(stage0 + (it & 1) * FWD_COLS_STAGE);
-    cp_wait<1>();
-    async_view();
-    __syncthreads();
+    const int last = CH ? it * nc + nc - 1 : it;  // the row tile's last load
+    const FwdColsStage st(stage0 + (last & 1) * FWD_COLS_STAGE);
+    // logits: element i is row c_m(0, i), column c_n(32 wg, i)
+    float q[16];
+    if (CH) {
+      // the warpgroup's partial over h's chunks, in chunk order
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      for (int ci = 0; ci < nc; ++ci) {
+        const int n = it * nc + ci;
+        const float* h_s = stage0 + (n & 1) * FWD_COLS_STAGE;
+        cp_wait<1>();
+        async_view();
+        __syncthreads();
+        clk.mark(PH_WAIT);
+        // w^T's chunk from wf, then the next load's chunk into wf
+        split_wt<P>(wt_hi, wt_lo, wf);
+        async_view();
+        __syncthreads();
+        if (n + 1 < n_loads) load_wf_async(w, H, T, t0, (n + 1) % nc * HMAX, wf);
+        cp_commit();
+        clk.mark(PH_RESTAGE);
+        auto hA = [&](int m, int k) { return h_s[m * HMAX + swz_a(m, k)]; };
+        auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
+        auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
+        auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
+        const int nk8c = (min(H - ci * HMAX, HMAX) + 7) / 8;
+        chains_add<P, 64, true>(part, 8 * wg, min(nk8c, 8 * wg + 8), a_of, bh, bl);
+        clk.mark(PH_LOGITS);
+        if (ci + 1 < nc) {
+          __syncthreads();  // every warp is done with the stage
+          issue(n + 2);
+          cp_commit();
+        }
+      }
+      meet(part, q, xbuf);
+      clk.mark(PH_LOGITS);
+    } else {
+      cp_wait<1>();
+      async_view();
+      __syncthreads();
+      clk.mark(PH_WAIT);
+    }
     // counts^T as the B tile (the m64n16 product reads levels 0-15 only);
     // occurrence counts up to 2^11 are exact in tf32, so their lo part is
     // zero and the tile's hi_a lo_b product is skipped (decided per tile,
@@ -1400,14 +1550,13 @@ hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
       if (P != 2) c_lo[sw128(LP, l, r)] = __uint_as_float(lo);
       c_lo_nonzero |= lo != 0u;
     }
-    // logits: element i is row c_m(0, i), column c_n(32 wg, i)
-    float q[16];
-    {
+    if (!CH) {
       auto hA = [&](int m, int k) { return st.h_s[m * HMAX + swz_a(m, k)]; };
       auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
       auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
       auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
       split_k<P, true>(q, nk8, a_of, bh, bl, xbuf);
+      clk.mark(PH_LOGITS);
     }
     const float inv0 = recip_s(st.s_s[c_m(0, 0)]), inv1 = recip_s(st.s_s[c_m(0, 2)]);
 #pragma unroll
@@ -1437,10 +1586,14 @@ hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
       }
     }
     __syncthreads();
-    if (r0 + 2 * R < rend)
-      load_fwd_stage_async(FwdColsStage(stage0 + (it & 1) * FWD_COLS_STAGE), h, counts, m_in,
-                           s_in, u, rend, H, L, r0 + 2 * R);
+    if (CH) {
+      issue(last + 2);
+    } else if (r0 + 2 * R < rend) {
+      load_fwd_stage_async<false>(FwdColsStage(stage0 + (it & 1) * FWD_COLS_STAGE), h, counts,
+                                  m_in, s_in, u, rend, H, L, r0 + 2 * R);
+    }
     cp_commit();
+    clk.mark(PH_SELECT);
   }
   cp_wait<0>();
   // marg^T = warpgroup 0's sum + warpgroup 1's, in that order
@@ -1456,6 +1609,8 @@ hpd_fwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
       if (l < L) marg_part[((size_t)seg * L + l) * T + t0 + c] = macc[i] + xbuf[c * LP + l];
     }
   }
+  clk.mark(PH_REST);
+  clk.end(PK_FWD_COLS);
 }
 
 // ------------------------------ row kernels -------------------------------- //
@@ -1507,60 +1662,6 @@ __device__ __forceinline__ void store_gm(const float (&v)[LP * BT / THREADS],
   for (int j = 0; j < LP * BT / THREADS; ++j) {
     const int i = threadIdx.x + j * THREADS, l = i / BT, c = i % BT;
     put<P>(hi_t, lo_t, sw128(LP, l, c), v[j]);
-  }
-}
-
-// h rows [r0, r0 + R), columns [c0, c0 + HMAX) (zero past u and H), fp32,
-// into hf (R x HMAX: dl's two tiles) by cp.async.
-static_assert(R * HMAX == 2 * R * BT, "h's fp32 chunk fills dl_hi and dl_lo");
-__device__ __forceinline__ void load_h_async(const float* __restrict__ h, int u, int H, int r0,
-                                             int c0, float* __restrict__ hf) {
-  if ((H & 3) == 0 && ((uintptr_t)h & 15) == 0) {
-    for (int i = threadIdx.x; i < R * (HMAX / 4); i += THREADS) {
-      const int r = i / (HMAX / 4), k = (i % (HMAX / 4)) * 4;
-      float* dst = hf + r * HMAX + k;
-      if (r0 + r < u && c0 + k < H) {
-        cp_async16(dst, h + (size_t)(r0 + r) * H + c0 + k);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = 0.f;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
-      const int r = i / HMAX, k = i % HMAX;
-      if (r0 + r < u && c0 + k < H)
-        cp_async4(hf + i, h + (size_t)(r0 + r) * H + c0 + k);
-      else
-        hf[i] = 0.f;
-    }
-  }
-}
-
-// Four consecutive k of an fp32 operand, split into its hi / lo tiles at o
-// (one 16-byte chunk of the 128-byte swizzle; lo not kept for P = 2).
-template <int P>
-__device__ __forceinline__ void put4(float* __restrict__ hi_t, float* __restrict__ lo_t, int o,
-                                     float4 x) {
-  uint4 hi, lo;
-  split<P>(x.x, hi.x, lo.x);
-  split<P>(x.y, hi.y, lo.y);
-  split<P>(x.z, hi.z, lo.z);
-  split<P>(x.w, hi.w, lo.w);
-  *(uint4*)(hi_t + o) = hi;
-  if (P != 2) *(uint4*)(lo_t + o) = lo;
-}
-
-// hf (R x HMAX, fp32) as the row kernels' hi / lo B tiles (n = row, k = h):
-// a thread takes 4 consecutive k of rows threadIdx.x / 32 + 8 j, 16 bytes
-// a load and a store, each warp's stores on 32 distinct banks.
-template <int P>
-__device__ __forceinline__ void split_h(const RowsSmem& sm, const float* __restrict__ hf) {
-  const int k = (threadIdx.x & 31) * 4;
-#pragma unroll
-  for (int j = 0; j < R * HMAX / (4 * THREADS); ++j) {
-    const int r = (threadIdx.x >> 5) + 8 * j;
-    put4<P>(sm.h_hi, sm.h_lo, sw128(R, r, k), *(const float4*)(hf + r * HMAX + k));
   }
 }
 
@@ -1727,7 +1828,7 @@ __device__ __forceinline__ void rows_p(const RowsSmem& sm, const WRing& ring,
     __syncthreads();
     clk.mark(PH_WAIT);
     // h's chunk from the staging tile, then the next chunk into it
-    split_h<P>(sm, sm.dl_hi);
+    split_h<P>(sm.h_hi, sm.h_lo, sm.dl_hi);
     async_view();
     __syncthreads();
     if (ci + 1 < nc) {
@@ -2102,23 +2203,6 @@ __device__ __forceinline__ void load_stage_async(ColsStage st, const float* __re
   }
 }
 
-// Rows [c0, c0 + HMAX) of w (zero past H) at columns [t0, t0 + BT), fp32,
-// into wf (HMAX x BT: dl^T's two tiles) by cp.async.
-static_assert(HMAX * BT == 2 * BT * R, "w's fp32 chunk fills dlt_hi and dlt_lo");
-__device__ __forceinline__ void load_wf_async(const float* __restrict__ w, int H, int T, int t0,
-                                              int c0, float* __restrict__ wf) {
-  for (int i = threadIdx.x; i < HMAX * (BT / 4); i += THREADS) {
-    const int k = i / (BT / 4), c = (i % (BT / 4)) * 4;
-    float* dst = wf + k * BT + c;
-    if (c0 + k < H) {
-      cp_async16(dst, w + (size_t)(c0 + k) * T + t0 + c);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[e] = 0.f;
-    }
-  }
-}
-
 // The columns kernel's loads: load n is chunk chunk(n) of the segment's row
 // tile n / nc into stage n & 1, the row tile's own data with its last load;
 // the block's own dW chunk is every row tile's last, so its h chunk stays in
@@ -2153,21 +2237,6 @@ __device__ __forceinline__ void stage_wt(float* __restrict__ wt_hi, float* __res
   for (int i = threadIdx.x; i < HMAX * BT; i += THREADS) {
     const int k = i / BT, c = i % BT;
     put<P>(wt_hi, wt_lo, sw128(BT, c, k), c0 + k < H ? w[(size_t)(c0 + k) * T + t0 + c] : 0.f);
-  }
-}
-
-// The same from a chunk that load_wf_async staged in wf (HMAX x BT): a
-// thread takes column threadIdx.x % BT at 4 consecutive k, 4 (threadIdx.x /
-// BT) + 16 j, storing 16 bytes at once, each warp's stores on 32 banks.
-template <int P>
-__device__ __forceinline__ void split_wt(float* __restrict__ wt_hi, float* __restrict__ wt_lo,
-                                         const float* __restrict__ wf) {
-  const int c = threadIdx.x % BT;
-#pragma unroll
-  for (int j = 0; j < HMAX * BT / (4 * THREADS); ++j) {
-    const int k = 4 * (threadIdx.x / BT) + 16 * j;
-    const float* x = wf + k * BT + c;
-    put4<P>(wt_hi, wt_lo, sw128(BT, c, k), make_float4(x[0], x[BT], x[2 * BT], x[3 * BT]));
   }
 }
 
@@ -2399,31 +2468,23 @@ int launch_select(const float* h, const float* w, const float* b, int u, int H, 
   int err = (int)cudaMemsetAsync(n_fix, 0, sizeof(int), st);
   if (err || u == 0) return err;
   const int row_blocks = (u + R - 1) / R;
-  if (H > HMAX) {  // the exact sweep over every row
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_fix_rows_kernel<P, true>, fix_rows_smem(K));
-      hpd_fix_rows_kernel<P, true><<<row_blocks, THREADS, fix_rows_smem(K), st>>>(
-          h, w, b, H, T, K, nullptr, n_fix, u, vals, idx, m, s);
-    });
-    return (int)cudaGetLastError();
-  }
   hpd_absmax_kernel<<<H + 1, THREADS, 0, st>>>(w, b, H, T, absmax);
   err = (int)cudaGetLastError();
   if (err) return err;
-  DISPATCH_PREC(prec, {
-    set_smem(hpd_fwd_rows_kernel<P>, fwd_rows_smem());
-    hpd_fwd_rows_kernel<P><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(
+  DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+    set_smem(hpd_fwd_rows_kernel<P, CH>, fwd_rows_smem(CH));
+    hpd_fwd_rows_kernel<P, CH><<<row_blocks, THREADS, fwd_rows_smem(CH), st>>>(
         h, w, b, u, H, T, K, absmax, vals, idx, m, s, fix_rows, n_fix);
-  });
+  }));
   err = (int)cudaGetLastError();
   if (err) return err;
   // one block per SM at most, striding over the list (none when it is empty)
   const int fix_blocks = row_blocks < FIX_BLOCKS ? row_blocks : FIX_BLOCKS;
-  DISPATCH_PREC(prec, {
-    set_smem(hpd_fix_rows_kernel<P, false>, fix_rows_smem(K));
-    hpd_fix_rows_kernel<P, false><<<fix_blocks, THREADS, fix_rows_smem(K), st>>>(
-        h, w, b, H, T, K, fix_rows, n_fix, u, vals, idx, m, s);
-  });
+  DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+    set_smem(hpd_fix_rows_kernel<P, CH>, fix_rows_smem(K));
+    hpd_fix_rows_kernel<P, CH><<<fix_blocks, THREADS, fix_rows_smem(K), st>>>(
+        h, w, b, H, T, K, fix_rows, n_fix, vals, idx, m, s);
+  }));
   return (int)cudaGetLastError();
 }
 
@@ -2432,27 +2493,16 @@ int launch_marginal(const float* h, const float* w, const float* b, const float*
                     const float* m, const float* s, int u, int H, int T, int L, int prec,
                     float* marg, float* marg_part, cudaStream_t st) {
   if (u == 0) return (int)cudaMemsetAsync(marg, 0, sizeof(float) * L * T, st);
-  if (H > HMAX) {
-    DISPATCH_PREC(prec, {
-      set_smem(hpd_wide_cols_kernel<P>, wide_cols_smem(L));
-      hpd_wide_cols_kernel<P><<<dim3(T / TT, SEGS), THREADS, wide_cols_smem(L), st>>>(
-          h, w, b, counts, m, s, u, H, T, L, rows_per_seg(u), marg_part);
-    });
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-    return reduce_segments(marg_part, marg, (size_t)L * T, st);
-  }
   const dim3 cols_grid(T / BT, SEGS);
-  DISPATCH_PREC(prec, {
-    set_smem(hpd_fwd_cols_kernel<P>, fwd_cols_smem());
-    hpd_fwd_cols_kernel<P><<<cols_grid, THREADS, fwd_cols_smem(), st>>>(
+  DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
+    set_smem(hpd_fwd_cols_kernel<P, CH>, fwd_cols_smem(CH));
+    hpd_fwd_cols_kernel<P, CH><<<cols_grid, THREADS, fwd_cols_smem(CH), st>>>(
         h, w, b, counts, m, s, u, H, T, L, rows_per_seg(u), marg_part);
-  });
+  }));
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce_segments(marg_part, marg, (size_t)L * T, st);
 }
-
 
 // Backward columns pass and its ordered reduces: dw (H, T), db (T) from the
 // per-row dot. Scratch dw_part (SEGS, H, T), db_part (SEGS, T).
@@ -2487,7 +2537,7 @@ extern "C" {
 const char* hpd_stream_error_string(int code) { return port_error_string(code); }
 
 #ifdef HPD_STREAM_PHASES
-// The backward kernels' clock64() ticks by kernel (PK_*) and phase (PH_*),
+// The marked kernels' clock64() ticks by kernel (PK_*) and phase (PH_*),
 // summed over the blocks of the launches since the last reset, into
 // out[NPK * NPH]; then zeroes them if reset.
 int hpd_stream_bwd_phases(unsigned long long* out, int reset) {
@@ -2517,31 +2567,17 @@ int hpd_probe(const float* h, const float* w, const float* b, int u, int H, int 
   if (err || u == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   const int row_blocks = (u + R - 1) / R;
-  if (H > HMAX) {
-    DISPATCH_PREC(prec, {
-      if (dots) {
-        set_smem(hpd_wide_probe_kernel<P, true>, wide_probe_smem());
-        hpd_wide_probe_kernel<P, true><<<row_blocks, THREADS, wide_probe_smem(), st>>>(
-            h, w, b, u, H, T, m, s);
-      } else {
-        set_smem(hpd_wide_probe_kernel<P, false>, wide_probe_smem());
-        hpd_wide_probe_kernel<P, false><<<row_blocks, THREADS, wide_probe_smem(), st>>>(
-            h, w, b, u, H, T, m, s);
-      }
-    });
-    return (int)cudaGetLastError();
-  }
-  DISPATCH_PREC(prec, {
+  DISPATCH_PREC(prec, DISPATCH_CHUNKED(H, {
     if (dots) {
-      set_smem(hpd_probe_kernel<P, true>, fwd_rows_smem());
-      hpd_probe_kernel<P, true><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(h, w, b, u, H, T,
-                                                                              m, s);
+      set_smem(hpd_probe_kernel<P, true, CH>, fwd_rows_smem(CH));
+      hpd_probe_kernel<P, true, CH><<<row_blocks, THREADS, fwd_rows_smem(CH), st>>>(
+          h, w, b, u, H, T, m, s);
     } else {
-      set_smem(hpd_probe_kernel<P, false>, fwd_rows_smem());
-      hpd_probe_kernel<P, false><<<row_blocks, THREADS, fwd_rows_smem(), st>>>(h, w, b, u, H, T,
-                                                                               m, s);
+      set_smem(hpd_probe_kernel<P, false, CH>, fwd_rows_smem(CH));
+      hpd_probe_kernel<P, false, CH><<<row_blocks, THREADS, fwd_rows_smem(CH), st>>>(
+          h, w, b, u, H, T, m, s);
     }
-  });
+  }));
   return (int)cudaGetLastError();
 }
 

@@ -26,14 +26,12 @@ Hopper kernels of both forms stream 64-column tiles at any T.
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_stream.cu`` (K1
 is K4's rows pass then K5's columns pass, counted as K1 alone), every
-product on the tensor cores (3xTF32 at 'highest'). The backward (K2, K6)
-takes any head width to MAX_H there, its contraction over H in CHUNK_H-deep
-chunks (dh's and dW's chunks on the launch grid). The
-forward past CHUNK_H takes the wide passes of ``hpd_stream.cu``: fp32 FMA
-under the precision contract, the exact sweep for the rows pass (every row
-counts as fixed up). The rows pass takes its
-top-K from tensor-core logits by candidate refinement: the top K + 4
-candidates of each row are recomputed in fp32 and a per-row guard
+product on the tensor cores (3xTF32 at 'highest'). Every kernel takes any
+head width to MAX_H there, its contraction over H in CHUNK_H-deep chunks
+past CHUNK_H (the backward's chunks of dh and dW on the launch grid). The
+rows pass takes its top-K from tensor-core logits by candidate refinement:
+the top K + 4 candidates of each row are recomputed in fp32 and a per-row
+guard
 (:func:`select_guard_eps`) decides whether they settle the fp32 top-K; the
 rows it cannot settle go to the exact fp32 sweep, a fix-up inside the same
 call, whose row count ``hpd_stream_select.fixup_rows`` (and
@@ -58,11 +56,11 @@ MAX_K = 16
 MAX_L = 32
 COL_TILE = 128
 
-# The backward (hpd_stream.cu) runs the contraction over H in CHUNK_H-deep
-# chunks (HMAX, also the widest head of the forward's tensor-core passes),
-# dh's chunks on its row kernels' grid.y and dW's on its columns kernel's
-# grid.z, so the widest head fills 65,535 of them (hpd_stream.cu: HWIDE);
-# no shared-memory plan grows with H.
+# Every pass of hpd_stream.cu runs the contraction over H in CHUNK_H-deep
+# chunks (HMAX) past CHUNK_H; the backward puts dh's chunks on its row
+# kernels' grid.y and dW's on its columns kernel's grid.z, so the widest
+# head fills 65,535 of them (hpd_stream.cu: HWIDE); no shared-memory plan
+# grows with H.
 CHUNK_H = 128
 MAX_H = 65535 * CHUNK_H
 # rows per plain-version chunk: (chunk, T) fp32 temporaries of <= 64 MB
@@ -102,10 +100,11 @@ def _chunk(t: int) -> int:
 
 # The rows pass's guard (hpd_stream.cu: guard_coef; derivation there): the
 # candidates' tensor-core logits may differ from the fp32 ones by at most
-# eps_r = (n_f / 16 + 16) 2^-20 (sum_k |h_rk| max_t |w_kt| + max_t |b_t|),
-# n_f = H fmas per fp32 logit (3H at 'high'); a row's candidates settle its
-# fp32 top-K when the K-th recomputed logit exceeds the (K + GUARD_SLACK)-th
-# tensor-core logit by more than 2 eps_r.
+# eps_r = (n_f / 16 + 16 + (nc - 1) / 2) 2^-20 (sum_k |h_rk| max_t |w_kt| +
+# max_t |b_t|), n_f = H fmas per fp32 logit (3H at 'high'), nc = the
+# CHUNK_H-deep chunks of H (at nc = 1, (n_f / 16 + 16) 2^-20 S_r); a row's
+# candidates settle its fp32 top-K when the K-th recomputed logit exceeds
+# the (K + GUARD_SLACK)-th tensor-core logit by more than 2 eps_r.
 GUARD_SLACK = 4
 
 
@@ -114,8 +113,9 @@ def select_guard_eps(h, w, b, precision: str = "highest"):
     precision = kernel_precision(precision)
     hd = h.shape[1]
     n_f = (3 if precision == "high" else 1) * hd
+    nc = -(-hd // CHUNK_H)
     s = h.abs() @ w.abs().amax(dim=1) + b.abs().max()
-    return (n_f / 16 + 16) * 2.0**-20 * s
+    return (n_f / 16 + 16 + (nc - 1) / 2) * 2.0**-20 * s
 
 
 # ------------------------------ plain versions ------------------------------ #

@@ -1,8 +1,8 @@
-// The streamed logits tiling of hpd_stream.cu's CUDA-core sweeps (the rows
-// pass's exact fp32 fix-up and the wide passes, heads past HMAX; its other
-// passes run on the tensor cores): a block of THREADS threads holds R rows
-// of h in shared memory and computes the (R, TT) product tile by tile, fp32
-// FMA on the CUDA cores under the precision contract of common.cuh.
+// The streamed logits tiling of hpd_stream.cu's CUDA-core sweep (the rows
+// pass's exact fp32 fix-up; its other passes run on the tensor cores): a
+// block of THREADS threads holds R rows of h in shared memory (past HMAX, a
+// chunk of them at a time) and computes the (R, TT) product tile by tile,
+// fp32 FMA on the CUDA cores under the precision contract of common.cuh.
 #pragma once
 
 #include "common.cuh"
@@ -12,19 +12,10 @@ namespace {
 constexpr int R = 64;       // rows per tile
 constexpr int TT = 128;     // columns per tile
 constexpr int BK = 32;      // contraction chunk of the logits product
-constexpr int HMAX = 128;   // widest head input
+constexpr int HMAX = 128;   // depth of one chunk of the head input
 constexpr int HP = HMAX + 4;
 constexpr int THREADS = 256;
 constexpr int NSUB = 16;    // column sub-streams per row: thread tx holds columns tx + 16 j
-
-// h rows [r0, r0 + R) into h_s (R x HP), zero past `limit` and past H.
-__device__ __forceinline__ void load_rows(const float* __restrict__ h, int limit, int H,
-                                          int r0, float* __restrict__ h_s) {
-  for (int i = threadIdx.x; i < R * HMAX; i += THREADS) {
-    const int r = i / HMAX, k = i - r * HMAX;
-    h_s[r * HP + k] = (r0 + r < limit && k < H) ? h[(size_t)(r0 + r) * H + k] : 0.f;
-  }
-}
 
 // acc += (h w)[rows, t0 + columns] of the tile over k < H, each element one
 // fma chain over k ascending. Thread (ty, tx) holds rows ty*4 + i and

@@ -11,16 +11,17 @@ and errors go to ``<out>/<i>_<label>.log``, its ``chiprun_out/chip_smoke.json``
 is copied to ``<out>/<i>_<label>.json``. Then it prints, for every entry of
 the runs' ``{"kernels": [...]}`` lines, the ms of each run in order, and the
 epoch seconds and profiled idle share of each training phase (the wide
-stack's ``--scaled`` fit where the smoke has one), and writes the same to
-``<out>/ab.json``. With ``--digests``, after each run K2 and K6 of that
-checkout also run on one set of seeded inputs (``tools/k2_phases.py``'s
-AB_SHAPES): timed at each shape, their outputs hashed at H = 128
-(DIGEST_SHAPES: ``--scaled``'s T = 2^14 and T = 2^16 at U_c = 161,792); it
-prints each run's ms and sha256 and fails unless every run's digests at
-H = 128 are equal (the wide shape, ``scaled256``, is timed only). Exits
-non-zero if any run did (or printed no kernels line). Two versions are
-compared only within one call: the card's power limit and clocks differ
-between machines.
+stack's ``--scaled`` fit where the smoke has one, with K2's and K1's
+profiled ms), and writes the same to ``<out>/ab.json``. With
+``--digests``, after each run K2 and K6 of that checkout also run on one
+set of seeded inputs (``tools/k2_phases.py``'s AB_SHAPES), with the
+forward passes of the same source: timed at each shape, their outputs
+hashed at H = 128 (DIGEST_SHAPES: ``--scaled``'s T = 2^14 and T = 2^16 at
+U_c = 161,792); it prints each run's ms and sha256 and fails unless every
+run's digests at H = 128 are equal (the wide shape, ``scaled256``, is
+timed only). Exits non-zero if any run did (or printed no kernels line).
+Two versions are compared only within one call: the card's power limit
+and clocks differ between machines.
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ def phases(smoke: dict) -> dict:
         if "profile" in wide:
             out[WIDE_PHASE].update(idle_share=wide["profile"]["idle_share"],
                                    k2_ms=wide["profile"]["k2_ms"])
+            if "k1_ms" in wide["profile"]:   # the forward's launches, where the smoke lists them
+                out[WIDE_PHASE]["k1_ms"] = wide["profile"]["k1_ms"]
     for geometry, fit in smoke.get("vanilla", {}).items():
         if "history" in fit:
             out[f"vanilla {geometry}"] = dict(epoch_s=[r["seconds"] for r in fit["history"]],
@@ -71,12 +74,18 @@ def phases(smoke: dict) -> dict:
 
 
 def digest_table(runs, compared) -> bool:
-    """Prints each run's K2 / K6 output digests and ms by shape; True where
-    every run's digests are equal at each shape of ``compared``."""
+    """Prints each run's K2 / K6 output digests and ms by shape (and the
+    forward's, K1, K4, K5, K7, where every run has them); True where every
+    run's digests are equal at each shape of ``compared``."""
     same = True
     for shape in runs[0]["digests"]["shapes"]:
-        for kname in ("K2", "K6"):
-            cells = [r["digests"]["shapes"][shape][kname] for r in runs]
+        res = [r["digests"]["shapes"][shape] for r in runs]
+        by_kernel = {kname: [x[kname] for x in res] for kname in ("K2", "K6")}
+        if all("fwd_sha256" in x for x in res):
+            for kname in res[0]["fwd_sha256"]:
+                by_kernel[kname] = [dict(sha256=x["fwd_sha256"][kname], ms=x["fwd_ms"][kname])
+                                    for x in res]
+        for kname, cells in by_kernel.items():
             verdict = ""
             if shape in compared:
                 equal = len({c["sha256"] for c in cells}) == 1

@@ -25,17 +25,21 @@ launch's device ms from the profiler (the split by launch: for the older
 CUDA-core wide passes, G, dh and dW), the normwise error of dh, dw and db
 against the plain version, the outputs' sha256 (equal digests, equal bits),
 and the plain version's ms and the bound (3xTF32 at the TF32 peak, or the
-bytes); and the ms of the forward passes built from the same source (K1,
-K4, K7's two variants) on the same inputs. Where the checkout's ``hpd_stream.cu`` has the phase marks, the run
+bytes); and the ms and output sha256 of the forward passes built from the
+same source (K1, K4, K5 on the plain version's m and s, K7's two
+variants) on the same inputs, beside their plain versions' ms. Where the checkout's ``hpd_stream.cu`` has the phase marks, the run
 also builds it with ``-DHPD_STREAM_PHASES`` (into ``<out>/<label>/``, beside
 the normal build) and splits each backward kernel's clock64() ticks into
 PHASES: the ring's waits, the B tiles' restaging per chunk, the logits
 (the chunks' MMAs, the halves' exchange, p), G (and dot), dl (g_p, the
-top-K scatter, dl's tiles, db), the dh or dW product, and the rest; a
-phase's ms is its share of the kernel's ticks times the kernel's profiled
-ms. The instrumented build's extra barriers make it a little slower; its
-shares are what it is for. Prints the card's name and power limit and a
-table; writes everything to ``<out>/k2_phases.json``. Compare two
+top-K scatter, dl's tiles, db), the dh or dW product, and the rest; and
+K1's two passes likewise (wait, restage, logits, select/marg: the rows
+pass's selection or the columns pass's p and marginal, rest), where the
+source marks them. A phase's ms is its share of the kernel's ticks times
+the kernel's profiled ms. The instrumented build's extra barriers make it a little slower; its
+shares are what it is for. Prints the card's name and power limit, a
+table, and the digests side by side, equal or not across the runs at
+DIGEST_SHAPES; writes everything to ``<out>/k2_phases.json``. Compare two
 checkouts only within one call.
 """
 
@@ -54,9 +58,13 @@ import torch
 SHAPES = {"smoke256": (20_000, 4096, 4, 4, 256), "smoke128": (20_000, 4096, 4, 4, 128),
           "scaled256": (161_792, 16_384, 16, 4, 256),
           "scaled128": (161_792, 16_384, 16, 4, 128), "t16_128": (161_792, 65_536, 16, 4, 128)}
-# hpd_stream.cu's PK_* and PH_* orders
-PHASE_KERNELS = ("hpd_bwd_rows_kernel", "hpd_b1_kernel", "hpd_b2_rows_kernel", "hpd_bwd_cols_kernel")
-PHASES = ("wait", "restage", "logits", "G", "dl", "dh/dW", "rest")
+# the kernels and phases of hpd_stream.cu's PK_* and PH_* marks; a
+# checkout's own enums give their order (phase_layout)
+PHASE_KERNELS = {"PK_ROWS": "hpd_bwd_rows_kernel", "PK_B1": "hpd_b1_kernel",
+                 "PK_B2": "hpd_b2_rows_kernel", "PK_COLS": "hpd_bwd_cols_kernel",
+                 "PK_FWD_ROWS": "hpd_fwd_rows_kernel", "PK_FWD_COLS": "hpd_fwd_cols_kernel"}
+PHASES = {"PH_WAIT": "wait", "PH_RESTAGE": "restage", "PH_LOGITS": "logits", "PH_G": "G",
+          "PH_DL": "dl", "PH_PRODUCT": "dh/dW", "PH_REST": "rest", "PH_SELECT": "select/marg"}
 # the shapes tools/ab_smoke.py times in each run; the H = 128 ones whose
 # output digests it compares across runs
 AB_SHAPES = ("scaled128", "t16_128", "scaled256")
@@ -144,6 +152,16 @@ def start_phase_build(out_dir: str):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
+def phase_layout(src: str) -> tuple:
+    """(kernels, phases) in the order of an hpd_stream.cu source's PK_* and
+    PH_* enums, named as in PHASE_KERNELS and PHASES."""
+    import re
+
+    kernels = re.search(r"enum \{ (PK_[^}]*), NPK \};", src).group(1).split(", ")
+    phases = re.search(r"enum \{ (PH_[^}]*), NPH \};", src).group(1).split(", ")
+    return [PHASE_KERNELS[k] for k in kernels], [PHASES[p] for p in phases]
+
+
 def phase_split(lib_path: str, fn) -> dict:
     """{kernel: {phase: share of its ticks}} of one call of ``fn`` on the
     instrumented build (kernels without ticks left out)."""
@@ -151,11 +169,13 @@ def phase_split(lib_path: str, fn) -> dict:
 
     from collision_handling_in_instantngp_tpu_torch.ops.cuda import build, hpd_stream
 
+    with open(os.path.join(build.HERE, "hpd_stream.cu")) as f:
+        kernels, phases = phase_layout(f.read())
     lib = hpd_stream._configure(ctypes.CDLL(lib_path))
     reader = lib.hpd_stream_bwd_phases
     reader.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     reader.restype = ctypes.c_int
-    ticks = (ctypes.c_ulonglong * (len(PHASE_KERNELS) * len(PHASES)))()
+    ticks = (ctypes.c_ulonglong * (len(kernels) * len(phases)))()
     normal = hpd_stream._lib
     hpd_stream._lib = lambda: lib
     try:
@@ -166,11 +186,19 @@ def phase_split(lib_path: str, fn) -> dict:
     finally:
         hpd_stream._lib = normal
     out = {}
-    for i, kernel in enumerate(PHASE_KERNELS):
-        row = list(ticks[i * len(PHASES):(i + 1) * len(PHASES)])
+    for i, kernel in enumerate(kernels):
+        row = list(ticks[i * len(phases):(i + 1) * len(phases)])
         if sum(row):
-            out[kernel] = {p: v / sum(row) for p, v in zip(PHASES, row)}
+            out[kernel] = {p: v / sum(row) for p, v in zip(phases, row)}
     return out
+
+
+def phases_ms(lib_path: str, call, launches: dict) -> dict:
+    """{kernel: {phase: {share, ms}}} of one call: each kernel's share of
+    its ticks times its profiled ms (``launches``)."""
+    return {kern: {p: dict(share=sh, ms=sh * sum(v for n, v in launches.items() if kern in n))
+                   for p, sh in shares.items()}
+            for kern, shares in phase_split(lib_path, call).items()}
 
 
 def worker(inputs: str, reps: int, out_dir: str, phases: bool) -> dict:
@@ -207,20 +235,30 @@ def worker(inputs: str, reps: int, out_dir: str, phases: bool) -> dict:
                 sha256=sha256(got), err={n: normwise(a, r) for n, a, r in zip(("dh", "dw", "db"), got, want)},
                 ms=profiling.cuda_ms(call, reps), launches=kernel_ms(call, 2))
             if lib_path is not None:
-                split = phase_split(lib_path, call)
-                row["phases"] = {
-                    kern: {p: dict(share=sh, ms=sh * sum(v for n, v in row["launches"].items() if kern in n))
-                           for p, sh in shares.items()}
-                    for kern, shares in split.items()}
+                row["phases"] = phases_ms(lib_path, call, row["launches"])
             del got
-        # the forward passes that share the backward's source (K1, K4, K7), timed
+        # the forward passes built from the same source (K1, K4, K5, K7), timed,
+        # their outputs hashed
         h, w, b, counts = args[:4]
-        res["fwd_ms"] = {
-            "K1": profiling.cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k), reps),
-            "K4": profiling.cuda_ms(lambda: hpd_stream.hpd_stream_select(h, w, b, k), reps),
-            "K7 dots": profiling.cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe(h, w, b, variant="dots"), reps),
-            "K7 softmax": profiling.cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe(h, w, b), reps)}
-        del args, want, h, w, b, counts
+        m, s = entry["tensors"]["m"].to(dev), entry["tensors"]["s"].to(dev)
+        fwd = {"K1": lambda: hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k),
+               "K4": lambda: hpd_stream.hpd_stream_select(h, w, b, k),
+               "K5": lambda: (hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s),),
+               "K7 dots": lambda: hpd_stream.hpd_stream_fused_probe(h, w, b, variant="dots"),
+               "K7 softmax": lambda: hpd_stream.hpd_stream_fused_probe(h, w, b)}
+        res["fwd_ms"] = {n: profiling.cuda_ms(fn, reps) for n, fn in fwd.items()}
+        res["fwd_sha256"] = {n: sha256(fn()) for n, fn in fwd.items()}
+        plain = {"K1": lambda: hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest"),
+                 "K4": lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"),
+                 "K5": lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"),
+                 "K7 dots": lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", "dots"),
+                 "K7 softmax": lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest",
+                                                                              "softmax")}
+        res["fwd_plain_ms"] = {n: profiling.cuda_ms(fn, 2) for n, fn in plain.items()}
+        res["K1"] = dict(launches=kernel_ms(fwd["K1"], 2))
+        if lib_path is not None:
+            res["K1"]["phases"] = phases_ms(lib_path, fwd["K1"], res["K1"]["launches"])
+        del args, want, h, w, b, counts, m, s
         torch.cuda.empty_cache()
     return out
 
@@ -260,6 +298,12 @@ def print_runs(card: str, runs: dict) -> None:
                     cells = "  ".join(f"{p} {v['ms']:.3f}" for p, v in ph.items())
                     print(f"    {kern}: {cells}")
             print("  forward " + ", ".join(f"{n} {ms:.3f} ms" for n, ms in res.get("fwd_ms", {}).items()))
+            print("  plain " + ", ".join(f"{n} {ms:.3f} ms" for n, ms in res.get("fwd_plain_ms", {}).items()))
+            for n, ms in res.get("K1", {}).get("launches", {}).items():
+                print(f"      {ms:9.3f} ms  {n[:80]}")
+            for kern, ph in res.get("K1", {}).get("phases", {}).items():
+                print(f"    {kern}: " + "  ".join(f"{p} {v['ms']:.3f}" for p, v in ph.items()))
+            print("  forward sha256 " + ", ".join(f"{n} {d}" for n, d in res.get("fwd_sha256", {}).items()))
 
 
 def main(argv=None) -> int:
@@ -300,8 +344,12 @@ def main(argv=None) -> int:
     finally:
         os.remove(inputs)
     print_runs(card, runs)
+    from .ab_smoke import digest_table
+
+    same = digest_table([dict(digests=r) for r in runs.values()], DIGEST_SHAPES)
+    print(f"digests at {', '.join(DIGEST_SHAPES)} equal in every run: {same}")
     with open(os.path.join(args.out, "k2_phases.json"), "w") as f:
-        json.dump(dict(card=card, checkouts=checkouts, runs=runs), f, indent=1)
+        json.dump(dict(card=card, checkouts=checkouts, runs=runs, digests_equal=same), f, indent=1)
     return 0
 
 

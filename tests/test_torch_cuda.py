@@ -613,11 +613,10 @@ def test_tail_bwd_on_tensor_cores_matches_plain(dev, u, t, l, k, hd, precision):
             assert all(torch.equal(a, b_) for a, b_ in zip(got, fn(*bargs)))
 
 
-# heads past 128 (ROADMAP §3.1): the forward's wide passes of hpd_stream.cu
-# (CUDA-core fp32 under the precision contract) for K1, K4 and K5, and K2's
-# and K6's own launches on the tensor cores with the contraction over H in
-# 128-deep chunks (136, 200, 1000: a partial last chunk; 384-1000: heads of
-# 3 to 8 chunks on the grid)
+# heads past 128 (ROADMAP §3.1): K1, K4 and K5 and K2's and K6's own launches
+# on the tensor cores with the contraction over H in 128-deep chunks (136,
+# 200, 1000: a partial last chunk; 384-1000: heads of 3 to 8 chunks); the
+# rows pass's fix-up settles the rows its guard lists, at most u (printed)
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("u,t,l,k,hd", [(300, 2048, 3, 4, 256), (200, 4096, 16, 16, 512),
                                         (77, 256, 2, 1, 136), (300, 2048, 3, 4, 640),
@@ -638,7 +637,9 @@ def test_stream_kernels_match_plain_wide(dev, u, t, l, k, hd, precision):
         for name, a, r in zip(("marg", "vals", "m", "s"), (out[0], out[1], *out[3:]),
                               (ref[0], ref[1], *ref[3:])):
             _close(a, r, fwd_tol, name)
-    assert int(hpd_stream.hpd_stream_fused_fwd.fixup_rows.item()) == u   # the exact sweep: every row
+    n_fix = int(hpd_stream.hpd_stream_fused_fwd.fixup_rows.item())
+    print(f"H={hd} {precision}: rows settled by the fp32 fix-up: {n_fix} of {u}")
+    assert 0 <= n_fix <= u
     _, vals, idx, m, s = ref
     fns = [hpd_stream.hpd_stream_fused_bwd]
     if t % hpd_stream.LANE_TILE == 0:
@@ -677,6 +678,79 @@ def test_tail_bwd_runs_its_own_launches_at_every_width(dev, hd):
         ran = {n for n in ("hpd_bwd_rows_kernel", "hpd_bwd_cols_kernel", "hpd_b1_kernel",
                            "hpd_b2_rows_kernel", "hpd_wide") if any(n in e for e in names)}
         assert ran == want, (fn.__name__, hd, ran)
+
+
+@pytest.mark.parametrize("hd", [128, 256, 1000])
+def test_stream_fwd_runs_its_own_launches_at_every_width(dev, hd):
+    """K1 and K4 run the tensor-core rows pass and the fix-up, K1 and K5 the
+    tensor-core columns pass, K7 its probe kernel, at every head width (no
+    CUDA-core wide pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    u, t, l, k = 300, 2048, 3, 4
+    x = _tail_inputs(dev, u, t, l, k, hd=hd)
+    h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]
+    _, vals, idx, m, s = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest")
+    rows = {"hpd_fwd_rows_kernel", "hpd_fix_rows_kernel"}
+    for fn, want in ((lambda: hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k),
+                      rows | {"hpd_fwd_cols_kernel"}),
+                     (lambda: hpd_stream.hpd_stream_select(h, w, b, k), rows),
+                     (lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s),
+                      {"hpd_fwd_cols_kernel"}),
+                     (lambda: hpd_stream.hpd_stream_fused_probe(h, w, b), {"hpd_probe_kernel"})):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()}
+        ran = {n for n in ("hpd_fwd_rows_kernel", "hpd_fix_rows_kernel", "hpd_fwd_cols_kernel",
+                           "hpd_probe_kernel", "hpd_wide") if any(n in e for e in names)}
+        assert ran == want, (hd, ran)
+
+
+def _dyadic(rng, shape, lo, hi, scale, dev):
+    return torch.as_tensor(rng.integers(lo, hi, size=shape) * scale, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("hd", [256, 640, 1000])
+def test_stream_fwd_wide_matches_plain_at_every_precision(dev, hd, precision):
+    """K1, K4, K5 and K7 past 128 at each precision on inputs whose logits
+    are exact in fp32 and bf16 (h, w, b multiples of 1/8, 1/128, 1/512):
+    top-K identical to the plain version on every row (exact ties among
+    them, which send rows to the fix-up: printed), vals, m, s within 1e-5
+    normwise (m, s of K7 too), marg within the precision's tolerance (its
+    p is rounded to the precision's operands), bitwise run to run."""
+    rng = np.random.default_rng(hd)
+    u, t, l, k = 1000, 2048, 4, 4
+    h = _dyadic(rng, (u, hd), 0, 8, 1 / 8, dev)
+    w = _dyadic(rng, (hd, t), -8, 9, 1 / 128, dev)
+    b = _dyadic(rng, (t,), -64, 65, 1 / 512, dev)
+    counts = _dyadic(rng, (l, u), 0, 5, 1, dev)
+    ref = hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, precision)
+    fused = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k, precision)
+    n_fix = int(hpd_stream.hpd_stream_fused_fwd.fixup_rows.item())
+    sel = hpd_stream.hpd_stream_select(h, w, b, k, precision)
+    marg = hpd_stream.hpd_stream_marginal(h, w, b, counts, *ref[3:], precision)
+    print(f"H={hd} {precision}: rows settled by the fp32 fix-up: {n_fix} of {u}")
+    assert torch.equal(fused[2], ref[2]) and torch.equal(sel[1], ref[2])
+    for name, a, r in zip(("vals", "m", "s"), (fused[1], *fused[3:]), (ref[1], *ref[3:])):
+        _close(a, r, 1e-5, f"K1 {name}")
+    for name, a, r in zip(("vals", "m", "s"), (sel[0], *sel[2:]), (ref[1], *ref[3:])):
+        _close(a, r, 1e-5, f"K4 {name}")
+    _close(fused[0], ref[0], TOL[precision][0], "K1 marg")
+    _close(marg, ref[0], TOL[precision][0], "K5 marg")
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(fused, hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k, precision)))
+    assert torch.equal(marg, hpd_stream.hpd_stream_marginal(h, w, b, counts, *ref[3:], precision))
+    for variant in hpd_stream.PROBE_VARIANTS:
+        got = hpd_stream.hpd_stream_fused_probe(h, w, b, precision, variant)
+        want = hpd_stream.hpd_stream_fused_probe_plain(h, w, b, precision, variant)
+        for name, a, r in zip(("m", "s"), got, want):
+            _close(a, r, 1e-5, f"K7 {variant} {name}")
+        assert all(torch.equal(a, b_) for a, b_ in
+                   zip(got, hpd_stream.hpd_stream_fused_probe(h, w, b, precision, variant)))
 
 
 @pytest.mark.parametrize("l,n,t,k,hd", [(2, 500, 256, 4, 256), (3, 333, 2048, 20, 512),
@@ -1090,35 +1164,39 @@ def test_scale_copy_edges(dev, n, offset):
     assert torch.equal(y, x * 2) and probe.hbm_scale_copy.launches == before + 1
 
 
-def _planted_select_inputs(dev, u=1024, t=2048):
-    """h, w, b (H = 128) whose rows 0, 8, 16, ... lift 8 columns above all
-    others, within 1.4e-4 of each other (bias steps of 2e-5, below the rows
-    pass's guard), and whose other rows hold an exact tie at the top
-    (columns 300 and 700) and a near tie at the 4th place (1200 and 450,
-    4e-6 to 2e-5 apart) that only the fp32 recompute orders."""
+def _planted_select_inputs(dev, u=1024, t=2048, hd=128, gap=2e-5):
+    """h, w, b whose rows 0, 8, 16, ... lift 8 columns above all others,
+    within 1.4e-4 of each other (bias steps of 2e-5, below the rows pass's
+    guard), and whose other rows hold an exact tie at the top (columns 300
+    and 700) and a near tie at the 4th place (1200 and 450, 0.2 gap to gap
+    apart) that only the fp32 recompute orders; w scaled by sqrt(128 /
+    hd), so that the logits spread as at H = 128."""
     rng = np.random.default_rng(65535)
-    h = rng.random((u, 128), dtype=np.float32) * 0.5
+    h = rng.random((u, hd), dtype=np.float32) * 0.5
     h[:, 0], h[:, 1] = 1.0, 0.0
     h[::8, 1] = 1.0
     h[:, 2] = rng.choice([-1.0, 1.0], size=u) * rng.uniform(0.2, 1.0, size=u)
-    w = rng.standard_normal((128, t)).astype(np.float32) * 0.05
+    w = rng.standard_normal((hd, t)).astype(np.float32) * np.float32(0.05 * (128 / hd) ** 0.5)
     w[0:3] = 0.0
     b = rng.standard_normal(t).astype(np.float32) * 0.05
     base = w[:, 300].copy()
     for col, bias in ((300, 3.0), (700, 3.0), (1500, 2.9), (1200, 2.0), (450, 2.0)):
         w[:, col], b[col] = base, bias
-    w[2, 450] = 2e-5
+    w[2, 450] = gap
     for j, col in enumerate((1800, 60, 999, 1234, 77, 1600, 401, 1001)):
         w[:, col], w[1, col], b[col] = base, 10.0, (j * 37 % 8) * 2e-5
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     return f32(h), f32(w), f32(b), (u + 7) // 8
 
 
-def test_select_guard_hands_near_ties_to_the_fixup(dev):
+@pytest.mark.parametrize("hd", [128, 256, 640])
+def test_select_guard_hands_near_ties_to_the_fixup(dev, hd):
     """K4 and K1 on planted ties: top-K identical to the plain version on
     every row, exactly the lifted rows settled by the fp32 fix-up, bitwise
-    equal run to run."""
-    h, w, b, lifted = _planted_select_inputs(dev)
+    equal run to run; past 128 on the chunked rows pass and the fix-up's
+    chunked sweep, with near ties 2e-5 to 1e-4 apart (the fp32 sums of the
+    kernel and of the plain version differ by a few 1e-6 at 640 terms)."""
+    h, w, b, lifted = _planted_select_inputs(dev, hd=hd, gap=2e-5 if hd == 128 else 1e-4)
     counts = torch.ones(2, h.shape[0], device=dev)
     ref = hpd_stream.hpd_stream_select_plain(h, w, b, 4, "highest")
     assert (ref[1][1::8, :2] == torch.tensor([300, 700], device=dev, dtype=torch.int32)).all()

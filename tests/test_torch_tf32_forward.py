@@ -8,7 +8,10 @@ rounded to nearest (ties away from zero); a product is lo_a hi_b + hi_a lo_b
 products with a lo operand in one, hi_a hi_b in another, added in fp32 at
 the chain's end; chains are added in fp32; the logits split their 128-deep
 contraction between two warpgroups (two chains each, the halves added
-last). The columns pass then sums marg^T = p^T counts^T per 64-row tile,
+last). Past H = 128 the contraction runs in 128-deep chunks (zero past H in
+the last): each warpgroup adds its two chains of every chunk to its running
+sum, chunk by chunk, and the halves meet after the last. The columns pass
+then sums marg^T = p^T counts^T per 64-row tile,
 one chain per warpgroup (rows 0-31 and 32-63 of the tile), the two
 warpgroups' sums added at the end of a row segment and the 8 segments in
 order.
@@ -31,6 +34,7 @@ recompute orders, and near-tie clusters that the guard hands to the fix-up.
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from collision_handling_in_instantngp_tpu.ops.pallas import hpd_stream as jax_stream
@@ -40,7 +44,9 @@ from collision_handling_in_instantngp_tpu_torch.ops.topk import topk_lowest_inde
 FWD_TOL = 1e-5
 H, T, K = 128, 2048, 4
 CHAIN = 32            # columns of a chain: 4 k8 steps
+CHUNK = hpd_stream.CHUNK_H   # depth of a chunk of the contraction
 SEGS, TILE = 8, 64    # row segments and row tile of the columns pass
+WIDE_HS = (136, 256, 640)    # heads of 2, 2 and 5 chunks (136: 8 columns in the last)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -89,15 +95,19 @@ def chain_truncating(a, b):
 
 
 def logits_tc(h, w, b, chain=chain_fp32, **kw):
-    """h w + b as the kernels take the logits: each warpgroup sums half of
-    the contraction in chains added in fp32, then the halves, then b."""
-    half = h.shape[1] // 2
-    sums = []
-    for lo in (0, half):
-        run = torch.zeros(h.shape[0], w.shape[1])
-        for k0 in range(lo, lo + half, CHAIN):
-            run = run + chain(h[:, k0:k0 + CHAIN], w[k0:k0 + CHAIN], **kw)
-        sums.append(run)
+    """h w + b as the kernels take the logits: H in CHUNK-deep chunks, zero
+    past H (one chunk at H <= 128); warpgroup wg sums columns 64 wg + [0, 64)
+    of every chunk in chains added in fp32 to its running sum, chunk by
+    chunk; then the halves, then b. A chain over zero columns adds an exact
+    0, as the kernels' shorter chains at the end of H do."""
+    pad = -h.shape[1] % CHUNK
+    h = torch.nn.functional.pad(h, (0, pad))
+    w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    sums = [torch.zeros(h.shape[0], w.shape[1]) for _ in range(2)]
+    for c0 in range(0, h.shape[1], CHUNK):
+        for wg in range(2):
+            for k0 in range(c0 + CHUNK // 2 * wg, c0 + CHUNK // 2 * (wg + 1), CHAIN):
+                sums[wg] = sums[wg] + chain(h[:, k0:k0 + CHAIN], w[k0:k0 + CHAIN], **kw)
     return (sums[0] + sums[1]) + b
 
 
@@ -138,68 +148,116 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def test_columns_pass_within_fwd_tol_of_jax_k5():
-    rng = np.random.default_rng(65535)
-    u, l = 1500, 16
-    h = rng.random((u, H), dtype=np.float32) * 0.5
-    w = rng.standard_normal((H, T)).astype(np.float32) * 0.1
-    b = rng.standard_normal(T).astype(np.float32) * 0.1
+def _columns_case(hd, u, t, seed):
+    """marg of the emulated columns pass at 3 and 1 TF32 passes, each
+    normwise against JAX K5 (interpret mode) on JAX K4's m and s; w scaled
+    by sqrt(128 / hd), so that the logits spread as at H = 128."""
+    rng = np.random.default_rng(seed)
+    l = 16
+    h = rng.random((u, hd), dtype=np.float32) * 0.5
+    w = rng.standard_normal((hd, t)).astype(np.float32) * np.float32(0.1 * (H / hd) ** 0.5)
+    b = rng.standard_normal(t).astype(np.float32) * 0.1
     counts = rng.integers(0, 8, size=(l, u)).astype(np.float32)
     jh, jw, jb = map(jnp.asarray, (h, w, b))
     _, _, m, s = jax_stream.hpd_stream_select(jh, jw, jb, K, interpret=True)
     ref = np.asarray(jax_stream.hpd_stream_marginal(jh, jw, jb, jnp.asarray(counts), m, s,
                                                     interpret=True), np.float64)
     args = tuple(map(_t, (h, w, b, counts, m, s)))
-    three = _normwise(emulated_marginal(*args, passes=3), ref)
-    one = _normwise(emulated_marginal(*args, passes=1), ref)
+    return (_normwise(emulated_marginal(*args, passes=3), ref),
+            _normwise(emulated_marginal(*args, passes=1), ref))
+
+
+def test_columns_pass_within_fwd_tol_of_jax_k5():
+    three, one = _columns_case(H, 1500, T, 65535)
     assert three <= FWD_TOL, three
     assert one > FWD_TOL and one > 10 * three, (one, three)
+
+
+@pytest.mark.parametrize("hd", WIDE_HS)
+def test_chunked_columns_pass_within_fwd_tol_of_jax_k5(hd):
+    """Past H = 128: marg of the chunked 3xTF32 logits within FWD_TOL of JAX
+    K5 (a few hundred rows); one TF32 pass misses it."""
+    three, one = _columns_case(hd, 300, T, hd)
+    assert three <= FWD_TOL, three
+    assert one > FWD_TOL and one > 10 * three, (one, three)
+
+
+def _guard_case(hd, u, t, seed):
+    rng = np.random.default_rng(seed)
+    h = _t(rng.random((u, hd), dtype=np.float32))
+    w = _t(rng.standard_normal((hd, t)).astype(np.float32) * np.float32(0.1 * (H / hd) ** 0.5))
+    b = _t(rng.standard_normal(t).astype(np.float32) * 0.1)
+    tc = logits_tc(h, w, b, chain=chain_truncating)
+    exact = logits_fp32_chain(h, w, b)
+    eps = hpd_stream.select_guard_eps(h, w, b)
+    diff = (tc.double() - exact.double()).abs()
+    assert (diff <= eps.double()[:, None]).all()
+    assert diff.max() > 0
+    return exact, eps
 
 
 def test_guard_eps_bounds_the_tensor_core_logits():
     """|tensor-core logit - fp32 logit| <= eps_r on every (row, column) of
     seeded random h, w, b at H = 128, and eps_r is far below the logits'
     spread (the guard passes almost every row)."""
-    rng = np.random.default_rng(7)
-    u = 512
-    h = _t(rng.random((u, H), dtype=np.float32))
-    w = _t(rng.standard_normal((H, T)).astype(np.float32) * 0.1)
-    b = _t(rng.standard_normal(T).astype(np.float32) * 0.1)
-    tc = logits_tc(h, w, b, chain=chain_truncating)
-    exact = logits_fp32_chain(h, w, b)
-    eps = hpd_stream.select_guard_eps(h, w, b)
-    diff = (tc.double() - exact.double()).abs()
-    assert (diff <= eps.double()[:, None]).all()
-    assert diff.max() > 0 and (eps < 1e-3 * exact.std(dim=1)).all()
+    exact, eps = _guard_case(H, 512, T, 7)
+    assert (eps < 1e-3 * exact.std(dim=1)).all()
 
 
-def _planted_inputs():
-    """h, w, b with planted ties (K, T = 4, 2048):
+@pytest.mark.parametrize("hd", WIDE_HS)
+def test_chunked_guard_eps_bounds_the_tensor_core_logits(hd):
+    """The same past H = 128, on the chunked logits (each MMA truncating),
+    with the guard re-derived for nc chunks; eps_r grows with H (S_r and
+    the fp32 chain's fmas), but the guard still settles every row of this
+    data: its K-th fp32 logit exceeds its (K + 4)-th by more than 2 eps_r."""
+    exact, eps = _guard_case(hd, 256, 1024, 7 + hd)
+    top = exact.topk(K + hpd_stream.GUARD_SLACK, dim=1).values
+    assert (top[:, K - 1] - top[:, -1] > 2 * eps).all()
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_guard_eps_of_one_chunk_is_unchanged(precision):
+    """select_guard_eps is (n_f / 16 + 16) 2^-20 S_r bit for bit at H <= 128
+    (one chunk), and adds (nc - 1) / 2 to the coefficient at nc chunks."""
+    rng = np.random.default_rng(11)
+    mult = 3 if precision == "high" else 1
+    for hd in (8, 100, 128, 129, 256, 640, 1000):
+        h = _t(rng.random((64, hd), dtype=np.float32))
+        w = _t(rng.standard_normal((hd, 256)).astype(np.float32))
+        b = _t(rng.standard_normal(256).astype(np.float32))
+        s = h.abs() @ w.abs().amax(dim=1) + b.abs().max()
+        nc = -(-hd // 128)
+        coef = mult * hd / 16 + 16 if nc == 1 else mult * hd / 16 + 16 + (nc - 1) / 2
+        assert torch.equal(hpd_stream.select_guard_eps(h, w, b, precision), coef * 2.0**-20 * s), hd
+
+
+def _planted_inputs(hd=H, u=1024, gap=2e-5):
+    """h, w, b with planted ties (K, T = 4, 2048; w scaled by sqrt(128 /
+    hd), so that the logits spread as at H = 128):
     - columns 300 and 700 identical (w and b): an exact tie at the top,
       1500 next (the same column, b 0.1 lower);
     - columns 1200 and 450, 4th and 5th on every row: identical but for
-      w[2, 450] = 2e-5, with h[:, 2] = +-[0.2, 1]: they differ by
-      4e-6 to 2e-5 (far below the guard's eps, far above fp32 rounding),
-      in either order;
+      w[2, 450] = gap, with h[:, 2] = +-[0.2, 1]: they differ by 0.2 gap
+      to gap (far below the guard's eps, far above fp32 rounding, which
+      grows with H), in either order;
     - on the rows of SET (every 8th), feature 1 lifts 8 columns above all
       others, all within 1.4e-4 (bias steps of 2e-5): the K-th and the 8th
       candidate are closer than 2 eps, so the guard hands these rows to the
       fix-up."""
     rng = np.random.default_rng(65535)
-    u = 1024
-    h = rng.random((u, H), dtype=np.float32) * 0.5
+    h = rng.random((u, hd), dtype=np.float32) * 0.5
     h[:, 0] = 1.0
     h[:, 1] = 0.0
     h[::8, 1] = 1.0
     h[:, 2] = (rng.choice([-1.0, 1.0], size=u) * rng.uniform(0.2, 1.0, size=u)).astype(np.float32)
-    w = rng.standard_normal((H, T)).astype(np.float32) * 0.05
+    w = rng.standard_normal((hd, T)).astype(np.float32) * np.float32(0.05 * (H / hd) ** 0.5)
     w[0:3] = 0.0
     b = rng.standard_normal(T).astype(np.float32) * 0.05
     base = w[:, 300].copy()
     for col, bias in ((300, 3.0), (700, 3.0), (1500, 2.9), (1200, 2.0), (450, 2.0)):
         w[:, col] = base
         b[col] = bias
-    w[2, 450] = 2e-5
+    w[2, 450] = gap
     cluster = [1800, 60, 999, 1234, 77, 1600, 401, 1001]
     for j, col in enumerate(cluster):
         w[:, col] = base
@@ -229,7 +287,18 @@ def emulated_select(h, w, b, k):
 
 
 def test_rows_pass_refinement_matches_jax_k4_on_planted_ties():
-    h, w, b, cluster = _planted_inputs()
+    _planted_case(*_planted_inputs())
+
+
+@pytest.mark.parametrize("hd", WIDE_HS)
+def test_chunked_refinement_matches_jax_k4_on_planted_ties(hd):
+    """Past H = 128, on the chunked logits and the guard re-derived for nc
+    chunks: the same ties, near-ties 2e-5 to 1e-4 apart (fp32 rounding
+    differences between summation orders reach a few 1e-6 at 640 terms)."""
+    _planted_case(*_planted_inputs(hd, 512, 1e-4))
+
+
+def _planted_case(h, w, b, cluster):
     ref_idx = np.asarray(jax_stream.hpd_stream_select(
         jnp.asarray(h), jnp.asarray(w), jnp.asarray(b), K, interpret=True)[1])
     th, tw, tb = _t(h), _t(w), _t(b)

@@ -119,6 +119,43 @@ def test_chunked_backward_plan_matches_the_source():
                              torch.zeros(2, 4), 4)
 
 
+def test_chunked_forward_plan_matches_the_source():
+    """The streamed forward's plan (K1, K4, K5, K7) restated and held to
+    hpd_stream.cu: past 128 the rows pass and the columns pass keep one
+    128-deep chunk of h and w plus the restaged B tile's fp32 chunk (225,792
+    and 231,680 of a block's 232,448 bytes; 193,024 and 198,912 at H <= 128,
+    the one-chunk instances' unchanged plans), every launch picks its
+    instance by DISPATCH_CHUNKED (no CUDA-core wide pass is left), and the
+    guard's coefficient keeps its one-chunk form."""
+    src = (CUDA / "hpd_stream.cu").read_text()
+    tile = (CUDA / "stream_tile.cuh").read_text()
+    r, hmax = _constant(tile, "R"), _constant(tile, "HMAX")
+    bt, lp, kmax = (_constant(src, n) for n in ("BT", "LP", "KMAX"))
+    kcmax, xbuf = kmax + _constant(src, "GSLACK"), _constant(src, "XBUF")
+    for line in ("constexpr int FWD_ROWS_SMEM =\n"
+                 "    2 * R * HMAX + XBUF + 2 * HMAX * BT + 2 * BT + 2 * R * BT + 2 * R * KCMAX + 4 * R;",
+                 "  return sizeof(float) * (FWD_ROWS_SMEM + (chunked ? R * HMAX : 0)) + 1024;",
+                 "constexpr int FWD_COLS_STAGE = R * HMAX + LP * R + 2 * R;",
+                 "constexpr int FWD_COLS_SMEM =\n"
+                 "    2 * BT * HMAX + 2 * LP * R + R * BT + XBUF + BT + 2 * FWD_COLS_STAGE;",
+                 "  return sizeof(float) * (FWD_COLS_SMEM + (chunked ? HMAX * BT : 0)) + 1024;",
+                 "  const float c = (P == 1 ? 3 : 1) * H / 16.f + 16.f;",
+                 "  return (CH ? c + 0.5f * (h_chunks(H) - 1) : c) * 0x1p-20f;",
+                 "hpd_fwd_rows_kernel<P, CH><<<row_blocks, THREADS, fwd_rows_smem(CH), st>>>(",
+                 "hpd_fix_rows_kernel<P, CH><<<fix_blocks, THREADS, fix_rows_smem(K), st>>>(",
+                 "hpd_fwd_cols_kernel<P, CH><<<cols_grid, THREADS, fwd_cols_smem(CH), st>>>(",
+                 "hpd_probe_kernel<P, true, CH><<<row_blocks, THREADS, fwd_rows_smem(CH), st>>>("):
+        assert line in src, line
+    for gone in ("hpd_wide_cols_kernel", "hpd_wide_probe_kernel", "wide_cols_smem", "wide_tile_p"):
+        assert gone not in src, gone
+    rows = 2 * r * hmax + xbuf + 2 * hmax * bt + 2 * bt + 2 * r * bt + 2 * r * kcmax + 4 * r
+    cols = 2 * bt * hmax + 2 * lp * r + r * bt + xbuf + bt + 2 * (r * hmax + lp * r + 2 * r)
+    one = (4 * rows + 1024, 4 * cols + 1024)
+    chunked = (4 * (rows + r * hmax) + 1024, 4 * (cols + hmax * bt) + 1024)
+    assert one == (193_024, 198_912) and chunked == (225_792, 231_680)
+    assert max(chunked) <= 232_448
+
+
 @pytest.mark.parametrize("widths,rpt", [((2, 32, 64, 128, 256), 4), ((2, 256, 512, 256, 256), 1),
                                         ((2, 128, 128), 4), (DEEP, 0), ((2, 512, 512, 2048), 0),
                                         ((2, 512, 2048), 1), ((2, 512, 512, 512, 512, 256), 1)])
