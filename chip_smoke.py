@@ -212,7 +212,20 @@
    epoch, the collectives' calls, bytes a step and host seconds, each
    rank's max_abs_err by kernel, and a profiled epoch's collective host
    time and NCCL / copy device time;
-21. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+21. the measurement tools: ``tools/roofline.py --measure`` (nominal
+   peaks, span 10, 30 epochs after two warm-up calls) at ``gngf`` (grid
+   4061 at the default geometry) and ``scaled``, each with every kernel's
+   count set to 0 just before and read just after, failing unless each
+   kernel of the mode's path launched (``gngf``: K12, its HPD and decoder
+   in cuBLAS; ``scaled``: K1, K2, K3a, K3b, K12) and unless ``0 <
+   fraction_of_roofline <= 1``; K12 held bitwise against its plain version
+   on the ``gngf`` run's own batch-0 table gradients (``gather_rows``'
+   918,464 rows of C = 2 on 4,624 slots, the blend's 4,624 rows of C = 8
+   on 256), timed, as two entries; and ``tools/time_kernels.py`` once at
+   the JAX tool's shapes (U = 264,196, H = 128, T = 2^14, L = 16, K = 4,
+   and the compacted U = 162,304), which holds each kernel against its
+   plain version before timing it, each row's kernel launched;
+22. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -243,20 +256,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 from collision_handling_in_instantngp_tpu_torch.utils import memory  # noqa: E402
 from collision_handling_in_instantngp_tpu_torch.utils.profiling import cuda_ms, host_ms  # noqa: E402
+# every kernel's count of work and its bound at the published H100 peaks
+from collision_handling_in_instantngp_tpu_torch.tools.roofline import kernel_work  # noqa: E402
 
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 SEED = 65535
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 on the tensor cores, HBM3 bandwidth. 'highest' runs
-# fp32 FMA on the CUDA cores; 'default' (bf16 products, exact in fp32,
-# fp32 sums) is the bf16 tensor cores' function and takes their peak.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_TENSOR_FLOPS = 989e12
-# dense TF32 on the tensor cores: the dedup route's tail (K1, K2, K4-K6),
-# K7 and the per-row heads (K9-K11) run their products there as 3xTF32,
-# three tf32 products per fp32 term
-PEAK_TF32_TENSOR_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
 # normwise tolerances: max |kernel - plain| <= tol * max |plain| (fp32,
 # different summation order; outputs sum up to 161,792 rows)
 FWD_TOL = 1e-5
@@ -315,18 +319,6 @@ def bitwise_same(name, a, b):
     log(f"  {name}: bitwise equal run to run")
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def mixed_bound(parts, nbytes: float):
-    """bound_ms of work whose parts run on different units one after the
-    other: parts [(flops, peak), ...], their times added."""
-    t_ops, t_bytes = sum(f / p for f, p in parts), nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def profile_epoch(exp, statics, batches, dev) -> dict:
     """Device time by kernel over one training epoch (``run_epoch`` on the
     prepared batches, after one unprofiled warm-up epoch), from
@@ -360,12 +352,17 @@ def watermark(marks: dict, tag: str, dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def kernel_entry(name, source, replaces, err, ms, plain, bound, library=None):
-    b_ms, b_by = bound
+def kernel_entry(name, source, replaces, err, ms, plain, work, library=None):
+    """A kernel's entry; its bound (and ``bound_fp32_ms``, where the count
+    has one) from ``work``, a ``roofline.kernel_work`` count."""
+    b_ms, b_by = work["bound_ms"], work["bound_by"]
     lib = "" if library is None else f", library {library:.3f} ms"
     log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}){lib}")
-    return dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+    entry = dict(name=name, source=source, replaces=replaces, max_abs_err=err, ms=ms,
+                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=library)
+    if "bound_fp32_ms" in work:
+        entry["bound_fp32_ms"] = work["bound_fp32_ms"]
+    return entry
 
 
 def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
@@ -395,9 +392,6 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     k, T = mcfg.topk_k, mcfg.hash_table_size
     (w_head, b_head), H = layers[-1], layers[-1][0].shape[0]
     widths = [d] + [w.shape[1] for w, _ in layers]
-    macs = sum(a * c for a, c in zip(widths[:-1], widths[1:]))
-    n_params = sum(w.numel() + b.numel() for w, b in layers)
-    out_bytes = 4.0 * (L * T + 2 * rows * k)
     log(f"per-row route, batch 0: P={p_b}, L={L}, V={V}, rows={rows}, widths {widths}, K={k}")
     g_marg = torch.randn(L, T, device=dev, generator=gen)
     g_vals = torch.randn(L, n, k, device=dev, generator=gen)
@@ -412,10 +406,10 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
         bitwise_same("marg/vals/idx", out_k, again)
         return err
 
-    # the head's products (K10's logits, K11's logits replay, dW_head and
-    # dh, and K9's three) as 3xTF32 on the tensor cores, three tf32 passes
-    # at the TF32 peak; the hidden layers' products on the CUDA cores
-    head_flops = 2.0 * rows * H * T
+    # bounds (roofline.kernel_work): the head's products (K10's logits,
+    # K11's logits replay, dW_head and dh, and K9's three) as 3xTF32 on the
+    # tensor cores, three tf32 passes at the TF32 peak; the hidden layers'
+    # products on the CUDA cores
 
     log("K10 hpd_full_fwd, all rows of real vertices:")
     out_k = hpd_full.hpd_full_fwd(verts, layers, k)
@@ -423,16 +417,13 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     out_p = hpd_full.hpd_full_fwd_plain(verts, layers, k)
     err = check_fwd("K10", out_k, out_p, hpd_full.hpd_full_fwd(verts, layers, k))
     idx_full = out_k[2]
-    fwd_bytes = 4.0 * (rows * d + n_params) + out_bytes
-    rest_flops = 2.0 * rows * macs - head_flops
+    work = kernel_work("K10", rows=rows, widths=widths, l=L, k=k)
     entries["hpd_full_fwd"] = kernel_entry(
         "hpd_full_fwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:162", err,
         cuda_ms(lambda: hpd_full.hpd_full_fwd(verts, layers, k), 10),
         cuda_ms(lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3),
-        mixed_bound([(3 * head_flops, PEAK_TF32_TENSOR_FLOPS), (rest_flops, PEAK_FP32_FLOPS)],
-                    fwd_bytes))
-    entries["hpd_full_fwd"].update(bound_fp32_ms=bound_ms(2.0 * rows * macs, fwd_bytes)[0],
-                                   fixup_rows=fix)
+        work)
+    entries["hpd_full_fwd"]["fixup_rows"] = fix
     redesigned(entries["hpd_full_fwd"])
     del out_k, out_p
     entries["hpd_full_fwd"]["planted_fixup_rows"] = planted_near_ties(L, n, dev, check_fwd)
@@ -445,18 +436,14 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
               for i, (ka, pa) in enumerate(zip(got, want)) for nm, a, r in zip(("dW", "db"), ka, pa))
     bitwise_same("dW/db", [t for pair in got for t in pair],
                  [t for pair in hpd_full.hpd_full_bwd(*bargs) for t in pair])
-    dx_macs = sum(a * c for a, c in zip(widths[1:-1], widths[2:]))
     # the head's three products on the tensor cores; the hidden layers'
     # replay, dW and dx on the CUDA cores
-    rest_flops = 2.0 * rows * (2 * macs + dx_macs) - 3 * head_flops
-    bwd_bytes = 4.0 * (rows * d + 2 * n_params + L * T + 2 * rows * k)
+    work = kernel_work("K11", rows=rows, widths=widths, l=L, k=k)
     entries["hpd_full_bwd"] = kernel_entry(
         "hpd_full_bwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:236", err,
         cuda_ms(lambda: hpd_full.hpd_full_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_full.hpd_full_bwd_plain(*bargs), 2),
-        mixed_bound([(9 * head_flops, PEAK_TF32_TENSOR_FLOPS), (rest_flops, PEAK_FP32_FLOPS)],
-                    bwd_bytes))
-    entries["hpd_full_bwd"]["bound_fp32_ms"] = bound_ms(3 * head_flops + rest_flops, bwd_bytes)[0]
+        work)
     redesigned(entries["hpd_full_bwd"])
     del got, want
 
@@ -465,12 +452,12 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     out_p = hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k)
     err = check_fwd("K8", out_k, out_p, hpd_tail.hpd_tail_fwd(h, w_head, b_head, k))
     idx_tail = out_k[2]
-    head_bytes = 4.0 * (H * T + T)
+    work = kernel_work("K8", rows=rows, h=H, t=T, l=L, k=k)
     entries["hpd_tail_fwd"] = kernel_entry(
         "hpd_tail_fwd", SRC + "hpd_tail.cu", JAX_SRC + "hpd_tail.py:87", err,
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd(h, w_head, b_head, k), 10),
         cuda_ms(lambda: hpd_tail.hpd_tail_fwd_plain(h, w_head, b_head, k), 3),
-        bound_ms(head_flops, 4.0 * rows * H + head_bytes + out_bytes))
+        work)
     redesigned(entries["hpd_tail_fwd"])
     del out_k, out_p
     by_k = {}
@@ -492,13 +479,12 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
     err = max(compare(nm, a, r, GRAD_TOL) for nm, a, r in zip(("dh", "dw", "db"), got, want))
     bitwise_same("dh/dw/db", got, hpd_tail.hpd_tail_bwd(*bargs))
     # its three products (logits replay, dW, dh) on the tensor cores: no other product
-    tail_bytes = 4.0 * (2 * rows * H + 2 * H * T + 2 * T + L * T + 2 * rows * k)
+    work = kernel_work("K9", rows=rows, h=H, t=T, l=L, k=k)
     entries["hpd_tail_bwd"] = kernel_entry(
         "hpd_tail_bwd", SRC + "hpd_tail.cu", JAX_SRC + "hpd_tail.py:182", err,
         cuda_ms(lambda: hpd_tail.hpd_tail_bwd(*bargs), 5),
         cuda_ms(lambda: hpd_tail.hpd_tail_bwd_plain(*bargs), 2),
-        mixed_bound([(9 * head_flops, PEAK_TF32_TENSOR_FLOPS)], tail_bytes))
-    entries["hpd_tail_bwd"]["bound_fp32_ms"] = bound_ms(3 * head_flops, tail_bytes)[0]
+        work)
     redesigned(entries["hpd_tail_bwd"])
     del got, want, h
     torch.cuda.empty_cache()
@@ -586,32 +572,6 @@ def planted_tail_ties(L, n, dev, check_fwd) -> dict:
     return out
 
 
-def tail_bwd_bound(u, H, T, L, k, tensor=True):
-    """Bound of the tail backward, K2's and K6's (the same function): the
-    logits, dh = dl w^T and dW = h^T dl (2 U H T flops each), G = p g_marg^T
-    and g_p = counts^T g_marg (2 L U T each); each input read once (h, the
-    head, counts, idx, vals, m, s, g_marg, g_vals), each output written once
-    (dh, dW, db). The kernels run those products as 3xTF32 on the tensor
-    cores (three tf32 products per term, at the TF32 peak); ``tensor=False``
-    gives the bound of fp32 on the CUDA cores, the kernels' route before."""
-    flops = 6.0 * u * H * T + 4.0 * L * u * T
-    nbytes = 4.0 * (2 * u * H + 2 * H * T + 2 * T + L * u + 3 * u * k + 2 * u + L * T)
-    if tensor:
-        return bound_ms(3 * flops, nbytes, PEAK_TF32_TENSOR_FLOPS)
-    return bound_ms(flops, nbytes)
-
-
-def tf32x3_bound(flops, nbytes, count_flops=0.0, counts=None):
-    """Bound of a forward pass on the tensor cores: its products as 3xTF32
-    (three tf32 products per fp32 term) at the TF32 peak, the
-    ``count_flops`` of the counts @ p marginal as two where every count of
-    ``counts`` is an integer up to 2^11 (exact in tf32: the kernel skips
-    the product with their zero lo part). The entries keep the fp32
-    CUDA-core bound, the route before, beside it as ``bound_fp32_ms``."""
-    exact = counts is not None and bool(((counts == counts.round()) & (counts.abs() <= 2048)).all())
-    return bound_ms(3 * flops + (2 if exact else 3) * count_flops, nbytes, PEAK_TF32_TENSOR_FLOPS)
-
-
 def fixup_rows(wrapper, what) -> int:
     """Rows the last launch of a rows-pass wrapper handed to its fp32
     fix-up; printed."""
@@ -677,7 +637,7 @@ def scatter_phase(variant, rows, flat, t) -> dict:
         name, SRC + "scatter.cu", JAX_SRC + "scatter_probe.py:42", err,
         cuda_ms(lambda: scatter.scatter_add_serial(rows, flat, t), 20),
         cuda_ms(lambda: scatter.scatter_add_serial_plain(rows, flat, t), 2),
-        bound_ms(1.0 * n * c, 4.0 * (n * c + t * c) + flat.element_size() * n),
+        kernel_work("K12", n=n, c=c, t=t, idx_bytes=flat.element_size()),
         cuda_ms(lambda: acc.index_add_(0, flat_long, rows), 20))
     prep = scatter.prepare(flat, t)
     entry["prepare_ms"] = cuda_ms(lambda: scatter.prepare(flat, t), 20)
@@ -735,7 +695,6 @@ def split_kernel_phases(exp, batches, dev, gen):
     if hpd_stream.fused_supports(T, k, H) or not hpd_stream.supports(T, k):
         raise AssertionError(f"T={T}, K={k}, H={H} does not take the split route")
     log(f"split route, batch 0: U_c={u}, H={H}, T={T}, L={L}, K={k}")
-    head_bytes = 4.0 * (H * T + T)
     entries = {}
 
     log("K4 hpd_stream_select, full U_c of real h:")
@@ -751,13 +710,13 @@ def split_kernel_phases(exp, batches, dev, gen):
     bitwise_same("vals/idx/m/s", out_k, hpd_stream.hpd_stream_select(h, w, b, k))
     del out_p
     vals, idx, m, s = out_k
-    flops, nbytes = 2.0 * u * H * T, 4.0 * (u * H + 2 * u * k + 2 * u) + head_bytes
+    work = kernel_work("K4", u=u, h=H, t=T, k=k)
     entries["hpd_stream_select"] = kernel_entry(
         "hpd_stream_select", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:193", err,
         cuda_ms(lambda: hpd_stream.hpd_stream_select(h, w, b, k), 5),
         cuda_ms(lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"), 2),
-        tf32x3_bound(flops, nbytes))
-    entries["hpd_stream_select"].update(bound_fp32_ms=bound_ms(flops, nbytes)[0], fixup_rows=fix)
+        work)
+    entries["hpd_stream_select"]["fixup_rows"] = fix
     redesigned(entries["hpd_stream_select"])
 
     log("K5 hpd_stream_marginal, full U_c:")
@@ -765,13 +724,12 @@ def split_kernel_phases(exp, batches, dev, gen):
     err = compare("marg", marg, hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"),
                   FWD_TOL)
     bitwise_same("marg", [marg], [hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)])
-    flops, nbytes = 2.0 * u * H * T, 4.0 * (u * H + L * u + 2 * u + L * T) + head_bytes
+    work = kernel_work("K5", u=u, h=H, t=T, l=L, k=k, counts=counts)
     entries["hpd_stream_marginal"] = kernel_entry(
         "hpd_stream_marginal", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:282", err,
         cuda_ms(lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s), 5),
         cuda_ms(lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 2),
-        tf32x3_bound(flops, nbytes, 2.0 * L * u * T, counts))
-    entries["hpd_stream_marginal"]["bound_fp32_ms"] = bound_ms(flops + 2.0 * L * u * T, nbytes)[0]
+        work)
     redesigned(entries["hpd_stream_marginal"])
 
     log("K6 hpd_tail_unique_bwd (B1 + B2), full U_c:")
@@ -786,12 +744,12 @@ def split_kernel_phases(exp, batches, dev, gen):
                  for n, a, r in zip(("dh", "dw", "db"), got, want)]
         bitwise_same(f"dh/dw/db noop={noop}", got, hpd_stream.hpd_tail_unique_bwd(*args, noop_topk=noop))
         del got, want
+    work = kernel_work("K6", u=u, h=H, t=T, l=L, k=k)
     entries["hpd_tail_unique_bwd"] = kernel_entry(
         "hpd_tail_unique_bwd", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:921", max(errs),
         cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd(*args), 3),
         cuda_ms(lambda: hpd_stream.hpd_tail_unique_bwd_plain(*args, "highest", False), 2),
-        tail_bwd_bound(u, H, T, L, k))
-    entries["hpd_tail_unique_bwd"]["bound_fp32_ms"] = tail_bwd_bound(u, H, T, L, k, False)[0]
+        work)
     redesigned(entries["hpd_tail_unique_bwd"])
 
     log("K1 / K2 at the same shapes (the fused pair, which the gate does not pick here):")
@@ -840,13 +798,12 @@ def probe_ladder_phase(h, w, b, counts, k):
         # (U, T) logits, 10.6 GB) and a sum; no one call returns softmax's m and s
         library = cuda_ms(lambda: torch.addmm(b, h, w).sum(-1), 3) if variant == "dots" else None
         torch.cuda.empty_cache()
-        flops, nbytes = 2.0 * u * H * T, 4.0 * (u * H + H * T + T + 2 * u)
+        work = kernel_work("K7", u=u, h=H, t=T)
         entries[name] = kernel_entry(
             name, SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:1081", err,
             cuda_ms(lambda: probe(h, w, b, "highest", variant), 10),
             cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant), 3),
-            tf32x3_bound(flops, nbytes), library)
-        entries[name]["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
+            work, library)
         redesigned(entries[name])
         del got, ref
 
@@ -887,12 +844,9 @@ def mxu_probe_phase(dev):
         err = compare("rowsum", got, probe.rowsum_dot_plain(h, w, regime),
                       BF16X3_TOL if regime == "bf16x3" else FWD_TOL)
         bitwise_same("rowsum", [got], [probe.rowsum_dot(h, w, regime)])
-        if regime == "highest":
-            bound = bound_ms(flops, 4.0 * (U * H + H * T + U))
-        else:   # bf16 products ('default' and 'bf16' run one tensor-core
-            # kernel); bf16x3 runs three products per term
-            bound = bound_ms((3 if regime == "bf16x3" else 1) * flops, 4.0 * (U * H + H * T + U),
-                             PEAK_BF16_TENSOR_FLOPS)
+        # fp32 FMA at 'highest'; bf16 products ('default' and 'bf16' run one
+        # tensor-core kernel); bf16x3 three products per term
+        work = kernel_work("K13", u=U, h=H, t=T, regime=regime)
         library = None
         if regime != "bf16x3":
             # fp32 operands (rounded to bf16 first for default/bf16), TF32
@@ -904,7 +858,7 @@ def mxu_probe_phase(dev):
         entry = entries[f"rowsum_dot[{regime}]"] = kernel_entry(
             f"rowsum_dot[{regime}]", SRC + "probe.cu", "tools/mxu_probe.py:119", err,
             cuda_ms(lambda: probe.rowsum_dot(h, w, regime), 5),
-            cuda_ms(lambda: probe.rowsum_dot_plain(h, w, regime), 2), bound, library)
+            cuda_ms(lambda: probe.rowsum_dot_plain(h, w, regime), 2), work, library)
         log(f"  {flops / entry['ms'] / 1e9:.2f} TF/s (2 U H T over the kernel's time)")
         redesigned(entry)
 
@@ -919,7 +873,8 @@ def mxu_probe_phase(dev):
     entry = entries["hbm_write"] = kernel_entry(
         "hbm_write", SRC + "probe.cu", "tools/mxu_probe.py:157", 0.0,
         cuda_ms(lambda: probe.hbm_write(shape, dev), 10),
-        cuda_ms(lambda: probe.hbm_write_plain(shape, dev), 10), bound_ms(0.0, nbytes),
+        cuda_ms(lambda: probe.hbm_write_plain(shape, dev), 10),
+        kernel_work("K14", nbytes=nbytes),
         cuda_ms(lambda: buf.fill_(1.0), 10))
     log(f"  {nbytes / entry['ms'] / 1e6:.1f} GB/s (writes over the kernel's time)")
     redesigned(entry)
@@ -937,7 +892,8 @@ def mxu_probe_phase(dev):
     entry = entries["hbm_scale_copy"] = kernel_entry(
         "hbm_scale_copy", SRC + "probe.cu", "tools/mxu_probe.py:183", 0.0,
         cuda_ms(lambda: probe.hbm_scale_copy(x), 10),
-        cuda_ms(lambda: probe.hbm_scale_copy_plain(x), 10), bound_ms(0.0, 2 * nbytes),
+        cuda_ms(lambda: probe.hbm_scale_copy_plain(x), 10),
+        kernel_work("K15", nbytes=nbytes),
         cuda_ms(lambda: torch.mul(x, 2.0, out=y), 10))
     log(f"  {2 * nbytes / entry['ms'] / 1e6:.1f} GB/s (read + write over the kernel's time)")
     redesigned(entry)
@@ -1035,9 +991,6 @@ def hidden_stack_phase(hidden, x, layers, gen, tag, exact=False) -> dict:
     CUDA-core bound (the route before the redesign) as ``bound_fp32_ms``."""
     u_c = x.shape[0]
     widths = [x.shape[1]] + [w.shape[1] for w, _ in layers]
-    n_params = sum(w.numel() + b.numel() for w, b in layers)
-    mac_row = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
-    da_mac = sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
     gh = torch.randn(u_c, widths[-1], device=x.device, generator=gen) * 1e-3
     out, notes = {}, {}
     if exact:
@@ -1067,11 +1020,10 @@ def hidden_stack_phase(hidden, x, layers, gen, tag, exact=False) -> dict:
     del h_k, h_p
     ms = cuda_ms(lambda: hidden.hidden_stack_fwd(x, layers), 20)
     plain = cuda_ms(lambda: hidden.hidden_stack_fwd_plain(x, layers, "highest"), 20)
-    flops, nbytes = 2.0 * u_c * mac_row, 4.0 * (u_c * widths[0] + u_c * widths[-1] + n_params)
+    work = kernel_work("K3a", u=u_c, widths=widths)
     out["hidden_stack_fwd" + tag] = kernel_entry(
         "hidden_stack_fwd" + tag, SRC + "hidden.cu", JAX_SRC + "hidden.py:126", err, ms, plain,
-        bound_ms(3 * flops, nbytes, PEAK_TF32_TENSOR_FLOPS))
-    out["hidden_stack_fwd" + tag]["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
+        work)
 
     log(f"K3b hidden_stack backward{tag}, widths {widths}, full U_c:")
     g_k = hidden.hidden_stack_bwd(x, layers, gh)
@@ -1098,12 +1050,10 @@ def hidden_stack_phase(hidden, x, layers, gen, tag, exact=False) -> dict:
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: hidden.hidden_stack_bwd(x, layers, gh), 10)
     plain = cuda_ms(lambda: hidden.hidden_stack_bwd_plain(x, layers, gh, "highest"), 10)
-    flops = 2.0 * u_c * (2 * mac_row + da_mac)
-    nbytes = 4.0 * (u_c * widths[0] + u_c * widths[-1] + 2 * n_params)
+    work = kernel_work("K3b", u=u_c, widths=widths)
     out["hidden_stack_bwd" + tag] = kernel_entry(
         "hidden_stack_bwd" + tag, SRC + "hidden.cu", JAX_SRC + "hidden.py:161", err, ms, plain,
-        bound_ms(3 * flops, nbytes, PEAK_TF32_TENSOR_FLOPS))
-    out["hidden_stack_bwd" + tag]["bound_fp32_ms"] = bound_ms(flops, nbytes)[0]
+        work)
     if exact:
         out["hidden_stack_bwd" + tag]["relu_check"] = notes
     return out
@@ -1117,9 +1067,7 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     256]). K1, K2 and K4-K7 run their own passes on the tensor cores (the
     contraction over H in two 128-deep chunks), K1, K2, K4-K6 beside their
     times before (the CUDA-core wide passes); K1's and K4's fix-up rows
-    printed. Bounds as at H = 128: the products of fp32 'highest' as 3xTF32
-    at the TF32 peak (the fp32 bound of the forward beside it as
-    ``bound_fp32_ms``); K8's fp32 head at the fp32 peak, as at H = 128."""
+    printed. Bounds from ``roofline.kernel_work``, as at H = 128."""
     hd, l, k = WIDE_HIDDEN[-1], 4, 4
     f32 = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=gen) * scale
     h = torch.rand(u, hd, device=dev, generator=gen) * 0.1
@@ -1128,12 +1076,9 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     g_marg, g_vals = f32(l, t), f32(u, k)
     out = {}
 
-    def entry(name, src, fn, plain_fn, reps, flops, nbytes, peak, err, bound=None, fp32=None):
-        ms, plain = cuda_ms(fn, reps), cuda_ms(plain_fn, reps)
+    def entry(name, src, fn, plain_fn, reps, err, work):
         out[name + WIDE_H] = kernel_entry(name + WIDE_H, SRC + src, JAX_SRC + REPLACES[name], err,
-                                          ms, plain, bound or bound_ms(flops, nbytes, peak))
-        if fp32 is not None:
-            out[name + WIDE_H]["bound_fp32_ms"] = fp32
+                                          cuda_ms(fn, reps), cuda_ms(plain_fn, reps), work)
 
     log(f"K1/K2 and K4-K7 at H={hd}, U={u}, T={t}, L={l}, K={k} (two 128-deep chunks):")
     fwd_k = hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k)
@@ -1144,14 +1089,11 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     err = max(compare(n, a, r, FWD_TOL) for n, a, r in zip(("marg", "vals", "m", "s"),
               (fwd_k[0], fwd_k[1], *fwd_k[3:]), (fwd_p[0], fwd_p[1], *fwd_p[3:])))
     bitwise_same("K1 outputs", fwd_k, hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k))
-    fb = 4.0 * (u * hd + hd * t + t + l * u + l * t + 2 * u * k + 2 * u)
-    # bounds as at H = 128: the products as 3xTF32 (the card's rate for an
-    # fp32-exact product), the fp32 CUDA-core bound (the wide passes' unit) beside
+    shapes = dict(u=u, h=hd, t=t, l=l, k=k)
     entry("hpd_stream_fused_fwd", "hpd_stream.cu",
           lambda: hpd_stream.hpd_stream_fused_fwd(h, w, b, counts, k),
           lambda: hpd_stream.hpd_stream_fused_fwd_plain(h, w, b, counts, k, "highest"), 3,
-          None, fb, None, err, tf32x3_bound(2.0 * u * hd * t, fb, 2.0 * l * u * t, counts),
-          bound_ms(2.0 * u * hd * t + 2.0 * l * u * t, fb)[0])
+          err, kernel_work("K1", counts=counts, **shapes))
     sel_k = hpd_stream.hpd_stream_select(h, w, b, k)
     fixup_rows(hpd_stream.hpd_stream_select, "K4")
     if not torch.equal(sel_k[1], fwd_p[2]):
@@ -1159,23 +1101,19 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     err = max(compare(n, a, r, FWD_TOL) for n, a, r in zip(("vals", "m", "s"),
               (sel_k[0], *sel_k[2:]), (fwd_p[1], *fwd_p[3:])))
     bitwise_same("K4 outputs", sel_k, hpd_stream.hpd_stream_select(h, w, b, k))
-    sb = 4.0 * (u * hd + hd * t + t + 2 * u * k + 2 * u)
     entry("hpd_stream_select", "hpd_stream.cu", lambda: hpd_stream.hpd_stream_select(h, w, b, k),
           lambda: hpd_stream.hpd_stream_select_plain(h, w, b, k, "highest"), 3,
-          None, sb, None, err, tf32x3_bound(2.0 * u * hd * t, sb), bound_ms(2.0 * u * hd * t, sb)[0])
+          err, kernel_work("K4", **shapes))
     _, vals, idx, m, s = fwd_p
     marg_k = hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)
     err = compare("marg", marg_k, fwd_p[0], FWD_TOL)
     bitwise_same("K5 marg", [marg_k], [hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s)])
-    mb = 4.0 * (u * hd + hd * t + t + l * u + 2 * u + l * t)
     entry("hpd_stream_marginal", "hpd_stream.cu",
           lambda: hpd_stream.hpd_stream_marginal(h, w, b, counts, m, s),
           lambda: hpd_stream.hpd_stream_marginal_plain(h, w, b, counts, m, s, "highest"), 3,
-          None, mb, None, err, tf32x3_bound(2.0 * u * hd * t, mb, 2.0 * l * u * t, counts),
-          bound_ms(2.0 * u * hd * t + 2.0 * l * u * t, mb)[0])
+          err, kernel_work("K5", counts=counts, **shapes))
     for name in ("hpd_stream_fused_fwd", "hpd_stream_select", "hpd_stream_marginal"):
         redesigned(out[name + WIDE_H])
-    pb = 4.0 * (u * hd + hd * t + t + 2 * u)
     for variant, tol in (("dots", DOTS_TOL), ("softmax", FWD_TOL)):
         got = hpd_stream.hpd_stream_fused_probe(h, w, b, "highest", variant)
         ref = hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant)
@@ -1186,8 +1124,7 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
                      cuda_ms(lambda: hpd_stream.hpd_stream_fused_probe_plain(h, w, b, "highest", variant), 3))
         out[name + WIDE_H] = kernel_entry(name + WIDE_H, SRC + "hpd_stream.cu",
                                           JAX_SRC + REPLACES["hpd_stream_fused_probe"], err, ms, plain,
-                                          tf32x3_bound(2.0 * u * hd * t, pb))
-        out[name + WIDE_H]["bound_fp32_ms"] = bound_ms(2.0 * u * hd * t, pb)[0]
+                                          kernel_work("K7", u=u, h=hd, t=t))
     # K7's path: the sweep ladder (tools/sweep_probe.py), its counts set to 0 just before
     from collision_handling_in_instantngp_tpu_torch.tools import sweep_probe
 
@@ -1207,7 +1144,7 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
         bitwise_same(f"{name} dh/dw/db", got, fn(*bargs))
         entry(name, "hpd_stream.cu", lambda: fn(*bargs),
               lambda: hpd_stream.hpd_stream_fused_bwd_plain(*bargs, "highest", False), 2,
-              None, None, None, err, tail_bwd_bound(u, hd, t, l, k))
+              err, kernel_work("K2", **shapes))
         redesigned(out[name + WIDE_H])
     del fwd_k, fwd_p, sel_k, bwd_p, got
 
@@ -1221,13 +1158,10 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
         raise AssertionError("K10 at H = 256: top-K indices differ from the plain version")
     err = max(compare(f"K10 {n_}", a, r, FWD_TOL) for n_, a, r in zip(("marg", "vals"), full_k, full_p))
     bitwise_same("K10 outputs", full_k, hpd_full.hpd_full_fwd(verts, layers, k))
-    widths = [2, *WIDE_HIDDEN, tr]
-    macs = sum(a * c for a, c in zip(widths[:-1], widths[1:]))
-    head = hd * tr
-    rows = lr * n
+    row_shapes = dict(rows=lr * n, l=lr, k=k)
+    net = dict(widths=[2, *WIDE_HIDDEN, tr], **row_shapes)
     entry("hpd_full_fwd", "hpd_full.cu", lambda: hpd_full.hpd_full_fwd(verts, layers, k),
-          lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3,
-          2.0 * rows * (3 * head + macs - head), 4.0 * rows * (2 + 2 * k), PEAK_TF32_TENSOR_FLOPS, err)
+          lambda: hpd_full.hpd_full_fwd_plain(verts, layers, k), 3, err, kernel_work("K10", **net))
     gm, gv = f32(lr, tr), f32(lr, n, k)
     fb_k = hpd_full.hpd_full_bwd(verts, layers, full_p[2], gm, gv, k)
     fb_p = hpd_full.hpd_full_bwd_plain(verts, layers, full_p[2], gm, gv, k)
@@ -1238,8 +1172,7 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
     entry("hpd_full_bwd", "hpd_full.cu",
           lambda: hpd_full.hpd_full_bwd(verts, layers, full_p[2], gm, gv, k),
           lambda: hpd_full.hpd_full_bwd_plain(verts, layers, full_p[2], gm, gv, k), 2,
-          2.0 * rows * (9 * head + 3 * (macs - head)), 4.0 * rows * (2 + 2 * k), PEAK_TF32_TENSOR_FLOPS,
-          err)
+          err, kernel_work("K11", **net))
     ht = torch.relu(torch.randn(lr, n, hd, device=dev, generator=gen))
     wt, bt = seeded_layers([hd, tr], dev)[0]
     tf_k = hpd_tail.hpd_tail_fwd(ht, wt, bt, k)
@@ -1248,18 +1181,17 @@ def wide_tail_phase(hpd_stream, hpd_tail, hpd_full, dev, gen, u=20_000, t=4096, 
         raise AssertionError("K8 at H = 256: top-K indices differ from the plain version")
     err = max(compare(f"K8 {n_}", a, r, FWD_TOL) for n_, a, r in zip(("marg", "vals"), tf_k, tf_p))
     bitwise_same("K8 outputs", tf_k, hpd_tail.hpd_tail_fwd(ht, wt, bt, k))
-    tb = 4.0 * (rows * hd + head + tr + lr * tr + 2 * rows * k)
     entry("hpd_tail_fwd", "hpd_tail.cu", lambda: hpd_tail.hpd_tail_fwd(ht, wt, bt, k),
-          lambda: hpd_tail.hpd_tail_fwd_plain(ht, wt, bt, k), 3, 2.0 * rows * head, tb,
-          PEAK_FP32_FLOPS, err)
+          lambda: hpd_tail.hpd_tail_fwd_plain(ht, wt, bt, k), 3, err,
+          kernel_work("K8", h=hd, t=tr, **row_shapes))
     targs = (ht, wt, bt, tf_p[2], gm, gv, k)
     tb_k = hpd_tail.hpd_tail_bwd(*targs)
     err = max(compare(f"K9 {n_}", a, r, GRAD_TOL)
               for n_, a, r in zip(("dh", "dw", "db"), tb_k, hpd_tail.hpd_tail_bwd_plain(*targs)))
     bitwise_same("K9 dh/dw/db", tb_k, hpd_tail.hpd_tail_bwd(*targs))
     entry("hpd_tail_bwd", "hpd_tail.cu", lambda: hpd_tail.hpd_tail_bwd(*targs),
-          lambda: hpd_tail.hpd_tail_bwd_plain(*targs), 2, 3 * 6.0 * rows * head,
-          tb + 4.0 * (rows * hd + head), PEAK_TF32_TENSOR_FLOPS, err)
+          lambda: hpd_tail.hpd_tail_bwd_plain(*targs), 2, err,
+          kernel_work("K9", h=hd, t=tr, **row_shapes))
     return out
 
 
@@ -2031,17 +1963,11 @@ def grid_render_phase(data, dev) -> tuple:
     ms = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd(h, w_head, b_head, counts, k), 5)
     plain = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd_plain(
         h, w_head, b_head, counts, k, "highest"), 2)
-    flops = 2.0 * u * H * T
-    nbytes = 4.0 * (u * H + H * T + T + u + T + 2 * u * k + 2 * u)
-    b_ms, b_by = tf32x3_bound(flops, nbytes, 2.0 * u * T, counts)
-    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-    entry = dict(
-        name="hpd_stream_fused_fwd[render]", route="cuda",
-        source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
-        replaces="collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:570",
-        launches=render_launches["hpd_stream_fused_fwd"], max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        bound_fp32_ms=bound_ms(flops + 2.0 * u * T, nbytes)[0], fixup_rows=fix, rows=u)
+    entry = kernel_entry("hpd_stream_fused_fwd[render]", SRC + "hpd_stream.cu",
+                         JAX_SRC + "hpd_stream.py:570", err, ms, plain,
+                         kernel_work("K1", u=u, h=H, t=T, l=1, k=k, counts=counts))
+    entry.update(route="cuda", launches=render_launches["hpd_stream_fused_fwd"], fixup_rows=fix,
+                 rows=u)
     del h, out_k, params
 
     cli_dir = os.path.join(root, "cli")
@@ -2769,13 +2695,13 @@ def parallel_phase(data, data_raw, dev) -> tuple:
         "world of one")
     checks, n = range_check
     c = max(checks, key=lambda c: c["ms"])
-    nbytes = 4.0 * (c["rows_in_range"] * c["columns"] + c["rows"] * 2
-                    + (c["slot_range"][1] - c["slot_range"][0]) * c["columns"])
-    b_ms, b_by = bound_ms(0.0, nbytes)
-    entry = dict(name="scatter_add_serial[range]", route="cuda", source=SRC + "scatter.cu",
-                 replaces="collision_handling_in_instantngp_tpu/ops/pallas/scatter_probe.py:42",
-                 launches=n, max_abs_err=max(x["max_abs_err"] for x in checks), ms=c["ms"],
-                 plain_ms=c["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the rows in range read and added, every id read, the range's slots written
+    work = kernel_work("K12", n=c["rows_in_range"], c=c["columns"],
+                       t=c["slot_range"][1] - c["slot_range"][0], ids=c["rows"])
+    entry = kernel_entry("scatter_add_serial[range]", SRC + "scatter.cu",
+                         JAX_SRC + "scatter_probe.py:42", max(x["max_abs_err"] for x in checks),
+                         c["ms"], c["plain_ms"], work)
+    entry.update(route="cuda", launches=n)
     return entry, out
 
 
@@ -2915,6 +2841,89 @@ def probe_sass(build) -> dict:
     return counts
 
 
+# the kernels each mode's epoch launches (step 21): at 'gngf' the HPD and
+# the decoder run in cuBLAS and K12 takes both table gradients
+TOOL_PATHS = {"gngf": ("scatter_add_serial",),
+              "scaled": ("hidden_stack_fwd", "hidden_stack_bwd", "hpd_stream_fused_fwd",
+                         "hpd_stream_fused_bwd", "scatter_add_serial")}
+
+
+def measurement_tools_phase() -> tuple:
+    """Step 21: the epoch roofline at 'gngf' and 'scaled' (nominal peaks,
+    epochs timed at span 10), each run with every kernel's launch count set
+    to 0 just before and read just after; fails unless each kernel of the
+    mode's path (TOOL_PATHS) launched and the fraction is in (0, 1]. The
+    'gngf' run keeps the inputs of its first two K12 calls (batch 0's table
+    gradients, ``gather_rows``' then the blend's, taken from
+    ``models/encoding.py``'s wrapper), on which K12 is then held bitwise
+    against its plain version and timed (``scatter_phase``). Then the kernel
+    timer at the JAX tool's shapes, which holds each kernel against its
+    plain version before timing it. Returns (kernel entries, results)."""
+    from collision_handling_in_instantngp_tpu_torch.models import encoding
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
+        hidden, hpd_full, hpd_stream, hpd_tail, scatter,
+    )
+    from collision_handling_in_instantngp_tpu_torch.tools import roofline, time_kernels
+
+    wrappers = {fn.__name__: fn for fn in (
+        hidden.hidden_stack_fwd, hidden.hidden_stack_bwd, hpd_stream.hpd_stream_fused_fwd,
+        hpd_stream.hpd_stream_fused_bwd, hpd_stream.hpd_stream_select, hpd_stream.hpd_stream_marginal,
+        hpd_stream.hpd_tail_unique_bwd, hpd_stream.hpd_stream_fused_probe, hpd_tail.hpd_tail_fwd,
+        hpd_tail.hpd_tail_bwd, hpd_full.hpd_full_fwd, hpd_full.hpd_full_bwd,
+        scatter.scatter_add_serial)}
+    original, captured = encoding.scatter_add_serial, []
+
+    def recording(rows, ids, t, **kw):
+        captured.append((rows.clone(), ids.clone(), t))
+        if len(captured) == 2:
+            encoding.scatter_add_serial = original
+        return original(rows, ids, t, **kw)
+
+    out, entries = {}, {}
+    for mode in ("gngf", "scaled"):
+        log(f"step 21: roofline --mode {mode} --measure --span 10 --epochs 30:")
+        zero_counts(wrappers.values())
+        if mode == "gngf":
+            encoding.scatter_add_serial = recording
+        try:
+            r = roofline.main(["--mode", mode, "--measure", "--span", "10", "--epochs", "30"])
+        finally:
+            encoding.scatter_add_serial = original
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches.update({f"{name}[{v}]": n for name, fn in wrappers.items()
+                         for v, n in getattr(fn, "variant_launches", {}).items()})
+        r["launches"] = launches
+        frac = r.get("fraction_of_roofline")
+        log(f"  bound {r['sol_epoch_ms']:.3f} ms an epoch ({r['sol_bound']}), measured "
+            f"{r['measured_epoch_ms']:.3f} ms ({r['measured_pixels_per_s']:.0f} px/s): "
+            f"fraction {frac}; launches {({n: c for n, c in launches.items() if c})}")
+        missing = [name for name in TOOL_PATHS[mode] if launches[name] == 0]
+        if missing:
+            raise AssertionError(f"roofline {mode}: {missing} never launched in its epochs")
+        if frac is None or not 0.0 < frac <= 1.0:
+            raise AssertionError(f"roofline {mode}: fraction_of_roofline {frac} outside (0, 1]")
+        out[mode] = r
+
+    t_blend = roofline.experiment("gngf").model.hash_table_size
+    if len(captured) != 2:
+        raise AssertionError(f"roofline gngf: {len(captured)} K12 calls kept, expected 2")
+    for rows, flat, t in captured:
+        what = "blend" if t == t_blend else "gather_rows"
+        variant = VARIANT_OF[scatter.narrow_path(rows.shape[0], rows.shape[1], t)]
+        log(f"step 21: K12 scatter_add_serial [{variant}] on the gngf run's batch-0 {what} "
+            "table gradient:")
+        entry = scatter_phase(variant, rows, flat, t)
+        name = entry["name"] = f"scatter_add_serial[gngf {what}]"
+        entry.update(route="cuda", launches=out["gngf"]["launches"][f"scatter_add_serial[{variant}]"],
+                     variant=variant)
+        entries[name] = entry
+    del captured
+    log("step 21: time_kernels at the JAX tool's shapes, each kernel held against its plain version:")
+    out["time_kernels"] = time_kernels.main(["--reps", "4"])
+    torch.cuda.empty_cache()
+    return entries, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3009,16 +3018,10 @@ def main() -> int:
     ms = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd(h_full, w_head, b_head, counts_full, k), 5)
     plain = cuda_ms(lambda: hpd_stream.hpd_stream_fused_fwd_plain(
         h_full, w_head, b_head, counts_full, k, "highest"), 2)
-    flops = 2.0 * u_c * H * T
-    nbytes = 4.0 * (u_c * H + H * T + T + L * u_c + L * T + 2 * u_c * k + 2 * u_c)
-    b_ms, b_by = tf32x3_bound(flops, nbytes, 2.0 * L * u_c * T, counts_full)
-    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-    entries["hpd_stream_fused_fwd"] = dict(
-        name="hpd_stream_fused_fwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
-        replaces="collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:570",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        bound_fp32_ms=bound_ms(flops + 2.0 * L * u_c * T, nbytes)[0], fixup_rows=fix,
-    )
+    entries["hpd_stream_fused_fwd"] = kernel_entry(
+        "hpd_stream_fused_fwd", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:570", err, ms,
+        plain, kernel_work("K1", u=u_c, h=H, t=T, l=L, k=k, counts=counts_full))
+    entries["hpd_stream_fused_fwd"]["fixup_rows"] = fix
     redesigned(entries["hpd_stream_fused_fwd"])
 
     log("K2 hpd_stream_fused_bwd, full U_c of real h:")
@@ -3037,14 +3040,9 @@ def main() -> int:
         del res_k, res_p
     ms = cuda_ms(lambda: hpd_stream.hpd_stream_fused_bwd(*args), 3)
     plain = cuda_ms(lambda: hpd_stream.hpd_stream_fused_bwd_plain(*args, "highest", False), 2)
-    b_ms, b_by = tail_bwd_bound(u_c, H, T, L, k)
-    log(f"  kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-    entries["hpd_stream_fused_bwd"] = dict(
-        name="hpd_stream_fused_bwd", source="collision_handling_in_instantngp_tpu_torch/ops/cuda/hpd_stream.cu",
-        replaces="collision_handling_in_instantngp_tpu/ops/pallas/hpd_stream.py:722",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        bound_fp32_ms=tail_bwd_bound(u_c, H, T, L, k, False)[0],
-    )
+    entries["hpd_stream_fused_bwd"] = kernel_entry(
+        "hpd_stream_fused_bwd", SRC + "hpd_stream.cu", JAX_SRC + "hpd_stream.py:722", max(errs),
+        ms, plain, kernel_work("K2", u=u_c, h=H, t=T, l=L, k=k))
     redesigned(entries["hpd_stream_fused_bwd"])
     entries["scatter_add_serial[narrow]"] = gather_scatter_phase(geom, mcfg.feature_dim, dev, gen)
 
@@ -3278,6 +3276,11 @@ def main() -> int:
     entries["scatter_add_serial[range]"], parallel = parallel_phase(data, data_raw, dev)
     watermark(marks, "parallel (step 20)", dev)
 
+    # ------------- the roofline and the kernel timer (step 21) ------------- #
+    tool_entries, tools = measurement_tools_phase()
+    entries.update(tool_entries)
+    watermark(marks, "measurement tools (step 21)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -3288,7 +3291,7 @@ def main() -> int:
                        wide_fit=wide_fit, wide_heads=wide_heads, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
                        vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render,
-                       spans=spans, parallel=parallel),
+                       spans=spans, parallel=parallel, measurement_tools=tools),
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -24,8 +24,8 @@ and K6 at each shape it records: the ms of a call (CUDA events), each
 launch's device ms from the profiler (the split by launch: for the older
 CUDA-core wide passes, G, dh and dW), the normwise error of dh, dw and db
 against the plain version, the outputs' sha256 (equal digests, equal bits),
-and the plain version's ms and the bound (3xTF32 at the TF32 peak, or the
-bytes); and the ms and output sha256 of the forward passes built from the
+and the plain version's ms and the bound (``roofline.kernel_work``: 3xTF32
+at the TF32 peak, or the bytes); and the ms and output sha256 of the forward passes built from the
 same source (K1, K4, K5 on the plain version's m and s, K7's two
 variants) on the same inputs, beside their plain versions' ms. Where the checkout's ``hpd_stream.cu`` has the phase marks, the run
 also builds it with ``-DHPD_STREAM_PHASES`` (into ``<out>/<label>/``, beside
@@ -70,16 +70,6 @@ PHASES = {"PH_WAIT": "wait", "PH_RESTAGE": "restage", "PH_LOGITS": "logits", "PH
 AB_SHAPES = ("scaled128", "t16_128", "scaled256")
 DIGEST_SHAPES = ("scaled128", "t16_128")
 ARGS = ("h", "w", "b", "counts", "idx", "vals", "m", "s", "g_marg", "g_vals")
-PEAK_TF32_TENSOR_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
-
-
-def bwd_bound_ms(u, t, l, k, hd) -> float:
-    """K2's and K6's bound: 6UHT + 4LUT as 3xTF32 at the TF32 peak, or each
-    input read and each output written once at the HBM rate."""
-    flops = 3 * (6.0 * u * hd * t + 4.0 * l * u * t)
-    nbytes = 4.0 * (2 * u * hd + 2 * hd * t + 2 * t + l * u + 3 * u * k + 2 * u + l * t)
-    return 1e3 * max(flops / PEAK_TF32_TENSOR_FLOPS, nbytes / PEAK_BYTES_PER_S)
 
 
 def make_inputs(path: str, shapes, seed: int) -> None:
@@ -225,7 +215,7 @@ def worker(inputs: str, reps: int, out_dir: str, phases: bool) -> dict:
         args = tuple(entry["tensors"][a].to(dev) for a in ARGS) + (k,)
         want = hpd_stream.hpd_stream_fused_bwd_plain(*args, "highest", False)
         res = out["shapes"][name] = dict(
-            shape=dict(u=u, t=t, l=l, k=k, h=hd), bound_ms=bwd_bound_ms(u, t, l, k, hd),
+            shape=dict(u=u, t=t, l=l, k=k, h=hd),
             plain_ms=profiling.cuda_ms(
                 lambda: hpd_stream.hpd_stream_fused_bwd_plain(*args, "highest", False), 2))
         for kname, fn in wrappers:
@@ -278,7 +268,13 @@ def run_worker(label: str, checkout: str, inputs: str, out_dir: str, reps: int, 
     if proc.returncode != 0:
         raise RuntimeError(f"k2_phases run {label} failed (exit {proc.returncode}); see {label}.log")
     with open(result) as f:
-        return json.load(f)
+        res = json.load(f)
+    # the bound from this checkout's count, whatever package the run imported
+    from .roofline import kernel_work
+
+    for shape in res["shapes"].values():
+        shape["bound_ms"] = kernel_work("K2", **shape["shape"])["bound_ms"]
+    return res
 
 
 def print_runs(card: str, runs: dict) -> None:

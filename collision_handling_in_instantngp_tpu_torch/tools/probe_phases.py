@@ -32,10 +32,8 @@ from ..ops.cuda import probe
 from ..ops.precision import bf16_round
 from ..utils import profiling
 from . import mxu_probe
+from .roofline import kernel_work
 
-# published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores,
-# dense bf16 on the tensor cores, HBM3
-PEAK = {"fp32": 67e12, "bf16": 989e12, "bytes": 3.35e12}
 TOL = {"bf16x3": 1e-4}   # else 1e-5 (normwise; the smoke's limits)
 REPS = 5
 
@@ -99,7 +97,6 @@ def main(argv=None) -> dict:
     u, hd, t = mxu_probe.U, mxu_probe.H, mxu_probe.T
     h, w, _, _ = mxu_probe.make_inputs(u, hd, t, mxu_probe.L, dev)
     flops = 2.0 * u * hd * t
-    nbytes = 4.0 * (u * hd + hd * t + u)
     res = dict(gpu=gpu, shape=[u, hd, t], reps=REPS, rowsum={})
     for regime in probe.REGIMES:
         got = probe.rowsum_dot(h, w, regime)
@@ -109,9 +106,7 @@ def main(argv=None) -> dict:
         del got, ref
         ms = profiling.cuda_ms(lambda: probe.rowsum_dot(h, w, regime), REPS)
         parts = kernel_ms(lambda: probe.rowsum_dot(h, w, regime), REPS)
-        work = (3 if regime == "bf16x3" else 1) * flops
-        peak = PEAK["fp32"] if regime == "highest" else PEAK["bf16"]
-        bound = 1e3 * max(work / peak, nbytes / PEAK["bytes"])
+        bound = kernel_work("K13", u=u, h=hd, t=t, regime=regime)["bound_ms"]
         row = dict(ms=ms, kernels=parts, normwise_err=err, bitwise_stable=same,
                    tflops=flops / ms / 1e9, bound_ms=bound, share_of_bound=bound / ms)
         if regime != "bf16x3":
@@ -140,13 +135,14 @@ def main(argv=None) -> dict:
     y = torch.empty_like(x)
     copy_ok = torch.equal(probe.hbm_scale_copy(x), x * 2)
     ones_ok = torch.equal(probe.hbm_write(shape, dev), torch.ones(shape, device=dev))
-    for name, fn, lib_fn, moved, ok in (
-            ("hbm_write", lambda: probe.hbm_write(shape, dev), lambda: y.fill_(1.0), mem, ones_ok),
-            ("hbm_scale_copy", lambda: probe.hbm_scale_copy(x), lambda: torch.mul(x, 2.0, out=y),
-             2 * mem, copy_ok)):
+    for name, kernel, fn, lib_fn, moved, ok in (
+            ("hbm_write", "K14", lambda: probe.hbm_write(shape, dev), lambda: y.fill_(1.0), mem,
+             ones_ok),
+            ("hbm_scale_copy", "K15", lambda: probe.hbm_scale_copy(x),
+             lambda: torch.mul(x, 2.0, out=y), 2 * mem, copy_ok)):
         ms = profiling.cuda_ms(fn, 10)
         lib_ms = profiling.cuda_ms(lib_fn, 10)
-        bound = 1e3 * moved / PEAK["bytes"]
+        bound = kernel_work(kernel, nbytes=mem)["bound_ms"]
         res[name] = dict(ms=ms, gbps=moved / ms / 1e6, bound_ms=bound, library_ms=lib_ms, exact=ok)
         print(f"{name:15s} {ms:9.3f} ms  {moved / ms / 1e6:7.1f} GB/s  bound {bound:.3f} ms "
               f"({bound / ms:.1%})  library {lib_ms:.3f} ms  {'exact' if ok else 'FAIL'}", flush=True)

@@ -243,7 +243,12 @@ def build_epoch_batches(
     model_cfg: ModelConfig,
     statics: gngf.GNGFStatics,
     device,
+    compact_dedup: bool = True,
 ) -> EpochBatches:
+    """The epoch's fixed minibatches on ``device``, with the dedup
+    geometry of each where the dedup route runs. ``compact_dedup=False``
+    keeps the whole shared vertex grid where the compaction would engage
+    (JAX ``build_epoch_batches(compact_dedup=)``)."""
     p = coords.shape[0]
     num_batches = int(np.ceil(1.0 / batch_fraction))
     b = int(np.ceil(p / num_batches))
@@ -269,13 +274,15 @@ def build_epoch_batches(
     )
     if not gngf.use_dedup(model_cfg, statics, b, False):
         return EpochBatches(dedup=[None] * num_batches, **common)
-    return EpochBatches(dedup=_dedup_geometry(x, model_cfg, statics, device), **common)
+    return EpochBatches(dedup=_dedup_geometry(x, model_cfg, statics, device, compact_dedup),
+                        **common)
 
 
 def _dedup_geometry(x: np.ndarray, model_cfg: ModelConfig, statics: gngf.GNGFStatics,
-                    device) -> List[dedup_ops.DedupGeometry]:
+                    device, compact_dedup: bool = True) -> List[dedup_ops.DedupGeometry]:
     """The dedup geometry of every batch of (nb, B, d) rows, on ``device``:
-    compacted to the touched vertices where that shrinks the grid enough."""
+    compacted to the touched vertices where that shrinks the grid enough
+    (and ``compact_dedup``)."""
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype).to(device)
 
@@ -286,7 +293,7 @@ def _dedup_geometry(x: np.ndarray, model_cfg: ModelConfig, statics: gngf.GNGFSta
     u = statics.unique_coords.shape[0]
     u_c = max(int(np.unique(ids).size) for ids, _ in geoms)
     u_c_pad = -(-u_c // COMPACT_ALIGN) * COMPACT_ALIGN
-    compact = u_c_pad < COMPACT_MAX_SHARE * u and model_cfg.input_dim == 2
+    compact = compact_dedup and u_c_pad < COMPACT_MAX_SHARE * u and model_cfg.input_dim == 2
 
     dedup = []
     for ids, counts in geoms:

@@ -111,6 +111,7 @@ def fit(
     collect_history: bool = True,
     progress: bool = False,
     epoch_span: int = 1,
+    compact_dedup: bool = True,
 ) -> FitResult:
     """Train one configuration. ``params``: initial weights (default: fresh
     ones from ``exp.train.seed``), moved to ``device``; the caller's copy is
@@ -124,6 +125,10 @@ def fit(
     with the PSNR where tqdm is installed (nothing where it is not);
     ``collect_history=False`` leaves ``history`` empty and changes nothing
     else.
+
+    ``compact_dedup=False`` trains the dedup route on the whole shared
+    vertex grid where the active-vertex compaction would engage (JAX
+    ``fit(compact_dedup=)``; the same function, other row counts).
 
     ``epoch_span=S > 1`` runs up to S epochs a call with nothing read on the
     host, then evaluates logging, PSNR, the best-PSNR rule, early stopping
@@ -152,7 +157,7 @@ def fit(
     shuffled, _ = make_shuffle_permutations(data.num_pixels, tcfg.seed, tcfg.shuffle_pixels)
     batches = build_epoch_batches(
         data.coords, data.targets, tcfg.batch_fraction, shuffled, data.image,
-        mcfg, statics, dev,
+        mcfg, statics, dev, compact_dedup,
     )
     if params is None:
         params = gngf.init_params(mcfg, tcfg.seed, dev)
