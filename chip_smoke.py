@@ -225,7 +225,25 @@
    the JAX tool's shapes (U = 264,196, H = 128, T = 2^14, L = 16, K = 4,
    and the compacted U = 162,304), which holds each kernel against its
    plain version before timing it, each row's kernel launched;
-22. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+22. the grid study's drivers at the default geometry (T = 2^8, L = 4,
+   the dense HPD on the dedup route: K12 takes both table gradients), in
+   a scratch directory (removed): ``tools/run_grid_demo.py`` on 4 ids from
+   4048 (K = 32, 128, 1, 4) for 20 epochs over 2 shards, at ``ensemble`` 1
+   and 2 (the rows must be bitwise equal apart from ``run_dir``; its
+   configs/hour printed); ``tools/grid_leaderboard.py`` on the committed
+   screening manifest (115 winners, 34 distinct); ``tools/rerank_top.py``,
+   whose pick at 20 must be the committed rerank's ids, on its first 2
+   winners and 4061 for 20 epochs; ``tools/seed_panel.py`` on (3761, 4061)
+   x (7, 42) for 20 epochs, each member's row equal to a solo ``fit``;
+   ``tools/usage_stats.py --flagship`` on 4061's seed-7 checkpoint;
+   ``tools/run_macaws.py`` for 10 epochs. Every kernel's count is set to 0
+   before each tool and read after it (K12 must launch in each training
+   tool; the others launched are printed), and every fit's loss must be
+   finite and fall. K12 is held bitwise to its plain version on the
+   blend's batch-0 table gradient of the rerank's K = 20 id and the
+   screening's K = 32 id (23,120 and 36,992 rows of C = 8 on 256 slots,
+   kept from those runs), timed beside ``index_add_``: two entries;
+23. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -2924,6 +2942,255 @@ def measurement_tools_phase() -> tuple:
     return entries, out
 
 
+class LossTap:
+    """A metric logger around another: keeps each epoch's ``train_loss``
+    (step 22's check that every fit's loss is finite and falls)."""
+
+    def __init__(self, inner):
+        self.inner, self.losses = inner, []
+        self.stores_media = getattr(inner, "stores_media", False)
+
+    def log(self, metrics, step=None):
+        self.losses.append(float(metrics["train_loss"]))
+        self.inner.log(metrics, step=step)
+
+    def finish(self):
+        self.inner.finish()
+
+
+def checked_fits(trainer, run_macaws, seed_panel):
+    """Wrap ``trainer.fit`` and ``trainer.fit_ensemble`` (and the names the
+    study tools imported them under) so that every fit logs through a
+    ``LossTap``, fails unless its loss is finite and falls, and records
+    (grid id, K, epochs, host seconds). Returns (the records, a function that
+    restores the originals)."""
+    from collision_handling_in_instantngp_tpu_torch.utils.logging import NullLogger
+
+    real_fit, real_ens = trainer.fit, trainer.fit_ensemble
+    fits = []
+
+    def check(exp, tap, res, seconds):
+        losses = tap.losses
+        # epoch 0 carries no collision term (no previous epoch)
+        if len(losses) < 3 or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[1]:
+            raise AssertionError(f"grid {exp.grid_id}: loss not finite and falling: {losses}")
+        fits.append(dict(grid_id=exp.grid_id, k=exp.model.topk_k, epochs=res.epochs_run,
+                         seconds=seconds, loss_epoch1=losses[1], last_loss=losses[-1]))
+
+    def fit(exp, data, **kw):
+        tap = kw["logger"] = LossTap(kw.get("logger") or NullLogger())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_fit(exp, data, **kw)
+        torch.cuda.synchronize()
+        check(exp, tap, res, time.perf_counter() - t0)
+        return res
+
+    def fit_ensemble(exps, data, **kw):
+        taps = kw["loggers"] = [LossTap(lg) for lg in (kw.get("loggers") or
+                                                     [NullLogger() for _ in exps])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_ens(exps, data, **kw)
+        torch.cuda.synchronize()
+        for exp, tap, r in zip(exps, taps, res):
+            check(exp, tap, r, (time.perf_counter() - t0) / len(exps))
+        return res
+
+    patched = [(trainer, "fit", fit), (trainer, "fit_ensemble", fit_ensemble),
+               (run_macaws, "fit", fit), (seed_panel, "fit_ensemble", fit_ensemble)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, fn in patched:
+        setattr(mod, name, fn)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return fits, restore
+
+
+def study_tools_phase(dev) -> tuple:
+    """Step 22: the grid study's drivers (``tools/run_grid_demo``,
+    ``grid_leaderboard``, ``rerank_top``, ``seed_panel``, ``usage_stats``,
+    ``run_macaws``) on the card at the default geometry (T = 2^8, L = 4,
+    n = 8..32, the dense HPD on the dedup route, K12 both table gradients),
+    in a scratch directory (removed). Before each tool every kernel's count
+    is set to 0, and read after it: it fails unless K12 launched in each
+    training tool, and prints which other kernels did. Every fit's loss must be
+    finite and fall (``checked_fits``). The screening driver on 4 ids from
+    4048 (K = 32, 128, 1, 4) for 20 epochs over 2 shards, one by one and
+    with ``ensemble`` 2: the rows equal apart from ``run_dir``, bitwise. The
+    leaderboard of the committed screening manifest: 115 winners, 34
+    distinct; the rerank's pick at 20 the committed rerank's ids, then its
+    first 2 winners and 4061 for 20 epochs. The seed panel of (3761, 4061)
+    x (7, 42) for 20 epochs, each member's row equal to a solo ``fit``.
+    ``usage_stats --flagship`` on 4061's seed-7 checkpoint; the macaws for 10
+    epochs. K12 held bitwise to its plain version on the blend's table
+    gradient of batch 0 of the first K = 20 id (the rerank's) and of the
+    K = 32 id (the screening's), kept from those runs, and timed beside
+    ``index_add_``. Returns (kernel entries, results)."""
+    import gzip
+    import shutil
+    import tempfile
+
+    from collision_handling_in_instantngp_tpu_torch.config import experiment_from_grid_id
+    from collision_handling_in_instantngp_tpu_torch.data import load_image_dataset
+    from collision_handling_in_instantngp_tpu_torch.models import encoding, gngf
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import (
+        hidden, hpd_full, hpd_stream, hpd_tail, scatter,
+    )
+    from collision_handling_in_instantngp_tpu_torch.tools import (
+        grid_leaderboard, rerank_top, run_grid_demo, run_macaws, seed_panel, usage_stats,
+    )
+    from collision_handling_in_instantngp_tpu_torch.train import trainer
+
+    wrappers = {fn.__name__: fn for fn in (
+        hidden.hidden_stack_fwd, hidden.hidden_stack_bwd, hpd_stream.hpd_stream_fused_fwd,
+        hpd_stream.hpd_stream_fused_bwd, hpd_stream.hpd_stream_select, hpd_stream.hpd_stream_marginal,
+        hpd_stream.hpd_tail_unique_bwd, hpd_stream.hpd_stream_fused_probe, hpd_tail.hpd_tail_fwd,
+        hpd_tail.hpd_tail_bwd, hpd_full.hpd_full_fwd, hpd_full.hpd_full_bwd,
+        scatter.scatter_add_serial)}
+    mcfg = experiment_from_grid_id(4061).model
+    t_blend, u = mcfg.hash_table_size, gngf.make_statics(mcfg).unique_coords.shape[0]
+    blend_rows = {u * k: k for k in (20, 32)}          # the blend's rows (U * K) at K = 20, 32
+    original, captured = encoding.scatter_add_serial, {}
+
+    def recording(rows, ids, t, **kw):
+        k = blend_rows.get(rows.shape[0]) if t == t_blend else None
+        if k is not None and k not in captured:
+            captured[k] = (rows.clone(), ids.clone(), t)
+        return original(rows, ids, t, **kw)
+
+    def counted(what, call, trains=True):
+        zero_counts(wrappers.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches.update({f"scatter_add_serial[{v}]": n
+                         for v, n in scatter.scatter_add_serial.variant_launches.items()})
+        others = {n: c for n, c in launches.items() if c and not n.startswith("scatter_add_serial")}
+        log(f"  {what}: {seconds:.1f} s; K12 launched {launches['scatter_add_serial']} times "
+            f"(ring {launches['scatter_add_serial[ring]']}, narrow "
+            f"{launches['scatter_add_serial[narrow]']}); other kernels launched: {others or 'none'}")
+        if trains and not launches["scatter_add_serial"]:
+            raise AssertionError(f"{what}: K12 never launched")
+        return result, dict(launches=launches, seconds=seconds)
+
+    fits, restore = checked_fits(trainer, run_macaws, seed_panel)
+    home, scratch = os.getcwd(), tempfile.mkdtemp(prefix="study_tools_")
+    image = os.path.join(HERE, "images", "strawberry.npy")
+    out, entries = {}, {}
+    try:
+        os.chdir(scratch)
+        # --------------------- the screening driver ---------------------- #
+        encoding.scatter_add_serial = recording
+        demo = {}
+        for ens in (1, 2):
+            log(f"step 22: run_grid_demo 4048 4 20 2 {ens}: ids 4048-4051, 20 epochs, 2 shards, "
+                f"ensemble {ens}:")
+            (summary, rows), demo[ens] = counted(
+                f"run_grid_demo ensemble {ens}",
+                lambda: run_grid_demo.main(4048, 4, 20, 2, ens, f"e{ens}", device=dev.type,
+                                           image=image))
+            encoding.scatter_add_serial = original
+            log(f"  configs/hour {summary['configs_per_hour_per_chip']} ({summary['gpu']}), "
+                f"{summary['wall_s']} s")
+            demo[ens].update(summary=summary, rows=sorted(
+                ({k: v for k, v in r.items() if k != "run_dir"} for r in rows),
+                key=lambda r: r["grid_id"]))
+        if demo[1]["rows"] != demo[2]["rows"] or len(demo[1]["rows"]) != 4:
+            raise AssertionError(f"run_grid_demo: the rows depend on the ensemble: {demo[1]['rows']} "
+                                 f"against {demo[2]['rows']}")
+        log("  the rows of ensemble 1 and 2 are equal apart from run_dir, bitwise: " + ", ".join(
+            f"{r['grid_id']} {r['best_psnr']:.4f}" for r in demo[1]["rows"]))
+        out["run_grid_demo"] = demo
+
+        # ------------------ the leaderboard and the rerank ------------------ #
+        log("step 22: grid_leaderboard on evidence/grid_demor4grid_manifest.jsonl:")
+        board = grid_leaderboard.main(grid_leaderboard.DEFAULT, 5)
+        if (board["better_raw"], board["better_distinct"]) != (115, 34):
+            raise AssertionError(f"grid_leaderboard: {board}, not 115 / 34")
+        winners, _ = rerank_top.pick_ids(grid_leaderboard.DEFAULT, 20)
+        with gzip.open(os.path.join(HERE, "evidence", "rerank_full_manifest.jsonl.gz"), "rt") as f:
+            committed = sorted(json.loads(line)["grid_id"] for line in f)
+        if sorted(winners + [4061]) != committed:
+            raise AssertionError(f"rerank_top: picked {winners}, the committed rerank ran {committed}")
+        log(f"  115 / 34; rerank_top's pick at 20 equals the committed rerank's ids: {winners}")
+        log(f"step 22: rerank_top, its first 2 winners {winners[:2]} and 4061, 20 epochs:")
+        encoding.scatter_add_serial = recording
+        rerank, out["rerank_top"] = counted(
+            "rerank_top", lambda: rerank_top.main(grid_leaderboard.DEFAULT, 2, 20, 1,
+                                                  device=dev.type, image=image))
+        encoding.scatter_add_serial = original
+        out["rerank_top"]["summary"] = rerank
+        if rerank["n_rerun"] != 3:
+            raise AssertionError(f"rerank_top: {rerank['n_rerun']} runs, not 3")
+
+        # ---------------------------- the seed panel ------------------------- #
+        log("step 22: seed_panel 20 --ids=3761,4061 --seeds=7,42:")
+        panel, out["seed_panel"] = counted(
+            "seed_panel", lambda: seed_panel.main(20, ids=(3761, 4061), seeds=(7, 42),
+                                                  device=dev.type, image=image))
+        data = load_image_dataset(image)
+        for row in panel:
+            exp = experiment_from_grid_id(row["grid_id"])
+            exp = dataclasses.replace(exp, train=dataclasses.replace(
+                exp.train, seed=row["seed"], save_params=False))
+            solo = trainer.fit(exp, data, epochs=20, epoch_span=33, device=dev, verbose=False)
+            got = (row["best_psnr"], row["final_psnr"], row["epochs_run"], row["stopped_early"])
+            want = (solo.best_psnr, solo.final_psnr, solo.epochs_run, solo.stopped_early)
+            log(f"  grid {row['grid_id']} seed {row['seed']}: best {got[0]:.6f} final {got[1]:.6f} "
+                f"{got[2]} epochs; solo fit {'equal' if got == want else want}")
+            if got != want:
+                raise AssertionError(f"seed_panel member {row['grid_id']}/{row['seed']} differs from "
+                                     "its solo fit")
+        out["seed_panel"]["rows"] = panel
+
+        # ------------------------ usage stats, macaws ------------------------ #
+        log("step 22: usage_stats --flagship on weights/4061_panel4061s7:")
+        usage, out["usage_stats"] = counted(
+            "usage_stats", lambda: usage_stats.main([os.path.join("weights", "4061_panel4061s7")],
+                                                    flagship=True, device=dev.type, image=image),
+            trains=False)
+        for lv in usage[0]["levels"]:
+            if not (0 < lv["slots_used"] <= t_blend and lv["cells"] > 0
+                    and math.isfinite(lv["marginal_kl_uniform_nats"])):
+                raise AssertionError(f"usage_stats: level {lv}")
+        out["usage_stats"]["levels"] = usage[0]["levels"]
+        log("step 22: run_macaws 10:")
+        out["run_macaws"] = dict(zip(("rows", "counts"), counted(
+            "run_macaws", lambda: run_macaws.main(10, device=dev.type))))
+    finally:
+        encoding.scatter_add_serial = original
+        restore()
+        os.chdir(home)
+        shutil.rmtree(scratch, ignore_errors=True)
+    for f in fits:
+        log(f"  fit of grid {f['grid_id']} (K = {f['k']}): {f['epochs']} epochs in "
+            f"{f['seconds']:.2f} s ({f['seconds'] / f['epochs']:.4f} s an epoch), loss at "
+            f"epoch 1 {f['loss_epoch1']:.4f}, at the last {f['last_loss']:.4f}")
+    out["fits"] = fits
+
+    sources = {20: ("the rerank's K = 20 id", out["rerank_top"]),
+               32: ("the screening's K = 32 id", out["run_grid_demo"][1])}
+    if sorted(captured) != [20, 32]:
+        raise AssertionError(f"step 22: blend table gradients kept at K = {sorted(captured)}")
+    for k, (rows, flat, t) in sorted(captured.items()):
+        what, run = sources[k]
+        log(f"step 22: K12 scatter_add_serial [ring] on {what} batch-0 blend table gradient:")
+        entry = scatter_phase("ring", rows, flat, t)
+        name = entry["name"] = f"scatter_add_serial[blend K={k}]"
+        entry.update(route="cuda", launches=run["launches"]["scatter_add_serial[ring]"],
+                     variant="ring")
+        entries[name] = entry
+    torch.cuda.empty_cache()
+    return entries, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3281,6 +3548,11 @@ def main() -> int:
     entries.update(tool_entries)
     watermark(marks, "measurement tools (step 21)", dev)
 
+    # ---------------- the grid study's drivers (step 22) ------------------- #
+    study_entries, study = study_tools_phase(dev)
+    entries.update(study_entries)
+    watermark(marks, "study tools (step 22)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -3291,7 +3563,8 @@ def main() -> int:
                        wide_fit=wide_fit, wide_heads=wide_heads, overflow_stack=overflow,
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
                        vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render,
-                       spans=spans, parallel=parallel, measurement_tools=tools),
+                       spans=spans, parallel=parallel, measurement_tools=tools,
+                       study_tools=study),
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

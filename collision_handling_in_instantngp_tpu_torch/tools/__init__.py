@@ -1,4 +1,6 @@
-"""Measurement tools of the port: the sweep ladder of the streamed tail
-(``sweep_probe``), the dot-rate and memory-rate probe (``mxu_probe``) and
-an epoch trace (``profile_epoch``). Each runs on the card unless
-``--device cpu`` is given."""
+"""Tools of the port: the measurement tools (``sweep_probe``, ``mxu_probe``,
+``profile_epoch``, ``roofline``, ``time_kernels``, the phase splitters) and
+the grid study's drivers (``run_grid_demo``, ``grid_leaderboard``,
+``rerank_top``, ``seed_panel``, ``usage_stats``, ``run_macaws``, and
+``run_cold``). Each runs on the card unless ``--device cpu`` (or
+``--device=cpu``) is given; ``grid_leaderboard`` reads JSON only."""
