@@ -35,12 +35,14 @@ from __future__ import annotations
 import os
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import ModelConfig, TopkBlendMode
 from ..ops.cuda.scatter import scatter_add_serial
 from ..ops.collectives import sum_replicated
+from ..utils import prng
 
 BLEND_SCATTER_BACKENDS = ("segment_sum", "vmem_serial")
 
@@ -119,12 +121,11 @@ def gather_sharded(table: torch.Tensor, ids: torch.Tensor, lo: int, hi: int, t: 
     return sum_replicated(GatherShard.apply(table, ids, lo, hi, t), group)
 
 
-def init_tables(
-    cfg: ModelConfig, generator: Optional[torch.Generator] = None, device=None
-) -> nn.Parameter:
-    """(L, T, F) ~ U(-1e-4, 1e-4), drawn on the CPU then moved."""
-    t = torch.empty(cfg.num_levels, cfg.hash_table_size, cfg.feature_dim)
-    return nn.Parameter(t.uniform_(-1e-4, 1e-4, generator=generator).to(device))
+def init_tables(cfg: ModelConfig, key: np.ndarray, device=None) -> nn.Parameter:
+    """(L, T, F) ~ U(-1e-4, 1e-4): the JAX package's ``init_tables(key, cfg)``
+    drawn on the host (``utils.prng``), then moved."""
+    t = prng.uniform(key, (cfg.num_levels, cfg.hash_table_size, cfg.feature_dim), -1e-4, 1e-4)
+    return nn.Parameter(torch.from_numpy(t).to(device))
 
 
 def blend_weights(probs_topk: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

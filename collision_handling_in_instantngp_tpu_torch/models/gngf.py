@@ -43,9 +43,10 @@ from ..ops.hashing import fast_hash
 from ..ops.interpolate import bilinear_coeffs, interpolate
 from ..ops.precision import pdot
 from ..ops.collectives import group_size, sum_replicated, sum_shared
+from ..utils import prng
 from . import encoding as enc
 from .hpd import apply_hpd, apply_hpd_fused, apply_hpd_unique
-from .mlp import MLP
+from .mlp import MLP, init_layers
 
 BN_EPS = 1e-5       # torch BatchNorm1d defaults
 BN_MOMENTUM = 0.1
@@ -144,28 +145,24 @@ def make_statics(cfg: ModelConfig) -> GNGFStatics:
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cpu") -> GNGFParams:
-    """Fresh parameters from one CPU ``torch.Generator`` seeded with
-    ``seed`` (same weights on any device). The vanilla path has no HPD."""
-    gen = torch.Generator().manual_seed(int(seed))
+    """Fresh parameters, bit for bit the JAX package's
+    ``init_params(PRNGKey(seed), cfg)``: its key split (hpd, tables, mlp),
+    drawn on the host (``utils.prng``), so the same weights on any device.
+    The vanilla path has no HPD."""
+    k_hpd, k_tab, k_mlp = prng.split(prng.prng_key(seed), 3)
     hpd = None
     if not cfg.use_hash_function:
-        hpd = MLP((cfg.input_dim, *cfg.hpd_hidden, cfg.hash_table_size), generator=gen,
-                  device=device)
-    tables = enc.init_tables(cfg, generator=gen, device=device)
-    mlp = MLP((cfg.encoded_dim, *cfg.mlp_hidden, cfg.out_channels), generator=gen, device=device)
+        hpd = MLP(init_layers(k_hpd, (cfg.input_dim, *cfg.hpd_hidden, cfg.hash_table_size)),
+                  device)
+    tables = enc.init_tables(cfg, k_tab, device=device)
+    mlp = MLP(init_layers(k_mlp, (cfg.encoded_dim, *cfg.mlp_hidden, cfg.out_channels)), device)
     bn = BatchNormParams(cfg.input_dim, device) if cfg.batchnorm_input else None
     return GNGFParams(hpd, tables, mlp, bn)
 
 
 def mlp_from_layers(layers, device="cpu") -> MLP:
     """[{"w": (in, out), "b": (out,)}, ...] of numpy arrays -> MLP."""
-    widths = [int(np.shape(layers[0]["w"])[0])] + [int(np.shape(l["w"])[1]) for l in layers]
-    mlp = MLP(widths, device=device)
-    with torch.no_grad():
-        for w, b, lay in zip(mlp.weights, mlp.biases, layers):
-            w.copy_(torch.as_tensor(np.array(lay["w"], np.float32)))
-            b.copy_(torch.as_tensor(np.array(lay["b"], np.float32)))
-    return mlp
+    return MLP([(lay["w"], lay["b"]) for lay in layers], device)
 
 
 def params_from_jax(tree, device="cpu", bn_state=None) -> GNGFParams:

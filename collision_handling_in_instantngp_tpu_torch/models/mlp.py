@@ -3,39 +3,46 @@
 Weights keep the JAX package's (in, out) layout, so a layer is
 ``x @ w + b`` and the kernels read the HPD head as (H, T). Initialization
 matches torch ``nn.Linear`` in distribution: weights and biases
-~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
+~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)), which :func:`init_layers` draws from a
+key as the JAX package's ``init_mlp`` does, bit for bit.
 """
 
 from __future__ import annotations
 
-import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from ..ops.precision import pdot
+from ..utils import prng
+
+
+def init_layers(key: np.ndarray, widths: Sequence[int]) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """[(w (in, out), b (out,))] of float32 numpy arrays, drawn as the JAX
+    package's ``init_mlp(key, widths)``: each layer splits (key, wk, bk) and
+    takes U(-bound, bound) with ``bound = 1 / sqrt(fan_in)`` in float32."""
+    layers = []
+    for fan_in, fan_out in zip(widths[:-1], widths[1:]):
+        key, wk, bk = prng.split(key, 3)
+        bound = np.float32(1.0) / np.sqrt(np.float32(fan_in))
+        layers.append((prng.uniform(wk, (fan_in, fan_out), -bound, bound),
+                       prng.uniform(bk, (fan_out,), -bound, bound)))
+    return layers
 
 
 class MLP(nn.Module):
-    def __init__(
-        self,
-        widths: Sequence[int],
-        *,
-        generator: Optional[torch.Generator] = None,
-        device=None,
-    ):
+    def __init__(self, layers: Sequence[Tuple[Any, Any]], device=None):
+        """``layers``: [(w (in, out), b (out,))] float32 numpy arrays, as
+        :func:`init_layers` draws them; copied onto ``device``."""
         super().__init__()
         self.weights = nn.ParameterList()
         self.biases = nn.ParameterList()
-        for fan_in, fan_out in zip(widths[:-1], widths[1:]):
-            bound = 1.0 / math.sqrt(fan_in)
-            # drawn on the CPU so a seed gives the same weights on any device
-            w = torch.empty(fan_in, fan_out).uniform_(-bound, bound, generator=generator)
-            b = torch.empty(fan_out).uniform_(-bound, bound, generator=generator)
-            self.weights.append(nn.Parameter(w.to(device)))
-            self.biases.append(nn.Parameter(b.to(device)))
+        for w, b in layers:
+            self.weights.append(nn.Parameter(torch.from_numpy(np.array(w, np.float32)).to(device)))
+            self.biases.append(nn.Parameter(torch.from_numpy(np.array(b, np.float32)).to(device)))
 
     def layers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return list(zip(self.weights, self.biases))

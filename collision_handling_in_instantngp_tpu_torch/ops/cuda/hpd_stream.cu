@@ -323,7 +323,13 @@ int reduce_segments(const float* part, float* out, size_t n, cudaStream_t st) {
 // grows with the MMAs on one accumulator: every chain starts from a zeroed
 // accumulator and holds at most 24 MMAs (the logits' chains KCH k8 steps,
 // 12 MMAs), and its result is added to the running sum in fp32 (round to
-// nearest); g_p
+// nearest). The logits take the lo products apart, as the forward's do
+// (LO_APART): p = exp(l - m) / s with m and s from the forward, so a logit
+// biased otherwise than the forward's biases p by the difference in one
+// direction per column, which dW and db sum over every row (the whole row
+// tile's products on one accumulator: dW 1.5e-4 normwise at T = 2^16 on the
+// init's weights; apart, 2e-5; apart in the columns kernel alone, still
+// 1.5e-4: the row kernels' dot carries the bias too); g_p
 // starts from zero and dot is subtracted after. The tile sums are two-level,
 // as in the forward, and the cross-block sums of dW and db go to the fixed
 // segment partials: bitwise stable run to run.
@@ -608,7 +614,7 @@ __device__ __forceinline__ void mma_step(float (&d)[N / 2], const Frag& a, uint6
 
 // d = sum over k8 steps [s0, s1) (s1 - s0 <= S) of A(s) B(s), from zero
 // (the first MMA ignores d), as one commit group, waited for. a_of(s): the
-// A fragment; b_hi(s), b_lo(s): descriptors. LO_APART (the forward passes)
+// A fragment; b_hi(s), b_lo(s): descriptors. LO_APART (every pass's logits)
 // takes the products with a lo operand into an accumulator of their own,
 // added to the hi_a hi_b one in fp32 at the end: the large accumulator then
 // takes a third of the MMAs, and so a third of the truncations toward zero
@@ -867,9 +873,9 @@ __device__ __forceinline__ void split_wt(float* __restrict__ wt_hi, float* __res
 // Both forward passes take the logits as the backward does (wgmma tf32,
 // 3xTF32 at 'highest', the bf16 splits at 'high' / 'default', chains of at
 // most 4 k8 steps from zeroed accumulators added in fp32, split_k between
-// the warpgroups), but with the lo products apart from hi_a hi_b (chain's
-// LO_APART): the forward's outputs are held to 1e-5, and that takes two
-// thirds of the truncations toward zero off the large accumulator.
+// the warpgroups, the lo products apart from hi_a hi_b (chain's LO_APART)):
+// the forward's outputs are held to 1e-5, and that takes two thirds of the
+// truncations toward zero off the large accumulator.
 //   rows pass    (hpd_fwd_rows_kernel; a block owns R rows, 64-column tiles
 //                stream): logits^T (cols x rows) = w^T (A, the streamed fp32
 //                w tile by cp.async, split in registers) x h^T (B: h hi/lo,
@@ -1806,8 +1812,8 @@ __device__ __forceinline__ void rows_p(const RowsSmem& sm, const WRing& ring,
     async_view();
     __syncthreads();
     clk.mark(PH_WAIT);
-    tile_logits_t<P, false>(sm.h_hi, sm.h_lo, sm.w_s + st * HMAX * BT, sm.b_s + st * BT,
-                            (H + 7) / 8, sm.dl_hi, l);
+    tile_logits_t<P, true>(sm.h_hi, sm.h_lo, sm.w_s + st * HMAX * BT, sm.b_s + st * BT,
+                           (H + 7) / 8, sm.dl_hi, l);
     clk.mark(PH_LOGITS);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -1841,7 +1847,7 @@ __device__ __forceinline__ void rows_p(const RowsSmem& sm, const WRing& ring,
     auto bh = [&](int s) { return desc_k8(sm.h_hi, R, 0, s); };
     auto bl = [&](int s) { return desc_k8(sm.h_lo, R, 0, s); };
     const int nk8 = (min(H - c0, HMAX) + 7) / 8;
-    chains_add<P, 64>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
+    chains_add<P, 64, true>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
     clk.mark(PH_LOGITS);
     if (ci + 1 < nc) {
       __syncthreads();  // every warp is done with the stage and with h's tiles
@@ -2320,7 +2326,7 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
       auto a_of = [&](int s) { return frag_a<P>(hA, 0, 8 * s); };
       auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
       auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
-      split_k<P>(q, (H + 7) / 8, a_of, bh, bl, dlt_hi);
+      split_k<P, true>(q, (H + 7) / 8, a_of, bh, bl, dlt_hi);
     } else {
       // the logits' warpgroup partial over h's chunks, in load order
       float part[32];
@@ -2347,7 +2353,7 @@ hpd_bwd_cols_kernel(const float* __restrict__ h, const float* __restrict__ w,
         auto bh = [&](int s) { return desc_k8(wt_hi, BT, 0, s); };
         auto bl = [&](int s) { return desc_k8(wt_lo, BT, 0, s); };
         const int nk8 = (min(H - c0, HMAX) + 7) / 8;
-        chains_add<P, 64>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
+        chains_add<P, 64, true>(part, 8 * wg, min(nk8, 8 * wg + 8), a_of, bh, bl);
         clk.mark(PH_LOGITS);
         if (ci + 1 < nc) {
           __syncthreads();  // every warp is done with the stage and with w^T's tiles

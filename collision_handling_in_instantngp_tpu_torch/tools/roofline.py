@@ -404,7 +404,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     from ..data import load_image_dataset
     from ..device import resolve_device
-    from ..utils.profiling import gpu_name_and_power_limit
+    from ..utils.profiling import gpu_name_and_power_limit, power_limit_w
 
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
@@ -418,7 +418,7 @@ def main(argv=None) -> dict:
         name = torch.cuda.get_device_name(dev)
         smi = gpu_name_and_power_limit()
         out.update(device_kind=name, gpu_name=smi.split(",")[0].strip(),
-                   power_limit_w=float(smi.split(",")[1].strip().split()[0]))
+                   power_limit_w=power_limit_w(smi))
         peaks = PEAKS.get(name)
     else:
         out.update(device_kind="cpu", gpu_name=None, power_limit_w=None)

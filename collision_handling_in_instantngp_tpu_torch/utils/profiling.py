@@ -101,6 +101,11 @@ def gpu_name_and_power_limit() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def power_limit_w(gpu: Optional[str]) -> Optional[float]:
+    """The watts of :func:`gpu_name_and_power_limit`'s "name, N W", or None."""
+    return float(gpu.split(",")[1].strip().split()[0]) if gpu else None
+
+
 def device_info(dev: torch.device) -> dict:
     """Where a measurement ran: platform, device name, the card's name and
     power limit (None on the CPU) and the clock its times come from."""

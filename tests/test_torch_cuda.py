@@ -871,13 +871,14 @@ def test_auto_routes_overflowing_stack_to_the_tail(dev):
     versions): identical indices, 1e-5 forward, 1e-4 gradients."""
     import dataclasses
     from collision_handling_in_instantngp_tpu_torch.models import hpd as port_hpd
-    from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP
+    from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP, init_layers
+    from collision_handling_in_instantngp_tpu_torch.utils import prng
     cfg = ModelConfig(hpd_hidden=(512,) * 4, hash_table_size=2048, topk_k=4)
     verts = torch.randint(0, 33, (200, 2, 4, 2), generator=torch.Generator().manual_seed(3)).float().to(dev)
     wrappers = (hpd_tail.hpd_tail_fwd, hpd_tail.hpd_tail_bwd, hpd_full.hpd_full_fwd, hpd_full.hpd_full_bwd)
     outs, grads = [], []
     for backend in ("auto", "jax"):
-        net = MLP((2, *cfg.hpd_hidden, 2048), generator=torch.Generator().manual_seed(3), device=dev)
+        net = MLP(init_layers(prng.prng_key(3), (2, *cfg.hpd_hidden, 2048)), dev)
         counts = [f.launches for f in wrappers]
         marg, vals, idx = port_hpd.apply_hpd_fused(net, verts, dataclasses.replace(cfg, hpd_backend=backend))
         (marg.sum() * 3 + (vals * torch.arange(4.0, device=dev)).sum()).backward()

@@ -23,8 +23,9 @@ from collision_handling_in_instantngp_tpu.ops.pallas import hpd_stream as jax_st
 from collision_handling_in_instantngp_tpu.ops.pallas import hpd_tail as jax_tail
 from collision_handling_in_instantngp_tpu_torch import config as tcfg
 from collision_handling_in_instantngp_tpu_torch.models import hpd as port_hpd
-from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP
+from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP, init_layers
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import hidden, hpd_full, hpd_stream, hpd_tail
+from collision_handling_in_instantngp_tpu_torch.utils import prng
 
 FWD, GRAD = 1e-5, 1e-4
 WIDE = (2, 512, 256, 512, 128, 64)
@@ -88,8 +89,7 @@ def test_hidden_gate_routes_like_jax(monkeypatch, widths, kernel):
     monkeypatch.setattr(hidden, "hidden_stack", lambda *a: calls.append(a) or real(*a))
     cfg = tcfg.ModelConfig(hash_table_size=2048, hpd_backend="unique_stream", topk_k=4,
                            hpd_hidden=widths[1:])
-    torch.manual_seed(0)
-    net = MLP([widths[0], *widths[1:], cfg.hash_table_size])
+    net = MLP(init_layers(prng.prng_key(0), [widths[0], *widths[1:], cfg.hash_table_size]))
     rng = np.random.default_rng(3)
     ucoords = _t(rng.integers(0, 40, size=(50, widths[0])).astype(np.float32))
     counts = _t(rng.integers(0, 3, size=(2, 50)).astype(np.float32))

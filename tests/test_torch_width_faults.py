@@ -27,9 +27,10 @@ from collision_handling_in_instantngp_tpu.ops.pallas import hpd_stream as jax_st
 from collision_handling_in_instantngp_tpu.ops.pallas import hpd_tail as jax_tail
 from collision_handling_in_instantngp_tpu_torch import config as tcfg
 from collision_handling_in_instantngp_tpu_torch.models import hpd as port_hpd
-from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP
+from collision_handling_in_instantngp_tpu_torch.models.mlp import MLP, init_layers
 from collision_handling_in_instantngp_tpu_torch.ops import fused_hpd
 from collision_handling_in_instantngp_tpu_torch.ops.cuda import hpd_full, hpd_stream, hpd_tail
+from collision_handling_in_instantngp_tpu_torch.utils import prng
 
 CUDA = pathlib.Path(hpd_full.__file__).parent
 FWD, GRAD = 1e-5, 1e-4
@@ -218,8 +219,7 @@ def test_auto_routes_overflowing_stack_like_jax(monkeypatch):
     real = fused_hpd.hpd_tail_fwd
     monkeypatch.setattr(fused_hpd, "hpd_tail_fwd", lambda *a: calls.append(1) or real(*a))
     rng = np.random.default_rng(12)
-    torch.manual_seed(12)
-    net = MLP(DEEP)
+    net = MLP(init_layers(prng.prng_key(12), DEEP))
     p_, l_, v_ = 24, 2, 4
     verts = rng.integers(0, 33, size=(p_, l_, v_, 2)).astype(np.float32)
     gm = rng.standard_normal((l_, DEEP[-1])).astype(np.float32)
