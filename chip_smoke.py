@@ -254,7 +254,14 @@
    again here beside ``index_add_``: one entry); ``floor_table`` on the two
    artifacts, with a floor beside hidden, tail and decoder; ``ablate_scaled
    --mode scaled`` at 2 reps, every stage's time finite and positive;
-24. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+24. ``ModelConfig.dedup_cell_gather``'s A/B and the scaling harness:
+   ``ablate_scaled --mode scaled --cell-gather`` at 2 reps with K12's count
+   set to 0 just before (every stage time of both runs finite and
+   positive, K12 launched; the field selects nothing in the port, so the
+   two runs are one program); ``tools/scaling_bench.py --world 1 --mode
+   gngf`` over NCCL for 2 epochs, px/s finite and positive, and a world of
+   2 must raise on one card;
+25. prints the card's name and power limit, a ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``. Every number also goes to
    ``chiprun_out/chip_smoke.json``, with the allocated and peak device
    memory at the end of each route's and each measurement step's phase
@@ -3372,6 +3379,49 @@ def study_tools_phase(dev) -> tuple:
     return entries, out
 
 
+def cell_gather_scaling_phase(dev) -> dict:
+    """Step 24: ``ablate_scaled --cell-gather`` and ``scaling_bench`` (the
+    module's docstring, item 24). Returns their results."""
+    import tempfile
+
+    from collision_handling_in_instantngp_tpu_torch.ops.cuda import scatter
+    from collision_handling_in_instantngp_tpu_torch.tools import ablate_scaled, scaling_bench
+
+    k12 = scatter.scatter_add_serial
+    out = {}
+    t_step = time.perf_counter()
+    log("step 24: ablate_scaled --mode scaled --cell-gather --reps 2:")
+    zero_counts([k12])
+    ab = ablate_scaled.main(["--mode", "scaled", "--cell-gather", "--reps", "2"])
+    launches = {f"scatter_add_serial[{v}]": n for v, n in k12.variant_launches.items()}
+    if set(ab["cell_gather"]) != {"on", "off"}:
+        raise AssertionError(f"ablate_scaled --cell-gather ran {sorted(ab['cell_gather'])}")
+    for label, run in ab["cell_gather"].items():
+        if not all(math.isfinite(v) and v > 0 for v in run["ms"].values()):
+            raise AssertionError(f"ablate_scaled --cell-gather ({label}): stage times {run['ms']}")
+    if not k12.launches:
+        raise AssertionError("ablate_scaled --cell-gather: K12 never launched")
+    log(f"  K12 launches {k12.launches} ({launches})")
+    out["ablate_cell_gather"] = dict(ab, k12_launches=launches)
+
+    log("step 24: scaling_bench --world 1 --mode gngf --epochs 2 (NCCL):")
+    sb = scaling_bench.main(["--world", "1", "--mode", "gngf", "--epochs", "2"])
+    if len(sb) != 1 or not (math.isfinite(sb[0]["pixels_per_s"]) and sb[0]["pixels_per_s"] > 0):
+        raise AssertionError(f"scaling_bench: {sb}")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            scaling_bench.run_world(2, "gngf", 3000, 1, "cuda", tmp)
+        except ValueError as e:
+            log(f"  --world 2 on one card: ValueError: {e}")
+        else:
+            raise AssertionError("scaling_bench ran a world of 2 on one card")
+    out["scaling_bench"] = sb
+    out["seconds"] = time.perf_counter() - t_step
+    log(f"step 24: {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA GPU",
@@ -3742,6 +3792,10 @@ def main() -> int:
     entries.update(split_entries)
     watermark(marks, "step split (step 23)", dev)
 
+    # ------- dedup_cell_gather's A/B and the scaling harness (step 24) ----- #
+    field_scaling = cell_gather_scaling_phase(dev)
+    watermark(marks, "cell gather A/B, scaling (step 24)", dev)
+
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(gpu=smi, build_s=build_s, kernels=list(entries.values()),
                        fit=history, fit_s=fit_s, profile=profile, per_row_fits=per_row_fits,
@@ -3753,7 +3807,8 @@ def main() -> int:
                        sass_tensor_ops=sass, two_fits=determinism, wide_k=wide_k,
                        vanilla=vanilla, checkpoints=checkpoints, grid_render=grid_render,
                        spans=spans, parallel=parallel, measurement_tools=tools,
-                       study_tools=study, split_tools=split_tools),
+                       study_tools=study, split_tools=split_tools,
+                       field_scaling=field_scaling),
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

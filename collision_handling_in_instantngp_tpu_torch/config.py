@@ -3,11 +3,8 @@
 Same dataclasses, field names and defaults as the JAX package's ``config.py``
 so that a configuration means the same run in both, and the same grid-search
 enumeration so that ``-s/-e`` ids are interchangeable (48,000 filtered
-configs; id 4061 is the README's best run). One model field is left out
-because it picks a layout the port does not have: ``dedup_cell_gather``
-(the TPU cell-table gather layouts); the port runs the dedup route with a
-plain row gather. Kept as a copy rather than an import: the port imports
-nothing of the JAX package.
+configs; id 4061 is the README's best run). Kept as a copy rather than an
+import: the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -87,6 +84,11 @@ class ModelConfig:
     # tail kernels (K8/K9) after a plain hidden stack; anything else the
     # chunked PyTorch tail (models/hpd.py: fused_backend)
     hpd_backend: str = "auto"
+    # the JAX package's cell-table per-pixel gather under active-vertex
+    # compaction, a TPU layout of the same function; carried so that
+    # configs, checkpoints and manifests match JAX's, and selects nothing
+    # in the port, which has one gather (models/encoding.py)
+    dedup_cell_gather: bool = True
 
     @property
     def num_corners(self) -> int:

@@ -19,6 +19,20 @@ sequential scan). The port has this one backward; the JAX package's switch
 ``BLEND_SCATTER_BACKEND`` selects nothing here and is only checked, once at
 import, so that a value the JAX package refuses is refused here too.
 
+One gather and one blend, on purpose. The JAX package's ``gather_rows``
+has four forms, picked by its arguments: the cell-table gather under
+compaction (``ModelConfig.dedup_cell_gather``), the cell-structured
+backward on the shared grid and under compaction, and the reverse maps;
+its ``blend_unique`` has an S-matrix form past 2^25 elements
+(``BLEND_LARGE_BACKEND``). They are TPU layouts of the same functions:
+the forwards copy the same values, the gradients add the same rows in
+other orders. On the H100 each lost to the per-vertex gather and the
+gather blend above (PERF.md §6), so the port has those alone for
+every geometry: ``ModelConfig.dedup_cell_gather`` is carried so that a
+config, a checkpoint and a manifest mean the same in both packages, and
+selects nothing here. ``tests/test_torch_cell_gather.py`` holds this
+gather against each JAX form.
+
 Tables sharded by slot (``parallel/mesh.py``; ``GNGFParams.shard``, a
 :class:`TableShard`): a rank holds slots [lo, hi) of every level. A gather takes the ids in that
 range from the local rows and zeros for the others, then sums the rows

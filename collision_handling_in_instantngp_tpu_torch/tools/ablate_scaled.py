@@ -15,13 +15,16 @@ after one warm-up run (host clock with ``--device cpu``). ``update`` and
 ``step`` move the weights as they run, as the JAX tool's do not; the shapes,
 and so the work, stay the same.
 
-``--cell-gather`` (JAX: ``ModelConfig.dedup_cell_gather``, the per-pixel
-gather from a cell table) waits for that field (ROADMAP §1 item 3): it
-raises ``NotImplementedError`` and runs nothing.
+``--cell-gather`` runs the A/B of ``ModelConfig.dedup_cell_gather`` as the
+JAX tool does: the stage programs on the same batch with the field on, then
+off, each from the same weights, and prints and returns both (``ms`` is the
+field-on run's). The field selects a TPU layout in the JAX package and
+nothing in the port (``models/encoding.py``), so here the two runs are one
+program and their difference is the timer's spread.
 
     python -m collision_handling_in_instantngp_tpu_torch.tools.ablate_scaled \\
         [--mode scaled|gngf] [--batch-fraction F] [--reps N] \\
-        [--precision default|high|highest] [--device cuda] [--image PATH]
+        [--precision default|high|highest] [--device cuda] [--image PATH] [--cell-gather]
 """
 
 from __future__ import annotations
@@ -38,9 +41,6 @@ from ..train.optimizer import make_optimizer
 from ..utils import profiling
 from .attribution import IMAGE, batch_zero, probe, real_loss
 from .roofline import experiment
-
-CELL_GATHER_MISSING = ("--cell-gather needs ModelConfig.dedup_cell_gather, which the port does "
-                       "not have yet (ROADMAP §1 item 3: the cell-table gathers)")
 
 
 def stage_programs(exp, params, batch, optimizer):
@@ -84,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-fraction", type=float, default=None)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--cell-gather", action="store_true",
-                    help="A/B the cell-table per-pixel gather (ModelConfig.dedup_cell_gather)")
+                    help="A/B ModelConfig.dedup_cell_gather (one program in the port)")
     ap.add_argument("--precision", default=None, choices=["default", "high", "highest"],
                     help="matmul precision of the whole stage programs")
     ap.add_argument("--device", default="cuda", help="'cpu' runs the plain versions")
@@ -92,10 +92,28 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def run(exp, batch, dev, reps: int) -> dict:
+    """{stage: ms} of the stage programs on ``batch`` from ``exp``'s seed."""
+    params = gngf.init_params(exp.model, exp.train.seed, dev)
+    programs = stage_programs(exp, params, batch, make_optimizer(exp.optimizer, params))
+    return {name: profiling.time_ms(fn, reps, dev) for name, fn in programs.items()}
+
+
+def report(t: dict) -> None:
+    print(f"fwd     {t['fwd']:9.3f} ms/batch   (loss only)")
+    print(f"grad    {t['grad']:9.3f} ms/batch   (fwd+bwd)")
+    print(f"update  {t['update']:9.3f} ms/batch   (optimizer only)")
+    print(f"step    {t['step']:9.3f} ms/batch   (fwd+bwd+update)")
+    print(f"derived: bwd ~ {max(t['grad'] - t['fwd'], 0):.3f} ms, fusion overlap "
+          f"(grad+update-step) ~ {t['grad'] + t['update'] - t['step']:.3f} ms")
+
+
+def with_cell_gather(exp, on: bool):
+    return dataclasses.replace(exp, model=dataclasses.replace(exp.model, dedup_cell_gather=on))
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.cell_gather:
-        raise NotImplementedError(CELL_GATHER_MISSING)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -104,21 +122,25 @@ def main(argv=None) -> dict:
     if fraction:
         exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train, batch_fraction=fraction))
     data = load_image_dataset(args.image)
-    batch = batch_zero(exp, data, dev)
-    params = gngf.init_params(exp.model, exp.train.seed, dev)
-    programs = stage_programs(exp, params, batch, make_optimizer(exp.optimizer, params))
-    t = {name: profiling.time_ms(fn, args.reps, dev) for name, fn in programs.items()}
+    cases = {"on": True, "off": False} if args.cell_gather else {"on": exp.model.dedup_cell_gather}
     info = profiling.device_info(dev)
-    p = int(batch.x.shape[0])
-    print(f"mode={args.mode} batch_rows={p} device={info['kind']} ({info['gpu'] or 'host clock'})")
-    print(f"fwd     {t['fwd']:9.3f} ms/batch   (loss only)")
-    print(f"grad    {t['grad']:9.3f} ms/batch   (fwd+bwd)")
-    print(f"update  {t['update']:9.3f} ms/batch   (optimizer only)")
-    print(f"step    {t['step']:9.3f} ms/batch   (fwd+bwd+update)")
-    print(f"derived: bwd ~ {max(t['grad'] - t['fwd'], 0):.3f} ms, fusion overlap "
-          f"(grad+update-step) ~ {t['grad'] + t['update'] - t['step']:.3f} ms")
-    return dict(mode=args.mode, precision=exp.model.matmul_precision, batch_rows=p,
-                reps=args.reps, ms=t, device_kind=info["kind"], gpu=info["gpu"])
+    out = {}
+    for label, on in cases.items():
+        run_exp = with_cell_gather(exp, on)
+        batch = batch_zero(run_exp, data, dev)
+        t = run(run_exp, batch, dev, args.reps)
+        p = int(batch.x.shape[0])
+        print(f"mode={args.mode} batch_rows={p} device={info['kind']} ({info['gpu'] or 'host clock'})"
+              f" dedup_cell_gather={on}")
+        report(t)
+        out[label] = dict(ms=t, dedup_cell_gather=on)
+    res = dict(mode=args.mode, precision=exp.model.matmul_precision, batch_rows=p,
+               reps=args.reps, ms=out["on"]["ms"], device_kind=info["kind"], gpu=info["gpu"])
+    if args.cell_gather:
+        res["cell_gather"] = out
+        print(f"cell gather on - off: step {out['on']['ms']['step'] - out['off']['ms']['step']:.3f} "
+              f"ms, grad {out['on']['ms']['grad'] - out['off']['ms']['grad']:.3f} ms")
+    return res
 
 
 if __name__ == "__main__":

@@ -6,10 +6,12 @@ composed in the JAX tool's order (``tools/attribution.py: prefix``), from the
 same weights (``params_from_jax``), at a small streamed geometry and at the
 default one (rtol 1e-5); the last prefix is bitwise the port's ``forward``
 plus ``compute_loss``. ``floors_ms`` equals the JAX tool's, loaded by path;
-the ablation's stage probes hold against JAX's stage programs, and the
-probe's gathers and scatters against numpy.
+the ablation's stage probes hold against JAX's stage programs, with
+``dedup_cell_gather`` on and off, and the probe's gathers and scatters
+against numpy.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -164,8 +166,8 @@ def test_gate_raises_on_a_drifted_mirror(case):
         attribution.check_gate(texp, params, batch, lambda s: prefix(s) * (1 + 2 ** -20))
 
 
-def test_ablate_stage_probes_match_jax(case):
-    _, jexp, texp, _, jparams, params, batch, jbatch = case
+def _ablate_against_jax(jexp, texp, jparams, batch, jbatch):
+    """The port's ablation stage probes against JAX's stage programs."""
     statics, bx, by, nvalid, dedup = jbatch
     mcfg = jexp.model
     prev_coll = jnp.zeros((mcfg.num_levels,), jnp.float32)
@@ -197,6 +199,11 @@ def test_ablate_stage_probes_match_jax(case):
     got = {name: float(programs()[name]().detach()) for name in ("fwd", "grad", "update", "step")}
     for name, want in ref.items():
         np.testing.assert_allclose(got[name], float(want), rtol=1e-5, err_msg=name)
+
+
+def test_ablate_stage_probes_match_jax(case):
+    _, jexp, texp, _, jparams, _, batch, jbatch = case
+    _ablate_against_jax(jexp, texp, jparams, batch, jbatch)
 
 
 def test_attribution_json_keys_and_rows_sum(tmp_path):
@@ -274,6 +281,39 @@ def test_gather_probe_rows_match_numpy():
                                rtol=1e-5, atol=1e-6)
 
 
-def test_cell_gather_raises_the_named_error():
-    with pytest.raises(NotImplementedError, match=r"dedup_cell_gather.*ROADMAP §1 item 3"):
-        ablate_scaled.main(["--cell-gather", "--device", "cpu"])
+@pytest.fixture(scope="module")
+def stream_off():
+    """The streamed geometry (compacting) with ``dedup_cell_gather`` off in
+    both packages: the weights, batch 0 of each."""
+    jexp, texp = _exps("stream")
+    jexp = dataclasses.replace(jexp, model=dataclasses.replace(jexp.model, dedup_cell_gather=False))
+    texp = ablate_scaled.with_cell_gather(texp, False)
+    data = image_dataset(_image(), "synthetic")
+    jparams = jgngf.init_params(jax.random.PRNGKey(jexp.train.seed), jexp.model)
+    return jexp, texp, jparams, attribution.batch_zero(texp, data, "cpu"), _jax_batch(jexp, data)
+
+
+def test_cell_gather_ab_probes_match_jax(stream_off):
+    """The field-off stage probes of the compacting streamed geometry
+    against JAX's field-off programs (the field-on ones are
+    test_ablate_stage_probes_match_jax's): the port's one gather holds
+    both of JAX's."""
+    jexp, texp = stream_off[:2]
+    assert stream_off[3].geom.active is not None and stream_off[4][4].cell_corners is None
+    assert not texp.model.dedup_cell_gather and not jexp.model.dedup_cell_gather
+    _ablate_against_jax(*stream_off)
+
+
+def test_ablate_cell_gather_runs_both_on_the_cpu(tmp_path):
+    """``ablate_scaled --cell-gather`` at the default geometry on a 24 x 20
+    image, whose 1/3 batches compact: a run with the field on and one with
+    it off, every stage time finite."""
+    path = tmp_path / "img.npy"
+    np.save(path, _image())
+    res = ablate_scaled.main(["--cell-gather", "--device", "cpu", "--reps", "1", "--mode", "gngf",
+                              "--image", str(path)])
+    assert set(res["cell_gather"]) == {"on", "off"} and res["ms"] == res["cell_gather"]["on"]["ms"]
+    for label, run in res["cell_gather"].items():
+        assert run["dedup_cell_gather"] == (label == "on")
+        assert set(run["ms"]) == {"fwd", "grad", "update", "step"}
+        assert all(np.isfinite(v) and v > 0 for v in run["ms"].values())

@@ -77,18 +77,16 @@ def _data(coords, img):
                      image=og.reshape(-1, 1, img.shape[1]), name="points")
 
 
-def _exps(kw, jax_only=None, scaled=False):
+def _exps(kw, scaled=False):
     """(JAX experiment, port experiment) of grid 4061 with the model's
     fields ``kw`` replaced (``scaled``: ``instantngp_scaled_model(**kw)``),
-    as tests/test_parallel.py builds them; ``jax_only``: fields of the JAX
-    model alone (its TPU gather layouts, the same function)."""
+    as tests/test_parallel.py builds them."""
     jexp = jcfg.experiment_from_grid_id(4061)
     texp = tcfg.experiment_from_grid_id(4061, base_train=tcfg.TrainConfig(save_params=False))
     if scaled:
         jm, tm = jcfg.instantngp_scaled_model(**kw), tcfg.instantngp_scaled_model(**kw)
     else:
         jm, tm = dataclasses.replace(jexp.model, **kw), dataclasses.replace(texp.model, **kw)
-    jm = dataclasses.replace(jm, **(jax_only or {}))
     return dataclasses.replace(jexp, model=jm), dataclasses.replace(texp, model=tm)
 
 
@@ -242,9 +240,11 @@ def test_table_tp_matches_replicated(tmp_path, world):
 
 def test_tp_with_compacted_geometry(tmp_path):
     """tests/test_parallel.py's compacted dedup geometry (T = 64, fused_hpd
-    off) on a (2 x 2) mesh: each rank compacts its own rows' vertices."""
+    off; ``dedup_cell_gather`` on, so JAX takes its cell-table gather and
+    the port its one gather) on a (2 x 2) mesh: each rank compacts its own
+    rows' vertices."""
     jexp, texp = _exps(dict(hash_table_size=64, hpd_hidden=(8, 16), mlp_hidden=(16,), topk_k=3,
-                            fused_hpd=False, n_max=16), jax_only=dict(dedup_cell_gather=True))
+                            fused_hpd=False, n_max=16, dedup_cell_gather=True))
     coords, img, perm = _random_points(np.random.default_rng(SEED))
     ref = _jax_run(jexp, coords, img, perm, 2, geometry=True)
     results = _spawn(tmp_path, 4, 2, texp, coords, img, perm, 2, ref["start"])

@@ -200,11 +200,10 @@ def test_grid_configs_match_jax():
 
 
 def assert_model_fields_match(t: dict, j: dict) -> None:
-    """Every field of the port's ModelConfig equals the JAX one; the JAX
-    config has only the TPU gather-layout field the port leaves out."""
+    """The port's ModelConfig has the JAX one's fields, each equal."""
     norm = lambda d: {k: (v.value if hasattr(v, "value") else v) for k, v in d.items()}
-    assert set(j) - set(t) == {"dedup_cell_gather"}
-    assert norm(t) == {k: v for k, v in norm(j).items() if k in t}
+    assert set(j) == set(t)
+    assert norm(t) == norm(j)
 
 
 def test_strawberry_npy_equals_jax_decode():

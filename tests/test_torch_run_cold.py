@@ -76,8 +76,8 @@ def assert_same_experiment(t, j):
     t, j = dataclasses.asdict(t), dataclasses.asdict(j)
     for group in ("loss", "optimizer"):
         assert t[group] == j[group], group
-    assert set(j["model"]) - set(t["model"]) == {"dedup_cell_gather"}
-    assert _norm(t["model"]) == {k: v for k, v in _norm(j["model"]).items() if k in t["model"]}
+    assert set(j["model"]) == set(t["model"])
+    assert _norm(t["model"]) == _norm(j["model"])
     assert set(t["train"]) <= set(j["train"])
     assert t["train"] == {k: v for k, v in j["train"].items() if k in t["train"]}
     assert t["grid_id"] == j["grid_id"] == 4061
