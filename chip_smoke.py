@@ -10,7 +10,8 @@
    passes, K7, the backward's four kernels) and no tensor-core instruction
    in the forward's exact fp32 fix-up, and that of ``hpd_full.cu`` and
    ``hpd_tail.cu`` shows warp-level MMAs (HMMA) in every instance of K11's
-   ``full_bwd_kernel``, K10's ``full_fwd_kernel`` and K9's
+   ``full_bwd_kernel`` (its head's products and its hidden layers' dW and
+   dh), K10's ``full_fwd_kernel`` and K9's
    ``tail_bwd_kernel`` (their head products) and none in K8's
    ``tail_fwd_kernel`` (redesigned in fp32 on the CUDA cores: its
    tensor-core design lost to it), that of ``hidden.cu``
@@ -58,9 +59,9 @@
    walks many row tiles); K8 also at K = 32 and 128 on the same rows, and
    on the planted network's head input at K = 4 and 8 (top-K identical on
    every row, bitwise stable); K8, K9, K10 and K11 beside their times
-   before their redesigns, the bounds of K9-K11 the head's products as
-   3xTF32 at the TF32 peak plus the rest at the fp32 peak, the all-fp32
-   bound beside;
+   before their redesigns, the bounds of K9-K11 their tensor-core products
+   (the head's; K11's hidden dW and dh too) as 3xTF32 at the TF32 peak
+   plus the rest at the fp32 peak, the all-fp32 bound beside;
 7. trains a small per-row geometry on the card and on the CPU, through
    K10/K11 and through K8/K9, and compares the losses;
 8. runs ``fit`` on that per-row configuration for 3 epochs through
@@ -269,8 +270,9 @@
    K8-K11, K12's ring, K13-K15) their time before the redesign
    (``before_redesign_ms``, the records' figures in BEFORE_REDESIGN_MS)
    beside this run's; the tensor-core kernels' ``bound_ms`` is that of
-   3xTF32 at the TF32 peak (K9-K11: their head's products so, the rest at
-   the fp32 peak), with the fp32 CUDA-core bound as ``bound_fp32_ms``.
+   3xTF32 at the TF32 peak (K9-K11: their head's products so, and K11's
+   hidden dW and dh; the rest at the fp32 peak), with the fp32 CUDA-core
+   bound as ``bound_fp32_ms``.
 
 Any failure raises, so the run exits non-zero without the last line. It
 exits non-zero at once where CUDA is not available.
@@ -448,9 +450,9 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
         return err
 
     # bounds (roofline.kernel_work): the head's products (K10's logits,
-    # K11's logits replay, dW_head and dh, and K9's three) as 3xTF32 on the
-    # tensor cores, three tf32 passes at the TF32 peak; the hidden layers'
-    # products on the CUDA cores
+    # K11's logits replay, dW_head and dh, and K9's three) and K11's hidden
+    # dW and dh as 3xTF32 on the tensor cores, three tf32 passes at the TF32
+    # peak; the hidden stack (K10's, K11's replay) on the CUDA cores
 
     log("K10 hpd_full_fwd, all rows of real vertices:")
     out_k = hpd_full.hpd_full_fwd(verts, layers, k)
@@ -477,8 +479,8 @@ def per_row_kernel_phases(exp, batches, statics, dev, gen) -> dict:
               for i, (ka, pa) in enumerate(zip(got, want)) for nm, a, r in zip(("dW", "db"), ka, pa))
     bitwise_same("dW/db", [t for pair in got for t in pair],
                  [t for pair in hpd_full.hpd_full_bwd(*bargs) for t in pair])
-    # the head's three products on the tensor cores; the hidden layers'
-    # replay, dW and dx on the CUDA cores
+    # the head's three products and the hidden layers' dW and dh on the
+    # tensor cores; the hidden stack's replay on the CUDA cores
     work = kernel_work("K11", rows=rows, widths=widths, l=L, k=k)
     entries["hpd_full_bwd"] = kernel_entry(
         "hpd_full_bwd", SRC + "hpd_full.cu", JAX_SRC + "hpd_full.py:236", err,

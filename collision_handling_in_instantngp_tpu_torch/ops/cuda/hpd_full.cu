@@ -15,12 +15,15 @@
 // vertices and 29 MB of top-K outputs. Only those touch device memory: a
 // row tile's activations and its (R, T) logits stay in shared memory, and
 // the weights stream from L2 (the head is 128 KB at T = 256 and 1 MB at
-// T = 2048: it cannot stay resident). The hidden layers run as fp32 FMA on
-// the CUDA cores (per_row.cuh), the weights staged in 32-deep chunks; the
-// head's products run as 3xTF32 on the tensor cores (per_row_mma.cuh): the
-// forward's logits, the backward's logits replay, dW_head and dh (60 of the
-// forward's 79 GFLOP, 181 of the backward's 237), so the bounds are the
-// head at the TF32 peak plus the rest at the fp32 peak.
+// T = 2048: it cannot stay resident). The hidden stack runs as fp32 FMA on
+// the CUDA cores (per_row.cuh), the weights staged in 32-deep chunks: the
+// forward's, and the backward's replay of it, which so takes the forward's
+// ReLU masks bit for bit. Every other product runs as 3xTF32 on the tensor
+// cores (per_row_mma.cuh), whatever the model's precision: the forward's
+// logits (60 of its 79 GFLOP), and the backward's logits replay, dW_head,
+// dh and the hidden layers' dh and dW (hid_bwd, head_dw; 218 of its 237).
+// So the bounds are those products at the TF32 peak plus the stack at the
+// fp32 peak.
 // The forward's top-K stays the exact top-K of p from the fp32 logits (the
 // CUDA-core forward's): per tile, the candidates by tensor-core logit, p
 // and the column sums from the tensor-core logits, the candidates' fp32
@@ -29,9 +32,11 @@
 // derivation and what can still differ). The rows redone are counted in
 // n_fix.
 // dW/db of every layer accumulate in one partial per block (read-modify-
-// write by the owning thread; for dW_head about 3.7 GB of L2 traffic a
-// launch at those shapes), summed in block order by a second kernel. No
-// atomics but the redo count.
+// write by the owning thread once a row tile; for dW_head about 3.7 GB of
+// L2 traffic a launch at those shapes), summed in block order by a second
+// kernel. No atomics but the redo count. The backward's softmax and dl run
+// two rows a warp in three passes over a row (per_row_mma.cuh:
+// softmax_dl_pair; its p only feeds sums).
 #include "per_row.cuh"
 #include "per_row_mma.cuh"
 
@@ -44,7 +49,8 @@ namespace {
 // k11_phase / k10_phase (the phases end at a barrier, so its ticks are the
 // block's); otherwise the marks (common.cuh) compile to nothing.
 #ifdef HPD_FULL_PHASES
-constexpr int K11_PHASES = 6;  // replay, logits, softmax + dl, dW_head, dh, hidden layers
+// replay, logits, softmax + dl, dW_head, dh, the hidden layers' dW, their dh
+constexpr int K11_PHASES = 7;
 // hidden layers, logits, softmax, column sums, and the top-K's candidates,
 // fp32 recompute, ranking and redo
 constexpr int K10_PHASES = 7;
@@ -60,22 +66,45 @@ struct Net {
   int w[MAXL + 1];     // widths: w[0] = d, w[n] = T
   int woff[MAXL];      // offset of W_i (w[i] x w[i+1], row-major) in params
   int boff[MAXL];      // offset of b_i (w[i+1])
-  int aoff[MAXL];      // offset, in floats per tile row, of act_i in the backward
-  int acols;           // sum over i < n - 1 of (w[i] + 1), + mma_ld(w[n - 1])
+  // the backward's tile (bwd_layout): act_i's row stride and its offset, in
+  // floats per tile row; their sum; the gradient tiles' row stride
+  int ald[MAXL];
+  int aoff[MAXL];
+  int acols;
+  int gld;
   int total;           // packed parameter count
 };
 
-// The strides of a stack past WMAX (the WIDE instances' last argument):
-// the forward's activation tiles and the backward's gradient tiles.
+// The forward's activation stride for a stack past WMAX (the WIDE
+// instance's last argument).
 struct Wide {
   int lda;
-  int gld;
 };
+
+// The backward's tile strides. Compact (the first tile, which decides the
+// route): act_i at w[i] + 1, the head's input at mma_ld(H), the gradient
+// tiles at max(WMAX, widest hidden) + 1. Padded: the hidden activations
+// after the vertices and the gradient tiles at hid_ld (their fragment loads
+// on 32 banks); the vertices, which only layer 0's products read, stay at
+// d + 1.
+void bwd_layout(Net* net, bool padded) {
+  const int n = net->n;
+  int acols = 0, maxg = 1;
+  for (int i = 0; i < n; ++i) {
+    const int w = net->w[i];
+    net->ald[i] = i == n - 1 ? mma_ld(w) : padded && i > 0 ? hid_ld(w) : w + 1;
+    net->aoff[i] = acols;
+    acols += net->ald[i];
+    if (i > 0) maxg = w > maxg ? w : maxg;
+  }
+  net->acols = acols;
+  net->gld = padded ? hid_ld(maxg) : (maxg > WMAX ? maxg : WMAX) + 1;
+}
 
 int make_net(int n, const int* widths, Net* net) {
   if (n < 1 || n > MAXL) return ERR_SHAPE;
   net->n = n;
-  int off = 0, acols = 0;
+  int off = 0;
   for (int i = 0; i <= n; ++i) net->w[i] = widths[i];
   for (int i = 0; i < n; ++i) {
     const int wmax = i == n - 1 ? TMAX : WIDE_MAX;
@@ -85,22 +114,17 @@ int make_net(int n, const int* widths, Net* net) {
     off += widths[i] * widths[i + 1];
     net->boff[i] = off;
     off += widths[i + 1];
-    net->aoff[i] = acols;
-    acols += i == n - 1 ? mma_ld(widths[i]) : widths[i] + 1;
   }
-  net->acols = acols;
   net->total = off;
+  bwd_layout(net, false);
   return 0;
 }
 
-// mma_ld(WMAX) and WLD up to WMAX-wide stacks
+// mma_ld(WMAX) up to WMAX-wide stacks
 Wide wide_strides(const Net& net) {
-  int maxw = WMAX, maxg = WMAX;
-  for (int i = 0; i < net.n; ++i) {
-    maxw = net.w[i] > maxw ? net.w[i] : maxw;
-    if (i > 0) maxg = net.w[i] > maxg ? net.w[i] : maxg;
-  }
-  return Wide{mma_ld(maxw), maxg + 1};
+  int maxw = WMAX;
+  for (int i = 0; i < net.n; ++i) maxw = net.w[i] > maxw ? net.w[i] : maxw;
+  return Wide{mma_ld(maxw)};
 }
 
 constexpr int GMAX = KMAX + GSLACK;  // candidates a row at most
@@ -127,21 +151,30 @@ size_t fwd_smem(const Net& net, int R) {
 
 // acts (the head's input at stride mma_ld(H)), gA, the staged chunk (the
 // hidden products' or the head's), the cache (stride mma_ld(T)), which the
-// hidden layers' backward reuses as gB once dh has read it, and g_marg.
+// hidden layers' backward reuses as gB once dh has read it, and g_marg; at
+// the net's layout.
 size_t bwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
   const int stage = BK * BS > head_stage_floats(R / 16) ? BK * BS : head_stage_floats(R / 16);
-  const int gld = wide_strides(net).gld;
-  const int ldc = mma_ld(T) > gld ? mma_ld(T) : gld;
-  return sizeof(float) * ((size_t)R * net.acols + (size_t)R * gld + stage + (size_t)R * ldc + T);
+  const int ldc = mma_ld(T) > net.gld ? mma_ld(T) : net.gld;
+  return sizeof(float) *
+         ((size_t)R * net.acols + (size_t)R * net.gld + stage + (size_t)R * ldc + T);
 }
 
-// rows per thread of the widest tile whose forward AND backward fit, 0 if none
+// rows per thread of the widest tile whose forward AND compact backward
+// fit, 0 if none (make_net's net: the compact layout)
 int pick_rpt(const Net& net) {
   for (int rpt = 4; rpt >= 1; rpt >>= 1)
     if (fwd_smem(net, 16 * rpt) <= (size_t)SMEM_MAX && bwd_smem(net, 16 * rpt) <= (size_t)SMEM_MAX)
       return rpt;
   return 0;
+}
+
+// The backward's layout at R rows: padded where it fits, else compact.
+Net bwd_net(Net net, int R) {
+  bwd_layout(&net, true);
+  if (bwd_smem(net, R) > (size_t)SMEM_MAX) bwd_layout(&net, false);
+  return net;
 }
 
 int check(int n, const int* widths, int L, int N, int K, Net* net) {
@@ -152,44 +185,23 @@ int check(int n, const int* widths, int L, int N, int K, Net* net) {
   return 0;
 }
 
-// out = relu(A @ W + b) for an (R x kdim) tile, n <= 128 output columns
-template <int RPT>
+// out = relu(A @ W + b) for an (R x kdim) tile, n <= 16 NJ output columns
+template <int RPT, int NJ = 8>
 __device__ __forceinline__ void hidden_layer(const float* __restrict__ A, int lda, int kdim,
                                              const float* __restrict__ W,
                                              const float* __restrict__ bias, int n,
                                              float* __restrict__ b_s, float* __restrict__ out,
                                              int ldo) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[RPT][8];
-  tile_mm<RPT, false>(A, lda, kdim, W, n, 0, b_s, acc);
+  float acc[RPT][NJ];
+  tile_mm<RPT, NJ>(A, lda, kdim, W, n, 0, b_s, acc);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const int c = tx + 16 * j;
     if (c >= n) continue;
     const float bc = bias[c];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) out[(ty * RPT + i) * ldo + c] = fmaxf(acc[i][j] + bc, 0.f);
-  }
-}
-
-// out = (G @ W^T) * (act > 0): W is n x kdim, act the layer's input (R x n)
-template <int RPT>
-__device__ __forceinline__ void back_layer(const float* __restrict__ G, int ldg, int kdim,
-                                           const float* __restrict__ W, int n,
-                                           const float* __restrict__ act, int lda,
-                                           float* __restrict__ b_s, float* __restrict__ out) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[RPT][8];
-  tile_mm<RPT, true>(G, ldg, kdim, W, n, 0, b_s, acc);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = tx + 16 * j;
-    if (c >= n) continue;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty * RPT + i;
-      out[r * WLD + c] = acc[i][j] * (act[r * lda + c] > 0.f ? 1.f : 0.f);
-    }
   }
 }
 
@@ -203,7 +215,7 @@ __device__ __forceinline__ void hidden_layer_wide(const float* __restrict__ A, i
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   for (int c0 = 0; c0 < n; c0 += TT) {
     float acc[RPT][8];
-    tile_mm<RPT, false>(A, lda, kdim, W, n, c0, b_s, acc);
+    tile_mm<RPT>(A, lda, kdim, W, n, c0, b_s, acc);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + tx + 16 * j;
@@ -211,30 +223,6 @@ __device__ __forceinline__ void hidden_layer_wide(const float* __restrict__ A, i
       const float bc = bias[c];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) out[(ty * RPT + i) * ldo + c] = fmaxf(acc[i][j] + bc, 0.f);
-    }
-  }
-}
-
-// back_layer for any n, out at stride ldo: TT columns a pass
-template <int RPT>
-__device__ __forceinline__ void back_layer_wide(const float* __restrict__ G, int ldg, int kdim,
-                                                const float* __restrict__ W, int n,
-                                                const float* __restrict__ act, int lda,
-                                                float* __restrict__ b_s, float* __restrict__ out,
-                                                int ldo) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int c0 = 0; c0 < n; c0 += TT) {
-    float acc[RPT][8];
-    tile_mm<RPT, true>(G, ldg, kdim, W, n, c0, b_s, acc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c >= n) continue;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = ty * RPT + i;
-        out[r * ldo + c] = acc[i][j] * (act[r * lda + c] > 0.f ? 1.f : 0.f);
-      }
     }
   }
 }
@@ -355,18 +343,19 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     marg_part[((size_t)l * g.spl + seg) * T + c] = colsum[c];
 }
 
+// WIDE: a width of the stack past WMAX (the head's dh in WMAX-column
+// passes; the hidden layers' products take any width)
 template <int RPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ params, Net net,
                 const float* __restrict__ w_pad, int K, const int* __restrict__ idx,
                 const float* __restrict__ g_marg, const float* __restrict__ g_vals, Rows g,
-                float* __restrict__ part, Wide wide) {
+                float* __restrict__ part) {
   constexpr int R = 16 * RPT;
   constexpr int STAGE = BK * BS > head_stage_floats(RPT) ? BK * BS : head_stage_floats(RPT);
   extern __shared__ float smem[];
   const int n = net.n, d = net.w[0], T = net.w[n], H = net.w[n - 1];
-  const int ldh = mma_ld(H), ldc = mma_ld(T), ldw = head_ld(T);
-  const int gld = WIDE ? wide.gld : WLD;
+  const int ldh = mma_ld(H), ldc = mma_ld(T), ldw = head_ld(T), gld = net.gld;
   float* acts = smem;
   float* gA = acts + R * net.acols;
   float* b_s = gA + R * gld;
@@ -378,6 +367,7 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
   const int warp = threadIdx.x >> 5;
   float* pp = part + ((size_t)l * g.spl + seg) * net.total;
   for (int c = threadIdx.x; c < T; c += THREADS) gm_s[c] = g_marg[(size_t)l * T + c] / (float)g.N;
+  // the head's input's padding stays zero: the replay writes [0, H)
   for (int e = threadIdx.x; e < R * (ldh - H); e += THREADS)
     a_head[e / (ldh - H) * ldh + H + e % (ldh - H)] = 0.f;
   const int tpl = (g.N + R - 1) / R;
@@ -388,27 +378,33 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     const int rows = min(R, g.N - r0);
     const size_t base = (size_t)l * g.N + r0;
     __syncthreads();
-    load_rows<R>(verts, base, rows, d, acts, n == 1 ? ldh : d + 1);
-    // replay the stack, keeping every layer's input
+    load_rows<R>(verts, base, rows, d, acts, net.ald[0]);
+    // replay the stack, keeping every layer's input: K10's fp32 arithmetic,
+    // so the ReLU masks are the forward's, bit for bit (a layer of at most
+    // 64 units takes half the columns)
     for (int i = 0; i < n - 1; ++i) {
+      const float* in = acts + R * net.aoff[i];
+      float* out = acts + R * net.aoff[i + 1];
+      const float* w = params + net.woff[i];
+      const float* b = params + net.boff[i];
       if (WIDE)
-        hidden_layer_wide<RPT>(acts + R * net.aoff[i], net.w[i] + 1, net.w[i],
-                               params + net.woff[i], params + net.boff[i], net.w[i + 1], b_s,
-                               acts + R * net.aoff[i + 1], i + 1 == n - 1 ? ldh : net.w[i + 1] + 1);
+        hidden_layer_wide<RPT>(in, net.ald[i], net.w[i], w, b, net.w[i + 1], b_s, out,
+                               net.ald[i + 1]);
+      else if (net.w[i + 1] <= 64)
+        hidden_layer<RPT, 4>(in, net.ald[i], net.w[i], w, b, net.w[i + 1], b_s, out,
+                             net.ald[i + 1]);
       else
-        hidden_layer<RPT>(acts + R * net.aoff[i], net.w[i] + 1, net.w[i], params + net.woff[i],
-                          params + net.boff[i], net.w[i + 1], b_s, acts + R * net.aoff[i + 1],
-                          i + 1 == n - 1 ? ldh : net.w[i + 1] + 1);
+        hidden_layer<RPT>(in, net.ald[i], net.w[i], w, b, net.w[i + 1], b_s, out, net.ald[i + 1]);
     }
     PHASE_SYNC_MARK(0);
     head_logits<RPT>(a_head, ldh, H, w_pad, ldw, params + net.boff[n - 1], T, b_s, cache, ldc);
     PHASE_MARK(1);
-    __syncthreads();
-    for (int r = warp; r < R; r += WARPS) {
-      float* row = cache + r * ldc;
-      softmax_row(row, T);
-      const size_t gr = (base + (r < rows ? r : 0)) * K;
-      dlogits_row(row, T, K, gm_s, idx + gr, g_vals + gr, r < rows);
+    // dl, two rows a warp at a time (R / WARPS is even)
+    for (int r = warp; r < R; r += 2 * WARPS) {
+      const int r2 = r + WARPS;
+      const size_t ga = (base + (r < rows ? r : 0)) * K, gb = (base + (r2 < rows ? r2 : 0)) * K;
+      softmax_dl_pair(cache + r * ldc, cache + r2 * ldc, T, K, gm_s, idx + ga, g_vals + ga,
+                      r < rows, idx + gb, g_vals + gb, r2 < rows);
     }
     __syncthreads();
     PHASE_MARK(2);
@@ -420,30 +416,29 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
       if (WIDE)
         head_dh_wide<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, gld);
       else
-        head_dh<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, WLD);
+        head_dh<RPT>(cache, ldc, T, w_pad, ldw, H, a_head, ldh, b_s, gc, gld);
       PHASE_MARK(4);
+      // down the stack: dW_i = act_i^T g and db_i, under the staging of
+      // g <- (g W_i^T) * (act_i > 0) (g is complete: the product before
+      // ended with a barrier)
       for (int i = n - 2; i >= 0; --i) {
         const float* a_i = acts + R * net.aoff[i];
-        __syncthreads();
-        if (WIDE)
-          outer_acc_wide<R>(a_i, net.w[i] + 1, net.w[i], gc, gld, net.w[i + 1], pp + net.woff[i],
-                            pp + net.boff[i]);
-        else
-          outer_acc<R>(a_i, net.w[i] + 1, net.w[i], gc, WLD, net.w[i + 1], pp + net.woff[i],
-                       pp + net.boff[i]);
+        const auto dw = [&] {
+          head_dw<RPT, true>(a_i, net.ald[i], net.w[i], gc, gld, net.w[i + 1],
+                             pp + net.woff[i], pp + net.boff[i]);
+          PHASE_MARK(5);
+        };
         if (i > 0) {
-          if (WIDE)
-            back_layer_wide<RPT>(gc, gld, net.w[i + 1], params + net.woff[i], net.w[i], a_i,
-                                 net.w[i] + 1, b_s, gn, gld);
-          else
-            back_layer<RPT>(gc, WLD, net.w[i + 1], params + net.woff[i], net.w[i], a_i,
-                            net.w[i] + 1, b_s, gn);
+          hid_bwd<RPT>(gc, gld, net.w[i + 1], params + net.woff[i], net.w[i], a_i, net.ald[i],
+                       b_s, gn, gld, dw);
           float* tmp = gc;
           gc = gn;
           gn = tmp;
+        } else {
+          dw();
         }
+        PHASE_SYNC_MARK(6);
       }
-      PHASE_SYNC_MARK(5);
     }
   }
   PHASE_END(k11_phase, K11_PHASES);
@@ -475,10 +470,11 @@ int launch_bwd(const float* verts, const float* params, const float* w_pad, cons
   const int nblocks = g.spl * L;
   int err = (int)cudaMemsetAsync(part, 0, sizeof(float) * (size_t)nblocks * net.total, st);
   if (err) return err;
-  const size_t smem = bwd_smem(net, 16 * RPT);
+  const Net bnet = bwd_net(net, 16 * RPT);
+  const size_t smem = bwd_smem(bnet, 16 * RPT);
   set_smem(full_bwd_kernel<RPT, WIDE>, smem);
   full_bwd_kernel<RPT, WIDE><<<dim3(g.spl, L), THREADS, smem, st>>>(
-      verts, params, net, w_pad, K, idx, g_marg, g_vals, g, part, wide_strides(net));
+      verts, params, bnet, w_pad, K, idx, g_marg, g_vals, g, part);
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_blocks_kernel<<<(net.total + 255) / 256, 256, 0, st>>>(part, dparams, nblocks,

@@ -11,14 +11,16 @@ Backward: + idx, g_marg, g_vals -> [(dW_i, db_i)] of every layer, the
   each layer's input. The vertices are data: their gradient is zero.
 
 For a CUDA tensor the wrappers launch the kernels of ``hpd_full.cu``,
-whatever the model's matmul precision: the hidden layers in fp32 on the
-CUDA cores, the head's products as 3xTF32 on the tensor cores
-(``per_row_mma.cuh``: the forward's logits, the backward's logits replay,
-dW_head and dh). The forward's top-K stays that of the fp32 logits: the
-top K + 4 candidates of a row by tensor-core logit are recomputed in fp32
-and ranked on p, and a row whose guard cannot settle it is redone in fp32
-by the kernel itself; ``hpd_full_fwd.fixup_rows`` keeps the count of the
-last launch as a device tensor. For a CPU tensor they run the plain
+whatever the model's matmul precision: the hidden stack in fp32 on the CUDA
+cores (the forward's, and the backward's replay of it, so the backward's
+ReLU masks are the forward's), every other product as 3xTF32 on the tensor
+cores (``per_row_mma.cuh``: the forward's logits; the backward's logits
+replay, dW_head, dh, and the hidden layers' dW and dh). The forward's
+top-K stays that of the fp32 logits: the top K + 4 candidates of a row by
+tensor-core logit are recomputed in fp32 and ranked on p, and a row whose
+guard cannot settle it is redone in fp32 by the kernel itself;
+``hpd_full_fwd.fixup_rows`` keeps the count of the last launch as a device
+tensor. For a CPU tensor they run the plain
 version below: the hidden stack at fp32, then the chunked tail.
 :class:`HpdFull` is the autograd Function over the pair.
 """
@@ -73,27 +75,49 @@ def _on_card(t: torch.Tensor) -> bool:
 #
 # K10/K11 keep a row tile's every activation in shared memory, so a deep
 # and wide stack can leave no tile that fits. These restate the plan of
-# hpd_full.cu (make_net, wide_strides, fwd_smem, bwd_smem, pick_rpt), in
-# floats, so that the route is decided from the shapes before any launch
-# (models/hpd.py: fused_backend); tests/test_torch_cuda.py holds the plan
-# to hpd_full_blocks.
+# hpd_full.cu (make_net, bwd_layout, wide_strides, fwd_smem, bwd_smem,
+# pick_rpt, bwd_net), in floats, so that the route is decided from the
+# shapes before any launch (models/hpd.py: fused_backend);
+# tests/test_torch_cuda.py holds the plan to hpd_full_blocks. The route
+# rests on the backward's compact tile; the kernel takes the padded one
+# (strides hid_ld, whose fragment loads hit 32 banks) where that fits too.
 
-def tile_floats(widths: Sequence[int], rpt: int) -> Tuple[int, int]:
+def hid_ld(w: int) -> int:
+    """per_row_mma.cuh: the row stride of a padded hidden tile, >= w
+    rounded up to 8 and = 4 (mod 8)."""
+    return (w + 7) // 8 * 8 + 4
+
+
+def tile_floats(widths: Sequence[int], rpt: int, padded: bool = False) -> Tuple[int, int]:
     """Shared-memory floats of the forward's and the backward's row tile at
-    rpt rows a thread (hpd_full.cu: fwd_smem, bwd_smem). widths: [d,
-    hidden..., T]."""
+    rpt rows a thread (hpd_full.cu: fwd_smem, bwd_smem at bwd_layout's
+    compact or padded strides). widths: [d, hidden..., T]."""
     n, t = len(widths) - 1, widths[-1]
-    acols = sum(w + 1 for w in widths[:n - 1]) + mma_ld(widths[n - 1])
+    hidden = widths[1:n]
+    if padded:
+        acols = sum(w + 1 if i == 0 else hid_ld(w) for i, w in enumerate(widths[:n - 1]))
+        gld = hid_ld(max(hidden, default=1))
+    else:
+        acols = sum(w + 1 for w in widths[:n - 1])
+        gld = max([WMAX, *hidden]) + 1
+    acols += mma_ld(widths[n - 1])
     lda = mma_ld(max([WMAX, *widths[:n]]))
-    gld = max([WMAX, *widths[1:n]]) + 1
     r, stage = 16 * rpt, max(BK * (TT + 1), head_stage_floats(rpt))
     return (2 * r * lda + stage + r * mma_ld(t) + t + widths[n - 1] + 1,
             r * acols + r * gld + stage + r * max(mma_ld(t), gld) + t)
 
 
+def bwd_padded(widths: Sequence[int]) -> bool:
+    """Whether K11 takes the padded tile at tile_rpt's rows (hpd_full.cu:
+    bwd_net)."""
+    rpt = tile_rpt(widths)
+    return rpt > 0 and 4 * tile_floats(widths, rpt, padded=True)[1] <= SMEM_MAX
+
+
 def tile_rpt(widths: Sequence[int]) -> int:
-    """Rows a thread of the widest row tile whose forward and backward both
-    fit in shared memory (hpd_full.cu: pick_rpt), 0 if none does."""
+    """Rows a thread of the widest row tile whose forward and compact
+    backward both fit in shared memory (hpd_full.cu: pick_rpt), 0 if none
+    does."""
     for rpt in (4, 2, 1):
         if 4 * max(tile_floats(widths, rpt)) <= SMEM_MAX:
             return rpt

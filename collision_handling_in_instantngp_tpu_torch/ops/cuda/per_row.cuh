@@ -9,14 +9,15 @@
 // partials in block order: no atomics, bitwise stable run to run, and the
 // split does not depend on the card.
 //
-// The products here are fp32 FMA on the CUDA cores: a 256-thread block
-// computes an (R x 128) output tile, thread (ty, tx) holding rows
+// The product here (tile_mm) is fp32 FMA on the CUDA cores: a 256-thread
+// block computes an (R x 128) output tile, thread (ty, tx) holding rows
 // ty*RPT + i and columns tx + 16*j, with the right operand staged through
-// shared memory in 32-deep chunks. The hidden layers of K10 and K11 run
-// them, fp32 whatever matmul precision the model names (the TPU kernels
-// pass no precision to their dots); the head's products of K9, K10 and K11
-// run as 3xTF32 on the tensor cores instead (per_row_mma.cuh), and K8's
-// logits as fp32 FMA of its own (hpd_tail.cu: fma_logits).
+// shared memory in 32-deep chunks. K10's hidden layers and K11's replay of
+// them run it, fp32 whatever matmul precision the model names (the TPU
+// kernels pass no precision to their dots); the head's products of K9, K10
+// and K11 and K11's hidden dh and dW run as 3xTF32 on the tensor cores
+// instead (per_row_mma.cuh), and K8's logits as fp32 FMA of its own
+// (hpd_tail.cu: fma_logits).
 #pragma once
 
 #include <float.h>
@@ -32,7 +33,6 @@ constexpr int TT = 128;          // output columns per product pass
 constexpr int BK = 32;           // contraction chunk staged in shared memory
 constexpr int BS = TT + 1;       // padded row stride of the staged chunk
 constexpr int WMAX = 128;        // columns of one product pass over a layer's width
-constexpr int WLD = WMAX + 1;    // row stride of activation tiles up to WMAX wide
 constexpr int WIDE_MAX = 512;    // widest hidden layer and head input (the JAX kernels')
 constexpr int TMAX = 2048;       // widest head
 constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may use
@@ -55,108 +55,43 @@ inline Rows make_rows(int L, int N, int R) {
   return g;
 }
 
-// acc = A (R x kdim, shared, row stride lda) @ B[:, c0 : c0 + 128] where
-// B is kdim x n in device memory: B[k * n + c], or with TRANS the
-// transpose of an n x kdim matrix: B[c * kdim + k]. Columns >= n give 0.
-// Starts with a barrier; b_s is BK x BS scratch.
-template <int RPT, bool TRANS>
+// acc = A (R x kdim, shared, row stride lda) @ B[:, c0 : c0 + 16 NJ] where
+// B is kdim x n in device memory: B[k * n + c]. Columns >= n give 0.
+// Starts with a barrier; b_s is BK x BS scratch. NJ < 8 leaves the
+// columns past 16 NJ out (a narrower layer); a column's sum is the same.
+template <int RPT, int NJ = 8>
 __device__ __forceinline__ void tile_mm(const float* __restrict__ A, int lda, int kdim,
                                         const float* __restrict__ B, int n, int c0,
-                                        float* __restrict__ b_s, float (&acc)[RPT][8]) {
+                                        float* __restrict__ b_s, float (&acc)[RPT][NJ]) {
+  constexpr int TC = 16 * NJ;  // columns staged
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < kdim; k0 += BK) {
     __syncthreads();
-    for (int e = threadIdx.x; e < BK * TT; e += THREADS) {
-      int kk, c;
-      if (TRANS) {  // consecutive threads on consecutive k: contiguous reads
-        c = e / BK;
-        kk = e - c * BK;
-      } else {
-        kk = e / TT;
-        c = e - kk * TT;
-      }
+    for (int e = threadIdx.x; e < BK * TC; e += THREADS) {
+      const int kk = e / TC, c = e - kk * TC;
       const int k = k0 + kk, col = c0 + c;
       float v = 0.f;
-      if (k < kdim && col < n) v = TRANS ? B[(size_t)col * kdim + k] : B[(size_t)k * n + col];
+      if (k < kdim && col < n) v = B[(size_t)k * n + col];
       b_s[kk * BS + c] = v;
     }
     __syncthreads();
     const int kend = kdim - k0 < BK ? kdim - k0 : BK;
     for (int kk = 0; kk < kend; ++kk) {
-      float a[RPT], bb[8];
+      float a[RPT], bb[NJ];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) a[i] = A[(ty * RPT + i) * lda + k0 + kk];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bb[j] = b_s[kk * BS + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) bb[j] = b_s[kk * BS + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
     }
   }
-}
-
-// part[a * n + c] += sum_r A[r, a] G[r, c] (a < m, c < n) and
-// partb[c] += sum_r G[r, c], rows r < R in order. Each element of a block's
-// partial is always updated by the same thread. m <= WMAX (outer_acc_wide
-// below takes more); BIAS = false leaves partb out.
-template <int R, bool BIAS = true>
-__device__ __forceinline__ void outer_acc(const float* __restrict__ A, int lda, int m,
-                                          const float* __restrict__ G, int ldg, int n,
-                                          float* __restrict__ part, float* __restrict__ partb) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int c0 = 0; c0 < n; c0 += TT) {
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int r = 0; r < R; ++r) {
-      float a[8], g[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = ty * 8 + i < m ? A[r * lda + ty * 8 + i] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + tx + 16 * j;
-        g[j] = c < n ? G[r * ldg + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int a = ty * 8 + i;
-      if (a >= m) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < n) part[(size_t)a * n + c] += acc[i][j];
-      }
-    }
-  }
-  if (BIAS)
-    for (int c = threadIdx.x; c < n; c += THREADS) {
-      float s = 0.f;
-      for (int r = 0; r < R; ++r) s += G[r * ldg + c];
-      partb[c] += s;
-    }
-}
-
-// outer_acc for any m: one pass per WMAX rows of part, partb with the first.
-template <int R>
-__device__ __forceinline__ void outer_acc_wide(const float* __restrict__ A, int lda, int m,
-                                               const float* __restrict__ G, int ldg, int n,
-                                               float* __restrict__ part, float* __restrict__ partb) {
-  outer_acc<R>(A, lda, m < WMAX ? m : WMAX, G, ldg, n, part, partb);
-  for (int a0 = WMAX; a0 < m; a0 += WMAX)
-    outer_acc<R, false>(A + a0, lda, m - a0 < WMAX ? m - a0 : WMAX, G, ldg, n,
-                        part + (size_t)a0 * n, partb);
 }
 
 // src rows [base, base + rows) of width `width` into dst (R x ld), zeros

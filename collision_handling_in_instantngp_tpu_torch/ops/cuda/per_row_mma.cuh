@@ -4,7 +4,8 @@
 // tail's backward (hpd_tail.cu, K9) take all three, hpd_full.cu's forward
 // (K10) the logits; each helper takes an (R x H) activation tile, the
 // (H x T) head (a zero-padded copy in device memory) and the (R x T)
-// logits / dlogits tile.
+// logits / dlogits tile. K11's hidden layers' backward takes the same
+// steps (below: hid_bwd, and head_dw with its reads bounded).
 //
 // Arithmetic: warp-level mma.sync m16n8k8 tf32 as 3xTF32. x = hi + lo,
 // hi = tf32(x), lo = tf32(x - hi), both rounded to nearest (ties away from
@@ -98,16 +99,22 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ w, int ldw
   }
 }
 
-// For chunks 0 .. n - 1: issue(c, buf) stages chunk c into buffer buf with
-// stage_chunk, compute(c, buf) reads it. With NBUF = 2 chunk c + 1 streams in
-// while chunk c is computed. Starts with a barrier (the buffers are free)
-// and ends with one.
-template <int NBUF, typename FI, typename FC>
-__device__ __forceinline__ void staged(int n, FI issue, FC compute) {
+struct Nop {
+  __device__ void operator()() const {}
+};
+
+// For chunks 0 .. n - 1 (n >= 1): issue(c, buf) stages chunk c into buffer
+// buf with stage_chunk, compute(c, buf) reads it. With NBUF = 2 chunk c + 1
+// streams in while chunk c is computed. pre() runs once chunk 0 is issued,
+// before any wait (work that needs no stage buffer, under chunk 0's
+// latency). Starts with a barrier (the buffers are free) and ends with one.
+template <int NBUF, typename FI, typename FC, typename FP = Nop>
+__device__ __forceinline__ void staged(int n, FI issue, FC compute, FP pre = FP()) {
   __syncthreads();
   if (NBUF == 2) {
     issue(0, 0);
     cp_commit();
+    pre();
   }
   for (int c = 0; c < n; ++c) {
     if (NBUF == 2) {
@@ -117,6 +124,7 @@ __device__ __forceinline__ void staged(int n, FI issue, FC compute) {
     } else {
       issue(c, 0);
       cp_commit();
+      if (c == 0) pre();
       cp_wait<0>();
     }
     __syncthreads();
@@ -274,13 +282,15 @@ __device__ __forceinline__ void head_logits(const float* __restrict__ A, int lda
 // part[h * T + c] += sum_r A[r, h] G[r, c] (h < H, c < T), a 3xTF32 product
 // over the tile's R rows, and partb[c] += sum_r G[r, c] in row order. A:
 // R x H, stride lda; G: R x T, stride ldg (both mma_ld of their width, zeros
-// in the padding). Each element of the partial is updated by the same
-// thread, tile after tile: the sums are bitwise stable. No barrier.
+// in the padding; with BOUND, any strides and no padding: the reads past H
+// and T give zeros, as K11's hidden layers take dW_i = act_i^T g_i). Each
+// element of the partial is updated by the same thread, tile after tile:
+// the sums are bitwise stable. No barrier.
 // The product is taken transposed (M = T, N = H), so that the 8 lanes of a
 // fragment row hold 8 consecutive columns c of the partial: each access of
 // its read-modify-write fills whole 32-byte sectors. The partial's values
 // load before the MMAs, which hide their latency.
-template <int RPT>
+template <int RPT, bool BOUND = false>
 __device__ __forceinline__ void head_dw(const float* __restrict__ A, int lda, int H,
                                         const float* __restrict__ G, int ldg, int T,
                                         float* __restrict__ part, float* __restrict__ partb) {
@@ -306,9 +316,13 @@ __device__ __forceinline__ void head_dw(const float* __restrict__ A, int lda, in
     mma3_steps<MT, NT>(
         d, dl, 0, R / 8,
         [&](int s, int i, int q) {
-          return G[(8 * s + 2 * t4 + (q >> 1)) * ldg + m0 + 16 * i + g + 8 * (q & 1)];
+          const int c = m0 + 16 * i + g + 8 * (q & 1);
+          return BOUND && c >= T ? 0.f : G[(8 * s + 2 * t4 + (q >> 1)) * ldg + c];
         },
-        [&](int s, int j, int q) { return A[(8 * s + 2 * t4 + q) * lda + n0 + 8 * j + g]; });
+        [&](int s, int j, int q) {
+          const int h = n0 + 8 * j + g;
+          return BOUND && h >= H ? 0.f : A[(8 * s + 2 * t4 + q) * lda + h];
+        });
     merge(d, dl);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -399,6 +413,104 @@ __device__ __forceinline__ void head_dh_wide(const float* __restrict__ G, int ld
   for (int h0 = 0; h0 < H; h0 += WMAX)
     head_dh<RPT, MASK>(G, ldg, T, w + (size_t)h0 * ldw, ldw, H - h0 < WMAX ? H - h0 : WMAX,
                        MASK ? act + h0 : act, lda, stage, out + h0, ldo);
+}
+
+// ------------------ K11's hidden layers on the tensor cores ------------------
+//
+// The hidden layers' backward as the head's 3xTF32 k8 steps: dh_i = (g
+// W_i^T) * (act_i > 0) (hid_bwd) and dW_i = act_i^T g (head_dw with BOUND).
+// W_i (w_i x w_{i+1}, row-major in the packed parameters, at any offset)
+// streams through the head's stage buffers by 4-byte cp.async, zeros past
+// its edges, [n][k] at Grid::LDD = 4 (mod 32), WMAX output columns a slab.
+// The activation and gradient tiles lie in shared memory at the strides
+// K11's plan gives them (hid_ld: = 4 (mod 8), so the fragment loads hit 32
+// banks, where the tile fits at it); reads past a width are bounded, so no
+// tile needs zero padding. A warp takes items of 16 rows x 32 output
+// columns. Each staged chunk of the contraction (Grid::KD deep, at most 8
+// k8 steps) is one chain from zeroed accumulators; the chains are added in
+// order in fp32 into the output tile, each element by the thread that owns
+// it.
+
+// Row stride of a hidden activation or gradient tile: >= round8(w) (a k8
+// step's reach) and = 4 (mod 8).
+__host__ __device__ constexpr int hid_ld(int w) { return (w + 7) / 8 * 8 + 4; }
+
+// *dst = *src (4 bytes), asynchronously; 0 where !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+// st[r * lds + c] = src[(r0 + r) * ld + c0 + c] for r < rows, c < COLS, 0
+// where r0 + r >= rmax or c0 + c >= cmax
+template <int COLS>
+__device__ __forceinline__ void stage_bounded(const float* __restrict__ src, int ld, int r0,
+                                              int rmax, int c0, int cmax, int rows,
+                                              float* __restrict__ st, int lds) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < rows * COLS; e += THREADS) {
+    const int r = e / COLS, c = e - r * COLS;
+    const bool ok = r0 + r < rmax && c0 + c < cmax;
+    cp_async4(st + r * lds + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
+// out[r, a] = (G @ W^T)[r, a] * (act[r, a] > 0) for a < N: G R x K (stride
+// ldg), W N x K in device memory (the layer's weight: N its input width, K
+// its output width), act R x N (stride lda, the layer's input), out stride
+// ldo (only a < N written). pre() runs under the first chunk's staging (as
+// staged's). Starts with a barrier and ends with one.
+template <int RPT, typename FP>
+__device__ __forceinline__ void hid_bwd(const float* __restrict__ G, int ldg, int K,
+                                        const float* __restrict__ W, int N,
+                                        const float* __restrict__ act, int lda,
+                                        float* __restrict__ stage, float* __restrict__ out,
+                                        int ldo, FP pre) {
+  using Gr = Grid<RPT>;
+  constexpr int MI = RPT, KC = Gr::KD;  // m16 tiles of the row tile; a chunk's depth
+  static_assert(KC <= 8 * CHAIN, "a chunk is one chain");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nkc = (K + KC - 1) / KC;
+  staged<Gr::NBUF>(
+      (N + WMAX - 1) / WMAX * nkc,
+      [&](int ci, int buf) {
+        const int n0 = ci / nkc * WMAX;
+        stage_bounded<KC>(W, K, n0, N, ci % nkc * KC, K, (min(WMAX, N - n0) + 31) / 32 * 32,
+                          stage + buf * Gr::BUF, Gr::LDD);
+      },
+      [&](int ci, int buf) {
+        const int n0 = ci / nkc * WMAX, kc = ci % nkc, k0 = kc * KC;
+        const float* st = stage + buf * Gr::BUF;
+        const int items = MI * ((min(WMAX, N - n0) + 31) / 32);
+        const int steps = (min(KC, K - k0) + 7) / 8;
+        for (int it = warp; it < items; it += WARPS) {
+          const int m0 = it % MI * 16, nl = it / MI * 32;
+          float d[1][4][4], dl[1][4][4];
+          zero(d);
+          zero(dl);
+          mma3_steps<1, 4>(
+              d, dl, 0, steps,
+              [&](int s, int, int q) {
+                const int k = k0 + 8 * s + t4 + 4 * (q >> 1);
+                return k < K ? G[(m0 + g + 8 * (q & 1)) * ldg + k] : 0.f;
+              },
+              [&](int s, int j, int q) { return st[(nl + 8 * j + g) * Gr::LDD + 8 * s + t4 + 4 * q]; });
+          merge(d, dl);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int r = m0 + g + 8 * (q >> 1), a = n0 + nl + 8 * j + 2 * t4 + (q & 1);
+              if (a >= N) continue;
+              float v = kc == 0 ? d[0][j][q] : out[r * ldo + a] + d[0][j][q];
+              if (kc == nkc - 1) v *= act[r * lda + a] > 0.f ? 1.f : 0.f;
+              out[r * ldo + a] = v;
+            }
+        }
+      },
+      pre);
 }
 
 // ------------ the exact fp32 top-K of p from tensor-core logits ------------
@@ -747,6 +859,71 @@ __device__ __forceinline__ void softmax_pair(float* __restrict__ ra, float* __re
   sa = ua;
   mb = xb;
   sb = ub;
+}
+
+// One warp, two rows of K11's logits: dl = p (g_p - <g_p, p>) in place,
+// with p = nan_to_num(e * (1 / s)), e = exp(l - max l), s = sum e, and
+// g_p = gm (+ g_vals at the row's top-K columns), the two rows' passes side
+// by side. Three passes over a row: its max; e, with s and sum gm e; dl.
+// <g_p, p> is taken as (sum gm e + sum of the top-K's g_vals e) / s
+// (nan_to_num'd, so that a row whose p are all zeros has none): it rounds
+// otherwise than dlogits_row's sum of gm p, which p only feeds (sums held
+// to 1e-4). A row that is not valid (va / vb false) ends as zeros; ia, gva
+// (ib, gvb): its top-K columns and g_vals (K <= KMAX = 32, one a lane),
+// read only if valid.
+__device__ __forceinline__ void softmax_dl_pair(float* __restrict__ ra, float* __restrict__ rb,
+                                                int T, int K, const float* __restrict__ gm,
+                                                const int* __restrict__ ia,
+                                                const float* __restrict__ gva, bool va,
+                                                const int* __restrict__ ib,
+                                                const float* __restrict__ gvb, bool vb) {
+  const int lane = threadIdx.x & 31;
+  // the top-K loads first: in flight through the first two passes
+  const bool ta = va && lane < K, tb = vb && lane < K;
+  const int ca = ta ? ia[lane] : 0, cb = tb ? ib[lane] : 0;
+  const float ga = ta ? gva[lane] : 0.f, gb = tb ? gvb[lane] : 0.f;
+  float xa = -INFINITY, xb = -INFINITY;
+  for (int c = lane; c < T; c += 32) {
+    xa = fmaxf(xa, ra[c]);
+    xb = fmaxf(xb, rb[c]);
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    xa = fmaxf(xa, __shfl_xor_sync(FULL, xa, off));
+    xb = fmaxf(xb, __shfl_xor_sync(FULL, xb, off));
+  }
+  float ua = 0.f, ub = 0.f, da = 0.f, db = 0.f;
+  for (int c = lane; c < T; c += 32) {
+    const float ea = expf(ra[c] - xa), eb = expf(rb[c] - xb);
+    ra[c] = ea;
+    rb[c] = eb;
+    ua += ea;
+    ub += eb;
+    da = fmaf(gm[c], ea, da);
+    db = fmaf(gm[c], eb, db);
+  }
+  __syncwarp();
+  const float pa = ta ? ra[ca] : 0.f, pb = tb ? rb[cb] : 0.f;  // e, then p
+  da = fmaf(ga, pa, da);
+  db = fmaf(gb, pb, db);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    ua += __shfl_xor_sync(FULL, ua, off);
+    ub += __shfl_xor_sync(FULL, ub, off);
+    da += __shfl_xor_sync(FULL, da, off);
+    db += __shfl_xor_sync(FULL, db, off);
+  }
+  const float sa = 1.f / ua, sb = 1.f / ub;
+  da = nan_to_num(da * sa);
+  db = nan_to_num(db * sb);
+  for (int c = lane; c < T; c += 32) {
+    ra[c] = va ? nan_to_num(ra[c] * sa) * (gm[c] - da) : 0.f;
+    rb[c] = vb ? nan_to_num(rb[c] * sb) * (gm[c] - db) : 0.f;
+  }
+  __syncwarp();
+  if (ta) ra[ca] = nan_to_num(pa * sa) * ((gm[ca] + ga) - da);
+  if (tb) rb[cb] = nan_to_num(pb * sb) * ((gm[cb] + gb) - db);
+  __syncwarp();
 }
 
 // One warp: the row's fp32 logits (fp32_logit for every column; the lanes

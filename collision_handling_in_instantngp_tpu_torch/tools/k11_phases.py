@@ -2,7 +2,7 @@
 (``hpd_full_bwd``, the backward of "auto"), K10 (``hpd_full_fwd``, its
 forward) and K8 (``hpd_tail_fwd``, the forward of "pallas"). K11: the
 hidden stack's replay, the head's logits replay, softmax and dlogits,
-dW_head, dh, and the hidden layers' dW/db/dx. K10: the hidden layers, the
+dW_head, dh, the hidden layers' dW/db, and their dh. K10: the hidden layers, the
 head's logits, softmax, the column sums, and the top-K: its candidates,
 their fp32 recompute, and their ranking with the redo of the rows the
 guard leaves. K8: the h tile's loads, the logits, softmax, the column sums
@@ -39,7 +39,7 @@ import torch
 from ..ops.cuda import build, hpd_full, hpd_tail
 from ..utils import profiling
 
-PHASES = ("replay", "logits", "softmax+dl", "dW_head", "dh", "hidden layers")
+PHASES = ("replay", "logits", "softmax+dl", "dW_head", "dh", "hidden dW", "hidden dh")
 K10_PHASES = ("hidden layers", "logits", "softmax", "column sums", "top-K candidates",
               "top-K recompute", "top-K ranking")
 K8_PHASES = ("loads", "logits", "softmax", "column sums", "top-K")

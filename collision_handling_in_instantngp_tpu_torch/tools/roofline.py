@@ -73,8 +73,8 @@ CALIBRATION_PATH = os.path.join(REPO, "chiprun_out", "roofline_calibration.json"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 # dense TF32 on the tensor cores: the dedup route's tail (K1, K2, K4-K6),
-# K7 and the per-row heads (K9-K11) run their products there as 3xTF32,
-# three tf32 products per fp32 term
+# K7, the per-row heads (K9-K11) and K11's hidden dW and dh run their
+# products there as 3xTF32, three tf32 products per fp32 term
 PEAK_TF32_TENSOR_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAKS = {
@@ -138,8 +138,9 @@ def kernel_work(kernel: str, **s) -> dict:
     - K8 / K9 (per-row tail, forward / backward): rows, h, t, l, k; K8's
       head as fp32 on the CUDA cores, K9's three products as 3xTF32;
       K10 / K11 (per-row network): rows, widths, l, k (widths from the
-      input to T): the head's products as 3xTF32, the hidden layers as
-      fp32 on the CUDA cores (``hpd_full.cu``);
+      input to T): the hidden stack (K10's, and K11's replay of it) as fp32
+      on the CUDA cores, every other product (K10's head; K11's head and
+      its hidden layers' dW and dh) as 3xTF32 (``hpd_full.cu``);
     - K12 (serial scatter): n rows of c columns added into t slots[,
       idx_bytes a row id, ids read (default n: under a slot range every id
       is read, only the n rows in range)]; ``blend`` (the top-K gather of
@@ -199,9 +200,10 @@ def kernel_work(kernel: str, **s) -> dict:
             rest = 2.0 * rows * macs - head_flops
             return _work({"tf32": 3 * head_flops, "fp32": rest}, nbytes, 2.0 * rows * macs)
         dx_macs = sum(a * c for a, c in zip(widths[1:-1], widths[2:]))
-        rest = 2.0 * rows * (2 * macs + dx_macs) - 3 * head_flops
+        flops = 2.0 * rows * (2 * macs + dx_macs)
+        replay = 2.0 * rows * macs - head_flops
         nbytes = 4.0 * (rows * d + 2 * n_params + l * t + 2 * rows * k)
-        return _work({"tf32": 9 * head_flops, "fp32": rest}, nbytes, 3 * head_flops + rest)
+        return _work({"tf32": 3 * (flops - replay), "fp32": replay}, nbytes, flops)
     if kernel == "blend":   # the top-K gather and weighted sum (no kernel)
         u, k, l, f, t = s["u"], s["k"], s["l"], s["f"], s["t"]
         return _work({"fp32": 2.0 * u * k * l * f}, 4.0 * (l * t * f + 2 * u * k + l * u * f))

@@ -321,13 +321,15 @@ def _full_layers(dev, widths, seed=1):
 @pytest.mark.parametrize("widths,k,n", [((2, 32, 64, 128, 256), 4, 1000), ((2, 32, 64, 128, 128), 1, 700),
                                         ((2, 32, 64, 128, 2048), 20, 333), ((2, 32, 64, 128, 256), 32, 555),
                                         ((3, 16, 24, 40, 96, 512), 4, 400), ((2, 1000), 8, 300),
-                                        ((3, 24, 37, 203), 8, 77)])
+                                        ((3, 24, 37, 203), 8, 77), ((3, 150, 37, 96), 4, 333)])
 def test_per_row_full_kernels_match_plain(dev, widths, k, n):
     """K10/K11 against their plain versions (the hidden stack, then the
     chunked tail): identical indices, normwise 1e-5 forward and 1e-4
-    gradients of every layer, bitwise equal run to run. The last case's
-    rows fill no tile and its head input width and T are not multiples of
-    8: K11's tensor-core head reads zero padding past them."""
+    gradients of every layer, bitwise equal run to run. The last two
+    cases' rows fill no tile and their hidden widths (and T) are not
+    multiples of 8: K11's tensor-core products bound their reads there (the
+    head's read zero padding); the last is past 128 wide, the WIDE
+    instance."""
     l = 2
     rng = np.random.default_rng(2)
     verts = torch.as_tensor(rng.integers(0, 33, size=(l, n, widths[0])).astype(np.float32), device=dev)
@@ -352,7 +354,7 @@ def test_per_row_full_kernels_match_plain(dev, widths, k, n):
 
 def test_k11_phases_tool(dev, tmp_path):
     """tools/k11_phases: the -DHPD_FULL_PHASES build of hpd_full.cu builds,
-    launches and splits K11's ticks into its six phases and K10's into its
+    launches and splits K11's ticks into its seven phases and K10's into its
     seven, every one of them taking some."""
     import json
     from collision_handling_in_instantngp_tpu_torch.tools import k11_phases
@@ -361,7 +363,7 @@ def test_k11_phases_tool(dev, tmp_path):
     with open(tmp_path / "k11_phases.json") as f:
         result = json.load(f)
     shares = [p["share"] for p in result["phases"].values()]
-    assert len(shares) == 6 and all(x > 0 for x in shares)
+    assert len(shares) == 7 and all(x > 0 for x in shares)
     assert abs(sum(shares) - 1) < 1e-9 and result["k11_ms"] > 0
     shares = [p["share"] for p in result["k10_phases"].values()]
     assert len(shares) == 7 and all(x > 0 for x in shares)

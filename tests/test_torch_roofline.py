@@ -205,7 +205,10 @@ def test_kernel_work_bounds_at_the_smoke_shapes():
     fwd_ops = 3 * head / TF32 + (2.0 * rows * macs - head) / FP32
     fwd_bytes = 4.0 * (rows * 2 + params) + out
     check("K10", (1e3 * max(fwd_ops, fwd_bytes / HBM), "operations"), rows=rows, widths=stack, l=4, k=k)
-    bwd_ops = 9 * head / TF32 + (2.0 * rows * (2 * macs + dx) - 3 * head) / FP32
+    # K11: the replay of the hidden stack as fp32, every other product
+    # (the head's three, the hidden layers' dW and dh) as 3xTF32
+    replay = 2.0 * rows * macs - head
+    bwd_ops = 3 * (2.0 * rows * (2 * macs + dx) - replay) / TF32 + replay / FP32
     bwd_bytes = 4.0 * (rows * 2 + 2 * params + 4 * t2 + 2 * rows * k)
     check("K11", (1e3 * max(bwd_ops, bwd_bytes / HBM), "operations"), rows=rows, widths=stack,
           l=4, k=k)

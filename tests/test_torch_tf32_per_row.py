@@ -8,8 +8,9 @@ x = hi + lo, hi = tf32(x), lo = tf32(x - hi), both rounded to nearest (ties
 away from zero, PTX ``cvt.rna.tf32.f32``) by bit masking; a product is
 lo_a hi_b + hi_a lo_b + hi_a hi_b, each tf32 x tf32 product exact in fp32,
 summed in fp32; dh sums chains of 128 columns of T (16 k8 steps) in fp32.
-K11's hidden stack, its dW/db and its dx stay fp32, as the kernel takes
-them on the CUDA cores. The backward tests leave the tensor cores' own fp32
+K11 runs the hidden layers' dW and their dh that way too (dh's chains 64
+deep, a staged chunk); its replay of the hidden stack stays fp32 on the
+CUDA cores (the forward's arithmetic). The backward tests leave the tensor cores' own fp32
 sums (rounded toward zero) to the card's check against the plain version
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``); the forward's tests
 emulate them (each MMA its exact sum truncated toward zero once), since
@@ -28,6 +29,8 @@ fp32 redo; marg and vals within FWD_TOL = 1e-5. One TF32 product per term
 (a single tensor-core pass) is held to what it gives on the same inputs.
 """
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -44,7 +47,11 @@ FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 L, N = 2, 700
 CHAIN_T = 128         # columns of T per dh chain: CHAIN = 16 k8 steps
-SHAPES = [((2, 32, 64, 128, 256), 4), ((2, 8, 16, 128), 32), ((3, 16, 24, 40, 96, 512), 4)]
+HID_CHAIN = 64        # K11's hidden dh: contraction per chain (a staged chunk)
+# the per-row route's stack, a narrow one at K = 32, a deep one at T = 512,
+# and hidden widths that are not multiples of 8
+SHAPES = [((2, 32, 64, 128, 256), 4), ((2, 8, 16, 128), 32), ((3, 16, 24, 40, 96, 512), 4),
+          ((3, 24, 37, 203), 8)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -81,8 +88,18 @@ def emulated_head_bwd(a, w, b, idx, g_marg, g_vals, passes=3):
     return dh, mm_tf32(a2.T, dl2, passes), dl2.sum(dim=0)
 
 
+def mm_chains(a: torch.Tensor, b: torch.Tensor, passes: int, chain: int = HID_CHAIN) -> torch.Tensor:
+    """a @ b in chains of ``chain`` along the contraction, each as
+    mm_tf32, added in fp32 in order."""
+    out = mm_tf32(a[..., :chain], b[:chain], passes)
+    for k0 in range(chain, a.shape[-1], chain):
+        out = out + mm_tf32(a[..., k0:k0 + chain], b[k0:k0 + chain], passes)
+    return out
+
+
 def emulated_bwd(verts, layers, idx, g_marg, g_vals, passes=3):
-    """[(dW_i, db_i)] of K11 with the head's products in TF32 passes."""
+    """[(dW_i, db_i)] of K11 with the head's three products and the hidden
+    layers' dW and dh in TF32 passes, the replay of the stack in fp32."""
     acts = [verts]
     for w, b in layers[:-1]:
         acts.append(torch.clamp(acts[-1] @ w + b, min=0.0))
@@ -94,9 +111,9 @@ def emulated_bwd(verts, layers, idx, g_marg, g_vals, passes=3):
     d = dh * (a > 0).to(dh.dtype)
     for i in reversed(range(len(layers) - 1)):
         ai, dd = acts[i].reshape(-1, acts[i].shape[-1]), d.reshape(-1, d.shape[-1])
-        grads[i] = (ai.T @ dd, dd.sum(dim=0))
+        grads[i] = (mm_tf32(ai.T, dd, passes), dd.sum(dim=0))
         if i > 0:
-            d = (d @ layers[i][0].T) * (acts[i] > 0).to(d.dtype)
+            d = mm_chains(d, layers[i][0].T, passes) * (acts[i] > 0).to(d.dtype)
     return grads
 
 
@@ -113,6 +130,7 @@ def _inputs(widths, k):
     return verts, layers, gm, gv
 
 
+@functools.lru_cache(maxsize=None)
 def _case(widths, k):
     """Torch inputs (idx from the JAX forward) and the JAX K11's grads."""
     verts, layers, gm, gv = _inputs(widths, k)
@@ -143,19 +161,46 @@ def _errors(args, ref, passes):
 
 @pytest.mark.parametrize("widths,k", SHAPES)
 def test_3xtf32_head_within_grad_tol(widths, k):
+    """K11 with its tensor-core products as 3xTF32 (the head's three and the
+    hidden layers' dW and dh) against the JAX backward: every layer's dW and
+    db within GRAD_TOL."""
     args, ref = _case(widths, k)
     errs = _errors(args, ref, 3)
     assert max(errs.values()) <= GRAD_TOL, errs
 
 
 def test_one_tf32_pass_misses_grad_tol():
-    """The same backward with one TF32 product per head term, at the
-    per-row route's stack: at least one layer's dW or db is off by more
-    than GRAD_TOL, and by far more than with 3xTF32."""
+    """The same backward with one TF32 product per term of each of those
+    products, at the per-row route's stack: at least one layer's dW or db
+    is off by more than GRAD_TOL, and by far more than with 3xTF32."""
     args, ref = _case(*SHAPES[0])
     one, three = _errors(args, ref, 1), _errors(args, ref, 3)
     assert max(one.values()) > GRAD_TOL, one
     assert max(one.values()) > 10 * max(three.values()), (one, three)
+
+
+# the parent's answers of hpd_full.supports(widths, k) and tile_rpt(widths),
+# before K11's hidden layers moved to the tensor cores (its padded tile is
+# taken only where it fits beside the compact one's route)
+ROUTES = [((2, 32, 64, 128, 256), 4, True, 4),       # the per-row route's stack
+          ((2, 8, 16, 128), 32, True, 4),
+          ((3, 16, 24, 40, 96, 512), 4, True, 2),
+          ((3, 24, 37, 203), 8, True, 4),
+          ((2, 256, 512, 256, 256), 4, True, 1),     # past 128 wide
+          ((2, 512, 512, 2048), 4, False, 0)]        # no tile fits
+
+
+@pytest.mark.parametrize("widths,k,supported,rpt", ROUTES)
+def test_per_row_routes_stay(widths, k, supported, rpt):
+    """Every stack K10/K11 took keeps its tile: supports stays True where it
+    was and tile_rpt keeps its rows; the per-row route's stack takes the
+    padded backward tile at 64 rows (232,192 of 232,448 bytes)."""
+    if supported:
+        assert hpd_full.supports(widths, k)
+    assert hpd_full.tile_rpt(widths) == rpt
+    if widths == ROUTES[0][0]:
+        assert hpd_full.bwd_padded(widths)
+        assert 4 * hpd_full.tile_floats(widths, 4, padded=True)[1] == 232_192
 
 
 # ------------------------- K9: the per-row tail's backward -------------------------
