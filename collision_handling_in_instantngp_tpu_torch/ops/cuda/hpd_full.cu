@@ -16,10 +16,12 @@
 // row tile's activations and its (R, T) logits stay in shared memory, and
 // the weights stream from L2 (the head is 128 KB at T = 256 and 1 MB at
 // T = 2048: it cannot stay resident). The hidden stack runs as fp32 FMA on
-// the CUDA cores (per_row.cuh), the weights staged in 32-deep chunks: the
-// forward's, and the backward's replay of it, which so takes the forward's
-// ReLU masks bit for bit. Every other product runs as 3xTF32 on the tensor
-// cores (per_row_mma.cuh), whatever the model's precision: the forward's
+// the CUDA cores (per_row.cuh: hidden_stack, register blocks of up to 8 x 4
+// outputs a thread from float4 operands, the weights in a cp.async ring
+// across layers): the forward's, and the backward's replay of it, one
+// routine, which so takes the forward's ReLU masks bit for bit. Every
+// other product runs as 3xTF32 on the tensor cores (per_row_mma.cuh),
+// whatever the model's precision: the forward's
 // logits (60 of its 79 GFLOP), and the backward's logits replay, dW_head,
 // dh and the hidden layers' dh and dW (hid_bwd, head_dw; 218 of its 237).
 // So the bounds are those products at the TF32 peak plus the stack at the
@@ -131,12 +133,10 @@ constexpr int GMAX = KMAX + GSLACK;  // candidates a row at most
 static_assert(refine_floats(1, GMAX) <= mma_ld(WMAX),
               "the refinement's lists fit a spare activation tile");
 
-// Floats of the forward's staged buffer at R rows: the hidden products'
-// chunk, then the head's chunks (the logits', then the recompute's), with
-// the candidates' per-thread lists between them.
-__host__ __device__ constexpr int fwd_stage(int R) {
-  return BK * BS > head_stage_floats(R / 16) ? BK * BS : head_stage_floats(R / 16);
-}
+// Floats of the staged buffer at R rows: the head's chunks (the logits',
+// then in the forward the recompute's, with the candidates' per-thread
+// lists between them), and the hidden stack's weights in its two halves.
+__host__ __device__ constexpr int stage_floats(int R) { return head_stage_floats(R / 16); }
 
 // chains a thread of the candidates' recompute at R rows, kc candidates
 __host__ __device__ constexpr int chains(int R, int kc) { return (R * kc + THREADS - 1) / THREADS; }
@@ -145,17 +145,16 @@ __host__ __device__ constexpr int chains(int R, int kc) { return (R * kc + THREA
 // tile (stride mma_ld(T)), the column sums and the head's row maxima
 size_t fwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
-  return sizeof(float) * (2 * (size_t)R * wide_strides(net).lda + fwd_stage(R) +
+  return sizeof(float) * (2 * (size_t)R * wide_strides(net).lda + stage_floats(R) +
                           (size_t)R * mma_ld(T) + T + net.w[net.n - 1] + 1);
 }
 
-// acts (the head's input at stride mma_ld(H)), gA, the staged chunk (the
-// hidden products' or the head's), the cache (stride mma_ld(T)), which the
-// hidden layers' backward reuses as gB once dh has read it, and g_marg; at
-// the net's layout.
+// acts (the head's input at stride mma_ld(H)), gA, the staged buffer, the
+// cache (stride mma_ld(T)), which the hidden layers' backward reuses as gB
+// once dh has read it, and g_marg; at the net's layout.
 size_t bwd_smem(const Net& net, int R) {
   const int T = net.w[net.n];
-  const int stage = BK * BS > head_stage_floats(R / 16) ? BK * BS : head_stage_floats(R / 16);
+  const int stage = stage_floats(R);
   const int ldc = mma_ld(T) > net.gld ? mma_ld(T) : net.gld;
   return sizeof(float) *
          ((size_t)R * net.acols + (size_t)R * net.gld + stage + (size_t)R * ldc + T);
@@ -185,48 +184,6 @@ int check(int n, const int* widths, int L, int N, int K, Net* net) {
   return 0;
 }
 
-// out = relu(A @ W + b) for an (R x kdim) tile, n <= 16 NJ output columns
-template <int RPT, int NJ = 8>
-__device__ __forceinline__ void hidden_layer(const float* __restrict__ A, int lda, int kdim,
-                                             const float* __restrict__ W,
-                                             const float* __restrict__ bias, int n,
-                                             float* __restrict__ b_s, float* __restrict__ out,
-                                             int ldo) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[RPT][NJ];
-  tile_mm<RPT, NJ>(A, lda, kdim, W, n, 0, b_s, acc);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = tx + 16 * j;
-    if (c >= n) continue;
-    const float bc = bias[c];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) out[(ty * RPT + i) * ldo + c] = fmaxf(acc[i][j] + bc, 0.f);
-  }
-}
-
-// hidden_layer for any n: TT output columns a pass
-template <int RPT>
-__device__ __forceinline__ void hidden_layer_wide(const float* __restrict__ A, int lda, int kdim,
-                                                  const float* __restrict__ W,
-                                                  const float* __restrict__ bias, int n,
-                                                  float* __restrict__ b_s, float* __restrict__ out,
-                                                  int ldo) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int c0 = 0; c0 < n; c0 += TT) {
-    float acc[RPT][8];
-    tile_mm<RPT>(A, lda, kdim, W, n, c0, b_s, acc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c >= n) continue;
-      const float bc = bias[c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) out[(ty * RPT + i) * ldo + c] = fmaxf(acc[i][j] + bc, 0.f);
-    }
-  }
-}
-
 // WIDE: a width of the stack past WMAX (its tiles' strides at run time)
 template <int RPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
@@ -243,7 +200,7 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
   float* buf0 = smem;
   float* buf1 = buf0 + R * LDA;
   float* stage = buf1 + R * LDA;
-  float* cache = stage + fwd_stage(R);
+  float* cache = stage + stage_floats(R);
   float* colsum = cache + R * ldc;
   float* amax = colsum + T;
   // the refinement's lists, in the activation tile the stack does not end
@@ -269,21 +226,11 @@ full_fwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     const int r0 = t * R;
     const int rows = min(R, g.N - r0);
     const size_t base = (size_t)l * g.N + r0;
-    __syncthreads();
-    load_rows<R>(verts, base, rows, d, buf0, LDA);
-    float* in = buf0;
-    float* out = buf1;
-    for (int i = 0; i < n - 1; ++i) {
-      if (WIDE)
-        hidden_layer_wide<RPT>(in, LDA, net.w[i], params + net.woff[i], params + net.boff[i],
-                               net.w[i + 1], stage, out, LDA);
-      else
-        hidden_layer<RPT>(in, LDA, net.w[i], params + net.woff[i], params + net.boff[i],
-                          net.w[i + 1], stage, out, LDA);
-      float* tmp = in;
-      in = out;
-      out = tmp;
-    }
+    // the stack alternates the two tiles, from the vertices in buf0
+    hidden_stack<RPT, stage_floats(R)>(
+        params, net, [&](int i) { return Act{i % 2 ? buf1 : buf0, LDA}; }, stage,
+        [&] { load_rows<R>(verts, base, rows, d, buf0, LDA); });
+    float* in = (n - 1) % 2 ? buf1 : buf0;
     for (int e = threadIdx.x; e < R * pad; e += THREADS) in[e / pad * LDA + H + e % pad] = 0.f;
     PHASE_SYNC_MARK(0);
     // the logits on the tensor cores (begins and ends with a barrier)
@@ -352,7 +299,7 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
                 const float* __restrict__ g_marg, const float* __restrict__ g_vals, Rows g,
                 float* __restrict__ part) {
   constexpr int R = 16 * RPT;
-  constexpr int STAGE = BK * BS > head_stage_floats(RPT) ? BK * BS : head_stage_floats(RPT);
+  constexpr int STAGE = stage_floats(R);
   extern __shared__ float smem[];
   const int n = net.n, d = net.w[0], T = net.w[n], H = net.w[n - 1];
   const int ldh = mma_ld(H), ldc = mma_ld(T), ldw = head_ld(T), gld = net.gld;
@@ -377,25 +324,11 @@ full_bwd_kernel(const float* __restrict__ verts, const float* __restrict__ param
     const int r0 = t * R;
     const int rows = min(R, g.N - r0);
     const size_t base = (size_t)l * g.N + r0;
-    __syncthreads();
-    load_rows<R>(verts, base, rows, d, acts, net.ald[0]);
-    // replay the stack, keeping every layer's input: K10's fp32 arithmetic,
-    // so the ReLU masks are the forward's, bit for bit (a layer of at most
-    // 64 units takes half the columns)
-    for (int i = 0; i < n - 1; ++i) {
-      const float* in = acts + R * net.aoff[i];
-      float* out = acts + R * net.aoff[i + 1];
-      const float* w = params + net.woff[i];
-      const float* b = params + net.boff[i];
-      if (WIDE)
-        hidden_layer_wide<RPT>(in, net.ald[i], net.w[i], w, b, net.w[i + 1], b_s, out,
-                               net.ald[i + 1]);
-      else if (net.w[i + 1] <= 64)
-        hidden_layer<RPT, 4>(in, net.ald[i], net.w[i], w, b, net.w[i + 1], b_s, out,
-                             net.ald[i + 1]);
-      else
-        hidden_layer<RPT>(in, net.ald[i], net.w[i], w, b, net.w[i + 1], b_s, out, net.ald[i + 1]);
-    }
+    // replay the stack, keeping every layer's input: K10's routine, so the
+    // ReLU masks are the forward's, bit for bit
+    hidden_stack<RPT, STAGE>(
+        params, net, [&](int i) { return Act{acts + R * net.aoff[i], net.ald[i]}; }, b_s,
+        [&] { load_rows<R>(verts, base, rows, d, acts, net.ald[0]); });
     PHASE_SYNC_MARK(0);
     head_logits<RPT>(a_head, ldh, H, w_pad, ldw, params + net.boff[n - 1], T, b_s, cache, ldc);
     PHASE_MARK(1);

@@ -33,7 +33,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import build
-from .hpd_tail import (BK, SMEM_MAX, TT, WMAX, head_stage_floats, hpd_tail_bwd_plain,
+from .hpd_tail import (SMEM_MAX, WMAX, head_stage_floats, hpd_tail_bwd_plain,
                        hpd_tail_fwd_plain, mma_ld, padded_head)
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -102,7 +102,7 @@ def tile_floats(widths: Sequence[int], rpt: int, padded: bool = False) -> Tuple[
         gld = max([WMAX, *hidden]) + 1
     acols += mma_ld(widths[n - 1])
     lda = mma_ld(max([WMAX, *widths[:n]]))
-    r, stage = 16 * rpt, max(BK * (TT + 1), head_stage_floats(rpt))
+    r, stage = 16 * rpt, head_stage_floats(rpt)
     return (2 * r * lda + stage + r * mma_ld(t) + t + widths[n - 1] + 1,
             r * acols + r * gld + stage + r * max(mma_ld(t), gld) + t)
 

@@ -104,22 +104,15 @@ __device__ __forceinline__ void stage_fill(const float* __restrict__ w, int ldw,
     const int e = threadIdx.x + u * THREADS;
     const int r = e / V, c = 4 * (e - r * V);
     const bool in = c0 + c < ldw;
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(st + r * COLS + c);
-    const float* src = in ? w + (size_t)(r0 + r) * ldw + c0 + c : w;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                 "r"(in ? 16 : 0));
+    cp_async16(st + r * COLS + c, in ? w + (size_t)(r0 + r) * ldw + c0 + c : w, in);
   }
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
 // cache[r, c] (c < T) over the h chunk A (R x lda: columns k0 + [0, kw) of
 // h, zeros past kw to a multiple of 4): each element one fp32 fma chain
 // over k ascending, from zero on the first chunk, else continued from
 // cache (an fp32 value round-trips exactly), + b[c] after the last chunk:
-// tile_mm's and fp32_logit's arithmetic, bit for bit (the zero products
+// hidden_stack's and fp32_logit's arithmetic, bit for bit (the zero products
 // past kw leave a chain unchanged). The head streams through stage
 // (FMA_STAGE floats) from the padded head w (row stride ldw). Starts with a
 // barrier (stage free, A complete) and ends with one (cache complete).

@@ -54,7 +54,7 @@ def _on_card(t: torch.Tensor) -> bool:
 # here, K10/K11's in hpd_full.py. tests/test_torch_width_faults.py holds
 # them to the headers.
 THREADS = 256
-BK, TT, WMAX = 32, 128, 128
+WMAX = 128
 SMEM_MAX = 232448                # bytes a block may use
 
 

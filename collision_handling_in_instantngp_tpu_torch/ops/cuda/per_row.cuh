@@ -9,15 +9,16 @@
 // partials in block order: no atomics, bitwise stable run to run, and the
 // split does not depend on the card.
 //
-// The product here (tile_mm) is fp32 FMA on the CUDA cores: a 256-thread
-// block computes an (R x 128) output tile, thread (ty, tx) holding rows
-// ty*RPT + i and columns tx + 16*j, with the right operand staged through
-// shared memory in 32-deep chunks. K10's hidden layers and K11's replay of
-// them run it, fp32 whatever matmul precision the model names (the TPU
-// kernels pass no precision to their dots); the head's products of K9, K10
-// and K11 and K11's hidden dh and dW run as 3xTF32 on the tensor cores
-// instead (per_row_mma.cuh), and K8's logits as fp32 FMA of its own
-// (hpd_tail.cu: fma_logits).
+// The hidden ReLU stack here (hidden_stack) is fp32 FMA on the CUDA cores:
+// each thread a register block of R / 8 rows by 4 of the layer's own
+// columns (8 x 4 at R = 64), its operands read as float4 from shared
+// memory, the weights streamed through a two-chunk cp.async ring across
+// the layers. K10's hidden layers and K11's
+// replay of them run it, fp32 whatever matmul precision the model names
+// (the TPU kernels pass no precision to their dots); the head's products of
+// K9, K10 and K11 and K11's hidden dh and dW run as 3xTF32 on the tensor
+// cores instead (per_row_mma.cuh), and K8's logits as fp32 FMA of its own
+// (hpd_tail.cu: fma_logits), with the same chains.
 #pragma once
 
 #include <float.h>
@@ -29,9 +30,6 @@ namespace per_row {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TT = 128;          // output columns per product pass
-constexpr int BK = 32;           // contraction chunk staged in shared memory
-constexpr int BS = TT + 1;       // padded row stride of the staged chunk
 constexpr int WMAX = 128;        // columns of one product pass over a layer's width
 constexpr int WIDE_MAX = 512;    // widest hidden layer and head input (the JAX kernels')
 constexpr int TMAX = 2048;       // widest head
@@ -55,43 +53,240 @@ inline Rows make_rows(int L, int N, int R) {
   return g;
 }
 
-// acc = A (R x kdim, shared, row stride lda) @ B[:, c0 : c0 + 16 NJ] where
-// B is kdim x n in device memory: B[k * n + c]. Columns >= n give 0.
-// Starts with a barrier; b_s is BK x BS scratch. NJ < 8 leaves the
-// columns past 16 NJ out (a narrower layer); a column's sum is the same.
-template <int RPT, int NJ = 8>
-__device__ __forceinline__ void tile_mm(const float* __restrict__ A, int lda, int kdim,
-                                        const float* __restrict__ B, int n, int c0,
-                                        float* __restrict__ b_s, float (&acc)[RPT][NJ]) {
-  constexpr int TC = 16 * NJ;  // columns staged
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < BK * TC; e += THREADS) {
-      const int kk = e / TC, c = e - kk * TC;
-      const int k = k0 + kk, col = c0 + c;
-      float v = 0.f;
-      if (k < kdim && col < n) v = B[(size_t)k * n + col];
-      b_s[kk * BS + c] = v;
+// ------------------------------- cp.async ------------------------------------
+
+// dst[0:4] <- src[0:4], asynchronously; both 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// the same, zeros where !ok (src is then not read, but stays 16-byte aligned)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+// *dst = *src (4 bytes), asynchronously; 0 where !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// --------------------------- the hidden ReLU stack ---------------------------
+//
+// hidden_stack: act_{i+1} = relu(act_i W_i + b_i) for the hidden layers of a
+// row tile, in shared memory. Each output is one fp32 fma chain over k
+// ascending from zero, then + b, then fmaxf(., 0): the TPU kernel's fp32
+// dot and the plain version's order, so K10's outputs and K11's replayed
+// ReLU masks agree bit for bit.
+//
+// A layer runs in passes of nc = 16, 32, 64 or 128 output columns (the
+// least that holds it; 128-column passes past 128). A thread holds a
+// register block of TM = R / 8 rows (rg + 8 i) by 4 columns (c0 + 4 cg),
+// so a pass takes 2 nc threads, whole warps (all 256 at nc = 128; at R = 64,
+// 32 outputs a thread), and reads its operands as float4: A's TM rows 4 k
+// at a time (scalars where A's row stride is not a multiple of 4) and W's
+// 4 columns once a k. A warp's A loads are broadcasts or hit distinct banks
+// (its rows are consecutive, strides = 4 mod 8), its W loads are
+// contiguous. One instance of the loop serves every layer and pass width:
+// the kernels around it fill the instruction cache already (with an
+// instance for each width, K11 slowed in every phase: PERF.md §6).
+// W streams through the stage buffer in chunks of up to KS rows x nc
+// columns (at RPT = 4 a chunk holds each whole layer of the per-row
+// route), two halves as a ring across passes and layers: the next chunk
+// (the next pass's, or the next layer's first) streams in by cp.async while
+// one is computed. A pass deeper than a chunk continues its chains through
+// the output tile (an fp32 value round-trips exactly).
+
+// A tile of activations: its first row and its row stride, in floats.
+struct Act {
+  float* p;
+  int ld;
+};
+
+// Pass width of a layer of n outputs.
+__host__ __device__ constexpr int stack_nc(int n) {
+  return n > 64 ? 128 : n > 32 ? 64 : n > 16 ? 32 : 16;
+}
+
+// Rows of W a chunk of nc columns holds in a buffer of buf floats.
+__host__ __device__ constexpr int stack_ks(int nc, int buf) { return buf / nc / 4 * 4; }
+
+// W[k0 : k0 + kn, c0 : c0 + nc] of a row-major (. x n) W into st (row
+// stride nc), zeros past n: 16-byte pieces where al16 (W 16-byte aligned, n
+// a multiple of 4), else 4-byte ones. Commits the group.
+__device__ __forceinline__ void stack_stage(const float* __restrict__ W, int n, bool al16, int k0,
+                                            int kn, int c0, int nc, float* __restrict__ st) {
+  const int lg = 31 - __clz(nc);  // nc is a power of 2
+  if (al16) {
+    for (int e = threadIdx.x; e < kn * nc / 4; e += THREADS) {
+      const int r = e >> (lg - 2), c = 4 * (e - (r << (lg - 2)));
+      const bool ok = c0 + c < n;
+      cp_async16(st + r * nc + c, ok ? W + (size_t)(k0 + r) * n + c0 + c : W, ok);
     }
-    __syncthreads();
-    const int kend = kdim - k0 < BK ? kdim - k0 : BK;
-    for (int kk = 0; kk < kend; ++kk) {
-      float a[RPT], bb[NJ];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = A[(ty * RPT + i) * lda + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) bb[j] = b_s[kk * BS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+  } else {
+    for (int e = threadIdx.x; e < kn * nc; e += THREADS) {
+      const int r = e >> lg, c = e - (r << lg);
+      const bool ok = c0 + c < n;
+      cp_async4(st + r * nc + c, ok ? W + (size_t)(k0 + r) * n + c0 + c : W, ok);
     }
   }
+  cp_commit();
+}
+
+// The pass [c0, c0 + nc) of out = relu(A W + b) over W's rows [k0, k0 + kn),
+// staged in st (kn x nc): each thread's TM x 4 chains start from zero where
+// first, else from out; + b and relu where last. Columns >= n are neither
+// read nor written. vec: A's rows are 16-byte aligned (read as float4).
+template <int TM>
+__device__ __forceinline__ void stack_fma(const float* __restrict__ A, int lda, bool vec, int k0,
+                                          int kn, const float* __restrict__ st, int nc, int c0,
+                                          int n, const float* __restrict__ bias, bool first,
+                                          bool last, float* __restrict__ out, int ldo) {
+  const int cgs = nc / 4;
+  if (threadIdx.x >= 8 * cgs) return;
+  const int rg = threadIdx.x / cgs, cg = threadIdx.x - rg * cgs;
+  const int c = c0 + 4 * cg;
+  if (c >= n) return;
+  const int ncol = n - c < 4 ? n - c : 4;
+  const bool vout = ncol == 4 && (ldo & 3) == 0;
+  float* o = out + rg * ldo + c;  // row i at + 8 i ldo
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    if (first) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+    } else if (vout) {
+      const float4 v = *reinterpret_cast<const float4*>(o + 8 * i * ldo);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][u] = lane_of(v, u);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][u] = u < ncol ? o[8 * i * ldo + u] : 0.f;
+    }
+  }
+  const float* a = A + rg * lda + k0;  // row i at + 8 i lda
+  const float* w = st + 4 * cg;
+  int k = 0;
+  if (vec) {
+#pragma unroll 1
+    for (; k + 4 <= kn; k += 4) {
+      float4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = *reinterpret_cast<const float4*>(a + 8 * i * lda + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(w + (k + u) * nc);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float s = lane_of(av[i], u);
+          acc[i][0] = fmaf(s, x.x, acc[i][0]);
+          acc[i][1] = fmaf(s, x.y, acc[i][1]);
+          acc[i][2] = fmaf(s, x.z, acc[i][2]);
+          acc[i][3] = fmaf(s, x.w, acc[i][3]);
+        }
+      }
+    }
+  }
+#pragma unroll 1
+  for (; k < kn; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(w + k * nc);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float s = a[8 * i * lda + k];
+      acc[i][0] = fmaf(s, x.x, acc[i][0]);
+      acc[i][1] = fmaf(s, x.y, acc[i][1]);
+      acc[i][2] = fmaf(s, x.z, acc[i][2]);
+      acc[i][3] = fmaf(s, x.w, acc[i][3]);
+    }
+  }
+  float bb[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) bb[u] = last && u < ncol ? bias[c + u] : 0.f;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = last ? fmaxf(acc[i][u] + bb[u], 0.f) : acc[i][u];
+    if (vout) {
+      *reinterpret_cast<float4*>(o + 8 * i * ldo) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u < ncol) o[8 * i * ldo + u] = v[u];
+    }
+  }
+}
+
+// The hidden layers of an R = 16 RPT row tile: for i < net.n - 1, act(i + 1)
+// = relu(act(i) W_i + b_i), W_i (w[i] x w[i+1], row-major) and b_i at
+// net.woff[i] and net.boff[i] in params (any alignment). act(i) -> Act;
+// stage: STAGE floats. pre() runs once the first chunk is issued (act(0)'s
+// loads, under the weights' latency). Starts with a barrier (stage free)
+// and ends with one (every tile complete).
+template <int RPT, int STAGE, typename NetT, typename FA, typename FP>
+__device__ __forceinline__ void hidden_stack(const float* __restrict__ params, const NetT& net,
+                                             FA act, float* __restrict__ stage, FP pre) {
+  constexpr int BUF = STAGE / 2 / 4 * 4;
+  const int layers = net.n - 1;
+  // a chunk: layer i, its pass at column c0, W's rows from k0
+  struct Pos {
+    int i, c0, k0;
+  };
+  const auto kn_of = [&](const Pos& p) {
+    const int ks = stack_ks(stack_nc(net.w[p.i + 1]), BUF);
+    return net.w[p.i] - p.k0 < ks ? net.w[p.i] - p.k0 : ks;
+  };
+  const auto next = [&](Pos p) {
+    p.k0 += kn_of(p);
+    if (p.k0 >= net.w[p.i]) {
+      p.k0 = 0;
+      p.c0 += stack_nc(net.w[p.i + 1]);
+      if (p.c0 >= net.w[p.i + 1]) {
+        p.c0 = 0;
+        ++p.i;
+      }
+    }
+    return p;
+  };
+  const auto issue = [&](const Pos& p, float* st) {
+    const float* W = params + net.woff[p.i];
+    const int n = net.w[p.i + 1];
+    const bool al16 = (reinterpret_cast<uintptr_t>(W) & 15) == 0 && (n & 3) == 0;
+    stack_stage(W, n, al16, p.k0, kn_of(p), p.c0, stack_nc(n), st);
+  };
+  __syncthreads();
+  Pos cur{0, 0, 0};
+  if (layers > 0) issue(cur, stage);
+  pre();
+  for (int buf = 0; cur.i < layers; buf ^= 1) {
+    const Pos nxt = next(cur);
+    cp_wait<0>();
+    __syncthreads();  // the chunk in place, the other half free, act(cur.i) complete
+    if (nxt.i < layers) issue(nxt, stage + (buf ^ 1) * BUF);
+    const int i = cur.i, n = net.w[i + 1], kn = kn_of(cur);
+    const Act a = act(i), o = act(i + 1);
+    stack_fma<2 * RPT>(a.p, a.ld, (a.ld & 3) == 0, cur.k0, kn, stage + buf * BUF, stack_nc(n),
+                       cur.c0, n, params + net.boff[i], cur.k0 == 0, cur.k0 + kn >= net.w[i], o.p,
+                       o.ld);
+    cur = nxt;
+  }
+  __syncthreads();
 }
 
 // src rows [base, base + rows) of width `width` into dst (R x ld), zeros

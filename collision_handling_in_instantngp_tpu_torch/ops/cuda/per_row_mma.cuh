@@ -71,19 +71,6 @@ __host__ __device__ constexpr int head_stage_floats(int rpt) {
   return rpt >= 4 ? Grid<4>::STAGE : rpt == 2 ? Grid<2>::STAGE : Grid<1>::STAGE;
 }
 
-// dst[0:4] <- src[0:4], asynchronously; both 16-byte aligned
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Chunk (rows x cols, cols a multiple of 4) of a padded head at (r0, c0)
 // into a stage buffer of row stride lds (a multiple of 4).
 template <int ROWS, int COLS>
@@ -435,13 +422,6 @@ __device__ __forceinline__ void head_dh_wide(const float* __restrict__ G, int ld
 // step's reach) and = 4 (mod 8).
 __host__ __device__ constexpr int hid_ld(int w) { return (w + 7) / 8 * 8 + 4; }
 
-// *dst = *src (4 bytes), asynchronously; 0 where !ok (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
 // st[r * lds + c] = src[(r0 + r) * ld + c0 + c] for r < rows, c < COLS, 0
 // where r0 + r >= rmax or c0 + c >= cmax
 template <int COLS>
@@ -517,11 +497,11 @@ __device__ __forceinline__ void hid_bwd(const float* __restrict__ G, int ldg, in
 //
 // K10 takes its head's logits with head_logits and selects the top-K of p =
 // nan_to_num(e / s), e = exp(l - max l), with the fp32 logits (one fma chain
-// over k ascending from zero, then + b: tile_mm's arithmetic, which the
+// over k ascending from zero, then + b: hidden_stack's arithmetic, which the
 // CUDA-core forward runs) by candidate refinement:
 //   1. top_candidates: each row keeps its top kc = K + GSLACK columns by
 //      tensor-core logit (value desc, index asc).
-//   2. recompute_streamed: each candidate's logit in fp32, tile_mm's chain.
+//   2. recompute_streamed: each candidate's logit in fp32, hidden_stack's chain.
 //   3. settle_row: one s for the row, the tensor-core softmax's sum with the
 //      candidates' terms replaced by their recomputed ones (as differences
 //      from the top recomputed logit); p = nan_to_num(exp(l - top) / s) of
@@ -700,7 +680,7 @@ __device__ __forceinline__ void top_candidates(const float* __restrict__ cache, 
 }
 
 // fp32 logit of column t for the head input a (H floats): one fma chain
-// over k ascending from zero, then + b[t] (tile_mm's arithmetic). w: the
+// over k ascending from zero, then + b[t] (hidden_stack's arithmetic). w: the
 // padded head, row stride ldw.
 __device__ __forceinline__ float fp32_logit(const float* __restrict__ a, int H,
                                             const float* __restrict__ w, int ldw,

@@ -19,7 +19,15 @@ forward passes of the same source: timed at each shape, their outputs
 hashed at H = 128 (DIGEST_SHAPES: ``--scaled``'s T = 2^14 and T = 2^16 at
 U_c = 161,792); it prints each run's ms and sha256 and fails unless every
 run's digests at H = 128 are equal (the wide shape, ``scaled256``, is
-timed only). Exits non-zero if any run did (or printed no kernels line).
+timed only); and the per-row kernels of that checkout run on the seeded
+inputs of ``tools/per_row_digests.py`` (its worker, its own process): K10
+and K11 at its five stacks (the per-row route's at full size, a 32-row
+tile, widths that are not multiples of 8, a stack past 128 wide, and one
+that takes K11's compact layout) and K8 on the per-row route's head
+input, each timed and its outputs hashed (K10's marg, vals, idx and redo
+count; K11's dW and db of every layer on K10's idx; K8's marg, vals,
+idx); it fails unless every run's per-row digests are equal too. Exits
+non-zero if any run did (or printed no kernels line).
 Two versions are compared only within one call: the card's power limit
 and clocks differ between machines.
 """
@@ -33,6 +41,8 @@ import shutil
 import subprocess
 import sys
 import time
+
+from . import per_row_digests
 
 # chip_smoke.json: (phase, the key of its fit history, the key of its profile)
 PHASES = (("dedup T=2^14", "fit", "profile"), ("split T=2^16", "split_fit", "split_profile"))
@@ -119,6 +129,8 @@ def run_one(i: int, label: str, checkout: str, out_dir: str, timeout: float,
 
         run["digests"] = k2_phases.run_worker(f"{tag}_digests", checkout, inputs, out_dir, 3,
                                               False, timeout)
+        run["per_row_digests"] = per_row_digests.run_worker(f"{tag}_per_row", checkout, out_dir,
+                                                            3, timeout)
     return run
 
 
@@ -130,7 +142,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join("chiprun_out", "ab"))
     ap.add_argument("--timeout", type=float, default=1200.0, help="seconds for each run")
     ap.add_argument("--digests", action="store_true",
-                    help="hash each run's K2 and K6 outputs at H = 128 on shared inputs")
+                    help="hash each run's K2 and K6 outputs at H = 128, and its K8, K10 and "
+                         "K11 outputs, on shared inputs")
     args = ap.parse_args(argv)
     checkouts = dict(r.split("=", 1) for r in args.run)
     order = args.order.split(",")
@@ -168,10 +181,12 @@ def main(argv=None) -> int:
         from . import k2_phases
 
         same = digest_table(runs, k2_phases.DIGEST_SHAPES)
+        same &= per_row_digests.digest_table([r["per_row_digests"] for r in runs])
     with open(os.path.join(args.out, "ab.json"), "w") as f:
         json.dump(dict(order=order, checkouts=checkouts, runs=runs), f, indent=1)
     if not same:
-        raise RuntimeError("K2 / K6 outputs at H = 128 differ between the runs")
+        raise RuntimeError("K2 / K6 outputs at H = 128, or K8 / K10 / K11 outputs, differ "
+                           "between the runs")
     return 0
 
 

@@ -920,6 +920,33 @@ def test_per_row_full_kernels_match_plain_wide(dev, widths, k, n):
         _close(db, rb, 1e-4, f"db{i}")
 
 
+@pytest.mark.parametrize("stack", ["route", "rpt2", "odd", "wide", "compact"])
+def test_per_row_full_kernels_at_the_digest_stacks(dev, stack):
+    """K10/K11 against their plain versions on the seeded inputs that
+    tools/per_row_digests.py hashes: the per-row route's stack at its size
+    (64-row tiles), a 32-row tile, widths that are not multiples of 8, a
+    stack past 128 wide (16-row tiles) and one whose backward takes the
+    compact layout (strides w + 1, the vertices' d + 1): identical top-K,
+    normwise 1e-5 forward and 1e-4 gradients of every layer, bitwise equal
+    run to run."""
+    from collision_handling_in_instantngp_tpu_torch.tools import per_row_digests
+
+    verts, layers, g_marg, g_vals, k = per_row_digests.stack_inputs(stack, dev)
+    out = hpd_full.hpd_full_fwd(verts, layers, k)
+    ref = hpd_full.hpd_full_fwd_plain(verts, layers, k)
+    assert torch.equal(out[2], ref[2])
+    _close(out[0], ref[0], 1e-5, "marg")
+    _close(out[1], ref[1], 1e-5, "vals")
+    assert all(torch.equal(a, b) for a, b in zip(out, hpd_full.hpd_full_fwd(verts, layers, k)))
+    got = hpd_full.hpd_full_bwd(verts, layers, out[2], g_marg, g_vals, k)
+    again = hpd_full.hpd_full_bwd(verts, layers, out[2], g_marg, g_vals, k)
+    want = hpd_full.hpd_full_bwd_plain(verts, layers, out[2], g_marg, g_vals, k)
+    for i, ((dw, db), (dw2, db2), (rw, rb)) in enumerate(zip(got, again, want)):
+        assert torch.equal(dw, dw2) and torch.equal(db, db2), i
+        _close(dw, rw, 1e-4, f"dW{i}")
+        _close(db, rb, 1e-4, f"db{i}")
+
+
 def test_split_wrappers_refuse_shapes(dev):
     x = _tail_inputs(dev, 100, 2048, 2, 4)
     h, w, b, counts = x["h"], x["w"], x["b"], x["counts"]

@@ -56,12 +56,14 @@ def _constant(text, name):
 
 def test_tile_plan_constants_match_the_headers():
     """hpd_tail.py's copies of the shared-memory plan (which hpd_full.py's
-    gate also reads): per_row.cuh's constants, per_row_mma.cuh's staged
-    head (Grid) and row stride, hpd_tail.cu's backward tile."""
+    gate also reads): per_row.cuh's constants, hpd_full.cu's staged buffer
+    (the head's), per_row_mma.cuh's staged head (Grid) and row stride,
+    hpd_tail.cu's backward tile."""
     per_row = (CUDA / "per_row.cuh").read_text()
-    for name in ("THREADS", "BK", "TT", "WMAX", "SMEM_MAX"):
+    for name in ("THREADS", "WMAX", "SMEM_MAX"):
         assert _constant(per_row, name) == getattr(hpd_tail, name), name
-    assert "constexpr int BS = TT + 1;" in per_row
+    assert ("__host__ __device__ constexpr int stage_floats(int R) { return head_stage_floats(R / 16); }"
+            in (CUDA / "hpd_full.cu").read_text())
     mma = (CUDA / "per_row_mma.cuh").read_text()
     for line in ("static constexpr int KL = RPT >= 4 ? 64 : 16;",
                  "static constexpr int KD = RPT >= 4 ? 64 : 32;",
